@@ -1,0 +1,135 @@
+"""Fit-loop driver shared by the port's fitters.
+
+Counterpart of ``gsmvi_tpu/driver.py:28-265``.  JAX compiles the step and
+runs it as a ``lax.scan`` in chunks between host events; here a chunk is a
+Python loop over steps, each of which only enqueues work on the device (no
+step reads a device value, so the host never waits inside a chunk).  Chunk
+boundaries are the host-visible events (monitor checkpoints, progress
+prints), and a fit runs ``niter + 1`` steps, as the reference does.
+
+Eps for absolute step ``s`` of a fit seeded with ``seed`` comes from a
+``torch.Generator`` seeded with ``step_seed(seed, s)`` (a splitmix64 mix of
+the pair), so every trajectory is invariant to chunking and steps-per-call
+and resumes exactly from a saved (seed, step).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def on_gpu(device) -> bool:
+    """True when ``device`` (a fitter's device) is a CUDA device."""
+    return torch.device(device).type == "cuda"
+
+
+def step_seed(seed: int, step: int) -> int:
+    """Generator seed of absolute step ``step``: splitmix64 of
+    ``seed * 0x9E3779B97F4A7C15 + step`` (mod 2**64), as a 63-bit int."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+class EpsStream:
+    """Standard-normal (B, D) draws per absolute step on one device."""
+
+    def __init__(self, device):
+        self.generator = torch.Generator(device=device)
+
+    def __call__(self, seed: int, step: int, batch: int, d: int,
+                 dtype=torch.float32) -> torch.Tensor:
+        self.generator.manual_seed(step_seed(seed, step))
+        return torch.randn((batch, d), generator=self.generator, dtype=dtype,
+                           device=self.generator.device)
+
+
+class RunnerCache:
+    """Bounded LRU cache of chunk runners keyed partly on object identity;
+    holds a strong reference to every keyed object so its id cannot be
+    reused while the entry lives."""
+
+    def __init__(self, maxsize: int = 16):
+        self._entries = {}
+        self._maxsize = maxsize
+
+    def get(self, static_key, key_objs: tuple, build: Callable) -> Callable:
+        key = (static_key, tuple(id(o) for o in key_objs))
+        hit = self._entries.get(key)
+        if hit is not None:
+            self._entries.pop(key)       # refresh: move to MRU end
+            self._entries[key] = hit
+            return hit[1]
+        runner = build()
+        if len(self._entries) >= self._maxsize:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (key_objs, runner)
+        return runner
+
+
+def make_chunk_runner(step: Callable) -> Callable:
+    """``(state, k) -> state`` running ``k`` steps."""
+
+    def run_chunk(state, k: int):
+        for _ in range(k):
+            state = step(state)
+        return state
+
+    return run_chunk
+
+
+def monitor_seed(seed: int, i: int) -> int:
+    """Seed handed to a monitor at checkpoint ``i`` (independent draws per
+    checkpoint, fit trajectory untouched)."""
+    return step_seed(seed ^ 0x5DEECE66D, i)
+
+
+def _next_event(i: int, total: int, cadences) -> int:
+    """First iteration > i that is a multiple of any cadence (or ``total``)."""
+    nxt = total
+    for c in cadences:
+        if c:
+            nxt = min(nxt, ((i // c) + 1) * c)
+    return nxt
+
+
+def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
+                 monitor_params: Optional[Callable] = None, lp=None,
+                 nprint: int = 10, verbose: bool = True,
+                 batch_size: int = 1):
+    """Run ``niter + 1`` steps with the reference's print and monitor cadence.
+
+    ``monitor`` follows the reference hook protocol
+    ``monitor(i, params, lp, seed, nevals=...)`` at ``monitor.checkpoint``
+    cadence, plus one call after the loop; ``monitor_params(state)`` gives
+    its params (default ``[state.mean, state.cov]``).
+    """
+    total = niter + 1
+    checkpoint = getattr(monitor, "checkpoint", None) if monitor is not None else None
+    if monitor_params is None:
+        monitor_params = lambda s: [s.mean, s.cov]
+    nevals = 1
+    print_every = (max(1, niter // min(nprint, max(niter, 1)))
+                   if (verbose and nprint) else 0)
+    cadences = (checkpoint, print_every)
+    i = 0
+    while i < total:
+        if print_every and i % print_every == 0:
+            print(f"Iteration {i} of {niter}")
+        if monitor is not None and checkpoint and i % checkpoint == 0:
+            monitor(i, monitor_params(state), lp, monitor_seed(state.seed, i),
+                    nevals=nevals)
+            nevals = 0
+        k = _next_event(i, total, cadences) - i
+        state = run_chunk(state, k)
+        nevals += k * batch_size
+        i += k
+    if monitor is not None:
+        monitor(niter, monitor_params(state), lp,
+                monitor_seed(state.seed, total), nevals=nevals)
+    return state

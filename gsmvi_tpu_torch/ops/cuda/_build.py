@@ -1,0 +1,119 @@
+"""Build the port's CUDA kernels from ``csrc/`` and bind them with ctypes.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface.  The library lands in ``_build/`` next to this file,
+named by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing is built at import: the first kernel
+launch builds, and a failed build raises with nvcc's output.  ``nvcc`` is
+taken from ``PATH``, else from ``$CUDA_HOME/bin`` (default
+``/usr/local/cuda``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# A build takes seconds; a hung compiler must not hang the caller.
+NVCC_TIMEOUT_S = 600
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types (all return an int cudaError_t).
+SIGNATURES = {
+    "gsmvi_rows_ft": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "gsmvi_rows_f": [_P, _P, _P, _I, _I, _P],
+    "gsmvi_gaussian_score": [_P, _P, _P, _P, _I, _I, _P],
+    "gsmvi_factor_apply": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "gsmvi_eps_smallspace": [_P] * 13 + [_I] * 7 + [_F, _P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or in $CUDA_HOME/bin: the "
+                       "CUDA kernels are built from source with the CUDA "
+                       "toolkit")
+
+
+def _sources() -> list:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgsmvi_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """(path of the built library, seconds spent in nvcc; 0 if cached).
+    nvcc's output (with ``-Xptxas -v``: registers, shared memory, spills of
+    every kernel) is kept beside the library as ``.log``."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=NVCC_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-6000:]}")
+    os.replace(tmp, so)
+    return so, seconds
+
+
+class KernelLibrary:
+    """The loaded shared library; ``call`` raises on a CUDA error code."""
+
+    def __init__(self, path: Path, build_seconds: float):
+        self.path = path
+        self.build_seconds = build_seconds
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib.gsmvi_error_string.argtypes = [ctypes.c_int]
+        self._lib.gsmvi_error_string.restype = ctypes.c_char_p
+
+    def call(self, name: str, *args) -> None:
+        rc = getattr(self._lib, name)(*args)
+        if rc != 0:
+            msg = self._lib.gsmvi_error_string(rc).decode()
+            raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+_LIBRARY = None
+
+
+def load_library() -> KernelLibrary:
+    """Build (first use only) and load the kernel library."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = KernelLibrary(*build())
+    return _LIBRARY

@@ -1,0 +1,124 @@
+// Tiled f32 GEMM template for the O(B D^2) products of the eps-NS GSM step.
+//
+// Replaces the Precision.HIGHEST `jnp.dot` / `dot_general` contractions that
+// the Pallas kernels run in their own bodies
+// (gsmvi_tpu/ops/pallas/fused_step.py: `ef = e F^T` at :622/:727, `vf = v F`
+// at :450/:732, `t = vf F^T` at :286, the fat apply `F + stack_u^T stack_w`
+// at :346, and `gaussian_score_kernel` at :778).
+//
+// Numerics: plain f32 FFMA, no TF32 and no mma/wgmma, which is what
+// Precision.HIGHEST means on the TPU.  What bounds it on an H100: at the main
+// path's shape (B=32, D=256) each product is 2 M FMA over a 256 KiB factor,
+// so it is latency- and L2-bound, not FLOP-bound; the factor stays in L2
+// between the launches of one step.  Design: a 32x32 output tile per block
+// of 256 threads, 32-deep k slabs staged in padded shared memory (conflict
+// free for both storage orders), 4 outputs per thread, ragged edges masked
+// on load and store.  Transposes are compile-time flags, so every product
+// reads its operands in the layout the step keeps them in.  Making it fast
+// (wgmma on 3xTF32 splits, persistent tiles) is later work.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace gsmvi {
+
+constexpr int GEMM_BM = 32;
+constexpr int GEMM_BN = 32;
+constexpr int GEMM_BK = 32;
+constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
+
+enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1 };
+enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2 };
+
+// C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
+// A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
+//   PRO_VEC_MINUS_A: A'(m, k) = pro_vec[k] - A'(m, k).
+// B'(k, n) = TB ? b[n * ldb + k] : b[k * ldb + n].
+// Epilogues:
+//   EPI_STORE:             c = acc
+//   EPI_STORE_AND_ADD_VEC: c = acc, c2 = epi_vec[n] + acc
+//   EPI_SELECT_ADD:        c = c_in + acc if *good != 0 else c_in (c may be c_in)
+struct GemmArgs {
+    const float* a;
+    const float* b;
+    float* c;
+    int m, n, k, lda, ldb, ldc;
+    const float* pro_vec;
+    const float* epi_vec;
+    float* c2;
+    const float* c_in;
+    const int* good;
+};
+
+template <bool TA, bool TB, int PRO, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
+    __shared__ float As[GEMM_BM][GEMM_BK + 1];
+    __shared__ float Bs[GEMM_BK][GEMM_BN + 1];
+    const int tid = threadIdx.x;
+    const int tx = tid % 32;
+    const int ty = tid / 32;
+    const int m0 = blockIdx.y * GEMM_BM;
+    const int n0 = blockIdx.x * GEMM_BN;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+    for (int k0 = 0; k0 < p.k; k0 += GEMM_BK) {
+        for (int i = tid; i < GEMM_BM * GEMM_BK; i += GEMM_THREADS) {
+            int r, kk;
+            if (TA) { kk = i / GEMM_BM; r = i % GEMM_BM; }
+            else    { r = i / GEMM_BK;  kk = i % GEMM_BK; }
+            const int gm = m0 + r, gk = k0 + kk;
+            float v = 0.f;
+            if (gm < p.m && gk < p.k) {
+                v = TA ? p.a[(size_t)gk * p.lda + gm] : p.a[(size_t)gm * p.lda + gk];
+                if (PRO == PRO_VEC_MINUS_A) v = p.pro_vec[gk] - v;
+            }
+            As[r][kk] = v;
+        }
+        for (int i = tid; i < GEMM_BK * GEMM_BN; i += GEMM_THREADS) {
+            int kk, cn;
+            if (TB) { cn = i / GEMM_BK; kk = i % GEMM_BK; }
+            else    { kk = i / GEMM_BN; cn = i % GEMM_BN; }
+            const int gk = k0 + kk, gn = n0 + cn;
+            float v = 0.f;
+            if (gk < p.k && gn < p.n)
+                v = TB ? p.b[(size_t)gn * p.ldb + gk] : p.b[(size_t)gk * p.ldb + gn];
+            Bs[kk][cn] = v;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < GEMM_BK; ++kk) {
+            const float bv = Bs[kk][tx];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[r] = fmaf(As[ty * 4 + r][kk], bv, acc[r]);
+        }
+        __syncthreads();
+    }
+
+    const int gn = n0 + tx;
+    if (gn >= p.n) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int gm = m0 + ty * 4 + r;
+        if (gm >= p.m) continue;
+        const size_t o = (size_t)gm * p.ldc + gn;
+        if (EPI == EPI_STORE) {
+            p.c[o] = acc[r];
+        } else if (EPI == EPI_STORE_AND_ADD_VEC) {
+            p.c[o] = acc[r];
+            p.c2[o] = p.epi_vec[gn] + acc[r];
+        } else {
+            const float base = p.c_in[o];
+            p.c[o] = (*p.good != 0) ? base + acc[r] : base;
+        }
+    }
+}
+
+template <bool TA, bool TB, int PRO, int EPI>
+inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
+    const dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.m + GEMM_BM - 1) / GEMM_BM);
+    gemm_kernel<TA, TB, PRO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
+    return cudaGetLastError();
+}
+
+}  // namespace gsmvi

@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Skipped unless ``TESTS_ON_GPU=1`` (and then a missing CUDA device fails):
+
+    TESTS_ON_GPU=1 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+
+(``--noconftest`` because the suite's conftest configures JAX, which the
+port does not need on a GPU machine.)  Tolerances as in ``chip_smoke.py``:
+1e-5 on the mean and 1e-5 * max|F| on the factor for one update (float32,
+sums in other orders), 1e-4 for eight chained sub-steps.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gsmvi_tpu_torch import GSM, FactorGSM
+from gsmvi_tpu_torch.models import dense_gaussian
+from gsmvi_tpu_torch.ops import fused_step as fs
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if os.environ.get("TESTS_ON_GPU", "") in ("", "0", "false", "False"):
+        pytest.skip("needs an NVIDIA GPU: run with TESTS_ON_GPU=1")
+    if not torch.cuda.is_available():
+        pytest.fail("TESTS_ON_GPU=1 but torch sees no CUDA device")
+    from gsmvi_tpu_torch.config import pin_fp32
+
+    pin_fp32()
+    return torch.device("cuda")
+
+
+def _inputs(dev, b, d, seed=0, decades=0.0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d))
+    f = np.linalg.cholesky(a @ a.T / d + np.eye(d)).astype(np.float32)
+    mu = rng.standard_normal(d).astype(np.float32)
+    ladder = np.logspace(0.0, decades, b)[:, None]
+    eps = (ladder * rng.standard_normal((b, d))).astype(np.float32)
+    v = (0.3 * rng.standard_normal((b, d))).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (eps, v, mu, f)]
+
+
+@pytest.mark.parametrize("with_ef", [False, True])
+@pytest.mark.parametrize("b,d", [(8, 16), (8, 200), (32, 256), (64, 1024)])
+def test_update_kernel_matches_plain(cuda, b, d, with_ef):
+    eps, v, mu, f = _inputs(cuda, b, d, seed=b + d)
+    ef = eps @ f.T if with_ef else None
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f, ef=ef)
+    m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f, ef_t=ef)
+    assert bool(g_k) and bool(g_p)
+    assert float((m_k - m_p).abs().max()) <= 1e-5
+    assert float((f_k - f_p).abs().max()) <= 1e-5 * float(f.abs().max())
+
+
+def test_update_kernel_rejects_and_keeps_state(cuda):
+    eps, v, mu, f = _inputs(cuda, 32, 256, decades=3.0)
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    _, _, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
+    assert not bool(g_k) and not bool(g_p)
+    assert torch.equal(m_k, mu) and torch.equal(f_k, f)
+
+
+@pytest.mark.parametrize("b,d", [(8, 200), (32, 256)])
+def test_multistep_kernel_matches_plain(cuda, b, d):
+    t = dense_gaussian(0, d, device=cuda)
+    score_fn, params = t.fused_score
+    spc = 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    block = torch.randn((spc * b, d), generator=gen, device=cuda)
+    step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    for nmax in (spc, 3):
+        m_k, f_k, n_k = step(nmax, block, mean0, f0, *params)
+        m_p, f_p, n_p = fs.eps_multistep_reference(
+            fs.gaussian_score_reference, params, nmax, block, mean0, f0,
+            batch=b)
+        assert int(n_k) == int(n_p) == nmax
+        assert float((m_k - m_p).abs().max()) <= 1e-4
+        assert float((f_k - f_p).abs().max()) <= 1e-4 * float(f_p.abs().max())
+
+
+def test_gaussian_score_kernel_matches_plain(cuda):
+    t = dense_gaussian(0, 200, device=cuda)
+    x = torch.randn((8, 200), device=cuda)
+    v_k = fs.gaussian_score(x, *t.fused_score[1])
+    v_p = fs.gaussian_score_reference(x, *t.fused_score[1])
+    assert float((v_k - v_p).abs().max()) <= 1e-5 * max(
+        1.0, float(v_p.abs().max()))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    eps, v, mu, f = _inputs(cuda, 8, 64)
+    with pytest.raises(TypeError, match="float32"):
+        fs.gsm_eps_update_fused(eps.double(), v.double(), mu.double(),
+                                f.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.gsm_eps_update_fused(eps, v, mu, f.T)
+    with pytest.raises(ValueError, match="CUDA kernels take"):
+        fs.gsm_eps_update_fused(eps[:4], v[:4], mu, f)
+    with pytest.raises(ValueError, match="several devices"):
+        fs.gsm_eps_update_fused(eps, v, mu.cpu(), f)
+
+
+def test_fitters_raise_outside_the_kernel_range(cuda):
+    """On the card the fitters run the kernels or raise; only
+    use_fused=False runs the plain step there."""
+    d = 64
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    with pytest.raises(ValueError, match="CUDA kernels take B"):
+        GSM(d, t.lp, t.lp_g, device="cuda").fit(0, batch_size=96, niter=2,
+                                                verbose=False)
+    with pytest.raises(NotImplementedError, match="float32"):
+        FactorGSM(d, t.lp, t.lp_g, device="cuda", dtype=torch.float64).fit(
+            0, batch_size=16, niter=2, verbose=False)
+    fs.reset_launch_counts()
+    mean, _ = FactorGSM(d, t.lp, t.lp_g, device="cuda", use_fused=False).fit(
+        0, batch_size=96, niter=2, verbose=False)
+    assert mean.is_cuda and sum(fs.launch_counts().values()) == 0
+
+
+def test_fits_run_through_the_kernels(cuda):
+    """GSM.fit on CUDA takes the factor route and K1 once per step; the
+    whole-step path launches K2 and K3 and is invariant to spc."""
+    d, b, niter = 64, 16, 40
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    fs.reset_launch_counts()
+    GSM(d, t.lp, t.lp_g, device="cuda").fit(0, batch_size=b, niter=niter,
+                                            verbose=False)
+    assert fs.launch_counts()["gsm_eps_update_fused"] == niter + 1
+    states = []
+    for spc in (1, 8):
+        g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                      steps_per_call=spc, device="cuda")
+        assert g._fused_mode(b) == "step"
+        states.append(g.fit(0, batch_size=b, niter=niter, verbose=False,
+                            return_state=True))
+    counts = fs.launch_counts()
+    assert counts["make_fused_eps_multistep"] > 0
+    assert counts["gaussian_score"] == 2 * (niter + 1)
+    assert torch.equal(states[0].mean, states[1].mean)
+    assert torch.equal(states[0].factor, states[1].factor)
