@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GSM main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's GSM and BaM paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -19,8 +20,25 @@ the script exits non-zero):
 3. headline path: ``FactorGSM(..., fused_score=t.fused_score,
    device="cuda")`` (spc=8); K2 and K3 must launch, the moments converge,
    and its it/s is printed beside the plain version's on the same card.
+4. BaM kernels: K7 ``bam_eps_update_fused`` against
+   ``bam_eps_update_ns_reference`` at (B=32, D=256) and (B=12, D=200) on a
+   benign, two stiff (lmax and gu gate) and a rejected input, with and
+   without ``ef``; K8 ``make_fused_bam_multistep`` against
+   ``bam_multistep_reference`` at spc=8: full block, nmax < spc, a stiff
+   stop, a rejected sub-step with and without ``stop_on_reject``.  Flags
+   and counts must be equal.
+5. BaM main path: ``BaM(D=256, ..., device="cuda").fit(seed,
+   regf=Regularizers().linear(100.0), batch_size=32, niter=N_BAM,
+   retries=0)`` (the factor route in update mode); K7 launches exactly once
+   per step, the replays and the NS-tier histogram are printed, and the
+   converged moments must be under the BaM bound.
+6. BaM headline path: ``FactorBaM(..., fused_score=t.fused_score,
+   device="cuda")`` (spc=8); K8 and K3 must launch, the moments converge,
+   and its it/s is printed beside the plain version's on the same blocks.
 
-Then the card's name and power limit, the kernel table, and as the last line
+Launch counts are set to 0 just before each path (2, 3, 5, 6) and read just
+after it.  Then the card's name and power limit, the kernel table, and as
+the last line
 ``{"ok": true, "device": {...}}`` with ``count`` 1: everything runs on
 device 0.  Without a CUDA device it exits 1 before printing any result.
 Nothing here imports JAX.
@@ -51,6 +69,23 @@ COV_ERR_BOUND = 1.5 * 5.0331e-4
 # compound the rounding, so the multistep comparison allows 1e-4.
 MEAN_TOL, F_TOL, MULTI_TOL = 1e-5, 1e-5, 1e-4
 SCORE_TOL = 1e-5
+# BaM at D=256, B=32, Regularizers().linear(100.0), retries=0: the errors of
+# the JAX package's own CPU fits flatten by niter 1000-2000 (PERF.md), so
+# N_BAM = 2000, and the bound is 1.5 x the worst of its 20 fits at that
+# niter — 8 on the XLA factor route (FactorBaM(use_pallas=False),
+# solver="auto", keys 0..7) and 4 on the NS route (its K8 kernel body in
+# interpret mode, keys 0..3): mean_err <= 4.3438e-3, cov_err <= 4.8058e-4.
+N_BAM = 2000
+BAM_MEAN_ERR_BOUND = 1.5 * 4.3438e-3
+BAM_COV_ERR_BOUND = 1.5 * 4.8058e-4
+BAM_REGF0 = 100.0
+# K7/K8 vs their plain versions (float32 on the card, sums in other orders
+# and q_t/qf/fom_t assembled from vf/t/ef rows): one update within
+# 1e-5 * max(1, scale) on the mean and the factor (the JAX package's
+# interpret-vs-core bound); eight chained sub-steps within 1e-4; the gate
+# statistics within 1e-3 relative (they are read against gates with a 0.7
+# margin).
+BAM_TOL, BAM_MULTI_TOL, BAM_STATS_RTOL = 1e-5, 1e-4, 1e-3
 
 SOURCES = {
     "gsm_eps_update_fused": (
@@ -62,6 +97,12 @@ SOURCES = {
     "gaussian_score": (
         "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:778"),
+    "bam_eps_update_fused": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:380"),
+    "make_fused_bam_multistep": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:425"),
 }
 
 
@@ -194,6 +235,142 @@ def phase_kernels(fs, dense_gaussian, torch, np):
     return worst
 
 
+BAM_RAGGED = (12, 200)
+_SHORT_ITERS = (2, 2, 2, 2, 2)
+
+
+def bam_k7_cases(np):
+    """K7 inputs (numpy float32) and the flags (keep, stiff) each must give:
+    [(name, b, d, (eps, v, mu, f), reg, gate overrides, flags)]."""
+    cases = []
+    for b, d in ((B, D), BAM_RAGGED):
+        def inputs(seed, score_scale=1.0, v_scale=None):
+            rng = np.random.default_rng(seed)
+            e = rng.standard_normal((b, d)).astype(np.float32)
+            f = (np.eye(d) + 0.05 * rng.standard_normal((d, d))
+                 ).astype(np.float32)
+            mu = rng.standard_normal(d).astype(np.float32)
+            v = score_scale * -(mu + e @ f.T - rng.standard_normal(d))
+            if v_scale is not None:
+                v = v_scale * rng.standard_normal((b, d))
+            return e, v.astype(np.float32), mu, f
+
+        opened = {"lmax_gate": float("inf"), "gu_gate": float("inf")}
+        cases += [
+            ("benign", b, d, inputs(b + d, v_scale=0.05), 0.5, {},
+             (True, False)),
+            # lmax(G) over its gate.
+            ("stiff_lmax", b, d, inputs(b + d + 1, 300.0), 20.0, {},
+             (False, True)),
+            # gu over its gate with a benign Y.
+            ("stiff_gu", b, d, inputs(b + d + 2, v_scale=0.02), 1e4,
+             {"lmax_gate": float("inf")}, (False, True)),
+            # Gates opened: the cu chain cannot converge; residual reject.
+            ("reject", b, d, inputs(b + d + 3), 3e5, opened, (False, False)),
+        ]
+    return cases
+
+
+def bam_k8_cases(np, b, d, spc):
+    """K8 cases on a benign target (identity covariance):
+    [(name, regs, nmax, stop_on_reject, iters or None, (n_done, n_acc,
+    stopped))] and the (mean_t, prec) arrays."""
+    mean_t = np.linspace(-1.0, 1.0, d).astype(np.float32)
+    prec = np.eye(d, dtype=np.float32)
+    late = [0.05] * spc
+    stiff = [0.05] * spc
+    stiff[3] = 1e9
+    rej = [1e-4] * spc
+    rej[2] = 2.0
+    cases = [
+        ("full", late, spc, 0, None, (spc, spc, 0)),
+        ("nmax_lt_spc", late, 3, 0, None, (3, 3, 0)),
+        ("stiff_stop", stiff, spc, 0, None, (3, 3, 1)),
+        ("reject_consumed", rej, spc, 0, _SHORT_ITERS, (spc, spc - 1, 0)),
+        ("stop_on_reject", rej, spc, 1, _SHORT_ITERS, (2, 2, 2)),
+    ]
+    return cases, mean_t, prec
+
+
+def _bam_close(got, want, tol):
+    """max |got - want| and its bound tol * max(1, max |want|)."""
+    err = float((got - want).abs().max())
+    return err, tol * max(1.0, float(want.abs().max()))
+
+
+def phase_bam_kernels(bf, fs, torch, np):
+    """K7 and K8 against their plain versions on the same CUDA tensors."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    worst = {"bam_eps_update_fused": 0.0, "make_fused_bam_multistep": 0.0}
+    for name, b, d, arrays, reg, gates, flags in bam_k7_cases(np):
+        e, v, mu, f = (cu(x) for x in arrays)
+        for with_ef in (False, True):
+            ef = e @ f.T if with_ef else None
+            k = bf.bam_eps_update_fused(e, v, mu, f, reg, ef=ef, **gates)
+            p = bf.bam_eps_update_ns_reference(e, v, mu, f, reg, ef=ef,
+                                               **gates)
+            torch.cuda.synchronize()
+            em, tm = _bam_close(k[0], p[0], BAM_TOL)
+            ef_, tf = _bam_close(k[1], p[1], BAM_TOL)
+            ns_k, ns_p = k[4].tolist(), p[4].tolist()
+            rec = {"kernel": "bam_eps_update_fused", "case": name, "B": b,
+                   "D": d, "with_ef": with_ef,
+                   "keep": [bool(k[2]), bool(p[2])],
+                   "stiff": [bool(k[3]), bool(p[3])],
+                   "ns_stats": [ns_k, ns_p], "mean_err": em, "mean_tol": tm,
+                   "f_err": ef_, "f_tol": tf}
+            emit({"phase": "bam_kernels", **rec})
+            check((bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3]))
+                  == flags, f"K7 flags {rec}")
+            check(np.allclose(ns_k, ns_p, rtol=BAM_STATS_RTOL, atol=0),
+                  f"K7 stats {rec}")
+            check(em <= tm and ef_ <= tf,
+                  f"K7 disagrees with its plain version: {rec}")
+            if not flags[0]:
+                check(torch.equal(k[0], mu) and torch.equal(k[1], f),
+                      "K7 must return the old state unless it keeps")
+            worst["bam_eps_update_fused"] = max(
+                worst["bam_eps_update_fused"], em, ef_)
+
+    spc = 8
+    for b, d in ((B, D), BAM_RAGGED):
+        cases, mean_t, prec = bam_k8_cases(np, b, d, spc)
+        params = (cu(mean_t[None]), cu(prec))
+        rng = np.random.default_rng(2000 + d)
+        block = cu(rng.standard_normal((spc * b, d)).astype(np.float32))
+        mean0 = torch.zeros(d, device=dev)
+        f0 = torch.eye(d, device=dev)
+        for name, regs, nmax, sor, iters, counts in cases:
+            kw = {} if iters is None else {"iters": iters}
+            step = bf.make_fused_bam_multistep(fs.gaussian_score, 2, b, d,
+                                               spc, **kw)
+            k = step(regs, nmax, sor, block, mean0, f0, *params)
+            p = bf.bam_multistep_reference(
+                fs.gaussian_score_reference, params, regs, nmax, sor, block,
+                mean0, f0, batch=b, **kw)
+            torch.cuda.synchronize()
+            em, tm = _bam_close(k[0], p[0], BAM_MULTI_TOL)
+            ef_, tf = _bam_close(k[1], p[1], BAM_MULTI_TOL)
+            ck = [int(x) for x in k[2:5]]
+            cp = [int(x) for x in p[2:5]]
+            ns_k, ns_p = k[5].tolist(), p[5].tolist()
+            rec = {"kernel": "make_fused_bam_multistep", "case": name,
+                   "B": b, "D": d, "spc": spc, "nmax": nmax,
+                   "stop_on_reject": sor, "done_acc_stopped": [ck, cp],
+                   "ns_stats": [ns_k, ns_p], "mean_err": em, "mean_tol": tm,
+                   "f_err": ef_, "f_tol": tf}
+            emit({"phase": "bam_kernels", **rec})
+            check(tuple(ck) == tuple(cp) == counts, f"K8 counts {rec}")
+            check(np.allclose(ns_k, ns_p, rtol=BAM_STATS_RTOL, atol=0),
+                  f"K8 stats {rec}")
+            check(em <= tm and ef_ <= tf,
+                  f"K8 disagrees with its plain version: {rec}")
+            worst["make_fused_bam_multistep"] = max(
+                worst["make_fused_bam_multistep"], em, ef_)
+    return worst
+
+
 def phase_times(fs, dense_gaussian, torch, np):
     """Per-call times at the main path's shapes, kernel vs plain version
     (CUDA events; launches here are not counted toward the main path)."""
@@ -230,6 +407,146 @@ def phase_times(fs, dense_gaussian, torch, np):
     return times
 
 
+def phase_bam_paths(BaM, FactorBaM, Regularizers, bf, fs, t, torch):
+    """Phases 5 and 6: BaM.fit on the K7 path and FactorBaM(fused_score) on
+    the K8 + K3 path at D=256, B=32; then K8 blocks against the plain
+    version on the same blocks from the converged state."""
+    dev = torch.device("cuda")
+    regf = Regularizers().linear(BAM_REGF0)
+
+    fs.reset_launch_counts()
+    g = BaM(D, t.lp, t.lp_g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, cov = g.fit(FIT_SEED, regf, batch_size=B, niter=N_BAM,
+                      verbose=False, retries=0)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    c5 = fs.launch_counts()
+    fc5 = dict(g._get_factor_fitter().fit_counts)
+    em5, ec5 = errs(mean, cov, t)
+    emit({"phase": "bam_main_path", "fitter": "BaM", "D": D, "B": B,
+          "niter": N_BAM, "regf": f"linear({BAM_REGF0})", "retries": 0,
+          "k7_launches": c5["bam_eps_update_fused"], "fit_counts": fc5,
+          "mean_err": em5, "cov_err": ec5,
+          "mean_err_bound": BAM_MEAN_ERR_BOUND,
+          "cov_err_bound": BAM_COV_ERR_BOUND,
+          "iters_per_s": (N_BAM + 1) / wall5})
+    check(g._factor_route() and g._get_factor_fitter()._fused_mode(B)
+          == "update", "BaM on CUDA must run the factor route's K7 mode")
+    check(c5["bam_eps_update_fused"] == N_BAM + 1
+          and fc5["report_reads"] == N_BAM + 1,
+          "K7 must launch once per step, with one report read per step")
+    check(c5["make_fused_bam_multistep"] == 0, "K8 launched in BaM.fit")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
+          and tuple(cov.shape) == (D, D), "BaM.fit output shape/finiteness")
+    check(em5 < BAM_MEAN_ERR_BOUND and ec5 < BAM_COV_ERR_BOUND,
+          "BaM.fit did not converge under the BaM bound")
+
+    fb = FactorBaM(D, t.lp, t.lp_g, fused_score=t.fused_score, device=dev)
+    check(fb._fused_mode(B) == "step" and fb.steps_per_call == 8,
+          "BaM headline path must run the whole-step kernel at spc=8")
+    fs.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st6 = fb.fit(FIT_SEED, regf, batch_size=B, niter=N_BAM, verbose=False,
+                 retries=0, return_state=True)
+    torch.cuda.synchronize()
+    wall6 = time.perf_counter() - t0
+    c6 = fs.launch_counts()
+    fc6 = dict(fb.fit_counts)
+    em6, ec6 = errs(st6.mean, st6.cov, t)
+    emit({"phase": "bam_headline_path", "fitter": "FactorBaM(fused_score)",
+          "D": D, "B": B, "niter": N_BAM, "spc": fb.steps_per_call,
+          "launches": c6, "fit_counts": fc6,
+          "n_accepted": int(st6.n_accepted), "ns_stats": list(st6.ns_stats),
+          "mean_err": em6, "cov_err": ec6,
+          "iters_per_s": (N_BAM + 1) / wall6})
+    check(c6["make_fused_bam_multistep"] > 0 and c6["gaussian_score"] > 0,
+          "K8/K3 not launched")
+    check(c6["bam_eps_update_fused"] == 0, "K7 launched in the K8 path")
+    check(bool(torch.isfinite(st6.mean).all()
+               and torch.isfinite(st6.cov).all()), "FactorBaM not finite")
+    check(em6 < BAM_MEAN_ERR_BOUND and ec6 < BAM_COV_ERR_BOUND,
+          "FactorBaM(fused_score) did not converge under the BaM bound")
+
+    # it/s of K8 vs its plain version on the same blocks, from the converged
+    # state, on the tier the fitter's carried stats pick there.
+    score_fn, params = t.fused_score
+    tiers = fb._ns_tiers()
+    it, gg, lm = tiers[bf.ns_tier_from_stats(*st6.ns_stats, tiers)]
+    spc, nblk = fb.steps_per_call, 20
+    gen = torch.Generator(device=dev).manual_seed(12)
+    blocks = [torch.randn((spc * B, D), generator=gen, device=dev)
+              for _ in range(nblk)]
+    regs = [regf(N_BAM + j) for j in range(spc)]
+    multi = bf.make_fused_bam_multistep(score_fn, len(params), B, D, spc,
+                                        iters=it, lmax_gate=lm, gu_gate=gg)
+
+    def run_blocks(fn):
+        m, f = st6.mean, st6.factor
+        done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blk in blocks:
+            m, f, n_done = fn(blk, m, f)[:3]
+            done += int(n_done)
+        torch.cuda.synchronize()
+        return done / (time.perf_counter() - t0), done
+
+    kern = lambda blk, m, f: multi(regs, spc, 0, blk, m, f, *params)
+    plain = lambda blk, m, f: bf.bam_multistep_reference(
+        fs.gaussian_score_reference, params, regs, spc, 0, blk, m, f,
+        batch=B, iters=it, lmax_gate=lm, gu_gate=gg)
+    rates = [run_blocks(kern), run_blocks(plain), run_blocks(plain),
+             run_blocks(kern)]
+    emit({"phase": "bam_rates", "D": D, "B": B, "spc": spc, "tier_iters": it,
+          "fit_iters_per_s": (N_BAM + 1) / wall6,
+          "kernel_iters_per_s": [rates[0][0], rates[3][0]],
+          "plain_iters_per_s": [rates[1][0], rates[2][0]],
+          "steps_done": [r[1] for r in rates]})
+    return (c5, c6), st6, fb
+
+
+def phase_bam_times(bf, fs, fb, t, st, torch):
+    """Per-call times of K7 and K8 (spc=8) at D=256, B=32 from the converged
+    BaM state, kernel vs plain version, at the long profile (tier 0, the
+    kernels' default) and at the most benign tier (CUDA events)."""
+    dev = torch.device("cuda")
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device=dev).manual_seed(13)
+    eps = torch.randn((B, D), generator=gen, device=dev)
+    ef = eps @ st.factor.T
+    v = t.lp_g(st.mean + ef)
+    spc = fb.steps_per_call
+    block = torch.randn((spc * B, D), generator=gen, device=dev)
+    reg = BAM_REGF0 / (N_BAM + 1.0)
+    regs = [reg] * spc
+    out = {}
+    for label, (it, gg, lm) in (("tier0", bf.BAM_NS_TIERS[0]),
+                                ("tier3", bf.BAM_NS_TIERS[-1])):
+        kw = dict(iters=it, lmax_gate=lm, gu_gate=gg)
+        multi = bf.make_fused_bam_multistep(score_fn, len(params), B, D, spc,
+                                            **kw)
+        out[label] = {
+            "bam_eps_update_fused": (
+                cuda_ms(lambda: bf.bam_eps_update_fused(
+                    eps, v, st.mean, st.factor, reg, ef=ef, **kw), reps=20),
+                cuda_ms(lambda: bf.bam_eps_update_ns_reference(
+                    eps, v, st.mean, st.factor, reg, ef=ef, **kw), reps=20)),
+            "make_fused_bam_multistep": (
+                cuda_ms(lambda: multi(regs, spc, 0, block, st.mean,
+                                      st.factor, *params), reps=10),
+                cuda_ms(lambda: bf.bam_multistep_reference(
+                    fs.gaussian_score_reference, params, regs, spc, 0, block,
+                    st.mean, st.factor, batch=B, **kw), reps=10)),
+        }
+    emit({"phase": "bam_times", "B": B, "D": D, "spc": spc, "ms_per_call": {
+        label: {k: {"kernel": a, "plain": b} for k, (a, b) in tt.items()}
+        for label, tt in out.items()}})
+    return out["tier0"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -239,9 +556,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
-    from gsmvi_tpu_torch import GSM, FactorGSM
+    from gsmvi_tpu_torch import GSM, BaM, FactorBaM, FactorGSM, Regularizers
     from gsmvi_tpu_torch.config import pin_fp32
     from gsmvi_tpu_torch.models import dense_gaussian
+    from gsmvi_tpu_torch.ops import bam_fused as bf
     from gsmvi_tpu_torch.ops import fused_step as fs
     from gsmvi_tpu_torch.ops.cuda._build import load_library
 
@@ -261,7 +579,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t = dense_gaussian(TARGET_SEED, D, device=dev)
 
-    # Main path: counts reset just before, read just after phases 2 and 3.
+    # Each path: counts reset just before, read just after.
     fs.reset_launch_counts()
     g = GSM(D, t.lp, t.lp_g, device="cuda")
     torch.cuda.synchronize()
@@ -269,7 +587,8 @@ def main() -> int:
     mean, cov = g.fit(FIT_SEED, batch_size=B, niter=N_ITER, verbose=False)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    k1_launches = fs.launch_counts()["gsm_eps_update_fused"]
+    main_counts = fs.launch_counts()
+    k1_launches = main_counts["gsm_eps_update_fused"]
     em2, ec2 = errs(mean, cov, t)
     fin2 = bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
     emit({"phase": "main_path", "fitter": "GSM", "D": D, "B": B,
@@ -285,6 +604,7 @@ def main() -> int:
     fg = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score, device="cuda")
     check(fg._fused_mode(B) == "step" and fg.steps_per_call == 8,
           "headline path must run the whole-step kernel at spc=8")
+    fs.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = fg.fit(FIT_SEED, batch_size=B, niter=N_ITER, verbose=False,
@@ -299,7 +619,7 @@ def main() -> int:
           "mean_err": em3, "cov_err": ec3, "iters_per_s": (N_ITER + 1) / wall3})
     check(counts["make_fused_eps_multistep"] > 0
           and counts["gaussian_score"] > 0, "K2/K3 not launched")
-    check(counts["gsm_eps_update_fused"] == N_ITER + 1,
+    check(counts["gsm_eps_update_fused"] == 0,
           "K1 launched outside the main path's GSM fit")
     check(bool(torch.isfinite(st.mean).all() and torch.isfinite(st.cov).all()),
           "FactorGSM output not finite")
@@ -333,11 +653,18 @@ def main() -> int:
           "kernel_iters_per_s": [rates[0], rates[3]],
           "plain_iters_per_s": [rates[1], rates[2]]})
 
+    worst.update(phase_bam_kernels(bf, fs, torch, np))
+    bam_counts, st6, fb = phase_bam_paths(BaM, FactorBaM, Regularizers, bf,
+                                          fs, t, torch)
+
     times = phase_times(fs, dense_gaussian, torch, np)
+    times.update(phase_bam_times(bf, fs, fb, t, st6, torch))
+    launches = {name: main_counts[name] + counts[name]
+                + sum(c[name] for c in bam_counts) for name in SOURCES}
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": worst[name],
+         "launches": launches[name], "max_abs_err": worst[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (src, rep) in SOURCES.items()]})
     # Every phase ran on device 0, the one card this script drives.

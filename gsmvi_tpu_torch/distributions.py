@@ -27,6 +27,30 @@ def safe_cholesky(cov: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     return torch.where(bad, torch.full_like(chol, float("nan")), chol)
 
 
+def _nan_where(bad: torch.Tensor, *outs: torch.Tensor):
+    nan = float("nan")
+    return tuple(torch.where(bad, torch.full_like(o, nan), o) for o in outs)
+
+
+def safe_eigh(mat: torch.Tensor):
+    """``torch.linalg.eigh`` that gives NaN for a non-finite input, as
+    ``jnp.linalg.eigh`` does, instead of raising (the input is swapped for
+    the identity on the device and the outputs masked)."""
+    bad = ~torch.isfinite(mat).all()
+    eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
+    w, q = torch.linalg.eigh(torch.where(bad, eye, mat))
+    return _nan_where(bad, w, q)
+
+
+def safe_svd(mat: torch.Tensor):
+    """Thin ``torch.linalg.svd`` (u, s) that gives NaN for a non-finite
+    input instead of raising."""
+    bad = ~torch.isfinite(mat).all()
+    u, s, _ = torch.linalg.svd(torch.where(bad, torch.zeros_like(mat), mat),
+                               full_matrices=False)
+    return _nan_where(bad, u, s)
+
+
 def mvn_sample(generator: torch.Generator, mean: torch.Tensor,
                chol: torch.Tensor, batch_size: int) -> torch.Tensor:
     """``batch_size`` draws from N(mean, chol chol^T): ``mean + eps chol^T``."""

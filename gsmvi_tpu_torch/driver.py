@@ -36,6 +36,18 @@ def step_seed(seed: int, step: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
+# Salt of the retry stream: resample attempt ``a`` (1, 2, ...) of absolute
+# step ``s`` draws from ``step_seed(retry_seed(seed, s), a)``, disjoint from
+# the per-step stream ``step_seed(seed, s)`` as JAX keeps its retries on
+# ``fold_in(key, -s - 1)``.
+RETRY_SALT = 0x2545F4914F6CDD1D
+
+
+def retry_seed(seed: int, step: int) -> int:
+    """Base seed of step ``step``'s resample attempts (see RETRY_SALT)."""
+    return step_seed(int(seed) ^ RETRY_SALT, step)
+
+
 class EpsStream:
     """Standard-normal (B, D) draws per absolute step on one device."""
 

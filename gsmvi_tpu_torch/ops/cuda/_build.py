@@ -31,11 +31,15 @@ NVCC_TIMEOUT_S = 600
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types (all return an int cudaError_t).
 SIGNATURES = {
-    "gsmvi_rows_ft": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "gsmvi_rows_f": [_P, _P, _P, _I, _I, _P],
+    "gsmvi_rows": [_P] * 6 + [_I, _I, _I, _P],
     "gsmvi_gaussian_score": [_P, _P, _P, _P, _I, _I, _P],
     "gsmvi_factor_apply": [_P, _P, _P, _P, _P, _I, _I, _P],
     "gsmvi_eps_smallspace": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
+    "gsmvi_bam_smallspace": [_P] * 12 + [_I, _I, _F] + [_I] * 5
+    + [_F, _F, _F, _P],
+    "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _P],
+    "gsmvi_bam_select": [_P] * 4 + [_I, _P],
 }
 
 

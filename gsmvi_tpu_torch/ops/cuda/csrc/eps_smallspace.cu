@@ -19,15 +19,12 @@
 // never leave the SM; f32 FFMA only; every symmetrisation and both relative
 // residual gates are kept exactly as in the TPU kernel.  Spreading the row
 // work over a grid is later work.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "smallspace.cuh"
 
 namespace {
 
 constexpr int SS_THREADS = 1024;
 constexpr int SS_MAXB = 64;
-constexpr int SS_TD = 32;              // column slab staged in shared memory
-constexpr int SS_LD = SS_TD + 1;       // padded slab row
 constexpr int SS_NMAT = 10;            // (B, B) matrices resident in shared memory
 
 struct SmallSpaceArgs {
@@ -48,192 +45,6 @@ struct SmallSpaceArgs {
     int it0, it1, it2, it3, it4;
     float tol;
 };
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return (a > b || a != a) ? a : b;
-}
-
-__device__ float block_sum(float x, float* red) {
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[w] = x;
-    __syncthreads();
-    float r = (lane < (int)(blockDim.x >> 5)) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-    return r;
-}
-
-__device__ float block_max(float x, float* red) {
-    for (int o = 16; o > 0; o >>= 1) x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, o));
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[w] = x;
-    __syncthreads();
-    float r = (lane < (int)(blockDim.x >> 5)) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) r = nan_max(r, __shfl_xor_sync(0xffffffffu, r, o));
-    return r;
-}
-
-// C = epi(i, j, (A @ B)[i, j]) for (n, n) shared-memory matrices; C aliases neither.
-template <class Epi>
-__device__ void smm(const float* A, const float* B, float* C, int n, Epi epi) {
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc = fmaf(A[i * n + k], B[k * n + j], acc);
-        C[idx] = epi(i, j, acc);
-    }
-    __syncthreads();
-}
-
-struct Plain {
-    __device__ float operator()(int, int, float acc) const { return acc; }
-};
-
-// M = 0.5 (M + M^T) in place.
-__device__ void symmetrize(float* M, int n) {
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        if (i < j) {
-            const float s = 0.5f * (M[i * n + j] + M[j * n + i]);
-            M[i * n + j] = s;
-            M[j * n + i] = s;
-        }
-    }
-    __syncthreads();
-}
-
-// Row-sum (infinity) norm + 1e-30: `_spd_norm_ub`.
-__device__ float spd_norm_ub(const float* A, int n, float* red) {
-    float s = 0.f;
-    if ((int)threadIdx.x < n) {
-        for (int j = 0; j < n; ++j) s += fabsf(A[threadIdx.x * n + j]);
-    }
-    return block_max(s, red) + 1e-30f;
-}
-
-// sum((S S - A)^2) / (sum(A^2) + 1e-30), with W as scratch.
-__device__ float rel_residual(const float* S, const float* A, float* W, int n, float* red) {
-    smm(S, S, W, n, Plain());
-    float num = 0.f, den = 0.f;
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        const float r = W[idx] - A[idx];
-        num += r * r;
-        den += A[idx] * A[idx];
-    }
-    num = block_sum(num, red);
-    den = block_sum(den, red);
-    return num / (den + 1e-30f);
-}
-
-// Newton-Schulz SPD square root of A (`_ns_sqrt`) into out; w[0..4] scratch.
-__device__ void ns_sqrt(const float* A, float* out, int n, int iters, float* const* w, float* red) {
-    const float nrm = spd_norm_ub(A, n, red);
-    float* Y = w[0];
-    float* Z = w[1];
-    float* T = w[2];
-    float* Y2 = w[3];
-    float* Z2 = w[4];
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        Y[idx] = A[idx] / nrm;
-        Z[idx] = (i == j) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    for (int it = 0; it < iters; ++it) {
-        smm(Z, Y, T, n, [](int i, int j, float acc) { return 0.5f * ((i == j ? 3.f : 0.f) - acc); });
-        // Y2 = Y T and Z2 = T Z in one pass.
-        for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-            const int i = idx / n, j = idx - i * n;
-            float ay = 0.f, az = 0.f;
-            for (int k = 0; k < n; ++k) {
-                ay = fmaf(Y[i * n + k], T[k * n + j], ay);
-                az = fmaf(T[i * n + k], Z[k * n + j], az);
-            }
-            Y2[idx] = ay;
-            Z2[idx] = az;
-        }
-        __syncthreads();
-        float* tmp = Y; Y = Y2; Y2 = tmp;
-        tmp = Z; Z = Z2; Z2 = tmp;
-    }
-    const float sq = sqrtf(nrm);
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) out[idx] = Y[idx] * sq;
-    __syncthreads();
-}
-
-// Newton-Hotelling inverse of SPD A (`_newton_inv`) into out; w[0..2] scratch.
-__device__ void newton_inv(const float* A, float* out, int n, int iters, float* const* w, float* red) {
-    const float inv_ub = 1.f / spd_norm_ub(A, n, red);
-    float* X = w[0];
-    float* T = w[1];
-    float* X2 = w[2];
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        X[idx] = (i == j) ? inv_ub : 0.f;
-    }
-    __syncthreads();
-    for (int it = 0; it < iters; ++it) {
-        smm(A, X, T, n, [](int i, int j, float acc) { return (i == j ? 2.f : 0.f) - acc; });
-        smm(X, T, X2, n, Plain());
-        float* tmp = X; X = X2; X2 = tmp;
-    }
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) out[idx] = X[idx];
-    __syncthreads();
-}
-
-// G = scale * X Y^T for (n, D) global row tensors, slab-staged.
-__device__ void gram_rows(const float* X, const float* Y, float* G, int n, int d, float scale,
-                          float* sx, float* sy) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < d; d0 += SS_TD) {
-        for (int q = threadIdx.x; q < n * SS_TD; q += blockDim.x) {
-            const int i = q / SS_TD, dd = q - i * SS_TD, col = d0 + dd;
-            sx[i * SS_LD + dd] = col < d ? X[(size_t)i * d + col] : 0.f;
-            sy[i * SS_LD + dd] = col < d ? Y[(size_t)i * d + col] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int idx = threadIdx.x + r * blockDim.x;
-            if (idx < n * n) {
-                const int i = idx / n, k = idx - i * n;
-                float a = acc[r];
-                for (int dd = 0; dd < SS_TD; ++dd) a = fmaf(sx[i * SS_LD + dd], sy[k * SS_LD + dd], a);
-                acc[r] = a;
-            }
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int idx = threadIdx.x + r * blockDim.x;
-        if (idx < n * n) G[idx] = acc[r] * scale;
-    }
-    __syncthreads();
-}
-
-// epi(i, col, sum_k S'[i, k] X[k, col]) with S' = S (or S^T when TRANS), S
-// (n, n) in shared memory and X (n, D) global rows, slab-staged.
-template <bool TRANS, class Epi>
-__device__ void left_apply(const float* S, const float* X, int n, int d, float* sx, Epi epi) {
-    for (int d0 = 0; d0 < d; d0 += SS_TD) {
-        for (int q = threadIdx.x; q < n * SS_TD; q += blockDim.x) {
-            const int k = q / SS_TD, dd = q - k * SS_TD, col = d0 + dd;
-            sx[k * SS_LD + dd] = col < d ? X[(size_t)k * d + col] : 0.f;
-        }
-        __syncthreads();
-        for (int q = threadIdx.x; q < n * SS_TD; q += blockDim.x) {
-            const int i = q / SS_TD, dd = q - i * SS_TD, col = d0 + dd;
-            float acc = 0.f;
-            for (int k = 0; k < n; ++k)
-                acc = fmaf(TRANS ? S[k * n + i] : S[i * n + k], sx[k * SS_LD + dd], acc);
-            if (col < d) epi(i, col, acc);
-        }
-        __syncthreads();
-    }
-}
 
 __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpaceArgs p) {
     extern __shared__ float smem[];
@@ -291,7 +102,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
     __syncthreads();
 
     // Phase 1 on Gu = e e^T / B.
-    gram_rows(p.e, p.e, GU, n, d, scale2, sx, sy);
+    gram_rows(p.e, p.e, GU, n, n, d, scale2, sx, sy);
     symmetrize(GU, n);
     for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
         W0[idx] = (idx / n == idx % n ? 1.f : 0.f) + GU[idx];
@@ -309,20 +120,20 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
     newton_inv(W0, CUI, n, p.it2, w, red);
 
     // Xi~^T = (c - cuiec^T e) / sqrt(B), cuiec = cui (e c^T / B).
-    gram_rows(p.e, p.c, W0, n, d, scale2, sx, sy);
+    gram_rows(p.e, p.c, W0, n, n, d, scale2, sx, sy);
     float* CUIEC = GU;
     smm(CUI, W0, CUIEC, n, Plain());
     {
         const float* c = p.c;
         float* xim = p.xim;
-        left_apply<true>(CUIEC, p.e, n, d, sx, [=](int i, int col, float acc) {
+        left_apply<true>(CUIEC, n, p.e, n, d, sx, [=](int i, int col, float acc) {
             const size_t o = (size_t)i * d + col;
             xim[o] = (c[o] - acc) * zc;
         });
     }
 
     // Phase 2 on I - Gv, Gv = Xi~^T Xi~.
-    gram_rows(p.xim, p.xim, W0, n, d, 1.f, sx, sy);
+    gram_rows(p.xim, p.xim, W0, n, n, d, 1.f, sx, sy);
     symmetrize(W0, n);
     for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
         W0[idx] = (idx / n == idx % n ? 1.f : 0.f) - W0[idx];
@@ -346,7 +157,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
         float* su = p.su;
         const float* ef = p.ef;
         // w1row = cu e / sqrt(B); u1row = -(mu - x) / sqrt(B) = ef / sqrt(B).
-        left_apply<false>(CU, p.e, n, d, sx, [=](int i, int col, float acc) {
+        left_apply<false>(CU, n, p.e, n, d, sx, [=](int i, int col, float acc) {
             const size_t o = (size_t)i * d + col;
             sw[o] = acc * zc;
             su[o] = ef[o] * zc;
@@ -355,7 +166,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
     // Q = Xi~^T w1row^T - cuiec^T, so that
     // fw1xi^T = [-gamma ef + t/(1+rho) + Q ef] / sqrt(B)
     //        = ximf^T + (Xi~^T w1row^T) u1row   (fused_step.py:341-342).
-    gram_rows(p.xim, p.sw, W0, n, d, 1.f, sx, sy);
+    gram_rows(p.xim, p.sw, W0, n, n, d, 1.f, sx, sy);
     for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
         const int i = idx / n, k = idx - i * n;
         W0[idx] -= CUIEC[k * n + i];
@@ -367,14 +178,14 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
         const float* t = p.t;
         const float* g = s_gamma;
         const float* ir = s_inv1r;
-        left_apply<false>(W0, p.ef, n, d, sx, [=](int i, int col, float acc) {
+        left_apply<false>(W0, n, p.ef, n, d, sx, [=](int i, int col, float acc) {
             const size_t o = (size_t)i * d + col;
             su[o] = (-g[i] * ef[o] + ir[i] * t[o] + acc) * zc;
         });
     }
     {
         float* sw = p.sw + (size_t)n * d;
-        left_apply<false>(CV, p.xim, n, d, sx, [=](int i, int col, float acc) {
+        left_apply<false>(CV, n, p.xim, n, d, sx, [=](int i, int col, float acc) {
             sw[(size_t)i * d + col] = acc;
         });
     }

@@ -6,6 +6,15 @@
 // at :450/:732, `t = vf F^T` at :286, the fat apply `F + stack_u^T stack_w`
 // at :346, and `gaussian_score_kernel` at :778).
 //
+// The BaM step (bam_smallspace.cu) uses the same template for its products
+// (gsmvi_tpu/ops/pallas/bam_fused.py: `ef` at :467, `q_t`/`qf`/`fom_t` at
+// :265/:312/:303 assembled from `vf`/`t`/`ef` rows, the fat apply at :319
+// and the mean matvecs at :329-330), with two additions: a device halt word
+// that makes a launch a no-op once a multistep block has stopped, and an
+// epilogue that also writes per-block sums of squares of F' and F (the
+// trace screen), reduced in a fixed order so that the accept flag
+// reproduces from run to run.
+//
 // Numerics: plain f32 FFMA, no TF32 and no mma/wgmma, which is what
 // Precision.HIGHEST means on the TPU.  What bounds it on an H100: at the main
 // path's shape (B=32, D=256) each product is 2 M FMA over a 256 KiB factor,
@@ -29,7 +38,8 @@ constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
 enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1 };
-enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2 };
+enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
+                EPI_ADD_SUMSQ = 3 };
 
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
 // A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
@@ -39,6 +49,9 @@ enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2 };
 //   EPI_STORE:             c = acc
 //   EPI_STORE_AND_ADD_VEC: c = acc, c2 = epi_vec[n] + acc
 //   EPI_SELECT_ADD:        c = c_in + acc if *good != 0 else c_in (c may be c_in)
+//   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
+//                          partial[2 * block + 1] = sum(c_in^2) over the tile
+// With a non-null halt, the launch does nothing while *halt != 0.
 struct GemmArgs {
     const float* a;
     const float* b;
@@ -49,12 +62,15 @@ struct GemmArgs {
     float* c2;
     const float* c_in;
     const int* good;
+    const float* halt;
+    float* partial;
 };
 
 template <bool TA, bool TB, int PRO, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     __shared__ float As[GEMM_BM][GEMM_BK + 1];
     __shared__ float Bs[GEMM_BK][GEMM_BN + 1];
+    if (p.halt != nullptr && *p.halt != 0.f) return;
     const int tid = threadIdx.x;
     const int tx = tid % 32;
     const int ty = tid / 32;
@@ -96,6 +112,41 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     }
 
     const int gn = n0 + tx;
+    if (EPI == EPI_ADD_SUMSQ) {
+        __shared__ float red[2][GEMM_THREADS / 32];
+        float s_new = 0.f, s_old = 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int gm = m0 + ty * 4 + r;
+            if (gm >= p.m || gn >= p.n) continue;
+            const size_t o = (size_t)gm * p.ldc + gn;
+            const float base = p.c_in[o];
+            const float val = base + acc[r];
+            p.c[o] = val;
+            s_new = fmaf(val, val, s_new);
+            s_old = fmaf(base, base, s_old);
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+            s_new += __shfl_xor_sync(0xffffffffu, s_new, o);
+            s_old += __shfl_xor_sync(0xffffffffu, s_old, o);
+        }
+        if ((tid & 31) == 0) {
+            red[0][tid >> 5] = s_new;
+            red[1][tid >> 5] = s_old;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            float a = 0.f, b = 0.f;
+            for (int w = 0; w < GEMM_THREADS / 32; ++w) {
+                a += red[0][w];
+                b += red[1][w];
+            }
+            const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+            p.partial[2 * blk] = a;
+            p.partial[2 * blk + 1] = b;
+        }
+        return;
+    }
     if (gn >= p.n) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {

@@ -77,8 +77,9 @@ def _spd_norm_ub(a):
     return torch.max(torch.sum(torch.abs(a), dim=-1)) + 1e-30
 
 
-def _ns_sqrt(a, iters: int):
-    """Newton-Schulz SPD square root (matmul only)."""
+def ns_sqrt_both(a, iters: int):
+    """Coupled Newton-Schulz (matmul only): (sqrt(a), a^{-1/2}) for small
+    SPD ``a``, the Y and Z iterates on ``a`` over its row-sum norm."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     nrm = _spd_norm_ub(a)
     y = a / nrm
@@ -87,7 +88,13 @@ def _ns_sqrt(a, iters: int):
         t = 0.5 * (3.0 * eye - z @ y)
         y = y @ t
         z = t @ z
-    return y * torch.sqrt(nrm)
+    rt = torch.sqrt(nrm)
+    return y * rt, z / rt
+
+
+def _ns_sqrt(a, iters: int):
+    """Newton-Schulz SPD square root (matmul only)."""
+    return ns_sqrt_both(a, iters)[0]
 
 
 def _newton_inv(a, iters: int):
@@ -258,6 +265,15 @@ def _require_shape_supported(b: int, d: int) -> None:
             f"{KERNEL_DIM_RANGE[1]}], got B={b}, D={d}")
 
 
+def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
+          halt=None) -> None:
+    """out = rows @ F^T (``trans``) or rows @ F on the GEMM template; with
+    ``x_out`` also x_out = mu + out; a no-op while ``*halt`` is non-zero."""
+    m, d = rows.shape
+    lib.call("gsmvi_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
+             _ptr(x_out), _ptr(halt), m, d, int(trans), stream)
+
+
 class _UpdateBuffers:
     """Scratch of one K1 update on the card, allocated once per call."""
 
@@ -273,9 +289,8 @@ def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
                    buf: _UpdateBuffers, iters, nacc=None) -> None:
     """K1's launches: vf, t, small space (mean + good), fat apply (F)."""
     b, d = eps.shape
-    lib.call("gsmvi_rows_f", _ptr(vs), _ptr(f_in), _ptr(buf.vf), b, d, stream)
-    lib.call("gsmvi_rows_ft", _ptr(buf.vf), _ptr(f_in), _ptr(None),
-             _ptr(buf.t), _ptr(None), b, d, stream)
+    _rows(lib, stream, vs, f_in, buf.vf, trans=False)
+    _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
     lib.call("gsmvi_eps_smallspace", _ptr(eps), _ptr(vs), _ptr(buf.vf),
              _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
              _ptr(buf.good), _ptr(nacc), _ptr(buf.su), _ptr(buf.sw),
@@ -311,8 +326,7 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
     gsm_eps_update_fused.launches += 1
     if ef is None:
         ef = torch.empty_like(eps)
-        lib.call("gsmvi_rows_ft", _ptr(eps), _ptr(f), _ptr(None), _ptr(ef),
-                 _ptr(None), b, d, stream)
+        _rows(lib, stream, eps, f, ef, trans=True)
     else:
         _require("ef", ef, (b, d))
     buf = _UpdateBuffers(b, d, eps.device)
@@ -365,8 +379,7 @@ def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
         make_fused_eps_multistep.launches += 1 if nmax else 0
         for j in range(nmax):
             e = eps_block[j * batch:(j + 1) * batch]
-            lib.call("gsmvi_rows_ft", _ptr(e), _ptr(f_w), _ptr(mean_w),
-                     _ptr(ef), _ptr(x), batch, d, stream)
+            _rows(lib, stream, e, f_w, ef, trans=True, mu=mean_w, x_out=x)
             v = score_fn(x, *params)
             _require("score", v, (batch, d))
             _launch_update(lib, stream, e, v, ef, mean_w, mean_w, f_w, f_w,

@@ -34,9 +34,19 @@ class VIState(NamedTuple):
     n_rejected: torch.Tensor  # int32 count of reverted updates
 
 
+# Cold-start value of the carried NS-ladder statistics: inf fails every
+# benign tier's gates, so the first window runs the long profile
+# (``ops/bam_fused.py``, ``NS_STATS_INIT``).
+NS_STATS_INIT = (float("inf"), float("inf"))
+
+
 class FactorVIState(NamedTuple):
-    """Factor GSM state: S = factor @ factor.T (no maintained inverse: the
-    eps method never applies F^{-1})."""
+    """Factor state: S = factor @ factor.T (no maintained inverse: the eps
+    method never applies F^{-1}).  ``ns_stats`` is FactorBaM's carried
+    (gu_ub, lmax_ub) pair, measured by its kernels at the last
+    feedback-cadence boundary or stiff step; host floats, because the BaM
+    fitter reads them from the card once per step or block anyway.  The GSM
+    fitters leave it at its default."""
 
     mean: torch.Tensor        # (D,)
     factor: torch.Tensor      # (D, D)
@@ -44,6 +54,7 @@ class FactorVIState(NamedTuple):
     step: int
     n_accepted: torch.Tensor
     n_rejected: torch.Tensor
+    ns_stats: tuple = NS_STATS_INIT
 
     @property
     def cov(self) -> torch.Tensor:
@@ -85,14 +96,17 @@ def accept_or_revert(state: VIState, mean_new: torch.Tensor,
 
 def factor_state_from_numpy(mean, factor, seed: int, step: int,
                             n_accepted: int, n_rejected: int, dtype=None,
-                            device="cpu") -> FactorVIState:
+                            device="cpu", ns_stats=None) -> FactorVIState:
     """``FactorVIState`` from numpy arrays as the JAX package hands them
     over (``np.asarray(jax_array)``), so both packages start from the same
-    state.  ``dtype`` defaults to the dtype of ``mean``."""
+    state.  ``dtype`` defaults to the dtype of ``mean``; ``ns_stats`` (the
+    JAX state's (2,) array) defaults to ``NS_STATS_INIT``."""
     mean = np.asarray(mean)
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, mean.dtype)).dtype
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     count = lambda n: torch.tensor(int(n), dtype=torch.int32, device=device)
+    stats = (NS_STATS_INIT if ns_stats is None
+             else tuple(float(x) for x in np.asarray(ns_stats, np.float32)))
     return FactorVIState(as_t(mean), as_t(factor), int(seed), int(step),
-                         count(n_accepted), count(n_rejected))
+                         count(n_accepted), count(n_rejected), stats)

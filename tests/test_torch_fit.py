@@ -226,7 +226,10 @@ def test_dense_resume_and_unported_options():
 
 def test_import_loads_neither_jax_nor_triton():
     code = ("import sys, gsmvi_tpu_torch, gsmvi_tpu_torch.gsm_factor, "
-            "gsmvi_tpu_torch.ops.fused_step, gsmvi_tpu_torch.ops.cuda._build; "
+            "gsmvi_tpu_torch.ops.fused_step, gsmvi_tpu_torch.ops.cuda._build, "
+            "gsmvi_tpu_torch.bam, gsmvi_tpu_torch.bam_factor, "
+            "gsmvi_tpu_torch.ops.bam, gsmvi_tpu_torch.ops.bam_eps, "
+            "gsmvi_tpu_torch.ops.bam_fused, gsmvi_tpu_torch.ops.sqrtm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'gsmvi_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -195,9 +195,10 @@ def test_cpu_calls_launch_nothing_and_build_is_lazy(monkeypatch, tmp_path):
     eps, v, mu, f = _t(*_inputs(1, b, d))
     tfs.gsm_eps_update_fused(eps, v, mu, f)
     tfs.gaussian_score(eps, mu[None], f)
-    assert tfs.launch_counts() == {"gsm_eps_update_fused": 0,
-                                   "make_fused_eps_multistep": 0,
-                                   "gaussian_score": 0}
+    counts = tfs.launch_counts()
+    assert {"gsm_eps_update_fused", "make_fused_eps_multistep",
+            "gaussian_score"} <= set(counts)
+    assert counts == dict.fromkeys(tfs.KERNEL_WRAPPERS, 0)
     assert _build._LIBRARY is None
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()

@@ -7,7 +7,9 @@ Skipped unless ``TESTS_ON_GPU=1`` (and then a missing CUDA device fails):
 (``--noconftest`` because the suite's conftest configures JAX, which the
 port does not need on a GPU machine.)  Tolerances as in ``chip_smoke.py``:
 1e-5 on the mean and 1e-5 * max|F| on the factor for one update (float32,
-sums in other orders), 1e-4 for eight chained sub-steps.
+sums in other orders), 1e-4 for eight chained sub-steps; for the BaM
+kernels 1e-5 / 1e-4 of max(1, scale), and their gate statistics within
+1e-3 relative.
 """
 
 import os
@@ -145,3 +147,133 @@ def test_fits_run_through_the_kernels(cuda):
     assert counts["gaussian_score"] == 2 * (niter + 1)
     assert torch.equal(states[0].mean, states[1].mean)
     assert torch.equal(states[0].factor, states[1].factor)
+
+
+# ---------------------------------------------------------------------------
+# BaM: K7 bam_eps_update_fused and K8 make_fused_bam_multistep
+# ---------------------------------------------------------------------------
+
+def _bam_inputs(dev, b, d, seed=0, score_scale=1.0, v_scale=None):
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((b, d)).astype(np.float32)
+    f = (np.eye(d) + 0.05 * rng.standard_normal((d, d))).astype(np.float32)
+    mu = rng.standard_normal(d).astype(np.float32)
+    v = score_scale * -(mu + e @ f.T - rng.standard_normal(d))
+    if v_scale is not None:
+        v = v_scale * rng.standard_normal((b, d))
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in (e, v, mu, f)]
+
+
+def _within(got, want, tol):
+    return float((got - want).abs().max()) <= tol * max(
+        1.0, float(want.abs().max()))
+
+
+OPEN_GATES = {"lmax_gate": float("inf"), "gu_gate": float("inf")}
+BAM_K7_CASES = {
+    "benign": ({"v_scale": 0.05}, 0.5, {}, (True, False)),
+    "stiff_lmax": ({"score_scale": 300.0}, 20.0, {}, (False, True)),
+    "stiff_gu": ({"v_scale": 0.02}, 1e4, {"lmax_gate": float("inf")},
+                 (False, True)),
+    "reject": ({}, 3e5, OPEN_GATES, (False, False)),
+}
+
+
+@pytest.mark.parametrize("with_ef", [False, True])
+@pytest.mark.parametrize("case", sorted(BAM_K7_CASES))
+@pytest.mark.parametrize("b,d", [(8, 16), (12, 200), (32, 256), (56, 1024)])
+def test_bam_update_kernel_matches_plain(cuda, b, d, case, with_ef):
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    kw, reg, gates, flags = BAM_K7_CASES[case]
+    e, v, mu, f = _bam_inputs(cuda, b, d, seed=b + d, **kw)
+    ef = e @ f.T if with_ef else None
+    k = bf.bam_eps_update_fused(e, v, mu, f, reg, ef=ef, **gates)
+    p = bf.bam_eps_update_ns_reference(e, v, mu, f, reg, ef=ef, **gates)
+    assert (bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3])) == flags
+    assert np.allclose(k[4].tolist(), p[4].tolist(), rtol=1e-3, atol=0)
+    assert _within(k[0], p[0], 1e-5) and _within(k[1], p[1], 1e-5)
+    if not flags[0]:
+        assert torch.equal(k[0], mu) and torch.equal(k[1], f)
+
+
+BAM_K8_CASES = {
+    "full": (None, 8, 0, None, (8, 8, 0)),
+    "nmax_lt_spc": (None, 3, 0, None, (3, 3, 0)),
+    "stiff_stop": ({3: 1e9}, 8, 0, None, (3, 3, 1)),
+    "reject_consumed": ({2: 2.0}, 8, 0, (2, 2, 2, 2, 2), (8, 7, 0)),
+    "stop_on_reject": ({2: 2.0}, 8, 1, (2, 2, 2, 2, 2), (2, 2, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAM_K8_CASES))
+def test_bam_multistep_kernel_matches_plain(cuda, case):
+    """K8 at spc=8 on a benign target (identity covariance)."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    changes, nmax, sor, iters, counts = BAM_K8_CASES[case]
+    b, d, spc = 32, 256, 8
+    base = 1e-4 if iters is not None else 0.05
+    regs = [base] * spc
+    for j, r in (changes or {}).items():
+        regs[j] = r
+    mean_t = torch.linspace(-1.0, 1.0, d, device=cuda).reshape(1, d)
+    params = (mean_t, torch.eye(d, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    block = torch.randn((spc * b, d), generator=gen, device=cuda)
+    mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    kw = {} if iters is None else {"iters": iters}
+    step = bf.make_fused_bam_multistep(fs.gaussian_score, 2, b, d, spc, **kw)
+    k = step(regs, nmax, sor, block, mean0, f0, *params)
+    p = bf.bam_multistep_reference(fs.gaussian_score_reference, params, regs,
+                                   nmax, sor, block, mean0, f0, batch=b, **kw)
+    assert tuple(int(x) for x in k[2:5]) == tuple(int(x) for x in p[2:5]) \
+        == counts
+    assert np.allclose(k[5].tolist(), p[5].tolist(), rtol=1e-3, atol=0)
+    assert _within(k[0], p[0], 1e-4) and _within(k[1], p[1], 1e-4)
+
+
+def test_bam_fitters_raise_outside_the_kernel_range(cuda):
+    from gsmvi_tpu_torch import BaM, FactorBaM, Regularizers
+
+    d = 64
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    regf = Regularizers().linear(20.0)
+    with pytest.raises(ValueError, match="BaM CUDA kernels take B"):
+        BaM(d, t.lp, t.lp_g, device="cuda").fit(0, regf, batch_size=64,
+                                                niter=2, verbose=False)
+    with pytest.raises(NotImplementedError, match="float32"):
+        FactorBaM(d, t.lp, t.lp_g, device="cuda", dtype=torch.float64).fit(
+            0, regf, batch_size=16, niter=2, verbose=False)
+    fs.reset_launch_counts()
+    mean, _ = FactorBaM(d, t.lp, t.lp_g, device="cuda", use_fused=False).fit(
+        0, regf, batch_size=64, niter=2, verbose=False, retries=0)
+    assert mean.is_cuda and sum(fs.launch_counts().values()) == 0
+
+
+def test_bam_fits_run_through_the_kernels(cuda):
+    """BaM.fit on CUDA takes K7 once per step; the whole-step path launches
+    K8 and K3 and its trajectory does not depend on spc."""
+    from gsmvi_tpu_torch import BaM, FactorBaM, Regularizers
+
+    d, b, niter = 64, 16, 40
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    regf = Regularizers().linear(20.0)
+    fs.reset_launch_counts()
+    g = BaM(d, t.lp, t.lp_g, device="cuda")
+    g.fit(0, regf, batch_size=b, niter=niter, verbose=False, retries=0)
+    assert fs.launch_counts()["bam_eps_update_fused"] == niter + 1
+    states = []
+    for spc in (1, 8):
+        fb = FactorBaM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                       steps_per_call=spc, device="cuda")
+        assert fb._fused_mode(b) == "step"
+        states.append(fb.fit(0, regf, batch_size=b, niter=niter,
+                             verbose=False, retries=0, return_state=True))
+    counts = fs.launch_counts()
+    assert counts["make_fused_bam_multistep"] > 0
+    assert counts["gaussian_score"] > 0
+    assert torch.equal(states[0].mean, states[1].mean)
+    assert torch.equal(states[0].factor, states[1].factor)
+    assert states[0].ns_stats == states[1].ns_stats
