@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GSM and BaM paths on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's GSM, BaM and ADVI paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -35,10 +35,26 @@ the script exits non-zero):
 6. BaM headline path: ``FactorBaM(..., fused_score=t.fused_score,
    device="cuda")`` (spc=8); K8 and K3 must launch, the moments converge,
    and its it/s is printed beside the plain version's on the same blocks.
+7. ADVI kernels: K9 ``make_fused_advi_multistep`` and K10
+   ``make_fused_advi_stl_multistep`` against ``advi_multistep_reference``
+   and ``advi_stl_multistep_reference`` at (B=32, D=256) and (B=8, D=200),
+   spc=8: the first sub-step's gradient (through the first moments), a
+   full block, nmax < spc, a varying learning rate, a K10 gate trip at
+   sub-step 3 and a K10 nonfinite-gradient freeze.  ``n_done`` and
+   ``stiff`` must be equal.
+8. ADVI main path: ``ADVI(D=256, ..., device="cuda").fit(seed,
+   Adam(1e-2), batch_size=32, niter=N_ADVI)`` (autograd, plain torch, no
+   kernel); ``N_ADVI + 1`` finite losses and moments under the ADVI bound.
+9. ADVI headline path: ``ADVI(..., fused_score=t.fused_score,
+   device="cuda").fit_fused`` (spc=8): an analytic leg of N_ADVI steps (K9
+   and K3 launch, K10 does not), then an STL polish leg of N_STL steps from
+   its state at lr 3e-3 (K10 launches); replays and it/s are printed, the
+   plain versions' it/s on the same blocks beside them, and both legs'
+   moments must be under their bounds.
 
-Launch counts are set to 0 just before each path (2, 3, 5, 6) and read just
-after it.  Then the card's name and power limit, the kernel table, and as
-the last line
+Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, and each
+leg of 9) and read just after it.  Then the card's name and power limit,
+the kernel table, and as the last line
 ``{"ok": true, "device": {...}}`` with ``count`` 1: everything runs on
 device 0.  Without a CUDA device it exits 1 before printing any result.
 Nothing here imports JAX.
@@ -87,6 +103,30 @@ BAM_REGF0 = 100.0
 # margin).
 BAM_TOL, BAM_MULTI_TOL, BAM_STATS_RTOL = 1e-5, 1e-4, 1e-3
 
+# ADVI at D=256, B=32 on the same target.  Single-phase ADVI there is
+# limited by the method (bench.py:332-346), so the bounds test that the
+# port computes what JAX computes, not convergence: 1.5 x the worst of the
+# JAX package's own CPU runs (float32, the numpy-seed-0 arrays via
+# _gaussian_target, PRNGKey(k) for k = 0..7): ``fit`` with optax.adam(1e-2)
+# for N_ADVI steps, then ``fit(estimator="stl")`` with optax.adam(3e-3) for
+# N_STL steps from its moments (PERF.md): fit mean_err <= 1.22289 (k=3),
+# cov_err <= 0.98784 (k=6); then STL mean_err <= 1.26452, cov_err <=
+# 0.98184 (both k=0).
+N_ADVI, N_STL = 3000, 2000
+ADVI_LR, STL_LR = 1e-2, 3e-3
+ADVI_MEAN_ERR_BOUND = 1.5 * 1.22289
+ADVI_COV_ERR_BOUND = 1.5 * 0.98784
+STL_MEAN_ERR_BOUND = 1.5 * 1.26452
+STL_COV_ERR_BOUND = 1.5 * 0.98184
+# K9/K10 vs their plain versions (float32 on the card, GEMM sums in other
+# orders; the Adam arithmetic rounds identically): the first sub-step's
+# gradient within 1e-5 * max(1, scale); after a block, every state tensor
+# within 1e-5 * max(1, |x|) on at least 99.99 % of its entries (Adam
+# turns a gradient at rounding level into a step of up to lr either way),
+# and loc and L within 2 * sum(lr) everywhere.
+ADVI_GRAD_TOL, ADVI_RTOL, ADVI_FRAC = 1e-5, 1e-5, 0.9999
+ADVI_RAGGED = (8, 200)
+
 SOURCES = {
     "gsm_eps_update_fused": (
         "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace.cu",
@@ -103,6 +143,12 @@ SOURCES = {
     "make_fused_bam_multistep": (
         "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
         "gsmvi_tpu/ops/pallas/bam_fused.py:425"),
+    "make_fused_advi_multistep": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/advi.cu",
+        "gsmvi_tpu/ops/pallas/advi_fused.py:121"),
+    "make_fused_advi_stl_multistep": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/advi.cu",
+        "gsmvi_tpu/ops/pallas/advi_fused.py:249"),
 }
 
 
@@ -547,6 +593,299 @@ def phase_bam_times(bf, fs, fb, t, st, torch):
     return out["tier0"]
 
 
+def _advi_problem(np, b, d, spc, seed):
+    """K9/K10 inputs at (b, d): a benign Gaussian target's score params, a
+    start state near the identity with its exact inverse, and an eps block
+    (numpy float32)."""
+    rng = np.random.default_rng(seed)
+    mean_t = np.linspace(-1.0, 1.0, d).astype(np.float32)[None]
+    prec = np.eye(d, dtype=np.float32)
+    loc = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    l = np.tril(np.eye(d) + 0.02 * rng.standard_normal((d, d)))
+    ainv = np.tril(np.linalg.inv(l)).astype(np.float32)
+    block = rng.standard_normal((spc * b, d)).astype(np.float32)
+    return (mean_t, prec), loc, l.astype(np.float32), ainv, block
+
+
+def advi_cases(np, spc):
+    """[(kernel, name, nmax, lrs, warm moments, poisoned sub-step,
+    (n_done, stiff) or None)].  The lrs keep K10's tracking residual
+    (about D * lr per row on a factor near I) under its gate except where
+    a case trips it: a step of 0.05 at sub-step 2 stops the block at 3."""
+    base = [1e-3] * spc
+    sched = [1e-3 * (1 + (j % 3)) for j in range(spc)]
+    trip = list(base)
+    trip[2] = 0.05
+    return [
+        ("k9", "first_step_grad", 1, base, False, None, None),
+        ("k9", "full", spc, [1e-2] * spc, False, None, None),
+        ("k9", "nmax_lt_spc", 3, [1e-2] * spc, False, None, None),
+        ("k9", "lr_schedule", spc, [2e-2, 1e-2, 5e-3, 2e-2, 1e-2, 5e-3,
+                                    2e-2, 1e-2][:spc], True, None, None),
+        ("k10", "first_step_grad", 1, base, False, None, (1, 0)),
+        ("k10", "full", spc, base, False, None, (spc, 0)),
+        ("k10", "nmax_lt_spc", 3, base, False, None, (3, 0)),
+        ("k10", "lr_schedule", spc, sched, True, None, (spc, 0)),
+        ("k10", "gate_trip_at_3", spc, trip, False, None, (3, 1)),
+        ("k10", "nonfinite_gradient", spc, base, False, 2, (2, 1)),
+    ]
+
+
+def phase_advi_kernels(af, fs, torch, np):
+    """K9 and K10 against their plain versions on the same CUDA tensors."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    worst = {"make_fused_advi_multistep": 0.0,
+             "make_fused_advi_stl_multistep": 0.0}
+    spc = 8
+    for b, d in ((B, D), ADVI_RAGGED):
+        (mean_t, prec), loc, l, ainv, block = _advi_problem(np, b, d, spc,
+                                                            3000 + d)
+        params = (cu(mean_t), cu(prec))
+        k9 = af.make_fused_advi_multistep(fs.gaussian_score, 2, b, d, spc)
+        k10 = af.make_fused_advi_stl_multistep(fs.gaussian_score, 2, b, d,
+                                               spc)
+        for kern, name, nmax, lrs, warm, poison, counts in advi_cases(np,
+                                                                      spc):
+            rng = np.random.default_rng(d + nmax)
+            z = np.zeros(d, np.float32)
+            zz = np.zeros((d, d), np.float32)
+            moments = ([0.1 * rng.standard_normal(d), 0.01 + rng.random(d),
+                        np.tril(0.1 * rng.standard_normal((d, d))),
+                        np.tril(0.01 + rng.random((d, d)))] if warm
+                       else [z, z, zz, zz])
+            moments = [cu(np.asarray(m, np.float32)) for m in moments]
+            blk = block.copy()
+            if poison is not None:
+                blk[poison * b:(poison + 1) * b] = 1e30
+            # Bias corrections of the first steps (zero moments) or of
+            # steps 100.. (warm moments).
+            step0 = 100 if warm else 0
+            _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+                lambda s: 0.0, 0.9, 0.999,
+                torch.arange(step0, step0 + spc, dtype=torch.int32)))
+            if kern == "k9":
+                state = [cu(loc), cu(l), *moments]
+                got = k9(lrs, bc1s, bc2s, nmax, cu(blk), *state, *params)
+                want = af.advi_multistep_reference(
+                    fs.gaussian_score_reference, params, lrs, bc1s, bc2s,
+                    nmax, cu(blk), *state, batch=b)
+                names = ("loc", "l", "mloc", "vloc", "ml", "vl")
+                flags = None
+            else:
+                state = [cu(loc), cu(l), cu(ainv), *moments]
+                *got, nd_k, st_k = k10(lrs, bc1s, bc2s, nmax, cu(blk),
+                                       *state, *params)
+                *want, nd_p, st_p = af.advi_stl_multistep_reference(
+                    fs.gaussian_score_reference, params, lrs, bc1s, bc2s,
+                    nmax, cu(blk), *state, batch=b)
+                names = ("loc", "l", "ainv", "mloc", "vloc", "ml", "vl")
+                flags = [(int(nd_k), int(st_k)), (int(nd_p), int(st_p))]
+            torch.cuda.synchronize()
+            key = ("make_fused_advi_multistep" if kern == "k9"
+                   else "make_fused_advi_stl_multistep")
+            rec = {"kernel": key, "case": name, "B": b, "D": d, "spc": spc,
+                   "nmax": nmax, "done_stiff": flags}
+            bound = 2.0 * sum(lrs[:nmax])
+            for nm, g, w in zip(names, got, want):
+                diff = (g - w).abs()
+                frac = float((diff <= ADVI_RTOL * w.abs().clamp(min=1.0))
+                             .double().mean())
+                rec[nm] = {"max_abs_err": float(diff.max()), "frac": frac}
+                check(bool(torch.isfinite(g).all()), f"{key} {name}: {nm} "
+                      "not finite")
+                check(frac >= ADVI_FRAC, f"{key} {name}: {nm} {rec[nm]}")
+                if nm in ("loc", "l"):
+                    check(float(diff.max()) <= bound,
+                          f"{key} {name}: {nm} beyond 2 sum(lr) {rec[nm]}")
+                    worst[key] = max(worst[key], float(diff.max()))
+            if name == "first_step_grad":
+                # Zero moments: m = (1 - b1) g after one step.
+                for nm in ("mloc", "ml"):
+                    g, w = got[names.index(nm)], want[names.index(nm)]
+                    err = float((g - w).abs().max())
+                    tol = ADVI_GRAD_TOL * max(1.0, float(w.abs().max()))
+                    rec[nm]["grad_tol"] = tol
+                    check(err <= tol, f"{key} first-step gradient {nm}: "
+                          f"{err} > {tol}")
+            emit({"phase": "advi_kernels", **rec})
+            if flags is not None:
+                check(flags[0] == flags[1] == counts,
+                      f"{key} {name}: (n_done, stiff) {flags} != {counts}")
+    return worst
+
+
+def _errs_bounded(em, ec, bounds, what):
+    check(em < bounds[0] and ec < bounds[1],
+          f"{what}: errors {em}, {ec} not under {bounds}")
+
+
+def phase_advi_paths(ADVI, Adam, af, fs, t, torch):
+    """Phases 8 and 9: ADVI.fit (autograd on the card) and ADVI.fit_fused's
+    analytic (K9 + K3) and STL polish (K10) legs at D=256, B=32; then the
+    kernels' and plain versions' it/s on the same blocks from each leg's
+    final state."""
+    dev = torch.device("cuda")
+    fs.reset_launch_counts()
+    g = ADVI(D, t.lp, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, cov, losses = g.fit(FIT_SEED, Adam(ADVI_LR), batch_size=B,
+                              niter=N_ADVI, verbose=False)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    c8 = fs.launch_counts()
+    em8, ec8 = errs(mean, cov, t)
+    emit({"phase": "advi_main_path", "fitter": "ADVI.fit", "D": D, "B": B,
+          "niter": N_ADVI, "lr": ADVI_LR, "launches": c8,
+          "losses": [len(losses), float(losses[0]), float(losses[-1])],
+          "mean_err": em8, "cov_err": ec8,
+          "mean_err_bound": ADVI_MEAN_ERR_BOUND,
+          "cov_err_bound": ADVI_COV_ERR_BOUND,
+          "iters_per_s": (N_ADVI + 1) / wall8})
+    check(len(losses) == N_ADVI + 1
+          and bool(torch.isfinite(torch.from_numpy(losses)).all()),
+          "ADVI.fit losses: length or finiteness")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
+          and tuple(cov.shape) == (D, D), "ADVI.fit output shape/finiteness")
+    check(sum(c8.values()) == 0, "ADVI.fit launched a kernel")
+    _errs_bounded(em8, ec8, (ADVI_MEAN_ERR_BOUND, ADVI_COV_ERR_BOUND),
+                  "ADVI.fit")
+
+    gf = ADVI(D, t.lp, fused_score=t.fused_score, device=dev)
+    check(gf.steps_per_call == 8, "ADVI headline path must run spc=8")
+    legs = {}
+    for leg, est, lr, n in (("analytic", "analytic", ADVI_LR, N_ADVI),
+                            ("stl", "stl", STL_LR, N_STL)):
+        fs.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = gf.fit_fused(FIT_SEED, learning_rate=lr, batch_size=B,
+                             niter=n, verbose=False, return_state=True,
+                             estimator=est,
+                             state=legs["analytic"][0] if est == "stl"
+                             else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = fs.launch_counts()
+        em, ec = errs(st.loc, gf.scales_to_cov(st.l), t)
+        legs[leg] = (st, c, (n + 1) / wall)
+        emit({"phase": "advi_headline_path", "leg": leg,
+              "fitter": "ADVI.fit_fused", "estimator": est, "D": D, "B": B,
+              "niter": n, "lr": lr, "spc": gf.steps_per_call,
+              "launches": c, "fit_counts": dict(gf.fit_counts),
+              "step": st.step, "mean_err": em, "cov_err": ec,
+              "iters_per_s": (n + 1) / wall})
+        check(bool(torch.isfinite(st.loc).all()
+                   and torch.isfinite(st.l).all()),
+              f"fit_fused {leg} leg not finite")
+        check(c["gaussian_score"] > 0, f"K3 not launched in the {leg} leg")
+        if est == "analytic":
+            check(c["make_fused_advi_multistep"] > 0
+                  and c["make_fused_advi_stl_multistep"] == 0,
+                  "the analytic leg must launch K9 and not K10")
+            _errs_bounded(em, ec, (ADVI_MEAN_ERR_BOUND, ADVI_COV_ERR_BOUND),
+                          "fit_fused analytic leg")
+        else:
+            check(c["make_fused_advi_stl_multistep"] > 0
+                  and c["make_fused_advi_multistep"] == 0,
+                  "the STL leg must launch K10 and not K9")
+            check(gf.fit_counts["report_reads"]
+                  == gf.fit_counts["kernel_calls"],
+                  "K10: one report read per block")
+            _errs_bounded(em, ec, (STL_MEAN_ERR_BOUND, STL_COV_ERR_BOUND),
+                          "fit_fused STL leg")
+
+    # it/s of each kernel vs its plain version on the same blocks, from the
+    # leg's final state at the leg's learning rate.
+    score_fn, params = t.fused_score
+    ref = fs.gaussian_score_reference
+    spc, nblk = gf.steps_per_call, 20
+    gen = torch.Generator(device=dev).manual_seed(14)
+    blocks = [torch.randn((spc * B, D), generator=gen, device=dev)
+              for _ in range(nblk)]
+    rates = {}
+    for leg, lr in (("analytic", ADVI_LR), ("stl", STL_LR)):
+        st = legs[leg][0]
+        lrs, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+            lambda s: lr, 0.9, 0.999,
+            torch.arange(st.step, st.step + spc, dtype=torch.int32)))
+        if leg == "analytic":
+            multi = af.make_fused_advi_multistep(score_fn, len(params), B, D,
+                                                 spc)
+            kern = lambda blk, s: (*multi(lrs, bc1s, bc2s, spc, blk, *s,
+                                          *params), spc)
+            plain = lambda blk, s: (*af.advi_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, blk, *s, batch=B), spc)
+            s0 = (st.loc, st.l, st.mloc, st.vloc, st.ml, st.vl)
+        else:
+            multi = af.make_fused_advi_stl_multistep(score_fn, len(params),
+                                                     B, D, spc)
+            kern = lambda blk, s: multi(lrs, bc1s, bc2s, spc, blk, *s,
+                                        *params)[:-1]
+            plain = lambda blk, s: af.advi_stl_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, blk, *s, batch=B)[:-1]
+            s0 = (st.loc, st.l, st.ainv, st.mloc, st.vloc, st.ml, st.vl)
+
+        def run_blocks(fn):
+            s, done = s0, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for blk in blocks:
+                *s, n_done = fn(blk, s)
+                done += int(n_done)
+            torch.cuda.synchronize()
+            return done / (time.perf_counter() - t0), done
+
+        r = [run_blocks(kern), run_blocks(plain), run_blocks(plain),
+             run_blocks(kern)]
+        rates[leg] = {"fit_iters_per_s": legs[leg][2],
+                      "kernel_iters_per_s": [r[0][0], r[3][0]],
+                      "plain_iters_per_s": [r[1][0], r[2][0]],
+                      "steps_done": [x[1] for x in r]}
+    emit({"phase": "advi_rates", "D": D, "B": B, "spc": spc, **rates})
+    return c8, legs["analytic"][1], legs["stl"][1]
+
+
+def phase_advi_times(af, fs, torch, np):
+    """Per-call times of K9 and K10 (spc=8) at D=256, B=32, kernel vs plain
+    version, on a full block (CUDA events)."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    spc = 8
+    (mean_t, prec), loc, l, ainv, block = _advi_problem(np, B, D, spc, 77)
+    params = (cu(mean_t), cu(prec))
+    z, zz = torch.zeros(D, device=dev), torch.zeros((D, D), device=dev)
+    lrs = [1e-3] * spc
+    _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+        lambda s: 0.0, 0.9, 0.999, torch.arange(spc, dtype=torch.int32)))
+    blk, loc, l, ainv = cu(block), cu(loc), cu(l), cu(ainv)
+    k9 = af.make_fused_advi_multistep(fs.gaussian_score, 2, B, D, spc)
+    k10 = af.make_fused_advi_stl_multistep(fs.gaussian_score, 2, B, D, spc)
+    n_done = int(k10(lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z, z, zz, zz,
+                     *params)[-2])
+    check(n_done == spc, f"K10 timing block stopped at {n_done}")
+    ref = fs.gaussian_score_reference
+    times = {
+        "make_fused_advi_multistep": (
+            cuda_ms(lambda: k9(lrs, bc1s, bc2s, spc, blk, loc, l, z, z, zz,
+                               zz, *params), reps=20),
+            cuda_ms(lambda: af.advi_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, blk, loc, l, z, z, zz, zz,
+                batch=B), reps=20)),
+        "make_fused_advi_stl_multistep": (
+            cuda_ms(lambda: k10(lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z,
+                                z, zz, zz, *params), reps=20),
+            cuda_ms(lambda: af.advi_stl_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z, z,
+                zz, zz, batch=B), reps=20)),
+    }
+    emit({"phase": "advi_times", "B": B, "D": D, "spc": spc,
+          "ms_per_call": {k: {"kernel": a, "plain": b}
+                          for k, (a, b) in times.items()}})
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -556,9 +895,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
-    from gsmvi_tpu_torch import GSM, BaM, FactorBaM, FactorGSM, Regularizers
+    from gsmvi_tpu_torch import (ADVI, GSM, Adam, BaM, FactorBaM, FactorGSM,
+                                 Regularizers)
     from gsmvi_tpu_torch.config import pin_fp32
     from gsmvi_tpu_torch.models import dense_gaussian
+    from gsmvi_tpu_torch.ops import advi_fused as af
     from gsmvi_tpu_torch.ops import bam_fused as bf
     from gsmvi_tpu_torch.ops import fused_step as fs
     from gsmvi_tpu_torch.ops.cuda._build import load_library
@@ -657,10 +998,15 @@ def main() -> int:
     bam_counts, st6, fb = phase_bam_paths(BaM, FactorBaM, Regularizers, bf,
                                           fs, t, torch)
 
+    worst.update(phase_advi_kernels(af, fs, torch, np))
+    advi_counts = phase_advi_paths(ADVI, Adam, af, fs, t, torch)
+
     times = phase_times(fs, dense_gaussian, torch, np)
     times.update(phase_bam_times(bf, fs, fb, t, st6, torch))
+    times.update(phase_advi_times(af, fs, torch, np))
     launches = {name: main_counts[name] + counts[name]
-                + sum(c[name] for c in bam_counts) for name in SOURCES}
+                + sum(c[name] for c in bam_counts + advi_counts)
+                for name in SOURCES}
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

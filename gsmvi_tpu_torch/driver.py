@@ -84,8 +84,23 @@ class RunnerCache:
         return runner
 
 
-def make_chunk_runner(step: Callable) -> Callable:
-    """``(state, k) -> state`` running ``k`` steps."""
+def make_chunk_runner(step: Callable, collect_aux: bool = False) -> Callable:
+    """``(state, k) -> state`` running ``k`` steps.
+
+    With ``collect_aux`` the step returns ``(state, aux)``, ``aux`` a 0-d
+    tensor on the fit's device (ADVI's per-step loss), and the runner
+    returns ``(state, (k,) tensor of the aux values)``, stacked on the
+    device: nothing is read back inside a chunk."""
+
+    if collect_aux:
+        def run_chunk(state, k: int):
+            aux = []
+            for _ in range(k):
+                state, a = step(state)
+                aux.append(a)
+            return state, torch.stack(aux)
+
+        return run_chunk
 
     def run_chunk(state, k: int):
         for _ in range(k):
@@ -113,13 +128,16 @@ def _next_event(i: int, total: int, cadences) -> int:
 def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
                  monitor_params: Optional[Callable] = None, lp=None,
                  nprint: int = 10, verbose: bool = True,
-                 batch_size: int = 1):
+                 batch_size: int = 1, collect_aux: bool = False):
     """Run ``niter + 1`` steps with the reference's print and monitor cadence.
 
     ``monitor`` follows the reference hook protocol
     ``monitor(i, params, lp, seed, nevals=...)`` at ``monitor.checkpoint``
     cadence, plus one call after the loop; ``monitor_params(state)`` gives
-    its params (default ``[state.mean, state.cov]``).
+    its params (default ``[state.mean, state.cov]``).  With ``collect_aux``
+    ``run_chunk`` returns ``(state, aux)`` (``make_chunk_runner(...,
+    collect_aux=True)``) and the loop returns ``(state, aux)``, the chunks'
+    aux concatenated on the device over all ``niter + 1`` steps.
     """
     total = niter + 1
     checkpoint = getattr(monitor, "checkpoint", None) if monitor is not None else None
@@ -129,6 +147,7 @@ def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
     print_every = (max(1, niter // min(nprint, max(niter, 1)))
                    if (verbose and nprint) else 0)
     cadences = (checkpoint, print_every)
+    aux_chunks = []
     i = 0
     while i < total:
         if print_every and i % print_every == 0:
@@ -138,10 +157,16 @@ def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
                     nevals=nevals)
             nevals = 0
         k = _next_event(i, total, cadences) - i
-        state = run_chunk(state, k)
+        if collect_aux:
+            state, aux = run_chunk(state, k)
+            aux_chunks.append(aux)
+        else:
+            state = run_chunk(state, k)
         nevals += k * batch_size
         i += k
     if monitor is not None:
         monitor(niter, monitor_params(state), lp,
                 monitor_seed(state.seed, total), nevals=nevals)
+    if collect_aux:
+        return state, torch.cat(aux_chunks)
     return state

@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels from ``csrc/`` and bind them with ctypes.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface.  The library lands in ``_build/`` next to this file,
-named by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is built at import: the first kernel
-launch builds, and a failed build raises with nvcc's output.  ``nvcc`` is
-taken from ``PATH``, else from ``$CUDA_HOME/bin`` (default
-``/usr/local/cuda``).
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles every ``csrc/*.cu`` to an object, one nvcc process per
+source, all started together; one more nvcc links the objects into a shared
+library with a plain C interface.  The library lands in ``_build/`` next to
+this file, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once.  Nothing is built at import:
+the first kernel launch builds, and a failed build raises with nvcc's
+output.  ``nvcc`` is taken from ``PATH``, else from ``$CUDA_HOME/bin``
+(default ``/usr/local/cuda``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # A build takes seconds; a hung compiler must not hang the caller.
 NVCC_TIMEOUT_S = 600
@@ -40,6 +42,15 @@ SIGNATURES = {
     + [_F, _F, _F, _P],
     "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _P],
     "gsmvi_bam_select": [_P] * 4 + [_I, _P],
+    "gsmvi_advi_l_adam": [_P] * 5 + [_I, _I] + [_F] * 9 + [_P],
+    "gsmvi_advi_loc_adam": [_P] * 4 + [_I, _I] + [_F] * 8 + [_P],
+    "gsmvi_advi_residual": [_P] * 5 + [_I, _P],
+    "gsmvi_advi_residual_finalize": [_P, _I, _P, _I, _F, _P],
+    "gsmvi_advi_sweep": [_P] * 4 + [_I, _P],
+    "gsmvi_advi_stl_cols": [_P] * 5 + [_I, _I, _P],
+    "gsmvi_advi_grad_l": [_P] * 4 + [_I, _I, _P],
+    "gsmvi_advi_stl_decide": [_P, _P],
+    "gsmvi_advi_stl_apply": [_P] * 11 + [_I] + [_F] * 8 + [_P],
 }
 
 
@@ -67,6 +78,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgsmvi_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds, logs) -> str:
+    """Run the nvcc commands concurrently, each writing to its log file;
+    return their joint output, or raise with the output of the first that
+    failed.  Every process has ended when this returns or raises."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    outs = [Path(log).read_text() for log in logs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out[-6000:]}")
+    return "".join(outs)
+
+
 def build() -> tuple:
     """(path of the built library, seconds spent in nvcc; 0 if cached).
     nvcc's output (with ``-Xptxas -v``: registers, shared memory, spills of
@@ -75,19 +113,24 @@ def build() -> tuple:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = nvcc_path()
+    tag = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    tmp = Path(f"{tag}.tmp.so")
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [Path(f"{tag}.{p.stem}.o") for p in srcs]
+    logs = [Path(f"{tag}.{p.stem}.out") for p in [*srcs, Path("link")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-6000:]}")
-    os.replace(tmp, so)
+    try:
+        out = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(srcs, objs)], logs[:-1])
+        out += _nvcc_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)]], logs[-1:])
+        seconds = time.perf_counter() - t0
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)
+    finally:
+        for path in (tmp, *objs, *logs):
+            path.unlink(missing_ok=True)
     return so, seconds
 
 

@@ -277,3 +277,137 @@ def test_bam_fits_run_through_the_kernels(cuda):
     assert torch.equal(states[0].mean, states[1].mean)
     assert torch.equal(states[0].factor, states[1].factor)
     assert states[0].ns_stats == states[1].ns_stats
+
+
+# ---------------------------------------------------------------------------
+# ADVI: K9 make_fused_advi_multistep and K10 make_fused_advi_stl_multistep
+# ---------------------------------------------------------------------------
+
+def _advi_inputs(dev, b, d, spc, seed=0):
+    """A benign target's score params, a state near the identity with its
+    exact inverse, zero moments and an eps block, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    l = np.tril(np.eye(d) + 0.02 * rng.standard_normal((d, d)))
+    arrays = [np.linspace(-1.0, 1.0, d)[None], np.eye(d),
+              0.1 * rng.standard_normal(d), l, np.tril(np.linalg.inv(l)),
+              rng.standard_normal((spc * b, d))]
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in arrays]
+
+
+def _advi_state_close(got, want, lrs):
+    """The chip_smoke.py bound: each tensor within 1e-5 * max(1, |x|) on
+    >= 99.99 % of its entries; loc and L within 2 * sum(lr) everywhere."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        assert bool(torch.isfinite(g).all())
+        ok = diff <= 1e-5 * w.abs().clamp(min=1.0)
+        assert float(ok.double().mean()) >= 0.9999, i
+        if i < 2:
+            assert float(diff.max()) <= 2.0 * sum(lrs)
+
+
+ADVI_K10_CASES = {
+    # name: (nmax, lr at sub-step 2, poisoned sub-step, (n_done, stiff))
+    "full": (8, 1e-3, None, (8, 0)),
+    "nmax_lt_spc": (3, 1e-3, None, (3, 0)),
+    "gate_trip_at_3": (8, 0.05, None, (3, 1)),
+    "nonfinite_gradient": (8, 1e-3, 2, (2, 1)),
+}
+
+
+@pytest.mark.parametrize("b,d", [(8, 16), (8, 200), (32, 256), (64, 1024)])
+def test_advi_k9_matches_plain(cuda, b, d):
+    from gsmvi_tpu_torch.ops import advi_fused as af
+
+    spc = 8
+    mean_t, prec, loc, l, _, block = _advi_inputs(cuda, b, d, spc, seed=d)
+    z, zz = torch.zeros(d, device=cuda), torch.zeros((d, d), device=cuda)
+    lrs = [1e-3] * spc
+    _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+        lambda s: 0.0, 0.9, 0.999, torch.arange(spc, dtype=torch.int32)))
+    k9 = af.make_fused_advi_multistep(fs.gaussian_score, 2, b, d, spc)
+    for nmax in (1, 3, spc):
+        args = (lrs, bc1s, bc2s, nmax, block, loc, l, z, z, zz, zz, mean_t,
+                prec)
+        got = k9(*args)
+        want = af.advi_multistep_reference(fs.gaussian_score_reference,
+                                           (mean_t, prec), *args[:-2],
+                                           batch=b)
+        _advi_state_close(got, want, lrs[:nmax])
+        if nmax == 1:       # m = 0.1 g: the first gradient within 1e-5
+            for i in (2, 4):
+                assert _within(got[i], want[i], 1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(ADVI_K10_CASES))
+@pytest.mark.parametrize("b,d", [(8, 200), (32, 256), (16, 1024)])
+def test_advi_k10_matches_plain(cuda, b, d, case):
+    from gsmvi_tpu_torch.ops import advi_fused as af
+
+    nmax, lr2, poison, counts = ADVI_K10_CASES[case]
+    if d == 1024 and case == "full":
+        lr2 = 1e-4                         # D * lr stays under the gate
+    spc = 8
+    mean_t, prec, loc, l, ainv, block = _advi_inputs(cuda, b, d, spc,
+                                                     seed=d + 1)
+    if poison is not None:
+        block[poison * b:(poison + 1) * b] = 1e30
+    z, zz = torch.zeros(d, device=cuda), torch.zeros((d, d), device=cuda)
+    lrs = [1e-4 if d == 1024 else 1e-3] * spc
+    lrs[2] = lr2
+    _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+        lambda s: 0.0, 0.9, 0.999, torch.arange(spc, dtype=torch.int32)))
+    args = (lrs, bc1s, bc2s, nmax, block, loc, l, ainv, z, z, zz, zz,
+            mean_t, prec)
+    k10 = af.make_fused_advi_stl_multistep(fs.gaussian_score, 2, b, d, spc)
+    *got, nd_k, st_k = k10(*args)
+    *want, nd_p, st_p = af.advi_stl_multistep_reference(
+        fs.gaussian_score_reference, (mean_t, prec), *args[:-2], batch=b)
+    assert (int(nd_k), int(st_k)) == (int(nd_p), int(st_p)) == counts
+    _advi_state_close(got, want, lrs[:counts[0]])
+
+
+def test_advi_fit_fused_raises_outside_the_kernel_range(cuda):
+    """On the card fit_fused runs K9/K10 or raises; fit is plain torch."""
+    from gsmvi_tpu_torch import ADVI, Adam
+
+    d = 64
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = ADVI(d, t.lp, fused_score=t.fused_score, device="cuda")
+    with pytest.raises(ValueError, match="ADVI CUDA kernels take B"):
+        g.fit_fused(0, batch_size=96, niter=2, verbose=False)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ADVI(d, t.lp, fused_score=t.fused_score, device="cuda",
+             dtype=torch.float64).fit_fused(0, batch_size=16, niter=2,
+                                            verbose=False)
+    fs.reset_launch_counts()
+    mean, cov, losses = g.fit(0, Adam(1e-2), batch_size=96, niter=2,
+                              verbose=False)
+    assert mean.is_cuda and len(losses) == 3
+    assert sum(fs.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("estimator", ["analytic", "stl"])
+def test_advi_fit_fused_runs_through_the_kernels(cuda, estimator):
+    """fit_fused on CUDA launches K9 (analytic) or K10 (STL) and K3, and
+    its trajectory does not depend on spc."""
+    from gsmvi_tpu_torch import ADVI
+
+    d, b, niter = 64, 16, 40
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    fs.reset_launch_counts()
+    states = []
+    for spc in (1, 8):
+        g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=spc,
+                 device="cuda")
+        states.append(g.fit_fused(0, learning_rate=1e-3, batch_size=b,
+                                  niter=niter, verbose=False,
+                                  return_state=True, estimator=estimator)[0])
+    counts = fs.launch_counts()
+    k9, k10 = (counts["make_fused_advi_multistep"],
+               counts["make_fused_advi_stl_multistep"])
+    assert (k9 > 0 and k10 == 0) if estimator == "analytic" else (k10 > 0)
+    assert counts["gaussian_score"] >= 2 * (niter + 1)
+    for a, c in zip(states[0][:-2], states[1][:-2]):
+        assert torch.equal(a, c)
