@@ -52,12 +52,38 @@ the script exits non-zero):
    plain versions' it/s on the same blocks beside them, and both legs'
    moments must be under their bounds.
 
-Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, and each
-leg of 9) and read just after it.  Then the card's name and power limit,
-the kernel table, and as the last line
-``{"ok": true, "device": {...}}`` with ``count`` 1: everything runs on
-device 0.  Without a CUDA device it exits 1 before printing any result.
-Nothing here imports JAX.
+10. dense kernels: K5 ``gsm_update_fused`` against ``gsm_update`` at
+    (B=32, D=256), (B=512, D=256), (B=8, D=200) and batched at K=4: the
+    max-abs error, and S symmetric bit for bit.
+11. dense paths: ``GSM(D=256, ..., use_factor=False, device="cuda")
+    .fit(seed, batch_size=32, niter=N_ITER)`` (K5 exactly N_ITER + 1
+    times, moments under the GSM bound), and ``GSM(D=256, ...,
+    device="cuda").fit(seed, batch_size=512, niter=N_HUGE)``, which the
+    huge-batch guard sends to the dense route (K5 N_HUGE + 1 times, moments
+    under the huge-batch bound).
+12. batch kernels: K6 ``make_fused_eps_batch_multistep`` against
+    ``eps_batch_multistep_reference`` at K=4, B=32, D=256, spc=8: a full
+    block, nmax < spc, and one replica whose sub-step the gates reject;
+    counts equal, and every replica equal to a single K2 call bit for bit.
+13. fit_batch paths at D=256, B=32, K=8 seeds 0..7: ``FactorGSM(...,
+    fused_score=...).fit_batch(..., small_solver="fused")`` (K6 and K3;
+    replicas 0 and 1 equal the single ``fit(0)``/``fit(1)`` on K2 bit for
+    bit), ``GSM.fit_batch`` (batched K1) and ``GSM(use_factor=False)
+    .fit_batch`` (batched K5); every replica under the GSM bound.  Then
+    per-replica and aggregate it/s of the "fused" and "ns" routes at
+    K in {8, 32} and D in {64, 256} (the bench's fit_batch cells) beside
+    the single-fit K2 rate on the same card; K=32 runs fewer steps and
+    checks finiteness only.
+
+Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
+of 9, both fits of 11 and the three fits of 13) and read just after it.
+Then the card's name and power limit, the kernel table (each kernel's
+bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
+its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
+and the time of one PyTorch call computing the same function where there
+is one), and as the last line ``{"ok": true, "device": {...}}`` with
+``count`` 1: everything runs on device 0.  Without a CUDA device it exits 1
+before printing any result.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -127,6 +153,29 @@ STL_COV_ERR_BOUND = 1.5 * 0.98184
 ADVI_GRAD_TOL, ADVI_RTOL, ADVI_FRAC = 1e-5, 1e-5, 0.9999
 ADVI_RAGGED = (8, 200)
 
+# The dense route (K5).  N_HUGE = 3000: at B=512 the JAX dense fits need
+# as many steps as at B=32 (the covariance grows from I at a rate set by
+# the step count; errors 0.94 / 0.39 / 0.057 after 200 / 500 / 1000 steps,
+# tools/jax_dense_bound.py).  The huge-batch bound is 1.5 x the worst of 4
+# JAX CPU dense fits (float32, PRNGKey(k), k = 0..3) of the same target at
+# B=512, niter=N_HUGE (PERF.md): mean_err <= HUGE_MEAN_REF, cov_err <=
+# HUGE_COV_REF.
+HUGE_B, N_HUGE = 512, 3000
+HUGE_MEAN_REF, HUGE_COV_REF = 3.4940e-4, 3.7933e-4
+HUGE_MEAN_ERR_BOUND = 1.5 * HUGE_MEAN_REF
+HUGE_COV_ERR_BOUND = 1.5 * HUGE_COV_REF
+# K5 vs gsm_update (float32 on the card, sums in other orders): the JAX
+# package's kernel-vs-XLA bound, 1e-5 * max(1, |x|) on mu and S.
+DENSE_TOL = 1e-5
+DENSE_SHAPES = ((B, D), (HUGE_B, D), (8, 200))
+# fit_batch: K=8 replicas on the main path; the rate cells of bench.py:514.
+FIT_BATCH_K = 8
+RATE_CELLS = ((64, 8), (64, 32), (256, 8), (256, 32))
+N_RATE = {8: 800, 32: 400}
+# The card's published peaks (NVIDIA H100 SXM data sheet) behind bound_ms.
+F32_FLOPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
 SOURCES = {
     "gsm_eps_update_fused": (
         "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace.cu",
@@ -149,6 +198,12 @@ SOURCES = {
     "make_fused_advi_stl_multistep": (
         "gsmvi_tpu_torch/ops/cuda/csrc/advi.cu",
         "gsmvi_tpu/ops/pallas/advi_fused.py:249"),
+    "gsm_update_fused": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/gsm_step.cu",
+        "gsmvi_tpu/ops/pallas/gsm_step.py:76"),
+    "make_fused_eps_batch_multistep": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
+        "gsmvi_tpu/ops/pallas/batch_fused.py:54"),
 }
 
 
@@ -184,6 +239,35 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _tensors(obj):
+    import torch
+
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+def bound(plain, inputs) -> dict:
+    """The least time the card could take for the work of ``plain()``:
+    the larger of its bytes (each tensor of ``inputs`` read once, each
+    output written once) over HBM_BYTES_PER_S and its matrix-product FLOPs
+    (torch's FlopCounterMode, counted on this run's inputs, so a block
+    that stops early counts what it did) over F32_FLOPS_PER_S."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        out = plain()
+    flops = counter.get_total_flops()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*_tensors(inputs), *_tensors(out)))
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def errs(mean, cov, t):
@@ -448,9 +532,25 @@ def phase_times(fs, dense_gaussian, torch, np):
             cuda_ms(lambda: fs.gaussian_score_reference(x, *params),
                     reps=200)),
     }
+    ref = fs.gaussian_score_reference
+    work = {
+        "gsm_eps_update_fused": (
+            lambda: fs.gsm_eps_update_ns_reference(eps, v, mean, f, ef_t=ef),
+            (eps, v, mean, f, ef)),
+        "make_fused_eps_multistep": (
+            lambda: fs.eps_multistep_reference(ref, params, spc, block, mean,
+                                               f, batch=B),
+            (block, mean, f, *params)),
+        "gaussian_score": (lambda: ref(x, *params), (x, *params)),
+    }
+    # K3's one-call yardstick: addmm with the row mu_t @ prec formed ahead.
+    mp = params[0] @ params[1]
+    library = {"gaussian_score": cuda_ms(
+        lambda: torch.addmm(mp, x, params[1], alpha=-1.0), reps=200)}
     emit({"phase": "times", "B": B, "D": D, "ms_per_call": {
-        k: {"kernel": a, "plain": b} for k, (a, b) in times.items()}})
-    return times
+        k: {"kernel": a, "plain": b, "library": library.get(k)}
+        for k, (a, b) in times.items()}})
+    return times, work, library
 
 
 def phase_bam_paths(BaM, FactorBaM, Regularizers, bf, fs, t, torch):
@@ -590,7 +690,20 @@ def phase_bam_times(bf, fs, fb, t, st, torch):
     emit({"phase": "bam_times", "B": B, "D": D, "spc": spc, "ms_per_call": {
         label: {k: {"kernel": a, "plain": b} for k, (a, b) in tt.items()}
         for label, tt in out.items()}})
-    return out["tier0"]
+    it, gg, lm = bf.BAM_NS_TIERS[0]
+    kw = dict(iters=it, lmax_gate=lm, gu_gate=gg)
+    work = {
+        "bam_eps_update_fused": (
+            lambda: bf.bam_eps_update_ns_reference(
+                eps, v, st.mean, st.factor, reg, ef=ef, **kw),
+            (eps, v, st.mean, st.factor, ef)),
+        "make_fused_bam_multistep": (
+            lambda: bf.bam_multistep_reference(
+                fs.gaussian_score_reference, params, regs, spc, 0, block,
+                st.mean, st.factor, batch=B, **kw),
+            (block, st.mean, st.factor, *params)),
+    }
+    return out["tier0"], work
 
 
 def _advi_problem(np, b, d, spc, seed):
@@ -883,7 +996,297 @@ def phase_advi_times(af, fs, torch, np):
     emit({"phase": "advi_times", "B": B, "D": D, "spc": spc,
           "ms_per_call": {k: {"kernel": a, "plain": b}
                           for k, (a, b) in times.items()}})
-    return times
+    k9_in = (blk, loc, l, z, z, zz, zz, *params)
+    k10_in = (blk, loc, l, ainv, z, z, zz, zz, *params)
+    work = {
+        "make_fused_advi_multistep": (
+            lambda: af.advi_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, *k9_in[:-2], batch=B),
+            k9_in),
+        "make_fused_advi_stl_multistep": (
+            lambda: af.advi_stl_multistep_reference(
+                ref, params, lrs, bc1s, bc2s, spc, *k10_in[:-2], batch=B),
+            k10_in),
+    }
+    return times, work
+
+
+def _dense_inputs(np, b, d, seed, k=None):
+    """(samples, vs, mu0, S0) of a dense GSM step (numpy float32), S0
+    exactly symmetric; a leading replica axis with ``k``."""
+    rng = np.random.default_rng(seed)
+    lead = () if k is None else (k,)
+    a = rng.standard_normal((*lead, d, d))
+    s0 = (a @ np.swapaxes(a, -1, -2) / d + np.eye(d)).astype(np.float32)
+    s0 = 0.5 * (s0 + np.swapaxes(s0, -1, -2))
+    mu = rng.standard_normal((*lead, d))
+    x = mu[..., None, :] + rng.standard_normal((*lead, b, d))
+    v = -(x - rng.standard_normal((*lead, 1, d)))
+    return [np.ascontiguousarray(z, np.float32) for z in (x, v, mu, s0)]
+
+
+def phase_dense_kernels(gs, torch, np):
+    """Phase 10: K5 against its plain version on the same CUDA tensors."""
+    dev = torch.device("cuda")
+    cu = lambda z: torch.from_numpy(z).to(dev)
+    worst = 0.0
+    cases = [(b, d, None) for b, d in DENSE_SHAPES] + [(B, D, 4)]
+    for b, d, k in cases:
+        x, v, mu, s0 = (cu(z) for z in _dense_inputs(np, b, d, 4000 + b + d,
+                                                     k))
+        m_k, s_k = gs.gsm_update_fused(x, v, mu, s0)
+        m_p, s_p = gs.gsm_update_replicas_reference(x, v, mu, s0)
+        torch.cuda.synchronize()
+        em, tm = _bam_close(m_k, m_p, DENSE_TOL)
+        es, ts = _bam_close(s_k, s_p, DENSE_TOL)
+        sym = bool(torch.equal(s_k, s_k.mT))
+        rec = {"kernel": "gsm_update_fused", "B": b, "D": d, "K": k,
+               "mean_err": em, "mean_tol": tm, "s_err": es, "s_tol": ts,
+               "s_symmetric_bitwise": sym}
+        if k is not None:
+            singles = [gs.gsm_update_fused(x[i], v[i], mu[i], s0[i])
+                       for i in range(k)]
+            rec["replicas_equal_single_calls"] = all(
+                torch.equal(m_k[i], m) and torch.equal(s_k[i], s_)
+                for i, (m, s_) in enumerate(singles))
+            check(rec["replicas_equal_single_calls"],
+                  f"batched K5 differs from its single calls: {rec}")
+        emit({"phase": "dense_kernels", **rec})
+        check(em <= tm and es <= ts,
+              f"K5 disagrees with its plain version: {rec}")
+        check(sym, f"K5's S is not symmetric bit for bit: {rec}")
+        worst = max(worst, em, es)
+    return worst
+
+
+def _timed(fn, torch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_dense_paths(GSM, fs, t, torch):
+    """Phase 11: the dense route on K5 at B=32 (use_factor=False) and at
+    B=512 (the huge-batch guard)."""
+    counts = []
+    for label, b, niter, kw, bounds in (
+            ("dense", B, N_ITER, {"use_factor": False},
+             (MEAN_ERR_BOUND, COV_ERR_BOUND)),
+            ("huge_batch", HUGE_B, N_HUGE, {},
+             (HUGE_MEAN_ERR_BOUND, HUGE_COV_ERR_BOUND))):
+        g = GSM(D, t.lp, t.lp_g, device="cuda", **kw)
+        check(not g._factor_route(b) and g._dense_fused(b),
+              f"{label}: GSM must run the dense route on K5")
+        fs.reset_launch_counts()
+        (mean, cov), wall = _timed(lambda: g.fit(
+            FIT_SEED, batch_size=b, niter=niter, verbose=False), torch)
+        c = fs.launch_counts()
+        counts.append(c)
+        em, ec = errs(mean, cov, t)
+        emit({"phase": "dense_path", "path": label, "fitter": "GSM",
+              "D": D, "B": b, "niter": niter, "launches": c,
+              "mean_err": em, "cov_err": ec, "mean_err_bound": bounds[0],
+              "cov_err_bound": bounds[1], "iters_per_s": (niter + 1) / wall})
+        check(c["gsm_update_fused"] == niter + 1,
+              f"{label}: K5 launches {c['gsm_update_fused']} != niter+1")
+        check(sum(c.values()) == niter + 1, f"{label}: other kernels ran")
+        check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
+              and tuple(cov.shape) == (D, D), f"{label}: shape/finiteness")
+        _errs_bounded(em, ec, bounds, f"GSM {label} route")
+    return counts
+
+
+def phase_batch_kernels(bfm, fs, t, torch):
+    """Phase 12: K6 against its plain version at K=4, B=32, D=256, spc=8,
+    and each replica against a single K2 call on it."""
+    dev = torch.device("cuda")
+    k, spc = 4, 8
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device=dev).manual_seed(15)
+    blocks = torch.randn((k, spc * B, D), generator=gen, device=dev)
+    means = torch.zeros((k, D), device=dev)
+    factors = torch.eye(D, device=dev).repeat(k, 1, 1)
+    # Draw rows of replica 2 at sub-step 4 scaled over three decades: the
+    # residual gates reject that sub-step (as in phase 1).
+    rejected = blocks.clone()
+    rejected[2, 4 * B:5 * B] *= torch.logspace(0.0, 3.0, B, device=dev)[:, None]
+    step = bfm.make_fused_eps_batch_multistep(score_fn, len(params), B, D, k,
+                                              spc)
+    single = fs.make_fused_eps_multistep(score_fn, len(params), B, D, spc)
+    worst = 0.0
+    for case, blk, nmax, want in (
+            ("full", blocks, spc, [spc] * k),
+            ("nmax_lt_spc", blocks, 3, [3] * k),
+            ("one_rejected", rejected, spc, [spc, spc, spc - 1, spc])):
+        m_k, f_k, n_k = step(nmax, blk, means, factors, *params)
+        m_p, f_p, n_p = bfm.eps_batch_multistep_reference(
+            fs.gaussian_score_reference, params, nmax, blk, means, factors,
+            batch=B)
+        singles = [single(nmax, blk[i], means[i], factors[i], *params)
+                   for i in range(k)]
+        torch.cuda.synchronize()
+        em = float((m_k - m_p).abs().max())
+        ef_ = float((f_k - f_p).abs().max())
+        fscale = float(f_p.abs().max())
+        same = all(torch.equal(m_k[i], s[0]) and torch.equal(f_k[i], s[1])
+                   and int(s[2]) == int(n_k[i])
+                   for i, s in enumerate(singles))
+        rec = {"kernel": "make_fused_eps_batch_multistep", "case": case,
+               "K": k, "B": B, "D": D, "spc": spc, "nmax": nmax,
+               "n_acc": [n_k.tolist(), n_p.tolist()], "mean_err": em,
+               "f_err": ef_, "f_tol": MULTI_TOL * fscale,
+               "mean_tol": MULTI_TOL, "replicas_equal_single_k2": same}
+        emit({"phase": "batch_kernels", **rec})
+        check(n_k.tolist() == n_p.tolist() == want, f"K6 counts {rec}")
+        check(em <= MULTI_TOL and ef_ <= MULTI_TOL * fscale,
+              f"K6 disagrees with its plain version: {rec}")
+        check(same, f"a K6 replica differs from its single K2 call: {rec}")
+        worst = max(worst, em, ef_)
+    return worst
+
+
+def _replica_errs(means, covs, t):
+    return [errs(m, c, t) for m, c in zip(means, covs)]
+
+
+def phase_fit_batch_paths(GSM, FactorGSM, fs, t, st_single, torch):
+    """Phase 13a: the three fit_batch routes at D=256, B=32, K=8."""
+    seeds = range(FIT_BATCH_K)
+    fg = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score, device="cuda")
+    runs = (
+        ("fused", "FactorGSM(fused_score).fit_batch(small_solver='fused')",
+         lambda: fg.fit_batch(seeds, batch_size=B, niter=N_ITER,
+                              return_state=True, small_solver="fused"),
+         "make_fused_eps_batch_multistep"),
+        ("ns", "GSM.fit_batch (batched K1)",
+         lambda: GSM(D, t.lp, t.lp_g, device="cuda").fit_batch(
+             seeds, batch_size=B, niter=N_ITER, return_state=True),
+         "gsm_eps_update_fused"),
+        ("dense", "GSM(use_factor=False).fit_batch (batched K5)",
+         lambda: GSM(D, t.lp, t.lp_g, device="cuda", use_factor=False)
+         .fit_batch(seeds, batch_size=B, niter=N_ITER, return_state=True),
+         "gsm_update_fused"))
+    counts, states = [], {}
+    for route, fitter, run, kernel in runs:
+        fs.reset_launch_counts()
+        st, wall = _timed(run, torch)
+        c = fs.launch_counts()
+        counts.append(c)
+        states[route] = st
+        e = _replica_errs(st.mean, st.cov, t)
+        emit({"phase": "fit_batch_path", "route": route, "fitter": fitter,
+              "K": FIT_BATCH_K, "D": D, "B": B, "niter": N_ITER,
+              "launches": c, "n_accepted": st.n_accepted.tolist(),
+              "mean_err": [x[0] for x in e], "cov_err": [x[1] for x in e],
+              "iters_per_s_per_replica": (N_ITER + 1) / wall,
+              "aggregate_iters_per_s": FIT_BATCH_K * (N_ITER + 1) / wall})
+        check(c[kernel] > 0, f"fit_batch {route}: {kernel} not launched")
+        if route == "fused":
+            check(c["gaussian_score"] > 0
+                  and c["make_fused_eps_multistep"] == 0
+                  and c["gsm_eps_update_fused"] == 0,
+                  "fit_batch fused: K3 must launch, K1/K2 must not")
+        else:
+            check(c[kernel] == N_ITER + 1,
+                  f"fit_batch {route}: {kernel} launches != niter+1")
+        check(bool(torch.isfinite(st.mean).all()
+                   and torch.isfinite(st.cov).all()),
+              f"fit_batch {route}: not finite")
+        for i, (em, ec) in enumerate(e):
+            _errs_bounded(em, ec, (MEAN_ERR_BOUND, COV_ERR_BOUND),
+                          f"fit_batch {route} replica {i}")
+    # Replicas 0 and 1 of the K6 fit against the single K2 fits.
+    st1 = fg.fit(1, batch_size=B, niter=N_ITER, verbose=False,
+                 return_state=True)
+    fused = states["fused"]
+    same = [bool(torch.equal(fused.mean[i], s.mean)
+                 and torch.equal(fused.factor[i], s.factor)
+                 and int(fused.n_accepted[i]) == int(s.n_accepted))
+            for i, s in enumerate((st_single, st1))]
+    emit({"phase": "fit_batch_identity", "replicas_equal_single_fit": same})
+    check(all(same), "K6 replicas 0/1 differ from the single K2 fits")
+    return counts
+
+
+def phase_fit_batch_rates(FactorGSM, dense_gaussian, torch):
+    """Phase 13b: it/s of the bench's fit_batch cells beside the single
+    K2 fit on the same card (host clock around each fit + synchronize)."""
+    dev = torch.device("cuda")
+    out = {}
+    for d in sorted({d for d, _ in RATE_CELLS}):
+        t = dense_gaussian(TARGET_SEED, d, device=dev)
+        fg = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                       device=dev)
+        fg.fit(1, batch_size=B, niter=20, verbose=False)            # warm up
+        _, wall = _timed(lambda: fg.fit(0, batch_size=B, niter=N_RATE[8],
+                                        verbose=False), torch)
+        out[f"D{d}_single_k2"] = {"iters_per_s": (N_RATE[8] + 1) / wall}
+        for dd, k in RATE_CELLS:
+            if dd != d:
+                continue
+            for solver in ("fused", "ns"):
+                g = fg if solver == "fused" else FactorGSM(
+                    d, t.lp, t.lp_g, device=dev)
+                n = N_RATE[k]
+                g.fit_batch(range(k), batch_size=B, niter=20,
+                            small_solver=solver)                  # warm up
+                (m, c), wall = _timed(lambda: g.fit_batch(
+                    range(k), batch_size=B, niter=n, small_solver=solver),
+                    torch)
+                ips = (n + 1) / wall
+                rec = {"iters_per_s_per_replica": ips,
+                       "aggregate_iters_per_s": k * ips, "niter": n}
+                if k == FIT_BATCH_K:
+                    rec["worst_err"] = [max(x) for x in zip(
+                        *_replica_errs(m, c, t))]
+                out[f"D{d}_K{k}_{solver}"] = rec
+                check(bool(torch.isfinite(m).all()
+                           and torch.isfinite(c).all()),
+                      f"fit_batch D{d} K{k} {solver}: not finite")
+    emit({"phase": "fit_batch_rates", "B": B, "cells": out})
+    return out
+
+
+def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
+    """Per-call times of K5 (B=32 and B=512, D=256) and K6 (K=8, B=32,
+    D=256, spc=8), kernel vs plain version (CUDA events), and their
+    bound inputs."""
+    dev = torch.device("cuda")
+    cu = lambda z: torch.from_numpy(z).to(dev)
+    times, work = {}, {}
+    for b in (B, HUGE_B):
+        x, v, mu, s0 = (cu(z) for z in _dense_inputs(np, b, D, 4100 + b))
+        times[f"gsm_update_fused_B{b}"] = (
+            cuda_ms(lambda: gs.gsm_update_fused(x, v, mu, s0), reps=50),
+            cuda_ms(lambda: gs.gsm_update_replicas_reference(x, v, mu, s0),
+                    reps=50))
+        work[f"gsm_update_fused_B{b}"] = (
+            lambda x=x, v=v, mu=mu, s0=s0:
+            gs.gsm_update_replicas_reference(x, v, mu, s0), (x, v, mu, s0))
+    k, spc = FIT_BATCH_K, 8
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device=dev).manual_seed(16)
+    blocks = torch.randn((k, spc * B, D), generator=gen, device=dev)
+    means = torch.zeros((k, D), device=dev)
+    factors = torch.eye(D, device=dev).repeat(k, 1, 1)
+    step = bfm.make_fused_eps_batch_multistep(score_fn, len(params), B, D, k,
+                                              spc)
+    plain = lambda: bfm.eps_batch_multistep_reference(
+        fs.gaussian_score_reference, params, spc, blocks, means, factors,
+        batch=B)
+    times["make_fused_eps_batch_multistep"] = (
+        cuda_ms(lambda: step(spc, blocks, means, factors, *params), reps=10),
+        cuda_ms(plain, reps=3, warmup=1))
+    work["make_fused_eps_batch_multistep"] = (
+        plain, (blocks, means, factors, *params))
+    emit({"phase": "dense_batch_times", "D": D, "K": k, "spc": spc,
+          "ms_per_call": {n: {"kernel": a, "plain": p}
+                          for n, (a, p) in times.items()}})
+    times["gsm_update_fused"] = times[f"gsm_update_fused_B{B}"]
+    work["gsm_update_fused"] = work[f"gsm_update_fused_B{B}"]
+    return times, work
 
 
 def main() -> int:
@@ -901,7 +1304,9 @@ def main() -> int:
     from gsmvi_tpu_torch.models import dense_gaussian
     from gsmvi_tpu_torch.ops import advi_fused as af
     from gsmvi_tpu_torch.ops import bam_fused as bf
+    from gsmvi_tpu_torch.ops import batch_fused as bfm
     from gsmvi_tpu_torch.ops import fused_step as fs
+    from gsmvi_tpu_torch.ops import gsm_step as gs
     from gsmvi_tpu_torch.ops.cuda._build import load_library
 
     pin_fp32()
@@ -1001,17 +1406,32 @@ def main() -> int:
     worst.update(phase_advi_kernels(af, fs, torch, np))
     advi_counts = phase_advi_paths(ADVI, Adam, af, fs, t, torch)
 
-    times = phase_times(fs, dense_gaussian, torch, np)
-    times.update(phase_bam_times(bf, fs, fb, t, st6, torch))
-    times.update(phase_advi_times(af, fs, torch, np))
-    launches = {name: main_counts[name] + counts[name]
-                + sum(c[name] for c in bam_counts + advi_counts)
-                for name in SOURCES}
+    worst["gsm_update_fused"] = phase_dense_kernels(gs, torch, np)
+    dense_counts = phase_dense_paths(GSM, fs, t, torch)
+    worst["make_fused_eps_batch_multistep"] = phase_batch_kernels(
+        bfm, fs, t, torch)
+    batch_counts = phase_fit_batch_paths(GSM, FactorGSM, fs, t, st, torch)
+    phase_fit_batch_rates(FactorGSM, dense_gaussian, torch)
+
+    times, work, library = phase_times(fs, dense_gaussian, torch, np)
+    for more in (phase_bam_times(bf, fs, fb, t, st6, torch),
+                 phase_advi_times(af, fs, torch, np),
+                 phase_dense_batch_times(gs, bfm, fs, t, torch, np)):
+        times.update(more[0])
+        work.update(more[1])
+    bounds = {name: bound(*work[name]) for name in SOURCES}
+    emit({"phase": "bounds", **bounds})
+    path_counts = ([main_counts, counts] + list(bam_counts)
+                   + list(advi_counts) + dense_counts + batch_counts)
+    launches = {name: sum(c[name] for c in path_counts) for name in SOURCES}
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": worst[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name]["bound_ms"],
+         "bound_by": bounds[name]["bound_by"],
+         "library_ms": library.get(name)}
         for name, (src, rep) in SOURCES.items()]})
     # Every phase ran on device 0, the one card this script drives.
     emit({"ok": True, "device": {"platform": "gpu",

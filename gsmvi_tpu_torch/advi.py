@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple, Union
 import numpy as np
 import torch
 
-from .config import default_dtype, pin_fp32
+from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
                      run_fit_loop)
@@ -142,7 +142,7 @@ class FusedADVISTLState(NamedTuple):
 
 
 def advi_state_from_numpy(loc, l, seed: int, step: int, *, moments=None,
-                          ainv=None, adam=None, dtype=None, device="cpu"):
+                          ainv=None, adam=None, dtype=None, device=None):
     """An ADVI state from numpy arrays as the JAX package hands them over
     (``np.asarray(jax_array)``), so both packages continue from one state.
 
@@ -152,7 +152,9 @@ def advi_state_from_numpy(loc, l, seed: int, step: int, *, moments=None,
       omitted): ``FusedADVISTLState`` when ``ainv`` is given, else
       ``FusedADVIState``.
 
-    ``dtype`` defaults to the dtype of ``loc``."""
+    ``dtype`` defaults to the dtype of ``loc``; ``device`` to the CUDA card.
+    """
+    device = resolve_device(device)
     loc = np.asarray(loc)
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, loc.dtype)).dtype
@@ -203,18 +205,20 @@ def _tree_select(good, new, old):
 class ADVI:
     """Fit a dense-covariance Gaussian by maximizing the ELBO."""
 
-    def __init__(self, D, lp, device="cpu", dtype=None, fused_score=None,
+    def __init__(self, D, lp, device=None, dtype=None, fused_score=None,
                  steps_per_call=None, mesh=None):
         """``lp(x)``, x (B, D), returns the batch-summed log density and
         must be differentiable by torch autograd.  ``fused_score``: the
         ``(score_fn, params)`` pair (``target.fused_score``) that
-        ``fit_fused`` runs inside its kernels; ``fit`` does not use it."""
+        ``fit_fused`` runs inside its kernels; ``fit`` does not use it.
+        ``device`` defaults to the CUDA card (raises without one; pass
+        ``device="cpu"`` for the CPU)."""
         if mesh is not None:
             raise NotImplementedError("mesh=: the data-parallel ADVI batch "
                                       "is not ported")
         self.D = D
         self.lp = lp
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.fused_score = fused_score
         self.steps_per_call = (steps_per_call if steps_per_call is not None

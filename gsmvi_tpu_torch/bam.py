@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .config import default_dtype, pin_fp32
+from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
                      retry_seed, run_fit_loop)
@@ -37,7 +37,8 @@ class BaM:
            when 4 (B+1) <= D; U is exactly rank B+1, so both agree).
     jit_compile — accepted for parity; only True (the tensor-callable
            route) is ported.
-    device, dtype — where and in what precision the fit runs.
+    device, dtype — where and in what precision the fit runs (default: the
+           CUDA card, ``"cuda"``; raises without one; torch's default dtype).
     sqrt_method — the dense root: "auto" (= "eigh" on CPU and GPU, as the
            JAX package picks off the TPU), "eigh" or "newton".
     use_factor — "auto" (factor route on CUDA), True or False.
@@ -45,7 +46,7 @@ class BaM:
     """
 
     def __init__(self, D, lp, lp_g, use_lowrank=False, jit_compile=True,
-                 device="cpu", dtype=None, sqrt_method: str = "auto",
+                 device=None, dtype=None, sqrt_method: str = "auto",
                  auto_lowrank: bool = True,
                  use_factor: "bool | str" = "auto",
                  use_fused: "bool | str" = "auto", fused_score=None):
@@ -63,7 +64,7 @@ class BaM:
         self.lp_g = lp_g
         self.use_lowrank = use_lowrank
         self.jit_compile = jit_compile
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.sqrt_method = sqrt_method
         self.auto_lowrank = auto_lowrank

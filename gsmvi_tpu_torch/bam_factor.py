@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from .config import default_dtype, pin_fp32
+from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
                      retry_seed, run_fit_loop)
@@ -58,14 +58,16 @@ __all__ = ["FactorBaM"]
 class FactorBaM:
     """BaM on factor state; ``fit`` surface matches ``BaM.fit``."""
 
-    def __init__(self, D, lp, lp_g, device="cpu", dtype=None,
+    def __init__(self, D, lp, lp_g, device=None, dtype=None,
                  solver: str = "auto", use_fused: "bool | str" = "auto",
                  fused_score=None, steps_per_call=None,
                  lmax_gate: float = LMAX_GATE_DEFAULT,
                  gu_gate: float = GU_GATE_DEFAULT,
                  ns_iters=BAM_NS_ITERS_DEFAULT, ns_profile: str = "auto"):
-        """``solver`` ("auto"/"svd"/"eigh") picks the small-space spectrum
-        of the plain route and of the stiff replays (``ops/bam_eps.py``).
+        """``device`` defaults to the CUDA card (raises without one; pass
+        ``device="cpu"`` for the CPU).  ``solver`` ("auto"/"svd"/"eigh")
+        picks the small-space spectrum of the plain route and of the stiff
+        replays (``ops/bam_eps.py``).
         ``use_fused`` ("auto"/True/False): on a CUDA device the step runs on
         the kernels unless it is False; with ``fused_score`` the whole step
         runs ``steps_per_call`` sub-steps per call.  ``lmax_gate``/``gu_gate``
@@ -77,7 +79,7 @@ class FactorBaM:
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.solver = solver
         self.use_fused = use_fused

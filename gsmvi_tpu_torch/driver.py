@@ -10,7 +10,9 @@ prints), and a fit runs ``niter + 1`` steps, as the reference does.
 Eps for absolute step ``s`` of a fit seeded with ``seed`` comes from a
 ``torch.Generator`` seeded with ``step_seed(seed, s)`` (a splitmix64 mix of
 the pair), so every trajectory is invariant to chunking and steps-per-call
-and resumes exactly from a saved (seed, step).
+and resumes exactly from a saved (seed, step).  A ``fit_batch`` replica
+seeded with ``seed_i`` draws from the same stream (``draw_replicas``), so
+it draws exactly what ``fit(seed_i)`` draws.
 """
 
 from __future__ import annotations
@@ -59,6 +61,31 @@ class EpsStream:
         self.generator.manual_seed(step_seed(seed, step))
         return torch.randn((batch, d), generator=self.generator, dtype=dtype,
                            device=self.generator.device)
+
+
+def draw_replicas(draw: Callable, seeds, step: int, batch: int, d: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """(K, B, D) draws of K replicas at absolute step ``step``: replica i's
+    is ``draw(seeds[i], step, batch, d, dtype)``, the draw of a single fit
+    seeded with ``seeds[i]`` (``draw`` is a fitter's ``_eps``, an
+    ``EpsStream`` or a stand-in for it).  The host seeds one generator per
+    replica and step: the cost that keeps each replica on its own stream."""
+    return torch.stack([draw(s, step, batch, d, dtype) for s in seeds])
+
+
+def broadcast_replicas(x, default, k: int, shape, dtype, device):
+    """``fit_batch`` initial-state helper (``gsmvi_tpu/driver.py:106-116``):
+    ``x`` (or ``default`` when None) of ``shape`` broadcast to ``k``
+    replicas, or an already per-replica (k, *shape) stack passed through;
+    a contiguous (k, *shape) tensor."""
+    x = torch.as_tensor(default if x is None else x, dtype=dtype,
+                        device=device)
+    if x.dim() == len(shape):
+        x = x.expand(k, *shape)
+    if tuple(x.shape) != (k, *shape):
+        raise ValueError(f"expected {tuple(shape)} or {(k, *shape)}, got "
+                         f"{tuple(x.shape)}")
+    return x.contiguous()
 
 
 class RunnerCache:

@@ -1,12 +1,17 @@
 """GSM fitter: Gaussian Score Matching VI on PyTorch.
 
-Counterpart of ``gsmvi_tpu/gsm.py:36-329``: ``GSM(D, lp, lp_g)`` and
-``fit(seed, ...) -> (mean, cov)``.  ``use_factor="auto"`` hands the fit to
-``FactorGSM`` (the eps-coordinate route, whose step runs on the Hopper
-kernels) exactly when the fitter's device is CUDA; elsewhere the dense route
-runs: sample from the maintained Cholesky factor, score, the Gram-form
-update (``ops/gsm.py``), and an on-device Cholesky accept/revert.  The dense
-route is plain torch on every device (its TPU kernel is not ported yet).
+Counterpart of ``gsmvi_tpu/gsm.py:36-397``: ``GSM(D, lp, lp_g)``,
+``fit(seed, ...) -> (mean, cov)`` and ``fit_batch(seeds, ...)`` for K
+independent replicas.  ``use_factor="auto"`` hands the fit to ``FactorGSM``
+(the eps-coordinate route, whose step runs on the Hopper kernels) exactly
+when the fitter's device is CUDA; elsewhere, with ``use_factor=False`` and
+in the huge-batch regime (B >= 128 with 2B > D) the dense route runs:
+sample from the maintained Cholesky factor, score, the Gram-form update,
+and an on-device Cholesky accept/revert (``torch.linalg.cholesky_ex``,
+as JAX computes it in XLA outside its kernel).  On a CUDA device in
+float32 the dense update runs on K5 (``ops/gsm_step.py``) for every shape
+in its range and raises outside it; ``use_fused=False`` runs the plain
+update (``ops/gsm.py``) there, and off the card it always runs.
 """
 
 from __future__ import annotations
@@ -15,12 +20,16 @@ import warnings
 
 import torch
 
-from .config import default_dtype, pin_fp32
+from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import EpsStream, make_chunk_runner, on_gpu, run_fit_loop
-from .ops.gsm import gsm_update_stats
+from .driver import (EpsStream, broadcast_replicas, draw_replicas,
+                     make_chunk_runner, on_gpu, run_fit_loop)
 from .ops.gsm_factor import factor_to_cov
-from .state import FactorVIState, VIState, accept_or_revert, init_state
+from .ops.gsm_step import (GSM_STEP_BATCH_RANGE, GSM_STEP_DIM_RANGE,
+                           gsm_step_supports, gsm_update_fused,
+                           gsm_update_replicas_reference)
+from .state import (FactorVIState, VIState, accept_or_revert, init_state,
+                    per_replica)
 
 
 class GSM:
@@ -28,22 +37,23 @@ class GSM:
 
     D    — dimensionality.
     lp   — target log-probability callable (monitors only).
-    lp_g — score callable on tensors, (B, D) -> (B, D).
-    device, dtype — where and in what precision the fit runs (default CPU,
-           torch's default dtype).
+    lp_g — score callable on tensors, (B, D) -> (B, D), row by row.
+    device, dtype — where and in what precision the fit runs (default: the
+           CUDA card, ``"cuda"``; raises without one; torch's default dtype).
     use_factor — "auto" (factor route on CUDA), True or False.
-    use_fused, fused_score — passed to the delegated ``FactorGSM``; on CUDA
-           a dtype or shape its kernels do not take raises unless
-           ``use_fused=False``.
+    use_fused — on CUDA the step runs the kernels (the dense route's K5, the
+           delegated ``FactorGSM``'s K1/K2/K6) and a dtype or shape they do
+           not take raises, unless ``use_fused=False``.
+    fused_score — passed to the delegated ``FactorGSM``.
     """
 
-    def __init__(self, D, lp, lp_g, device="cpu", dtype=None,
+    def __init__(self, D, lp, lp_g, device=None, dtype=None,
                  use_fused: "bool | str" = "auto",
                  use_factor: "bool | str" = "auto", fused_score=None):
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.use_fused = use_fused
         self.use_factor = use_factor
@@ -52,11 +62,35 @@ class GSM:
         self._eps = EpsStream(self.device)
         self._runners = {}
 
-    def _get_runner(self, batch_size: int):
-        if batch_size not in self._runners:
-            self._runners[batch_size] = make_chunk_runner(
-                self._make_step(batch_size))
-        return self._runners[batch_size]
+    def _get_runner(self, batch_size: int, replicas: bool = False):
+        fused = self._dense_fused(batch_size)
+        key = (batch_size, fused, replicas)
+        if key not in self._runners:
+            step = self._make_step(batch_size, fused)
+            if replicas and not fused:
+                step = per_replica(step)
+            self._runners[key] = make_chunk_runner(step)
+        return self._runners[key]
+
+    def _dense_fused(self, batch_size: int) -> bool:
+        """Whether the dense step runs K5: on a CUDA device unless
+        ``use_fused=False``.  There K5 takes float32 with B in
+        ``GSM_STEP_BATCH_RANGE`` and D in ``GSM_STEP_DIM_RANGE``; anything
+        else raises rather than running the plain update on the card."""
+        if self.use_fused is False or not on_gpu(self.device):
+            return False
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"dtype {self.dtype}: the dense route's CUDA kernel takes "
+                "float32; pass use_fused=False for the plain-torch step on "
+                "the card")
+        if not gsm_step_supports(batch_size, self.D):
+            raise ValueError(
+                f"B={batch_size}, D={self.D}: the dense route's CUDA kernel "
+                f"takes B in {list(GSM_STEP_BATCH_RANGE)} and D in "
+                f"{list(GSM_STEP_DIM_RANGE)}; pass use_fused=False for the "
+                "plain-torch step on the card")
+        return True
 
     def _factor_route(self, batch_size: int) -> bool:
         """Whether this fit runs on the factor route: "auto" takes it
@@ -100,24 +134,45 @@ class GSM:
         fst = fg.fit(seed, mean=mean, cov=cov, batch_size=batch_size,
                      niter=niter, nprint=nprint, verbose=verbose,
                      monitor=monitor, return_state=True, state=fstate)
-        cov_out = factor_to_cov(fst.factor)
         if not return_state:
-            return fst.mean, cov_out
-        return VIState(fst.mean, cov_out, safe_cholesky(cov_out), fst.seed,
-                       fst.step, fst.n_accepted, fst.n_rejected)
+            return fst.mean, factor_to_cov(fst.factor)
+        return self._dense_state(fst)
 
-    def _make_step(self, batch_size: int):
-        """Dense step: sample, score, Gram-form update, accept/revert."""
+    @staticmethod
+    def _dense_state(fst: FactorVIState) -> VIState:
+        """The ``VIState`` of a (stacked) factor-route state."""
+        cov = factor_to_cov(fst.factor)
+        return VIState(fst.mean, cov, safe_cholesky(cov), fst.seed, fst.step,
+                       fst.n_accepted, fst.n_rejected)
+
+    def _warn_fused_score(self):
+        if self.fused_score is not None:
+            warnings.warn(
+                "fused_score is set but the factor route is inactive for "
+                "this fit (use_factor=False, off-GPU, or a huge batch); the "
+                "dense step has no whole-step kernel and fused_score is "
+                "ignored", stacklevel=3)
+
+    def _make_step(self, batch_size: int, fused: bool):
+        """Dense step: sample, score, Gram-form update (K5 or its plain
+        version), accept/revert.  With ``fused`` it also takes stacked
+        replicas (K5 and the accept/revert run batched)."""
         lp_g = self.lp_g
         d = self.D
         dtype = self.dtype
+        update = gsm_update_fused if fused else gsm_update_replicas_reference
 
         def step(s: VIState) -> VIState:
-            eps = self._eps(s.seed, s.step, batch_size, d, dtype)
-            samples = s.mean + eps @ s.chol.T
-            vs = lp_g(samples).to(dtype)
-            dmu, ds = gsm_update_stats(samples, vs, s.mean, s.cov)
-            return accept_or_revert(s, s.mean + dmu, s.cov + ds)
+            if isinstance(s.seed, tuple):
+                eps = draw_replicas(self._eps, s.seed, s.step, batch_size, d,
+                                    dtype)
+            else:
+                eps = self._eps(s.seed, s.step, batch_size, d, dtype)
+            samples = s.mean[..., None, :] + eps @ s.chol.mT
+            vs = lp_g(samples.reshape(-1, d)).to(dtype).reshape(samples.shape)
+            mean_new, cov_new = update(samples, vs.contiguous(), s.mean,
+                                       s.cov)
+            return accept_or_revert(s, mean_new, cov_new)
 
         return step
 
@@ -133,18 +188,51 @@ class GSM:
             return self._fit_factor(seed, mean, cov, batch_size, niter,
                                     nprint, verbose, monitor, return_state,
                                     state)
-        if self.fused_score is not None:
-            warnings.warn(
-                "fused_score is set but the factor route is inactive for "
-                "this fit (use_factor=False, off-GPU, or a huge batch); the "
-                "dense step has no whole-step kernel and fused_score is "
-                "ignored", stacklevel=2)
+        self._warn_fused_score()
         if state is None:
             state = init_state(seed, self.D, mean, cov, self.dtype,
                                self.device)
+        # K5 takes contiguous operands (a caller's covariance may not be).
+        state = state._replace(mean=state.mean.contiguous(),
+                               cov=state.cov.contiguous())
         state = run_fit_loop(state, niter, self._get_runner(batch_size),
                              monitor=monitor, lp=self.lp, nprint=nprint,
                              verbose=verbose, batch_size=batch_size)
+        if return_state:
+            return state
+        return state.mean, state.cov
+
+    def fit_batch(self, seeds, mean=None, cov=None, batch_size=2, niter=5000,
+                  return_state=False):
+        """Fit K independent replicas together, one per seed in ``seeds``;
+        returns (means (K, D), covs (K, D, D)), or the stacked ``VIState``.
+
+        ``mean``/``cov`` are broadcast to every replica or carry a leading
+        K axis (per-replica warm starts, random restarts).  Replica i draws
+        what ``fit(seeds[i])`` draws.  The factor route delegates to
+        ``FactorGSM.fit_batch`` (``small_solver="auto"``) and converts the
+        states at the boundary; the dense route runs the K replicas through
+        one batched K5 and one batched ``cholesky_ex`` per step on the card
+        (its plain step one replica at a time elsewhere).  Monitors are not
+        supported (``fit`` takes them).
+        """
+        pin_fp32()
+        seeds = tuple(int(s) for s in seeds)
+        if self._factor_route(batch_size):
+            fst = self._get_factor_fitter().fit_batch(
+                seeds, mean=mean, cov=cov, batch_size=batch_size,
+                niter=niter, return_state=True)
+            if return_state:
+                return self._dense_state(fst)
+            return fst.mean, factor_to_cov(fst.factor)
+        self._warn_fused_score()
+        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
+        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
+        zero = torch.zeros(k, dtype=torch.int32, device=dev)
+        state = VIState(means0, covs0, safe_cholesky(covs0), seeds, 0, zero,
+                        zero)
+        state = self._get_runner(batch_size, replicas=True)(state, niter + 1)
         if return_state:
             return state
         return state.mean, state.cov

@@ -12,29 +12,37 @@ hand-written Hopper kernels (``ops/fused_step.py``):
   ``target.fused_score``): K2 ``make_fused_eps_multistep`` runs
   ``steps_per_call`` whole steps per call with the score inside.
 
+``fit_batch`` runs K replica fits together on the same modes: batched K1
+(``small_solver`` "auto"/"ns") or K6 ``make_fused_eps_batch_multistep``
+("fused", ``ops/batch_fused.py``), each launch covering all K replicas.
+
 On a CUDA device a dtype or shape the kernels do not take raises;
-``use_fused=False`` is the one plain route there.  Off the card, and with
-``use_fused=False``, the step is the exact plain-torch eps step with (2B)^2
-Choleskys.  Eps for absolute
-step ``s`` is drawn from a generator seeded by ``driver.step_seed(seed, s)``
-on every path: trajectories do not change with ``steps_per_call`` or with
-the chunk cadence, and a saved state resumes exactly.
+``use_fused=False`` (and ``small_solver="chol"``) is the one plain route
+there.  Off the card, and with ``use_fused=False``, the step is the exact
+plain-torch eps step with (2B)^2 Choleskys.  Eps for absolute step ``s`` is
+drawn from a generator seeded by ``driver.step_seed(seed, s)`` on every
+path: trajectories do not change with ``steps_per_call`` or with the chunk
+cadence, a saved state resumes exactly, and a ``fit_batch`` replica draws
+what the single fit with its seed draws.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .config import default_dtype, pin_fp32
+from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
-                     run_fit_loop)
+from .driver import (EpsStream, RunnerCache, broadcast_replicas,
+                     draw_replicas, make_chunk_runner, on_gpu, run_fit_loop)
+from .ops.batch_fused import make_fused_eps_batch_multistep
 from .ops.fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
                              gsm_eps_update_fused, kernel_supports,
                              make_fused_eps_multistep, ns_iters_for_batch)
 from .ops.gsm_eps import apply_eps_step
 from .ops.gsm_factor import factor_to_cov
-from .state import FactorVIState
+from .state import FactorVIState, per_replica
+
+SMALL_SOLVERS = ("auto", "ns", "fused", "chol")
 
 __all__ = ["FactorGSM", "FactorVIState"]
 
@@ -42,14 +50,16 @@ __all__ = ["FactorGSM", "FactorVIState"]
 class FactorGSM:
     """Cholesky-free GSM fitter; ``fit`` surface matches ``GSM.fit``."""
 
-    def __init__(self, D, lp, lp_g, device="cpu", dtype=None,
+    def __init__(self, D, lp, lp_g, device=None, dtype=None,
                  method: str = "eps", use_fused: "bool | str" = "auto",
                  fused_score=None, steps_per_call=None,
                  pallas_precision: str = "highest", ns_iters=None):
-        """``use_fused`` ("auto"/True/False): on a CUDA device the step runs
-        on the CUDA kernels unless it is False (see ``_fused_mode``); with
-        ``fused_score`` the whole step (sampling product, score, update,
-        select) runs ``steps_per_call`` sub-steps per kernel call.
+        """``device`` defaults to the CUDA card (raises without one; pass
+        ``device="cpu"`` for the CPU).  ``use_fused`` ("auto"/True/False):
+        on a CUDA device the step runs on the CUDA kernels unless it is
+        False (see ``_fused_mode``); with ``fused_score`` the whole step
+        (sampling product, score, update, select) runs ``steps_per_call``
+        sub-steps per kernel call.
 
         ``pallas_precision`` names the precision of the O(B D^2) products,
         as in the JAX package; only "highest" (true fp32) is ported.
@@ -68,7 +78,7 @@ class FactorGSM:
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.method = method
         self.use_fused = use_fused
@@ -101,34 +111,67 @@ class FactorGSM:
                 "; pass use_fused=False for the plain-torch step on the card")
         return "step" if self.fused_score is not None else "update"
 
+    def _batch_mode(self, batch_size: int, small_solver: str):
+        """None | "update" | "step": the route of ``fit_batch``.
+
+        "chol", ``use_fused=False`` and every route off the card: None, the
+        exact plain eps step one replica at a time.  On a CUDA device
+        "auto"/"ns" run batched K1 and "fused" runs K6, which needs
+        ``fused_score`` (it raises without; the JAX package falls back to
+        its XLA step silently); the range and dtype rules are
+        ``_fused_mode``'s."""
+        if small_solver not in SMALL_SOLVERS:
+            raise ValueError(f"small_solver must be one of {SMALL_SOLVERS}, "
+                             f"got {small_solver!r}")
+        if small_solver == "chol" or self._fused_mode(batch_size) is None:
+            return None
+        if small_solver != "fused":
+            return "update"
+        if self.fused_score is None:
+            raise ValueError(
+                "small_solver='fused' runs the whole replica steps on the "
+                "card with the score inside: pass fused_score=(score_fn, "
+                "params) (e.g. target.fused_score), or take small_solver="
+                "'auto'/'ns' (batched update kernel) or 'chol' (plain step)")
+        return "step"
+
     def _iters(self, batch_size: int):
         return ns_iters_for_batch(batch_size, self.ns_iters)
 
-    def _get_runner(self, batch_size: int):
-        mode = self._fused_mode(batch_size)
+    def _get_runner(self, batch_size: int, mode, k=None):
+        """Chunk runner of ``mode`` for one fit, or for ``k`` replicas."""
         score_objs = ()
         if self.fused_score is not None:
             score_objs = (self.fused_score[0], *self.fused_score[1])
 
         def build():
             if mode == "step":
-                return self._make_fused_runner(batch_size)
-            return make_chunk_runner(self._make_step(batch_size))
+                return self._make_fused_runner(batch_size, k)
+            step = self._make_step(batch_size, mode)
+            if k is not None and mode is None:
+                step = per_replica(step)
+            return make_chunk_runner(step)
 
         return self._runners.get(
-            (batch_size, mode, self.steps_per_call, self._iters(batch_size),
-             self.dtype), score_objs, build)
+            (batch_size, mode, k, self.steps_per_call,
+             self._iters(batch_size), self.dtype), score_objs, build)
 
     def _draw(self, state, batch_size: int, offset: int = 0):
+        """Step ``state.step + offset``'s draws: (B, D), or (K, B, D) for
+        stacked replicas, each replica on its own seed's stream."""
+        if isinstance(state.seed, tuple):
+            return draw_replicas(self._eps, state.seed, state.step + offset,
+                                 batch_size, self.D, self.dtype)
         return self._eps(state.seed, state.step + offset, batch_size, self.D,
                          self.dtype)
 
-    def _make_step(self, batch_size: int):
-        """One-step runner of the "update" mode (K1) or the plain route;
-        the "step" mode runs on ``_make_fused_runner``."""
+    def _make_step(self, batch_size: int, mode):
+        """One-step runner of the "update" mode (K1; it also takes stacked
+        replicas) or the plain route (one fit); the "step" mode runs on
+        ``_make_fused_runner``."""
         lp_g = self.lp_g
         dtype = self.dtype
-        mode = self._fused_mode(batch_size)
+        d = self.D
         iters = self._iters(batch_size)
 
         def advance(s, mean, f, good):
@@ -140,8 +183,9 @@ class FactorGSM:
         if mode == "update":
             def step(s: FactorVIState) -> FactorVIState:
                 eps = self._draw(s, batch_size)
-                ef = eps @ s.factor.T
-                vs = lp_g(s.mean + ef).to(torch.float32).contiguous()
+                ef = eps @ s.factor.mT
+                x = (s.mean[..., None, :] + ef).reshape(-1, d)
+                vs = lp_g(x).to(torch.float32).reshape(ef.shape).contiguous()
                 mean, f, good = gsm_eps_update_fused(eps, vs, s.mean,
                                                      s.factor, iters=iters,
                                                      ef=ef)
@@ -157,27 +201,34 @@ class FactorGSM:
 
         return step
 
-    def _make_fused_runner(self, batch_size: int):
-        """Chunk runner of the "step" mode on K2: blocks of
-        ``steps_per_call`` sub-steps, a chunk remainder as one call with
-        ``nmax < spc``.  Each block's eps rows are the per-absolute-step
-        draws, so the trajectory does not depend on spc."""
+    def _make_fused_runner(self, batch_size: int, k=None):
+        """Chunk runner of the "step" mode on K2 (one fit) or K6 (``k``
+        replicas): blocks of ``steps_per_call`` sub-steps, a chunk
+        remainder as one call with ``nmax < spc``.  Each block's eps rows
+        are the per-absolute-step draws, so the trajectory does not depend
+        on spc."""
         score_fn, params = self.fused_score
         spc = self.steps_per_call
-        multi = make_fused_eps_multistep(score_fn, len(params), batch_size,
-                                         self.D, spc,
-                                         iters=self._iters(batch_size))
+        iters = self._iters(batch_size)
+        if k is None:
+            multi = make_fused_eps_multistep(score_fn, len(params),
+                                             batch_size, self.D, spc,
+                                             iters=iters)
+        else:
+            multi = make_fused_eps_batch_multistep(
+                score_fn, len(params), batch_size, self.D, k, spc,
+                iters=iters)
 
         def block(s: FactorVIState, nmax: int) -> FactorVIState:
             eps_block = torch.cat([self._draw(s, batch_size, j)
-                                   for j in range(spc)])
+                                   for j in range(spc)], dim=-2)
             mean, f, n_acc = multi(nmax, eps_block, s.mean, s.factor, *params)
             return FactorVIState(mean, f, s.seed, s.step + nmax,
                                  s.n_accepted + n_acc,
                                  s.n_rejected + (nmax - n_acc))
 
-        def run_chunk(state: FactorVIState, k: int) -> FactorVIState:
-            n_multi, rem = divmod(k, spc)
+        def run_chunk(state: FactorVIState, n: int) -> FactorVIState:
+            n_multi, rem = divmod(n, spc)
             for _ in range(n_multi):
                 state = block(state, spc)
             if rem:
@@ -208,10 +259,45 @@ class FactorGSM:
         state = state._replace(mean=state.mean.contiguous(),
                                factor=state.factor.contiguous())
         state = run_fit_loop(
-            state, niter, self._get_runner(batch_size), monitor=monitor,
+            state, niter, self._get_runner(batch_size,
+                                           self._fused_mode(batch_size)),
+            monitor=monitor,
             monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
             lp=self.lp, nprint=nprint, verbose=verbose,
             batch_size=batch_size)
+        if return_state:
+            return state
+        return state.mean, factor_to_cov(state.factor)
+
+    def fit_batch(self, seeds, mean=None, cov=None, batch_size=2, niter=5000,
+                  return_state=False, small_solver="auto"):
+        """K independent FactorGSM replicas, one per seed in ``seeds``, each
+        ``niter + 1`` steps; returns (means (K, D), covs (K, D, D)), or the
+        stacked ``FactorVIState``.
+
+        ``mean``/``cov`` are broadcast to every replica or carry a leading K
+        axis (per-replica warm starts).  Replica i draws what
+        ``fit(seeds[i])`` draws.  ``small_solver`` picks the route on a
+        CUDA device (``_batch_mode``): "auto"/"ns" batched K1, the score
+        called once on the K·B stacked rows; "fused" K6 with
+        ``fused_score`` inside (each replica then equals the single
+        ``fit`` on K2 bit for bit); "chol" the exact plain step per
+        replica.  Off the card every route is the exact plain step per
+        replica, as ``fit`` runs there.  Monitors are not supported.
+        """
+        pin_fp32()
+        mode = self._batch_mode(batch_size, small_solver)
+        seeds = tuple(int(s) for s in seeds)
+        k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
+        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
+        if cov is None:
+            f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype, dev)
+        else:
+            f0 = safe_cholesky(broadcast_replicas(cov, None, k, (d, d), dtype,
+                                                  dev)).contiguous()
+        zero = torch.zeros(k, dtype=torch.int32, device=dev)
+        state = FactorVIState(means0, f0, seeds, 0, zero, zero)
+        state = self._get_runner(batch_size, mode, k)(state, niter + 1)
         if return_state:
             return state
         return state.mean, factor_to_cov(state.factor)

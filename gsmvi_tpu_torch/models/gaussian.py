@@ -16,19 +16,22 @@ import math
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .base import Target
 
 
 def gaussian_target_from_arrays(mean, cov, name: str = "gaussian",
-                                device="cpu") -> Target:
+                                device=None) -> Target:
     """Gaussian target from numpy ``mean`` (D,) and ``cov`` (D, D), e.g.
-    ``np.asarray`` of a JAX target's arrays.  The dtype is ``mean``'s.
+    ``np.asarray`` of a JAX target's arrays.  The dtype is ``mean``'s; the
+    tensors live on ``device`` (default: the CUDA card; raises without one).
 
         lp(x) = sum_b [-0.5 (x_b - m)^T P (x_b - m)] + B (0.5 logdet P - D/2 log 2pi)
         score = (m - x) @ P
     """
     from ..ops.fused_step import gaussian_score
 
+    device = resolve_device(device)
     mean_np = np.asarray(mean)
     cov_np = np.asarray(cov, dtype=mean_np.dtype)
     d = mean_np.shape[-1]
@@ -53,7 +56,7 @@ def gaussian_target_from_arrays(mean, cov, name: str = "gaussian",
 
 
 def dense_gaussian(seed: int, d: int, scale: float = 1.0,
-                   dtype=np.float32, device="cpu") -> Target:
+                   dtype=np.float32, device=None) -> Target:
     """Random dense-covariance MVN: uniform mean, cov = L L^T + 1e-3 I with
     normal L (the reference examples' ``setup_model``)."""
     rng = np.random.default_rng(seed)
@@ -65,7 +68,7 @@ def dense_gaussian(seed: int, d: int, scale: float = 1.0,
 
 
 def ill_conditioned_gaussian(seed: int, d: int, condition: float = 1e4,
-                             dtype=np.float32, device="cpu") -> Target:
+                             dtype=np.float32, device=None) -> Target:
     """MVN with log-spaced eigenvalues spanning ``condition`` and a random
     rotation."""
     rng = np.random.default_rng(seed)

@@ -19,6 +19,14 @@
 // never leave the SM; f32 FFMA only; every symmetrisation and both relative
 // residual gates are kept exactly as in the TPU kernel.  Spreading the row
 // work over a grid is later work.
+//
+// K replicas (the batched K1 of fit_batch and K6,
+// gsmvi_tpu/ops/pallas/batch_fused.py :54-145): one block per replica,
+// blockIdx.x = replica, each on its own rows, mean, stacked rows, `good`
+// and `nacc` slot.  The TPU ran those grid cells one after another on its
+// one core; here they run side by side on the SMs, one block each (the
+// shared-memory footprint allows one block per SM).  A block computes what
+// a one-block launch on its replica alone computes, bit for bit.
 #include "smallspace.cuh"
 
 namespace {
@@ -37,6 +45,7 @@ struct SmallSpaceArgs {
     float* mean_out;     // may equal mean_in
     int* good;           // (1,) 1 iff both residual gates pass
     int* nacc;           // optional (1,): += good
+    long long e_stride;  // elements between replicas' e rows (the others are packed)
     float* su;           // (2B, D) stack_u
     float* sw;           // (2B, D) stack_w
     float* c;            // (B, D) scratch: downdate rows
@@ -49,6 +58,16 @@ struct SmallSpaceArgs {
 __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpaceArgs p) {
     extern __shared__ float smem[];
     const int n = p.b, d = p.d, nn = n * n;
+    {   // This block's replica.
+        const long long z = blockIdx.x, rows = (long long)n * d;
+        p.e += z * p.e_stride;
+        p.v += z * rows; p.vf += z * rows; p.t += z * rows; p.ef += z * rows;
+        p.c += z * rows; p.xim += z * rows;
+        p.su += 2 * z * rows; p.sw += 2 * z * rows;
+        p.mean_in += z * d; p.mean_out += z * d;
+        p.good += z;
+        if (p.nacc != nullptr) p.nacc += z;
+    }
     float* red = smem;                          // 32
     float* s_gamma = red + 32;                  // SS_MAXB each
     float* s_inv1r = s_gamma + SS_MAXB;
@@ -218,9 +237,11 @@ extern "C" int gsmvi_eps_smallspace(const float* e, const float* v, const float*
                                     float* mean_out, int* good, int* nacc, float* su,
                                     float* sw, float* c, float* xim, int b, int d, int it0,
                                     int it1, int it2, int it3, int it4, float tol,
-                                    void* stream) {
-    if (b < 1 || b > SS_MAXB || d < 1) return (int)cudaErrorInvalidValue;
-    static bool smem_opt_in = false;   // above 48 KB needs the per-kernel opt-in
+                                    int reps, long long e_stride, void* stream) {
+    if (b < 1 || b > SS_MAXB || d < 1 || reps < 1) return (int)cudaErrorInvalidValue;
+    // Above 48 KB needs the opt-in, a function attribute: it covers every
+    // later launch, whatever its grid.
+    static bool smem_opt_in = false;
     if (!smem_opt_in) {
         const cudaError_t err = cudaFuncSetAttribute(
             eps_smallspace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -229,8 +250,8 @@ extern "C" int gsmvi_eps_smallspace(const float* e, const float* v, const float*
         smem_opt_in = true;
     }
     const size_t smem = smem_bytes(b);
-    SmallSpaceArgs p{e, v, vf, t, ef, mean_in, mean_out, good, nacc, su, sw, c, xim,
-                     b, d, it0, it1, it2, it3, it4, tol};
-    eps_smallspace_kernel<<<1, SS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    SmallSpaceArgs p{e, v, vf, t, ef, mean_in, mean_out, good, nacc, e_stride, su, sw, c,
+                     xim, b, d, it0, it1, it2, it3, it4, tol};
+    eps_smallspace_kernel<<<reps, SS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@
 //   gsmvi_factor_apply   `F + t_mm(stack_u, stack_w)` at :346 together with
 //                        the accept/revert select at :454-455/:738-739
 //   gsmvi_gaussian_score `gaussian_score_kernel` at :778 (K3)
+// the same products over K replicas (gsmvi_rows, gsmvi_factor_apply with
+// k > 1: the batched K1 and K6 of gsmvi_tpu/ops/pallas/batch_fused.py :118),
 // and, in gsmvi_tpu/ops/pallas/bam_fused.py (K7/K8):
 //   gsmvi_rows           `ef` (+ `x`) at :467, the `vf`/`t` rows behind
 //                        `q_t`/`qf` (:265/:312) and the mean matvecs :329-330
@@ -20,7 +22,8 @@ using namespace gsmvi;
 
 extern "C" {
 
-// v = (mu_t - x) @ prec: x (B, D), mu_t (D,), prec (D, D).
+// v = (mu_t - x) @ prec: x (M, D), mu_t (D,), prec (D, D); M is any row
+// count (K replicas' B rows stacked, the params shared).
 int gsmvi_gaussian_score(const float* x, const float* mu_t, const float* prec,
                          float* v, int b, int d, void* stream) {
     GemmArgs p{};
@@ -29,25 +32,34 @@ int gsmvi_gaussian_score(const float* x, const float* mu_t, const float* prec,
     return launch_gemm<false, false, PRO_VEC_MINUS_A, EPI_STORE>(p, static_cast<cudaStream_t>(stream));
 }
 
-// f_out = f_in + su^T @ sw if *good else f_in: su, sw (K, D) with K = 2B,
-// f (D, D).  f_out may be f_in (in place: each element is read and written
-// by the one thread that owns it).
+// f_out = f_in + su^T @ sw if *good else f_in: su, sw (R, D) with R = 2B,
+// f (D, D), for each of `reps` replicas stored one after another (su, sw
+// (reps, R, D), f (reps, D, D), good (reps,)).  f_out may be f_in (in
+// place: each element is read and written by the one thread that owns it).
 int gsmvi_factor_apply(const float* su, const float* sw, const float* f_in,
-                       float* f_out, const int* good, int k, int d, void* stream) {
+                       float* f_out, const int* good, int k, int d, int reps,
+                       void* stream) {
     GemmArgs p{};
     p.a = su; p.b = sw; p.c = f_out; p.c_in = f_in; p.good = good;
     p.m = d; p.n = d; p.k = k; p.lda = d; p.ldb = d; p.ldc = d;
+    p.batch = reps; p.sa = p.sb = (long long)k * d; p.sc = (long long)d * d; p.sgood = 1;
     return launch_gemm<true, false, PRO_NONE, EPI_SELECT_ADD>(p, static_cast<cudaStream_t>(stream));
 }
 
 // out = rows @ F (trans_f 0) or rows @ F^T (trans_f 1), rows (m, D),
 // F (D, D); with x_out (trans_f 1 only), also x_out = mu + out.  No-op
-// while *halt != 0 (halt may be null).
+// while *halt != 0 (halt may be null).  For `reps` replicas: replica z's
+// rows start z * rows_stride elements in (a view into a larger block may
+// be wider apart than m * D), its F, mu, out and x_out are packed (D * D,
+// D, m * D apart).
 int gsmvi_rows(const float* rows, const float* f, const float* mu, float* out, float* x_out,
-               const float* halt, int m, int d, int trans_f, void* stream) {
+               const float* halt, int m, int d, int trans_f, int reps,
+               long long rows_stride, void* stream) {
     GemmArgs p{};
     p.a = rows; p.b = f; p.c = out; p.halt = halt;
     p.m = m; p.n = d; p.k = d; p.lda = d; p.ldb = d; p.ldc = d;
+    p.batch = reps; p.sa = rows_stride; p.sb = (long long)d * d;
+    p.sc = (long long)m * d; p.svec = d;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!trans_f) {
         if (x_out != nullptr) return (int)cudaErrorInvalidValue;

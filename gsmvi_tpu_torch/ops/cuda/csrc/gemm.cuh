@@ -25,6 +25,13 @@
 // on load and store.  Transposes are compile-time flags, so every product
 // reads its operands in the layout the step keeps them in.  Making it fast
 // (wgmma on 3xTF32 splits, persistent tiles) is later work.
+//
+// Replica axis: with `batch` = K > 1 the grid gains blockIdx.z = replica,
+// and every operand of replica z starts its own batch stride further on
+// (the K-replica launches of fit_batch, ops/batch_fused.py, and the batched
+// dense update, gsm_step.cu).  Only pointer offsets change: each replica's
+// tiles and per-element accumulation order are those of a single launch, so
+// replica z's result equals, bit for bit, a launch on replica z alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,7 +47,7 @@ constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one co
 enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
-                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7 };
+                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8 };
 
 // optax.adam's update with precomputed bias corrections (the ADVI kernels,
 // advi.cu): omb1 = 1 - b1 and omb2 = 1 - b2 as float32.
@@ -72,6 +79,7 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
 //   EPI_ADD:               c = c_in + acc (c distinct from c_in and the operands)
+//   EPI_ADD_DIV:           c = c_in + acc / div
 //   EPI_EYE_MINUS:         c = I - acc, and with a non-null partial,
 //                          partial[row * gridDim.x + blockIdx.x] = sum |c| over the
 //                          tile's columns of that row (square C)
@@ -81,6 +89,9 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //   EPI_ADVI_GRAD:         c = row >= col ? -acc : 0, and *flag = 1 where that is
 //                          not finite (a plain store of one value: no atomics)
 // With a non-null halt, the launch does nothing while *halt != 0.
+// batch replicas (0 means 1) start sa, sb, sc, svec and sgood elements apart
+// in a, b, (c, c2, c_in), (pro_vec, epi_vec) and good; halt, partial, m1,
+// m2 and flag are not batched (their epilogues take one replica).
 struct GemmArgs {
     const float* a;
     const float* b;
@@ -98,6 +109,9 @@ struct GemmArgs {
     float* flag;
     float bf;
     AdamArgs adam;
+    int batch;
+    long long sa, sb, sc, svec, sgood;
+    float div;
 };
 
 template <bool TA, bool TB, int PRO, int EPI>
@@ -105,6 +119,15 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     __shared__ float As[GEMM_BM][GEMM_BK + 1];
     __shared__ float Bs[GEMM_BK][GEMM_BN + 1];
     if (p.halt != nullptr && *p.halt != 0.f) return;
+    const long long z = blockIdx.z;
+    const float* pa = p.a + z * p.sa;
+    const float* pb = p.b + z * p.sb;
+    const float* pro_vec = p.pro_vec + z * p.svec;
+    const float* epi_vec = p.epi_vec + z * p.svec;
+    const float* c_in = p.c_in + z * p.sc;
+    float* pc = p.c + z * p.sc;
+    float* c2 = p.c2 + z * p.sc;
+    const int* good = p.good + z * p.sgood;
     const int tid = threadIdx.x;
     const int tx = tid % 32;
     const int ty = tid / 32;
@@ -120,8 +143,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             const int gm = m0 + r, gk = k0 + kk;
             float v = 0.f;
             if (gm < p.m && gk < p.k) {
-                v = TA ? p.a[(size_t)gk * p.lda + gm] : p.a[(size_t)gm * p.lda + gk];
-                if (PRO == PRO_VEC_MINUS_A) v = p.pro_vec[gk] - v;
+                v = TA ? pa[(size_t)gk * p.lda + gm] : pa[(size_t)gm * p.lda + gk];
+                if (PRO == PRO_VEC_MINUS_A) v = pro_vec[gk] - v;
             }
             As[r][kk] = v;
         }
@@ -132,7 +155,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             const int gk = k0 + kk, gn = n0 + cn;
             float v = 0.f;
             if (gk < p.k && gn < p.n)
-                v = TB ? p.b[(size_t)gn * p.ldb + gk] : p.b[(size_t)gk * p.ldb + gn];
+                v = TB ? pb[(size_t)gn * p.ldb + gk] : pb[(size_t)gk * p.ldb + gn];
             Bs[kk][cn] = v;
         }
         __syncthreads();
@@ -154,9 +177,9 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             const int gm = m0 + ty * 4 + r;
             if (gm >= p.m || gn >= p.n) continue;
             const size_t o = (size_t)gm * p.ldc + gn;
-            const float base = p.c_in[o];
+            const float base = c_in[o];
             const float val = base + acc[r];
-            p.c[o] = val;
+            pc[o] = val;
             s_new = fmaf(val, val, s_new);
             s_old = fmaf(base, base, s_old);
         }
@@ -190,7 +213,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             float ab = 0.f;
             if (gm < p.m && gn < p.n) {
                 const float val = (gm == gn ? 1.f : 0.f) - acc[r];
-                p.c[(size_t)gm * p.ldc + gn] = val;
+                pc[(size_t)gm * p.ldc + gn] = val;
                 ab = fabsf(val);
             }
             if (p.partial != nullptr) {
@@ -207,37 +230,40 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         if (gm >= p.m) continue;
         const size_t o = (size_t)gm * p.ldc + gn;
         if (EPI == EPI_STORE) {
-            p.c[o] = acc[r];
+            pc[o] = acc[r];
         } else if (EPI == EPI_STORE_AND_ADD_VEC) {
-            p.c[o] = acc[r];
-            p.c2[o] = p.epi_vec[gn] + acc[r];
+            pc[o] = acc[r];
+            c2[o] = epi_vec[gn] + acc[r];
         } else if (EPI == EPI_ADD) {
-            p.c[o] = p.c_in[o] + acc[r];
+            pc[o] = c_in[o] + acc[r];
+        } else if (EPI == EPI_ADD_DIV) {
+            pc[o] = c_in[o] + acc[r] / p.div;
         } else if (EPI == EPI_ADVI_ADAM) {
             float g = 0.f;
             if (gm >= gn) {
                 g = -acc[r];
-                if (gm == gn) g = __fsub_rn(g, __fmul_rn(p.bf, __fdiv_rn(1.f, p.c[o])));
+                if (gm == gn) g = __fsub_rn(g, __fmul_rn(p.bf, __fdiv_rn(1.f, pc[o])));
             }
-            float pv = p.c[o], mv = p.m1[o], vv = p.m2[o];
+            float pv = pc[o], mv = p.m1[o], vv = p.m2[o];
             adam_apply(pv, mv, vv, g, p.adam);
-            p.c[o] = pv;
+            pc[o] = pv;
             p.m1[o] = mv;
             p.m2[o] = vv;
         } else if (EPI == EPI_ADVI_GRAD) {
             const float g = gm >= gn ? -acc[r] : 0.f;
-            p.c[o] = g;
+            pc[o] = g;
             if (!isfinite(g)) *p.flag = 1.f;
         } else {
-            const float base = p.c_in[o];
-            p.c[o] = (*p.good != 0) ? base + acc[r] : base;
+            const float base = c_in[o];
+            pc[o] = (*good != 0) ? base + acc[r] : base;
         }
     }
 }
 
 template <bool TA, bool TB, int PRO, int EPI>
 inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-    const dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.m + GEMM_BM - 1) / GEMM_BM);
+    const dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.m + GEMM_BM - 1) / GEMM_BM,
+                    p.batch > 0 ? p.batch : 1);
     gemm_kernel<TA, TB, PRO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
     return cudaGetLastError();
 }

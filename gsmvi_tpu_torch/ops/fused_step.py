@@ -15,6 +15,12 @@ carry the main path and are ported here:
 - K3 ``gaussian_score``: v = (mu_t - x) @ prec.  Plain version:
   ``gaussian_score_reference``.
 
+K1 also takes a leading replica axis K (eps, vs (K, B, D), mean (K, D), f
+(K, D, D)): the batched step of ``FactorGSM.fit_batch`` (the JAX package's
+``gsm_eps_update_ns_xla`` under vmap).  On the card each of its launches
+covers all K replicas; replica i's result equals, bit for bit, a call on
+replica i alone.  K3 takes any row count, e.g. K replicas' B rows stacked.
+
 Every wrapper runs its plain version on CPU tensors and launches its CUDA
 kernels on CUDA tensors (``ops/cuda/csrc``), raising on a dtype, shape,
 device or contiguity the kernels do not take; it never falls back.  Each
@@ -257,6 +263,13 @@ def _require(name: str, t, shape) -> None:
         raise ValueError(f"{name}: contiguous tensor required")
 
 
+def _require_dim_supported(d: int) -> None:
+    if not KERNEL_DIM_RANGE[0] <= d <= KERNEL_DIM_RANGE[1]:
+        raise ValueError(
+            f"CUDA kernels take D in [{KERNEL_DIM_RANGE[0]}, "
+            f"{KERNEL_DIM_RANGE[1]}], got D={d}")
+
+
 def _require_shape_supported(b: int, d: int) -> None:
     if not kernel_supports(b, d):
         raise ValueError(
@@ -265,43 +278,85 @@ def _require_shape_supported(b: int, d: int) -> None:
             f"{KERNEL_DIM_RANGE[1]}], got B={b}, D={d}")
 
 
+def _replicas(rows):
+    """(K, replica stride in elements) of a (M, D) or (K, M, D) row tensor
+    whose replicas may lie apart (a view into a larger block) but whose own
+    rows are packed."""
+    if rows.dim() == 2:
+        return 1, rows.numel()
+    m, d = rows.shape[1:]
+    if rows.stride()[1:] != (d, 1) and m > 1:
+        raise ValueError("rows: each replica's (M, D) rows must be packed")
+    return rows.shape[0], rows.stride(0)
+
+
 def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
           halt=None) -> None:
     """out = rows @ F^T (``trans``) or rows @ F on the GEMM template; with
-    ``x_out`` also x_out = mu + out; a no-op while ``*halt`` is non-zero."""
-    m, d = rows.shape
+    ``x_out`` also x_out = mu + out; a no-op while ``*halt`` is non-zero.
+    A leading replica axis K on rows (any replica stride), f, mu, out and
+    x_out (packed) runs all K in one launch."""
+    k, stride = _replicas(rows)
+    m, d = rows.shape[-2:]
     lib.call("gsmvi_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
-             _ptr(x_out), _ptr(halt), m, d, int(trans), stream)
+             _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride, stream)
 
 
 class _UpdateBuffers:
-    """Scratch of one K1 update on the card, allocated once per call."""
+    """Scratch of one K1 update on the card (of K replicas: a leading axis
+    K), allocated once per call."""
 
-    def __init__(self, b: int, d: int, device):
-        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
+    def __init__(self, b: int, d: int, device, k=None):
+        lead = () if k is None else (k,)
+        empty = lambda *s: torch.empty((*lead, *s), dtype=torch.float32,
+                                       device=device)
         self.vf, self.t = empty(b, d), empty(b, d)
         self.c, self.xim = empty(b, d), empty(b, d)
         self.su, self.sw = empty(2 * b, d), empty(2 * b, d)
-        self.good = torch.zeros(1, dtype=torch.int32, device=device)
+        self.good = torch.zeros(lead or (1,), dtype=torch.int32,
+                                device=device)
 
 
 def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
                    buf: _UpdateBuffers, iters, nacc=None) -> None:
-    """K1's launches: vf, t, small space (mean + good), fat apply (F)."""
-    b, d = eps.shape
+    """K1's launches: vf, t, small space (mean + good), fat apply (F).
+    With a leading replica axis every launch covers the K replicas; eps may
+    be a view whose replicas lie apart, the other operands are packed."""
+    k, e_stride = _replicas(eps)
+    b, d = eps.shape[-2:]
     _rows(lib, stream, vs, f_in, buf.vf, trans=False)
     _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
     lib.call("gsmvi_eps_smallspace", _ptr(eps), _ptr(vs), _ptr(buf.vf),
              _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
              _ptr(buf.good), _ptr(nacc), _ptr(buf.su), _ptr(buf.sw),
-             _ptr(buf.c), _ptr(buf.xim), b, d, *iters, NS_TOL, stream)
+             _ptr(buf.c), _ptr(buf.xim), b, d, *iters, NS_TOL, k, e_stride,
+             stream)
     lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_out), _ptr(buf.good), 2 * b, d, stream)
+             _ptr(f_out), _ptr(buf.good), 2 * b, d, k, stream)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def over_replicas(fn, *args):
+    """``fn`` applied to each replica of the (K, ...) ``args`` in turn, its
+    outputs stacked: the plain version of a kernel's replica axis."""
+    outs = [fn(*replica_args) for replica_args in zip(*args)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def gsm_eps_update_replicas_reference(eps, vs, mean, f, iters=None,
+                                      ef_t=None):
+    """``gsm_eps_update_ns_reference`` with an optional leading replica
+    axis, one replica at a time: (mean (K, D), f (K, D, D), good (K,))."""
+    one = lambda e, v, m, f_, ef: gsm_eps_update_ns_reference(
+        e, v, m, f_, iters=iters, ef_t=ef)
+    if eps.dim() == 2:
+        return one(eps, vs, mean, f, ef_t)
+    efs = [None] * eps.shape[0] if ef_t is None else ef_t
+    return over_replicas(one, eps, vs, mean, f, efs)
+
 
 def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
     """K1: eps-coordinate GSM update + residual gates + select.
@@ -309,18 +364,24 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
     eps, vs (B, D); mean (D,); f (D, D); ``ef`` optional ``eps @ f.T`` (the
     sampling product the caller already formed).  Returns (mean, f, good)
     with the old values kept where ``good`` is false.  ``iters=None``
-    resolves through ``ns_iters_for_batch(B)``.
+    resolves through ``ns_iters_for_batch(B)``.  With a leading replica
+    axis K on every operand it updates K independent fits: (mean (K, D),
+    f (K, D, D), good (K,)).
     """
-    b, d = eps.shape
+    b, d = eps.shape[-2:]
+    lead = tuple(eps.shape[:-2])
     iters = ns_iters_for_batch(b, iters)
     tensors = [eps, vs, mean, f] + ([ef] if ef is not None else [])
     if _on_cpu(*tensors):
-        return gsm_eps_update_ns_reference(eps, vs, mean, f, iters=iters,
-                                           ef_t=ef)
+        return gsm_eps_update_replicas_reference(eps, vs, mean, f,
+                                                 iters=iters, ef_t=ef)
     _require_shape_supported(b, d)
+    if len(lead) > 1:
+        raise ValueError(f"eps: (B, D) or (K, B, D) required, got "
+                         f"{tuple(eps.shape)}")
     for name, t, shape in (("eps", eps, (b, d)), ("vs", vs, (b, d)),
                            ("mean", mean, (d,)), ("f", f, (d, d))):
-        _require(name, t, shape)
+        _require(name, t, lead + shape)
     lib = _library()
     stream = _stream(eps.device)
     gsm_eps_update_fused.launches += 1
@@ -328,13 +389,14 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
         ef = torch.empty_like(eps)
         _rows(lib, stream, eps, f, ef, trans=True)
     else:
-        _require("ef", ef, (b, d))
-    buf = _UpdateBuffers(b, d, eps.device)
+        _require("ef", ef, lead + (b, d))
+    buf = _UpdateBuffers(b, d, eps.device, *lead)
     mean_out = torch.empty_like(mean)
     f_out = torch.empty_like(f)
     _launch_update(lib, stream, eps, vs, ef, mean, mean_out, f, f_out, buf,
                    iters)
-    return mean_out, f_out, buf.good[0] != 0
+    good = buf.good != 0
+    return mean_out, f_out, good if lead else good[0]
 
 
 gsm_eps_update_fused.launches = 0
@@ -393,12 +455,13 @@ make_fused_eps_multistep.launches = 0
 
 
 def gaussian_score(x, mu_t, prec):
-    """K3: dense-Gaussian score v = (mu_t - x) @ prec; x (B, D), mu_t (1, D),
-    prec (D, D) symmetric."""
+    """K3: dense-Gaussian score v = (mu_t - x) @ prec; x (M, D), mu_t (1, D),
+    prec (D, D) symmetric.  A GEMM: any row count M >= 1 (the K replicas'
+    B rows of a batched step, stacked), D in ``KERNEL_DIM_RANGE``."""
     if _on_cpu(x, mu_t, prec):
         return gaussian_score_reference(x, mu_t, prec)
     b, d = x.shape
-    _require_shape_supported(b, d)
+    _require_dim_supported(d)
     for name, t, shape in (("x", x, (b, d)), ("mu_t", mu_t, (1, d)),
                            ("prec", prec, (d, d))):
         _require(name, t, shape)

@@ -7,9 +7,9 @@ Counterpart of ``gsmvi_tpu/ops/gsm.py:40-90``:
     dmu_b = (t_b - a_b - a_b <v_b, t_b - a_b> / (1 + rho_b + mv_b)) / (1 + rho_b)
     mu    = mu0 + mean_b dmu_b,   S = S0 + sym((A^T A - Bm^T Bm) / B)
 
-The dense route runs this off the card, and on the card with
-``use_factor=False`` (its TPU kernel, ``ops/pallas/gsm_step.py``, is not
-ported yet).
+The dense route runs this off the card and with ``use_fused=False``; on
+the card it runs K5, ``ops/gsm_step.py::gsm_update_fused``, whose plain
+version this is.
 """
 
 from __future__ import annotations

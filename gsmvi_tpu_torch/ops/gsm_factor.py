@@ -11,9 +11,10 @@ import torch
 
 
 def factor_to_cov(F: torch.Tensor) -> torch.Tensor:
-    """Dense covariance S = F F^T, exactly symmetric."""
-    s = F @ F.T
-    return 0.5 * (s + s.T)
+    """Dense covariance S = F F^T, exactly symmetric; F may carry a leading
+    replica axis."""
+    s = F @ F.mT
+    return 0.5 * (s + s.mT)
 
 
 def _update_corr(g: torch.Tensor, newton_iters: int):

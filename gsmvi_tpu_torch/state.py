@@ -9,6 +9,12 @@ step and so the position in that stream (eps for step ``s`` is drawn from a
 generator seeded by ``driver.step_seed(seed, s)``).  Both are known on the
 host without reading the device.  The accept counters are int32 tensors on
 the fit's device, so a fit loop never waits for the device.
+
+``fit_batch`` keeps K replicas in the same states, stacked (the
+counterpart of the vmapped states of ``gsmvi_tpu/gsm_factor.py:652-662``):
+means (K, D), covariances, factors and Cholesky factors (K, D, D), ``seed``
+a tuple of K ints, one host ``step`` (the replicas advance together) and
+(K,) int32 counters.  ``replica``/``stack_replicas`` move between the two.
 """
 
 from __future__ import annotations
@@ -18,17 +24,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import default_dtype
+from .config import default_dtype, resolve_device
 from .distributions import safe_cholesky
 
 
 class VIState(NamedTuple):
     """Dense GSM state: q = N(mean, cov), cov = chol @ chol.T."""
 
-    mean: torch.Tensor        # (D,)
+    mean: torch.Tensor        # (D,) — (K, D) for K replicas
     cov: torch.Tensor         # (D, D)
     chol: torch.Tensor        # (D, D) lower Cholesky factor of cov
-    seed: int                 # eps stream base
+    seed: int                 # eps stream base (a K-tuple for replicas)
     step: int                 # absolute step = stream position
     n_accepted: torch.Tensor  # int32 count of accepted updates
     n_rejected: torch.Tensor  # int32 count of reverted updates
@@ -68,8 +74,9 @@ def _zero_count(device) -> torch.Tensor:
 
 
 def init_state(seed: int, d: int, mean=None, cov=None, dtype=None,
-               device="cpu") -> VIState:
-    """Initial ``VIState`` (defaults mean=0, cov=I)."""
+               device=None) -> VIState:
+    """Initial ``VIState`` (defaults mean=0, cov=I, the CUDA card)."""
+    device = resolve_device(device)
     dtype = default_dtype(dtype)
     mean = (torch.zeros(d, dtype=dtype, device=device) if mean is None
             else torch.as_tensor(mean, dtype=dtype, device=device))
@@ -82,25 +89,52 @@ def init_state(seed: int, d: int, mean=None, cov=None, dtype=None,
 def accept_or_revert(state: VIState, mean_new: torch.Tensor,
                      cov_new: torch.Tensor) -> VIState:
     """Accept the proposal iff its Cholesky factor is finite, else keep the
-    old (mean, cov, chol); the select stays on the device."""
+    old (mean, cov, chol); the select stays on the device.  Stacked
+    replicas are decided one by one (one batched ``cholesky_ex``)."""
     chol_new = safe_cholesky(cov_new)
-    good = torch.isfinite(chol_new).all()
+    good = torch.isfinite(chol_new).flatten(-2).all(-1)
+    gm, gc = good[..., None], good[..., None, None]
     return VIState(
-        torch.where(good, mean_new, state.mean),
-        torch.where(good, cov_new, state.cov),
-        torch.where(good, chol_new, state.chol),
+        torch.where(gm, mean_new, state.mean),
+        torch.where(gc, cov_new, state.cov),
+        torch.where(gc, chol_new, state.chol),
         state.seed, state.step + 1,
         state.n_accepted + good.to(torch.int32),
         state.n_rejected + (~good).to(torch.int32))
 
 
+def replica(state, i: int):
+    """Replica ``i`` of a stacked ``VIState``/``FactorVIState``, as the state
+    of a single fit (views of the stacked tensors)."""
+    return state._replace(seed=state.seed[i], **{
+        name: value[i] for name, value in state._asdict().items()
+        if torch.is_tensor(value)})
+
+
+def stack_replicas(states):
+    """The stacked state of single-fit states that share ``step``."""
+    first = states[0]
+    return first._replace(seed=tuple(s.seed for s in states), **{
+        name: torch.stack([getattr(s, name) for s in states])
+        for name, value in first._asdict().items() if torch.is_tensor(value)})
+
+
+def per_replica(step):
+    """A single-fit step applied to every replica of a stacked state, one
+    after another: each replica computes exactly what its single fit does."""
+    return lambda s: stack_replicas([step(replica(s, i))
+                                     for i in range(len(s.seed))])
+
+
 def factor_state_from_numpy(mean, factor, seed: int, step: int,
                             n_accepted: int, n_rejected: int, dtype=None,
-                            device="cpu", ns_stats=None) -> FactorVIState:
+                            device=None, ns_stats=None) -> FactorVIState:
     """``FactorVIState`` from numpy arrays as the JAX package hands them
     over (``np.asarray(jax_array)``), so both packages start from the same
     state.  ``dtype`` defaults to the dtype of ``mean``; ``ns_stats`` (the
-    JAX state's (2,) array) defaults to ``NS_STATS_INIT``."""
+    JAX state's (2,) array) defaults to ``NS_STATS_INIT``; ``device`` to the
+    CUDA card."""
+    device = resolve_device(device)
     mean = np.asarray(mean)
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, mean.dtype)).dtype

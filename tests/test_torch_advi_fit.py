@@ -29,6 +29,9 @@ from gsmvi_tpu_torch.advi import (ADVIState, FusedADVISTLState,
 from gsmvi_tpu_torch.driver import make_chunk_runner, run_fit_loop
 from gsmvi_tpu_torch.models import dense_gaussian, gaussian_target_from_arrays
 
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
+
 FUSED_TOL = 1e-4
 
 
@@ -53,7 +56,7 @@ def _targets(seed, d, dtype):
     cov = (0.6 * np.eye(d) + 0.3 * a @ a.T / d).astype(dtype)
     mean = rng.standard_normal(d).astype(dtype)
     return (_gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "g"),
-            gaussian_target_from_arrays(mean, cov))
+            gaussian_target_from_arrays(mean, cov, device=DEV))
 
 
 def _jax_fused(monkeypatch, t, d, **kw):
@@ -110,7 +113,7 @@ def test_fit_matches_jax_fit(estimator, schedule):
     for _ in range(niter + 1):
         k, ks = jax.random.split(k)
         draws.append(np.asarray(jax.random.normal(ks, (b, d), jnp.float64)))
-    gt = ADVI(d, tt.lp, dtype=torch.float64)
+    gt = ADVI(d, tt.lp, dtype=torch.float64, device=DEV)
     _feed(gt, draws)
     st, loss_t = gt.fit(0, opt_t, niter=niter, batch_size=b, verbose=False,
                         return_state=True, estimator=estimator)
@@ -159,7 +162,8 @@ def test_fit_fused_matches_jax_and_resumes_from_jax_state(
                           estimator=estimator)
     draws = _fold_in_draws(key, n1 + n2 + 2 + spc, b, d)
 
-    gt = ADVI(d, tt.lp, fused_score=tt.fused_score, steps_per_call=spc)
+    gt = ADVI(d, tt.lp, fused_score=tt.fused_score, steps_per_call=spc,
+              device=DEV)
     _feed(gt, draws)
     st1, none = gt.fit_fused(0, learning_rate=lr, niter=n1, batch_size=b,
                              verbose=False, cov=cov0, return_state=True,
@@ -182,7 +186,7 @@ def test_fit_fused_matches_jax_and_resumes_from_jax_state(
                     for f in ("mloc", "vloc", "ml", "vl"))
     carried = advi_state_from_numpy(
         sj1.loc, sj1.l, 0, int(sj1.step), moments=moments,
-        ainv=np.asarray(sj1.ainv) if stl else None)
+        ainv=np.asarray(sj1.ainv) if stl else None, device=DEV)
     st2, _ = gt.fit_fused(99, learning_rate=lr, niter=n2, batch_size=b,
                           verbose=False, state=carried, return_state=True,
                           estimator=estimator)
@@ -205,13 +209,15 @@ def test_fit_state_lifts_into_fit_fused_as_jax_does(monkeypatch,
                    verbose=False, return_state=True)
     adam = sx.opt_state[0]
     carried = advi_state_from_numpy(sx.loc, sx.scales, 0, int(sx.step),
-                                    adam=(adam.count, adam.mu, adam.nu))
+                                    adam=(adam.count, adam.mu, adam.nu),
+                                    device=DEV)
     assert isinstance(carried, ADVIState) and carried.step == 10
     assert int(carried.opt_state.count) == 10
     gjf = _jax_fused(monkeypatch, tj, d, steps_per_call=spc)
     sj, _ = gjf.fit_fused(key, learning_rate=2e-2, niter=9, batch_size=b,
                           verbose=False, state=sx, return_state=True)
-    gt = ADVI(d, tt.lp, fused_score=tt.fused_score, steps_per_call=spc)
+    gt = ADVI(d, tt.lp, fused_score=tt.fused_score, steps_per_call=spc,
+              device=DEV)
     # JAX's lifted state keeps the fit's key as its fold_in base.
     _feed(gt, _fold_in_draws(sx.key, 30, b, d))
     st, _ = gt.fit_fused(7, learning_rate=2e-2, niter=9, batch_size=b,
@@ -227,7 +233,7 @@ def test_fit_fused_invariant_to_spc_and_cadence(kernel_paths, estimator):
     blocks masked by nmax, the tracked inverse in the state: the trajectory
     is bit-identical across steps_per_call and monitor/print cadence."""
     d = 16
-    t = dense_gaussian(5, d, scale=0.4)
+    t = dense_gaussian(5, d, scale=0.4, device=DEV)
     calls = []
 
     class Monitor:
@@ -238,7 +244,8 @@ def test_fit_fused_invariant_to_spc_and_cadence(kernel_paths, estimator):
 
     outs = []
     for spc, monitor in ((3, None), (8, None), (8, Monitor())):
-        g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=spc)
+        g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=spc,
+                 device=DEV)
         st, _ = g.fit_fused(2, learning_rate=1e-2, niter=50, batch_size=8,
                             verbose=False, monitor=monitor,
                             return_state=True, estimator=estimator)
@@ -255,8 +262,8 @@ def test_fit_fused_resume_and_lifts(kernel_paths):
     lifts into STL with its moments and an exact inverse (the two-phase
     recipe), and back."""
     d = 16
-    t = dense_gaussian(8, d, scale=0.4)
-    g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=4)
+    t = dense_gaussian(8, d, scale=0.4, device=DEV)
+    g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=4, device=DEV)
     for est in ("analytic", "stl"):
         a, _ = g.fit_fused(3, learning_rate=1e-2, niter=20, batch_size=8,
                            verbose=False, return_state=True, estimator=est)
@@ -290,7 +297,7 @@ def test_fit_fused_resume_and_lifts(kernel_paths):
                         verbose=False, state=xs, return_state=True)
     assert fx.step == 11 and float(fx.vloc.abs().max()) > 0
     ref = g._lift(advi_state_from_numpy(xs.loc.numpy(), xs.scales.numpy(),
-                                        1, 10), stl=False)
+                                        1, 10, device=DEV), stl=False)
     assert torch.equal(ref.l, torch.tril(xs.scales))
     assert float(ref.vl.abs().max()) == 0.0
 
@@ -300,8 +307,8 @@ def test_fit_fused_recovers_target():
     CPU plain path, D=8 outside the kernels' range), and a fused STL polish
     started at the optimum stays far closer to it than the analytic fit."""
     d = 8
-    t = dense_gaussian(7, d, scale=0.3)
-    g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=8)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
+    g = ADVI(d, t.lp, fused_score=t.fused_score, steps_per_call=8, device=DEV)
     mean, cov, losses = g.fit_fused(0, learning_rate=5e-2, niter=2000,
                                     batch_size=16, verbose=False)
     assert losses is None
@@ -323,31 +330,31 @@ def test_fit_fused_routing_and_errors(monkeypatch):
     the kernels or raises (shape, dtype), never turning into fit; the
     unported options raise."""
     d = 8
-    t = dense_gaussian(1, d, scale=0.5)
-    g = ADVI(d, t.lp, fused_score=t.fused_score)
+    t = dense_gaussian(1, d, scale=0.5, device=DEV)
+    g = ADVI(d, t.lp, fused_score=t.fused_score, device=DEV)
     with pytest.raises(ValueError, match="estimator"):
         g.fit_fused(0, niter=4, batch_size=8, verbose=False, estimator="slt")
     with pytest.raises(ValueError, match="estimator"):
         g.fit(0, Adam(1e-2), niter=4, batch_size=8, verbose=False,
               estimator="slt")
     with pytest.raises(ValueError, match="fused_score"):
-        ADVI(d, t.lp).fit_fused(0, niter=2, verbose=False)
+        ADVI(d, t.lp, device=DEV).fit_fused(0, niter=2, verbose=False)
     monkeypatch.setattr(t_advi, "on_gpu", lambda device: True)
     with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
         g.fit_fused(0, niter=2, batch_size=8, verbose=False)
     d = 16
-    t = dense_gaussian(1, d, scale=0.5)
+    t = dense_gaussian(1, d, scale=0.5, device=DEV)
     with pytest.raises(ValueError, match=r"B in \[8, 64\]"):
-        ADVI(d, t.lp, fused_score=t.fused_score).fit_fused(
+        ADVI(d, t.lp, fused_score=t.fused_score, device=DEV).fit_fused(
             0, niter=2, batch_size=4, verbose=False)
     with pytest.raises(NotImplementedError, match="float32"):
         ADVI(d, t.lp, fused_score=t.fused_score,
-             dtype=torch.float64).fit_fused(0, niter=2, batch_size=8,
-                                            verbose=False)
+             dtype=torch.float64, device=DEV).fit_fused(
+                 0, niter=2, batch_size=8, verbose=False)
     with pytest.raises(NotImplementedError, match="mesh"):
-        ADVI(d, t.lp, mesh=object())
+        ADVI(d, t.lp, mesh=object(), device=DEV)
     with pytest.raises(NotImplementedError, match="fit_batch"):
-        ADVI(d, t.lp).fit_batch(None, Adam(1e-2))
+        ADVI(d, t.lp, device=DEV).fit_batch(None, Adam(1e-2))
 
 
 def test_collect_aux_stacks_values_across_chunks():

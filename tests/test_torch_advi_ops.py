@@ -25,6 +25,9 @@ from gsmvi_tpu_torch import ADVI
 from gsmvi_tpu_torch.ops import advi_fused as taf
 from gsmvi_tpu_torch.ops import fused_step as tfs
 
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
+
 TOL = 2e-5
 
 
@@ -214,7 +217,7 @@ def test_neg_elbo_and_gradient_match_jax(estimator):
     cov = np.eye(d) + 0.3 * a @ a.T / d
     mean = rng.standard_normal(d)
     tj = _gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "g")
-    tt = gaussian_target_from_arrays(mean, cov)
+    tt = gaussian_target_from_arrays(mean, cov, device=DEV)
     loc = rng.standard_normal(d)
     l = np.tril(np.eye(d) + 0.2 * rng.standard_normal((d, d)))
     l[3, 3] = 1e-9                         # under 1e-5 * max|diag|
@@ -223,7 +226,7 @@ def test_neg_elbo_and_gradient_match_jax(estimator):
     gj = JADVI(D=d, lp=tj.lp, dtype=jnp.float64)
     fj = lambda p: gj.neg_elbo(p, key, b, estimator)
     want, want_g = jax.value_and_grad(fj)((jnp.asarray(loc), jnp.asarray(l)))
-    gt = ADVI(d, tt.lp, dtype=torch.float64)
+    gt = ADVI(d, tt.lp, dtype=torch.float64, device=DEV)
     lt = torch.tensor(loc, requires_grad=True)
     st = torch.tensor(l, requires_grad=True)
     got = gt.neg_elbo((lt, st), torch.from_numpy(eps), estimator)
@@ -242,7 +245,7 @@ def test_parameter_forms_match_jax():
     flat = rng.standard_normal(d * (d + 1) // 2)
     dense = rng.standard_normal((d, d))
     gj = JADVI(D=d, lp=lambda x: jnp.sum(x), dtype=jnp.float64)
-    gt = ADVI(d, lambda x: torch.sum(x), dtype=torch.float64)
+    gt = ADVI(d, lambda x: torch.sum(x), dtype=torch.float64, device=DEV)
     for arr in (flat, dense):
         np.testing.assert_array_equal(
             gt.scales_to_tril(torch.from_numpy(arr)).numpy(),

@@ -26,6 +26,9 @@ from gsmvi_tpu_torch.models import dense_gaussian, gaussian_target_from_arrays
 from gsmvi_tpu_torch.ops.bam_fused import FEEDBACK_CADENCE
 from gsmvi_tpu_torch.state import NS_STATS_INIT, FactorVIState
 
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -57,7 +60,7 @@ def _targets(seed, d, scale, benign=False):
         a = np.random.default_rng(seed).standard_normal((d, d))
         cov = (0.6 * np.eye(d) + 0.1 * a @ a.T / d).astype(np.float32)
     return (_gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "g"),
-            gaussian_target_from_arrays(mean, cov))
+            gaussian_target_from_arrays(mean, cov, device=DEV))
 
 
 def _jax_fitter(monkeypatch, t, d, **kw):
@@ -98,7 +101,7 @@ def test_step_runner_matches_jax_fused_fit(monkeypatch, kernel_paths):
                                      jnp.float32))
         for s in range(niter + 1 + 4)])
     gt = FactorBaM(d, tt.lp, tt.lp_g, fused_score=tt.fused_score,
-                   steps_per_call=4, lmax_gate=300.0)
+                   steps_per_call=4, lmax_gate=300.0, device=DEV)
     assert gt._fused_mode(b) == "step"
     gt._eps = lambda seed, step, batch, dd, dtype: torch.from_numpy(
         draws[step])
@@ -140,7 +143,7 @@ def test_update_mode_steps_match_jax(monkeypatch, kernel_paths, stiff):
     _, ks = jax.random.split(sj0.key)
     eps = np.asarray(jax.random.normal(ks, (b, d), jnp.float32))
 
-    gt = FactorBaM(d, tt.lp, tt.lp_g)
+    gt = FactorBaM(d, tt.lp, tt.lp_g, device=DEV)
     assert gt._fused_mode(b) == "update"
     gt._eps = lambda seed, step, batch, dd, dtype: torch.tensor(eps)
     tstep = gt._make_step(b, Regularizers().constant(reg0), 0)
@@ -173,7 +176,8 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths, lmax_gate):
     carried stats over 200 steps (three cadence boundaries); the tight gate
     forces stiff stops and their immediate stats adoption."""
     d = 16
-    t = dense_gaussian(7, d, scale=0.3 if lmax_gate == 1e4 else 1.0)
+    t = dense_gaussian(7, d, scale=0.3 if lmax_gate == 1e4 else 1.0,
+                       device=DEV)
     regf = Regularizers().linear(20.0)
     calls = []
 
@@ -185,7 +189,7 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths, lmax_gate):
 
     def run(spc, monitor=None):
         g = FactorBaM(d, t.lp, t.lp_g, fused_score=t.fused_score,
-                      steps_per_call=spc, lmax_gate=lmax_gate)
+                      steps_per_call=spc, lmax_gate=lmax_gate, device=DEV)
         st = g.fit(0, regf, niter=200, batch_size=8, verbose=False,
                    retries=0, monitor=monitor, return_state=True)
         return st, g.fit_counts
@@ -205,9 +209,9 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths, lmax_gate):
 
 def test_resume_is_exact(kernel_paths):
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
     g = FactorBaM(d, t.lp, t.lp_g, fused_score=t.fused_score,
-                  steps_per_call=4)
+                  steps_per_call=4, device=DEV)
     regf = Regularizers().linear(20.0)
     full = g.fit(3, regf, niter=160, batch_size=8, verbose=False, retries=0,
                  return_state=True)
@@ -227,22 +231,23 @@ def test_fits_converge_on_cpu(mode, monkeypatch):
     """BaM.fit on both routes and FactorBaM on each of its paths recover a
     small Gaussian target's moments (retries on, as the reference runs)."""
     d = 16
-    t = dense_gaussian(5, d, scale=0.3)
+    t = dense_gaussian(5, d, scale=0.3, device=DEV)
     regf = Regularizers().linear(20.0)
     if mode.startswith("dense"):
-        g = BaM(d, t.lp, t.lp_g, use_lowrank=mode == "dense_lowrank")
+        g = BaM(d, t.lp, t.lp_g, use_lowrank=mode == "dense_lowrank",
+                device=DEV)
         assert not g._factor_route()
     elif mode == "bam_factor_route":
         monkeypatch.setattr(t_bam, "on_gpu", lambda device: True)
         monkeypatch.setattr(t_bf, "on_gpu", lambda device: True)
-        g = BaM(d, t.lp, t.lp_g, fused_score=t.fused_score)
+        g = BaM(d, t.lp, t.lp_g, fused_score=t.fused_score, device=DEV)
         assert g._factor_route()
     else:
         if mode != "factor":
             monkeypatch.setattr(t_bf, "on_gpu", lambda device: True)
         g = FactorBaM(d, t.lp, t.lp_g,
                       fused_score=t.fused_score if mode == "step" else None,
-                      steps_per_call=4)
+                      steps_per_call=4, device=DEV)
         assert g._fused_mode(8) == {"factor": None, "update": "update",
                                     "step": "step"}[mode]
     mean, cov = g.fit(0, regf, niter=300, batch_size=8, verbose=False,
@@ -255,8 +260,8 @@ def test_retries_draw_from_the_retry_stream(monkeypatch):
     per-step stream) up to ``retries`` times; a schedule whose first steps
     always fail counts every attempt."""
     d = 8
-    t = dense_gaussian(7, d, scale=0.3)
-    g = FactorBaM(d, t.lp, t.lp_g, solver="eigh")
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
+    g = FactorBaM(d, t.lp, t.lp_g, solver="eigh", device=DEV)
     bad = lambda x: torch.full_like(x, float("nan"))
     g.lp_g = bad
     st = g.fit(0, Regularizers().constant(1.0), niter=2, batch_size=8,
@@ -270,32 +275,34 @@ def test_routes_state_boundary_and_gates(monkeypatch, kernel_paths):
     VIState; on the card the fitters raise outside the kernels' range or
     dtype unless use_fused=False; unported options raise."""
     d = 8
-    t = dense_gaussian(7, d, scale=0.3)
-    g = BaM(d, t.lp, t.lp_g)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
+    g = BaM(d, t.lp, t.lp_g, device=DEV)
     assert not g._factor_route()
-    assert not BaM(d, t.lp, t.lp_g, use_factor=False)._factor_route()
-    assert BaM(d, t.lp, t.lp_g, use_factor=True)._factor_route()
+    assert not BaM(d, t.lp, t.lp_g, use_factor=False,
+                   device=DEV)._factor_route()
+    assert BaM(d, t.lp, t.lp_g, use_factor=True, device=DEV)._factor_route()
     monkeypatch.setattr(t_bam, "on_gpu", lambda device: True)
     assert g._factor_route()
     with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
         g.fit(0, Regularizers().linear(20.0), niter=2, batch_size=8,
               verbose=False)
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
-    s = BaM(d, t.lp, t.lp_g).fit(0, Regularizers().linear(20.0), niter=100,
-                                 batch_size=8, verbose=False, retries=0,
-                                 return_state=True)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
+    s = BaM(d, t.lp, t.lp_g, device=DEV).fit(
+        0, Regularizers().linear(20.0), niter=100, batch_size=8,
+        verbose=False, retries=0, return_state=True)
     assert s.step == 101 and torch.isfinite(s.chol).all()
     with pytest.raises(NotImplementedError, match="float32"):
-        FactorBaM(d, t.lp, t.lp_g, dtype=torch.float64)._fused_mode(8)
+        FactorBaM(d, t.lp, t.lp_g, dtype=torch.float64,
+                  device=DEV)._fused_mode(8)
     with pytest.raises(ValueError, match=r"B in \[8, 56\]"):
-        FactorBaM(d, t.lp, t.lp_g)._fused_mode(64)
+        FactorBaM(d, t.lp, t.lp_g, device=DEV)._fused_mode(64)
     assert FactorBaM(d, t.lp, t.lp_g, use_fused=False,
-                     dtype=torch.float64)._fused_mode(64) is None
+                     dtype=torch.float64, device=DEV)._fused_mode(64) is None
     with pytest.raises(NotImplementedError, match="audit"):
-        FactorBaM(d, t.lp, t.lp_g).fit(0, Regularizers().linear(1.0),
-                                       niter=1, audit_every=5)
+        FactorBaM(d, t.lp, t.lp_g, device=DEV).fit(
+            0, Regularizers().linear(1.0), niter=1, audit_every=5)
     with pytest.raises(NotImplementedError):
-        BaM(d, t.lp, t.lp_g, jit_compile=False)
+        BaM(d, t.lp, t.lp_g, jit_compile=False, device=DEV)
     assert FactorVIState(*s[:2], 0, 0, s.n_accepted,
                          s.n_rejected).ns_stats == NS_STATS_INIT

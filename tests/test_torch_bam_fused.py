@@ -22,6 +22,9 @@ from gsmvi_tpu.ops.pallas.fused_step import gaussian_score_kernel
 from gsmvi_tpu_torch.ops import bam_fused as tbf
 from gsmvi_tpu_torch.ops import fused_step as tfs
 
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -207,16 +210,17 @@ def test_ns_tiers_and_tier_choice_match_jax(gates):
     d = 4
     mean_t, cov = _benign_target(d)
     tj = _gaussian_target(jnp.asarray(mean_t), jnp.asarray(cov), "g")
-    tt = gaussian_target_from_arrays(mean_t, cov)
+    tt = gaussian_target_from_arrays(mean_t, cov, device=DEV)
     kw = {} if gates is None else {"gu_gate": gates[0],
                                    "lmax_gate": gates[1]}
     for profile in ("auto", "long"):
-        ti = FactorBaM(d, tt.lp, tt.lp_g, ns_profile=profile, **kw)._ns_tiers()
+        ti = FactorBaM(d, tt.lp, tt.lp_g, ns_profile=profile, device=DEV,
+                       **kw)._ns_tiers()
         tj_ = j_bf.FactorBaM(d, tj.lp, tj.lp_g, ns_profile=profile,
                              **kw)._ns_tiers()
         assert [(tuple(i), float(g), float(l)) for i, g, l in ti] == \
             [(tuple(i), float(g), float(l)) for i, g, l in tj_]
-    tiers = FactorBaM(d, tt.lp, tt.lp_g, **kw)._ns_tiers()
+    tiers = FactorBaM(d, tt.lp, tt.lp_g, device=DEV, **kw)._ns_tiers()
     for gu in STATS_GRID:
         for lm in STATS_GRID:
             assert tbf.ns_tier_from_stats(gu, lm, tiers) == int(

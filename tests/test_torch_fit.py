@@ -23,9 +23,16 @@ import gsmvi_tpu_torch.gsm as t_gsm
 import gsmvi_tpu_torch.gsm_factor as t_gf
 from gsmvi_tpu import FactorGSM as JFactorGSM
 from gsmvi_tpu.models.gaussian import _gaussian_target
-from gsmvi_tpu_torch import GSM, FactorGSM
+from gsmvi_tpu_torch import ADVI, GSM, BaM, FactorBaM, FactorGSM
+from gsmvi_tpu_torch.advi import advi_state_from_numpy
 from gsmvi_tpu_torch.driver import step_seed
-from gsmvi_tpu_torch.models import dense_gaussian, gaussian_target_from_arrays
+from gsmvi_tpu_torch.models import (dense_gaussian,
+                                    gaussian_target_from_arrays,
+                                    ill_conditioned_gaussian)
+from gsmvi_tpu_torch.state import factor_state_from_numpy, init_state
+
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,7 +74,7 @@ def test_step_runner_matches_jax_fused_fit(monkeypatch, kernel_paths):
     d, b, niter = 16, 8, 99
     mean, cov = _target_arrays(2, d, 0.5)
     tj = _gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "g")
-    tt = gaussian_target_from_arrays(mean, cov)
+    tt = gaussian_target_from_arrays(mean, cov, device=DEV)
 
     monkeypatch.setattr(j_gf, "on_tpu", lambda: True)
     gj = JFactorGSM(D=d, lp=tj.lp, lp_g=tj.lp_g, dtype=jnp.float32,
@@ -83,7 +90,7 @@ def test_step_runner_matches_jax_fused_fit(monkeypatch, kernel_paths):
         np.asarray(jax.random.normal(jax.random.fold_in(key, s), (b, d),
                                      jnp.float32))
         for s in range(niter + 1 + spc)])
-    gt = FactorGSM(d, tt.lp, tt.lp_g, fused_score=tt.fused_score)
+    gt = FactorGSM(d, tt.lp, tt.lp_g, fused_score=tt.fused_score, device=DEV)
     assert gt._fused_mode(b) == "step" and gt.steps_per_call == spc
     gt._eps = lambda seed, step, batch, dd, dtype: torch.from_numpy(
         draws[step])
@@ -103,16 +110,16 @@ def test_fits_converge_on_cpu(mode, monkeypatch):
     """GSM.fit (the dense route off the card) and FactorGSM on each of its
     paths recover the target's moments."""
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
     if mode == "dense":
-        g = GSM(d, t.lp, t.lp_g)
+        g = GSM(d, t.lp, t.lp_g, device=DEV)
         assert not g._factor_route(8)
     else:
         if mode != "factor":
             monkeypatch.setattr(t_gf, "on_gpu", lambda device: True)
         g = FactorGSM(d, t.lp, t.lp_g,
                       fused_score=t.fused_score if mode == "step" else None,
-                      steps_per_call=8)
+                      steps_per_call=8, device=DEV)
         assert g._fused_mode(8) == {"factor": None, "update": "update",
                                     "step": "step"}[mode]
     mean, cov = g.fit(0, niter=600, batch_size=8, verbose=False)
@@ -123,7 +130,7 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths):
     """steps_per_call 1/4/5 (5 leaves remainders) and a monitor cadence
     give the bit-identical final state: eps depends only on (seed, step)."""
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
     calls = []
 
     class Monitor:
@@ -134,7 +141,7 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths):
 
     def run(spc, monitor=None):
         g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
-                      steps_per_call=spc)
+                      steps_per_call=spc, device=DEV)
         assert g._fused_mode(8) == "step"
         return g.fit(0, niter=101, batch_size=8, verbose=False,
                      monitor=monitor, return_state=True)
@@ -148,9 +155,9 @@ def test_trajectory_invariant_to_spc_and_cadence(kernel_paths):
 
 def test_resume_is_exact(kernel_paths):
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
     g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
-                  steps_per_call=4)
+                  steps_per_call=4, device=DEV)
     assert g._fused_mode(8) == "step"
     full = g.fit(3, niter=160, batch_size=8, verbose=False, return_state=True)
     half = g.fit(3, niter=79, batch_size=8, verbose=False, return_state=True)
@@ -167,18 +174,20 @@ def test_kernel_gate_raises_on_the_card(monkeypatch, kernel_paths):
     use_fused=False is the one plain route there, and GSM's "auto" factor
     route hands such shapes on to the same gate."""
     d = 16
-    t = dense_gaussian(7, d, scale=0.3)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
     with pytest.raises(NotImplementedError, match="float32"):
-        FactorGSM(d, t.lp, t.lp_g, dtype=torch.float64)._fused_mode(8)
+        FactorGSM(d, t.lp, t.lp_g, dtype=torch.float64,
+                  device=DEV)._fused_mode(8)
     with pytest.raises(ValueError, match=r"B in \[8, 64\]"):
-        FactorGSM(d, t.lp, t.lp_g)._fused_mode(96)
+        FactorGSM(d, t.lp, t.lp_g, device=DEV)._fused_mode(96)
     with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
-        FactorGSM(8, t.lp, t.lp_g)._fused_mode(8)
+        FactorGSM(8, t.lp, t.lp_g, device=DEV)._fused_mode(8)
     assert FactorGSM(d, t.lp, t.lp_g, use_fused=False,
-                     dtype=torch.float64)._fused_mode(96) is None
+                     dtype=torch.float64, device=DEV)._fused_mode(96) is None
     monkeypatch.setattr(t_gsm, "on_gpu", lambda device: True)
     with pytest.raises(ValueError, match="use_fused=False"):
-        GSM(d, t.lp, t.lp_g).fit(0, niter=2, batch_size=4, verbose=False)
+        GSM(d, t.lp, t.lp_g, device=DEV).fit(0, niter=2, batch_size=4,
+                                             verbose=False)
 
 
 def test_eps_stream_seeding():
@@ -192,15 +201,17 @@ def test_gsm_routes_and_state_boundary(monkeypatch):
     keeps B >= 128 with 2B > D dense, and the factor route hands back a
     VIState."""
     d = 8
-    t = dense_gaussian(7, d, scale=0.3)
-    g = GSM(d, t.lp, t.lp_g)
+    t = dense_gaussian(7, d, scale=0.3, device=DEV)
+    g = GSM(d, t.lp, t.lp_g, device=DEV)
     assert not g._factor_route(8)
     monkeypatch.setattr(t_gsm, "on_gpu", lambda device: True)
     assert g._factor_route(8)
     assert not g._factor_route(128)
-    assert not GSM(d, t.lp, t.lp_g, use_factor=False)._factor_route(8)
+    assert not GSM(d, t.lp, t.lp_g, use_factor=False,
+                   device=DEV)._factor_route(8)
     with pytest.warns(UserWarning, match="2\\*batch_size > D"):
-        assert not GSM(d, t.lp, t.lp_g, use_factor=True)._factor_route(128)
+        assert not GSM(d, t.lp, t.lp_g, use_factor=True,
+                       device=DEV)._factor_route(128)
     s = g.fit(0, niter=200, batch_size=8, verbose=False, return_state=True)
     assert s.step == 201 and torch.isfinite(s.chol).all()
     _moments_close(s.mean, s.cov, t)
@@ -208,8 +219,8 @@ def test_gsm_routes_and_state_boundary(monkeypatch):
 
 def test_dense_resume_and_unported_options():
     d = 6
-    t = dense_gaussian(1, d, scale=0.3)
-    g = GSM(d, t.lp, t.lp_g, fused_score=t.fused_score)
+    t = dense_gaussian(1, d, scale=0.3, device=DEV)
+    g = GSM(d, t.lp, t.lp_g, fused_score=t.fused_score, device=DEV)
     with pytest.warns(UserWarning, match="fused_score is set"):
         full = g.fit(0, niter=50, batch_size=4, verbose=False,
                      return_state=True)
@@ -219,9 +230,38 @@ def test_dense_resume_and_unported_options():
                     return_state=True, state=half)
     assert torch.equal(res.cov, full.cov) and res.step == full.step
     with pytest.raises(NotImplementedError):
-        FactorGSM(d, t.lp, t.lp_g, pallas_precision="bf16")
+        FactorGSM(d, t.lp, t.lp_g, pallas_precision="bf16", device=DEV)
     with pytest.raises(NotImplementedError):
-        FactorGSM(d, t.lp, t.lp_g, method="qr")
+        FactorGSM(d, t.lp, t.lp_g, method="qr", device=DEV)
+
+
+DEFAULT_DEVICE_CALLS = {
+    "GSM": lambda t: GSM(4, t.lp, t.lp_g),
+    "FactorGSM": lambda t: FactorGSM(4, t.lp, t.lp_g),
+    "BaM": lambda t: BaM(4, t.lp, t.lp_g),
+    "FactorBaM": lambda t: FactorBaM(4, t.lp, t.lp_g),
+    "ADVI": lambda t: ADVI(4, t.lp),
+    "dense_gaussian": lambda t: dense_gaussian(0, 4),
+    "ill_conditioned_gaussian": lambda t: ill_conditioned_gaussian(0, 4),
+    "gaussian_target_from_arrays": lambda t: gaussian_target_from_arrays(
+        np.zeros(4, np.float32), np.eye(4, dtype=np.float32)),
+    "init_state": lambda t: init_state(0, 4),
+    "factor_state_from_numpy": lambda t: factor_state_from_numpy(
+        np.zeros(4), np.eye(4), 0, 0, 0, 0),
+    "advi_state_from_numpy": lambda t: advi_state_from_numpy(
+        np.zeros(4), np.eye(4), 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CALLS))
+def test_default_device_is_the_card(name, monkeypatch):
+    """Every fitter, target constructor and state helper defaults to the
+    CUDA card; with no card the default raises at construction instead of
+    running on the CPU."""
+    t = dense_gaussian(0, 4, device=DEV)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEFAULT_DEVICE_CALLS[name](t)
 
 
 def test_import_loads_neither_jax_nor_triton():
@@ -229,7 +269,8 @@ def test_import_loads_neither_jax_nor_triton():
             "gsmvi_tpu_torch.ops.fused_step, gsmvi_tpu_torch.ops.cuda._build, "
             "gsmvi_tpu_torch.bam, gsmvi_tpu_torch.bam_factor, "
             "gsmvi_tpu_torch.ops.bam, gsmvi_tpu_torch.ops.bam_eps, "
-            "gsmvi_tpu_torch.ops.bam_fused, gsmvi_tpu_torch.ops.sqrtm; "
+            "gsmvi_tpu_torch.ops.bam_fused, gsmvi_tpu_torch.ops.sqrtm, "
+            "gsmvi_tpu_torch.ops.gsm_step, gsmvi_tpu_torch.ops.batch_fused; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'gsmvi_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -411,3 +411,170 @@ def test_advi_fit_fused_runs_through_the_kernels(cuda, estimator):
     assert counts["gaussian_score"] >= 2 * (niter + 1)
     for a, c in zip(states[0][:-2], states[1][:-2]):
         assert torch.equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# K5 gsm_update_fused (the dense route) and K6 make_fused_eps_batch_multistep
+# ---------------------------------------------------------------------------
+
+def _dense_inputs(dev, b, d, seed=0, k=None):
+    """(samples, vs, mu0, S0) of a dense GSM step, S0 exactly symmetric; a
+    leading replica axis with ``k``."""
+    rng = np.random.default_rng(seed)
+    lead = () if k is None else (k,)
+    a = rng.standard_normal((*lead, d, d))
+    s0 = (a @ np.swapaxes(a, -1, -2) / d + np.eye(d)).astype(np.float32)
+    s0 = 0.5 * (s0 + np.swapaxes(s0, -1, -2))
+    mu = rng.standard_normal((*lead, d))
+    x = mu[..., None, :] + rng.standard_normal((*lead, b, d))
+    v = -(x - rng.standard_normal((*lead, 1, d)))
+    return [torch.from_numpy(np.ascontiguousarray(z, np.float32)).to(dev)
+            for z in (x, v, mu, s0)]
+
+
+@pytest.mark.parametrize("b,d", [(2, 16), (8, 200), (32, 256), (512, 256),
+                                 (96, 1024)])
+def test_dense_kernel_matches_plain(cuda, b, d):
+    """K5 against gsm_update on the same tensors, within 1e-5 * max(1, |S|)
+    (float32, sums in other orders), with S symmetric bit for bit."""
+    from gsmvi_tpu_torch.ops import gsm_step
+
+    x, v, mu, s0 = _dense_inputs(cuda, b, d, seed=b + d)
+    m_k, s_k = gsm_step.gsm_update_fused(x, v, mu, s0)
+    m_p, s_p = gsm_step.gsm_update_replicas_reference(x, v, mu, s0)
+    assert _within(m_k, m_p, 1e-5) and _within(s_k, s_p, 1e-5)
+    assert torch.equal(s_k, s_k.T)
+
+
+def test_dense_kernel_batched_equals_single_calls(cuda):
+    from gsmvi_tpu_torch.ops import gsm_step
+
+    x, v, mu, s0 = _dense_inputs(cuda, 32, 200, seed=5, k=4)
+    m_k, s_k = gsm_step.gsm_update_fused(x, v, mu, s0)
+    for i in range(4):
+        m_i, s_i = gsm_step.gsm_update_fused(x[i], v[i], mu[i], s0[i])
+        assert torch.equal(m_k[i], m_i) and torch.equal(s_k[i], s_i)
+        assert torch.equal(s_k[i], s_k[i].T)
+
+
+def _batch_problem(dev, k, b, d, spc, seed=0):
+    t = dense_gaussian(0, d, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = torch.randn((k, spc * b, d), generator=gen, device=dev)
+    means = torch.zeros((k, d), device=dev)
+    factors = torch.eye(d, device=dev).repeat(k, 1, 1)
+    return t, blocks, means, factors
+
+
+@pytest.mark.parametrize("case", ["full", "nmax_lt_spc", "one_rejected"])
+def test_batch_kernel_matches_plain(cuda, case):
+    """K6 against its plain version at K=4: equal accepted counts; a
+    replica whose draws the gates reject at one sub-step leaves the others
+    untouched (each equals its own single K2 call bit for bit)."""
+    from gsmvi_tpu_torch.ops import batch_fused as bfm
+
+    k, b, d, spc = 4, 32, 256, 8
+    t, blocks, means, factors = _batch_problem(cuda, k, b, d, spc)
+    score_fn, params = t.fused_score
+    nmax = 3 if case == "nmax_lt_spc" else spc
+    if case == "one_rejected":
+        ladder = torch.logspace(0.0, 3.0, b, device=cuda)[:, None]
+        blocks[2, 4 * b:5 * b] *= ladder
+    step = bfm.make_fused_eps_batch_multistep(score_fn, len(params), b, d, k,
+                                              spc)
+    m_k, f_k, n_k = step(nmax, blocks, means, factors, *params)
+    m_p, f_p, n_p = bfm.eps_batch_multistep_reference(
+        fs.gaussian_score_reference, params, nmax, blocks, means, factors,
+        batch=b)
+    want = [nmax] * k
+    if case == "one_rejected":
+        want[2] = nmax - 1
+    assert n_k.tolist() == n_p.tolist() == want
+    assert float((m_k - m_p).abs().max()) <= 1e-4
+    assert float((f_k - f_p).abs().max()) <= 1e-4 * float(f_p.abs().max())
+    single = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    for i in range(k):
+        m_i, f_i, n_i = single(nmax, blocks[i], means[i], factors[i],
+                               *params)
+        assert torch.equal(m_k[i], m_i) and torch.equal(f_k[i], f_i)
+        assert int(n_i) == want[i]
+
+
+def test_batched_update_kernel_equals_single_calls(cuda):
+    """Batched K1 (the fit_batch "auto" route): replica i equals a call on
+    replica i alone, bit for bit, including a rejected replica."""
+    ins = [_inputs(cuda, 32, 256, seed=i, decades=3.0 if i == 1 else 0.0)
+           for i in range(3)]
+    eps, v, mu, f = (torch.stack(z) for z in zip(*ins))
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    assert g_k.tolist() == [True, False, True]
+    for i in range(3):
+        m_i, f_i, g_i = fs.gsm_eps_update_fused(*ins[i])
+        assert torch.equal(m_k[i], m_i) and torch.equal(f_k[i], f_i)
+        assert bool(g_i) == bool(g_k[i])
+
+
+def test_fit_batch_replica_equals_single_fit(cuda):
+    """FactorGSM.fit_batch(small_solver="fused") on K6: every replica is the
+    same-seed single fit on K2, bit for bit; the "auto" route (batched K1)
+    and the dense route (batched K5) launch their kernels."""
+    from gsmvi_tpu_torch.ops import batch_fused as bfm  # noqa: F401
+    from gsmvi_tpu_torch.ops import gsm_step  # noqa: F401
+
+    d, b, niter = 64, 16, 45
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=8, device="cuda")
+    fs.reset_launch_counts()
+    st = g.fit_batch(range(3), batch_size=b, niter=niter, return_state=True,
+                     small_solver="fused")
+    counts = fs.launch_counts()
+    assert counts["make_fused_eps_batch_multistep"] == 6
+    assert counts["make_fused_eps_multistep"] == 0
+    for i in range(3):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert torch.equal(st.mean[i], si.mean)
+        assert torch.equal(st.factor[i], si.factor)
+        assert int(st.n_accepted[i]) == int(si.n_accepted)
+    fs.reset_launch_counts()
+    GSM(d, t.lp, t.lp_g, device="cuda").fit_batch(range(3), batch_size=b,
+                                                  niter=niter)
+    GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False).fit_batch(
+        range(3), batch_size=b, niter=niter)
+    counts = fs.launch_counts()
+    assert counts["gsm_eps_update_fused"] == niter + 1
+    assert counts["gsm_update_fused"] == niter + 1
+
+
+def test_dense_and_batch_fitters_raise_outside_the_kernel_range(cuda):
+    """On the card the dense route runs K5 or raises (dtype), fit_batch
+    "fused" raises without fused_score or outside K6's range; the plain
+    routes stay available (use_fused=False, small_solver="chol")."""
+    from gsmvi_tpu_torch.ops import gsm_step  # noqa: F401
+
+    d = 64
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    with pytest.raises(NotImplementedError, match="float32"):
+        GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False,
+            dtype=torch.float64).fit(0, batch_size=8, niter=2, verbose=False)
+    with pytest.raises(ValueError, match=r"D in \[1, 8192\]"):
+        GSM(8193, t.lp, t.lp_g, device="cuda", use_factor=False).fit(
+            0, batch_size=8, niter=2, verbose=False)
+    with pytest.raises(ValueError, match="fused_score"):
+        FactorGSM(d, t.lp, t.lp_g, device="cuda").fit_batch(
+            range(2), batch_size=16, niter=2, small_solver="fused")
+    with pytest.raises(ValueError, match="CUDA kernels take B"):
+        FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  device="cuda").fit_batch(range(2), batch_size=96, niter=2,
+                                           small_solver="fused")
+    fs.reset_launch_counts()
+    mean, _ = GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False,
+                  use_fused=False).fit(0, batch_size=8, niter=2,
+                                       verbose=False)
+    means, _ = FactorGSM(d, t.lp, t.lp_g, device="cuda").fit_batch(
+        range(2), batch_size=96, niter=2, small_solver="chol")
+    assert mean.is_cuda and means.is_cuda
+    assert sum(fs.launch_counts().values()) == 0
+    huge = GSM(d, t.lp, t.lp_g, device="cuda")
+    assert not huge._factor_route(128) and huge._dense_fused(128)

@@ -23,6 +23,9 @@ from gsmvi_tpu_torch.ops import gsm as tgsm
 from gsmvi_tpu_torch.ops import gsm_eps as teps
 from gsmvi_tpu_torch.ops.gsm_factor import factor_to_cov
 
+# The port runs on the card by default; these tests run on the CPU.
+DEV = "cpu"
+
 TOL = 1e-10
 
 
@@ -137,7 +140,7 @@ def test_gaussian_target_from_arrays_matches_jax_target():
     for dtype in (np.float32, np.float64):
         mean = rng.uniform(size=d).astype(dtype)
         cov = _spd(rng, d, 1e-2).astype(dtype)
-        t_t = gaussian_target_from_arrays(mean, cov)
+        t_t = gaussian_target_from_arrays(mean, cov, device=DEV)
         t_j = _gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "g")
         prec_t = t_t.fused_score[1][1]
         assert prec_t.dtype == torch.from_numpy(mean).dtype
@@ -162,7 +165,7 @@ def test_make_target_autodiff_score():
 
 
 def test_states_init_accept_revert_and_from_numpy():
-    s = tstate.init_state(5, 3, dtype=torch.float64)
+    s = tstate.init_state(5, 3, dtype=torch.float64, device=DEV)
     assert s.seed == 5 and s.step == 0 and int(s.n_accepted) == 0
     np.testing.assert_array_equal(s.chol.numpy(), np.eye(3))
     good = tstate.accept_or_revert(s, s.mean + 1.0, 2.0 * s.cov)
@@ -175,7 +178,8 @@ def test_states_init_accept_revert_and_from_numpy():
 
     mean = np.arange(3, dtype=np.float32)
     factor = np.tril(np.ones((3, 3), np.float32))
-    fs = tstate.factor_state_from_numpy(mean, factor, 9, 40, 38, 2)
+    fs = tstate.factor_state_from_numpy(mean, factor, 9, 40, 38, 2,
+                                        device=DEV)
     assert fs.mean.dtype == torch.float32 and fs.seed == 9 and fs.step == 40
     assert int(fs.n_accepted) == 38 and fs.n_accepted.dtype == torch.int32
     np.testing.assert_array_equal(fs.cov.numpy(), factor @ factor.T)
