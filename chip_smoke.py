@@ -74,9 +74,28 @@ the script exits non-zero):
     K in {8, 32} and D in {64, 256} (the bench's fit_batch cells) beside
     the single-fit K2 rate on the same card; K=32 runs fewer steps and
     checks finiteness only.
+14. eps-step kernels: K4 ``make_fused_eps_step`` (ns, external draw)
+    against ``eps_step_reference``; K4a through ``gsm_eps_update_fused(
+    method="chol")`` and ``make_fused_eps_step(method="chol")`` against
+    ``eps_update_core_reference``, plus an input whose K is indefinite in
+    float32 and a NaN score (flags equal, old state kept); all at (B, D) =
+    (32, 256), (8, 200) and (64, 256).  The Philox draw: its words equal the
+    plain version's bit for bit, its normals within 4 ulp, and over 2^20
+    draws |mean| < 5e-3, |var - 1| < 1e-2 and the KS distance to N(0, 1)
+    < 3e-3; two seeds give other draws; the on-card-draw K4 step against
+    the plain step on the plain draw.
+15. eps-step path: ``FactorGSM(..., fused_score=..., steps_per_call=1)
+    .fit(seed, batch_size=32, niter=N_ITER)``: K4 exactly N_ITER + 1 times,
+    K2 never, and the final state equals phase 3's spc=8 state bit for bit.
+16. audit paths: phase 3's fit with ``audit_every=500`` (six records, all
+    valid, no warning at tol 1e-3, K4 exactly six times, the state equal to
+    phase 3's bit for bit) and phase 6's BaM fit with ``audit_every=500``
+    (four records, K7 four times, no warning on a valid record, the state
+    equal to phase 6's bit for bit).
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
-of 9, both fits of 11 and the three fits of 13) and read just after it.
+of 9, both fits of 11, the three fits of 13, 15 and both fits of 16) and
+read just after it.
 Then the card's name and power limit, the kernel table (each kernel's
 bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
 its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
@@ -204,7 +223,28 @@ SOURCES = {
     "make_fused_eps_batch_multistep": (
         "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
         "gsmvi_tpu/ops/pallas/batch_fused.py:54"),
+    "make_fused_eps_step": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_chol.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:586"),
 }
+# K4: the shapes of phase 14.  A whole step carries the score's GEMM
+# rounding into the update, as K2's sub-steps do, so the ns step is held to
+# K2's 1e-4.  The exact (chol) variant factors the jittered Gram G of the
+# Z^T rows, whose condition on this target from (0, I) is 1e8-1e12 before
+# the jitter (c rows nearly parallel to the draws), so its float32 rounding
+# depends on the input: it is held to the larger of the JAX package's own
+# chol-kernel bound, 1e-4 on the mean and 2e-4 * max|S| on S = F F^T
+# (tests/test_pallas.py:98-101), and CHOL_FLOOR x the plain float32
+# version's own distance from the plain version in float64 on the same
+# input (the rounding floor of that input).
+STEP_SHAPES = ((B, D), RAGGED, (64, D))
+STEP_TOL = MULTI_TOL
+CHOL_MEAN_TOL, CHOL_COV_TOL, CHOL_FLOOR = 1e-4, 2e-4, 4.0
+# The Philox draw: 2^20 normals; bounds as in tests/test_torch_eps_step.py.
+PRNG_SHAPE = (1024, 1024)
+PRNG_ULP = 4
+PRNG_MEAN_TOL, PRNG_VAR_TOL, PRNG_KS_TOL = 5e-3, 1e-2, 3e-3
+AUDIT_EVERY, AUDIT_TOL = 500, 1e-3
 
 
 def emit(obj) -> None:
@@ -1289,6 +1329,336 @@ def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
     return times, work
 
 
+def _cov(f):
+    f = f.double()
+    return f @ f.T
+
+
+def _chol_close(k, p, p64):
+    """Kernel (mean, F) vs the plain float32 version: (mean_err, mean_tol,
+    cov_err, cov_tol), the tolerances as CHOL_* state them, from the plain
+    float64 version ``p64`` on the same input."""
+    s_p = _cov(p[1])
+    floor_m = float((p[0].double() - p64[0]).abs().max())
+    floor_s = float((s_p - _cov(p64[1])).abs().max())
+    return (float((k[0] - p[0]).abs().max()),
+            max(CHOL_MEAN_TOL, CHOL_FLOOR * floor_m),
+            float((_cov(k[1]) - s_p).abs().max()),
+            max(CHOL_COV_TOL * max(1.0, float(s_p.abs().max())),
+                CHOL_FLOOR * floor_s))
+
+
+def _f64(xs):
+    return [x.double() for x in xs]
+
+
+def _ulps(a, b, torch):
+    """Largest distance in units in the last place between float32 a, b."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def phase_eps_step_kernels(fs, dense_gaussian, torch, np):
+    """Phase 14: K4 (ns and chol, external and on-card draw), K4a and the
+    Philox draw against their plain versions on the same CUDA tensors."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    ref = fs.gaussian_score_reference
+    worst = 0.0
+    for b, d in STEP_SHAPES:
+        rng = np.random.default_rng(5000 + b + d)
+        t = dense_gaussian(TARGET_SEED, d, device=dev)
+        score_fn, params = t.fused_score
+        e = cu(rng.standard_normal((b, d)).astype(np.float32))
+        mean0, f0 = torch.zeros(d, device=dev), torch.eye(d, device=dev)
+        recs = []
+        for method in ("ns", "chol"):
+            step = fs.make_fused_eps_step(score_fn, len(params), b, d,
+                                          external_eps=True, method=method)
+            k = step(e, mean0, f0, *params)
+            p = fs.eps_step_reference(ref, params, e, mean0, f0,
+                                      method=method)
+            p64 = (fs.eps_step_reference(ref, _f64(params), *_f64(
+                (e, mean0, f0)), method=method) if method == "chol" else None)
+            recs.append((f"step_{method}", k, p, p64))
+        # K4a alone on given scores (phase 1's kind of input).
+        a = rng.standard_normal((d, d))
+        f = cu(np.linalg.cholesky(a @ a.T / d + np.eye(d)).astype(np.float32))
+        mu = cu(rng.standard_normal(d).astype(np.float32))
+        v = cu((0.3 * rng.standard_normal((b, d))).astype(np.float32))
+        k = fs.gsm_eps_update_fused(e, v, mu, f, method="chol")
+        p = fs.gsm_eps_update_chol_reference(e, v, mu, f)
+        p64 = fs.gsm_eps_update_chol_reference(*_f64((e, v, mu, f)))
+        recs.append(("update_chol", k, p, p64))
+        torch.cuda.synchronize()
+        for case, k, p, p64 in recs:
+            if case == "step_ns":
+                em, tm = float((k[0] - p[0]).abs().max()), STEP_TOL
+                ef_, tf = (float((k[1] - p[1]).abs().max()),
+                           STEP_TOL * float(p[1].abs().max()))
+            else:
+                em, tm, ef_, tf = _chol_close(k, p, p64)
+            rec = {"kernel": "make_fused_eps_step" if case.startswith("step")
+                   else "gsm_eps_update_fused(chol)", "case": case, "B": b,
+                   "D": d, "good": [bool(k[2]), bool(p[2])],
+                   "mean_err": em, "mean_tol": tm,
+                   ("f_err" if case == "step_ns" else "cov_err"): ef_,
+                   ("f_tol" if case == "step_ns" else "cov_tol"): tf}
+            emit({"phase": "eps_step_kernels", **rec})
+            check(bool(k[2]) == bool(p[2]) is True, f"K4 accept flag {rec}")
+            check(em <= tm and ef_ <= tf,
+                  f"K4 disagrees with its plain version: {rec}")
+            worst = max(worst, em, float((k[1] - p[1]).abs().max()))
+
+        # Rejections: K indefinite in float32 (draws at 1e4, score v = e),
+        # and a NaN score; the old state must come back.
+        ind_e = cu((1e4 * rng.standard_normal((b, d))).astype(np.float32))
+        neg = (torch.zeros((1, d), device=dev), -torch.eye(d, device=dev))
+        nan_v = v.clone()
+        nan_v[b // 2, d // 3] = float("nan")
+        nan_params = (params[0].clone(), params[1])
+        nan_params[0][0, d // 3] = float("nan")
+        chol_step = fs.make_fused_eps_step(score_fn, 2, b, d,
+                                           external_eps=True, method="chol")
+        ns_step = fs.make_fused_eps_step(score_fn, 2, b, d,
+                                         external_eps=True)
+        rejects = [
+            ("update_chol_indefinite", mean0, f0,
+             fs.gsm_eps_update_fused(ind_e, ind_e, mean0, f0, method="chol"),
+             fs.gsm_eps_update_chol_reference(ind_e, ind_e, mean0, f0)),
+            ("step_chol_indefinite", mean0, f0,
+             chol_step(ind_e, mean0, f0, *neg),
+             fs.eps_step_reference(ref, neg, ind_e, mean0, f0,
+                                   method="chol")),
+            ("update_chol_nan_score", mu, f,
+             fs.gsm_eps_update_fused(e, nan_v, mu, f, method="chol"),
+             fs.gsm_eps_update_chol_reference(e, nan_v, mu, f)),
+            ("step_chol_nan_score", mean0, f0,
+             chol_step(e, mean0, f0, *nan_params),
+             fs.eps_step_reference(ref, nan_params, e, mean0, f0,
+                                   method="chol")),
+            ("step_ns_nan_score", mean0, f0,
+             ns_step(e, mean0, f0, *nan_params),
+             fs.eps_step_reference(ref, nan_params, e, mean0, f0)),
+        ]
+        torch.cuda.synchronize()
+        for case, m_old, f_old, k, p in rejects:
+            kept = bool(torch.equal(k[0], m_old) and torch.equal(k[1], f_old))
+            rec = {"kernel": "make_fused_eps_step" if case.startswith("step")
+                   else "gsm_eps_update_fused(chol)", "case": case, "B": b,
+                   "D": d, "good": [bool(k[2]), bool(p[2])],
+                   "old_state_kept": kept}
+            emit({"phase": "eps_step_kernels", **rec})
+            check(bool(k[2]) == bool(p[2]) is False and kept,
+                  f"K4 rejection {rec}")
+
+    # The Philox draw.
+    seed = 20261016
+    n_blocks = PRNG_SHAPE[0] * PRNG_SHAPE[1] // 2
+    kat = fs.philox4x32(1, 0, 0, device=dev)[0].tolist()
+    words = fs.philox4x32(n_blocks, seed, fs.PHILOX_KEY1, device=dev)
+    words_p = fs.philox4x32_reference(fs._philox_counters(n_blocks, dev),
+                                      seed, fs.PHILOX_KEY1)
+    z = fs.philox_normal(seed, *PRNG_SHAPE, device=dev)
+    z_p = fs.philox_normal_reference(seed, *PRNG_SHAPE, device=dev)
+    z2 = fs.philox_normal(seed + 1, *PRNG_SHAPE, device=dev)
+    x = z.reshape(-1).double()
+    xs, _ = torch.sort(x)
+    n = xs.numel()
+    cdf = 0.5 * (1.0 + torch.erf(xs / 2.0 ** 0.5))
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=dev)
+    ks = max(float((i / n - cdf).max()), float((cdf - (i - 1) / n).max()))
+    rec = {"kat_counter0_key0": [f"{w:08x}" for w in kat],
+           "words_equal": bool(torch.equal(words, words_p)),
+           "normals_max_ulp": _ulps(z, z_p, torch), "n": n,
+           "mean": float(x.mean()), "var": float(x.var()), "ks": ks,
+           "seeds_differ": bool((z2 - z).abs().mean() > 0.5)}
+    emit({"phase": "eps_step_kernels", "kernel": "philox", **rec})
+    check(kat == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+          f"Philox known answer {rec}")
+    check(rec["words_equal"] and rec["normals_max_ulp"] <= PRNG_ULP,
+          f"Philox kernel vs plain version {rec}")
+    check(abs(rec["mean"]) < PRNG_MEAN_TOL
+          and abs(rec["var"] - 1.0) < PRNG_VAR_TOL and ks < PRNG_KS_TOL
+          and rec["seeds_differ"], f"Philox draw distribution {rec}")
+    t = dense_gaussian(TARGET_SEED, D, device=dev)
+    score_fn, params = t.fused_score
+    on_card = fs.make_fused_eps_step(score_fn, len(params), B, D)
+    mean0, f0 = torch.zeros(D, device=dev), torch.eye(D, device=dev)
+    k = on_card(seed, mean0, f0, *params)
+    p = fs.eps_step_reference(ref, params,
+                              fs.philox_normal_reference(seed, B, D, dev),
+                              mean0, f0)
+    torch.cuda.synchronize()
+    em = float((k[0] - p[0]).abs().max())
+    ef_ = float((k[1] - p[1]).abs().max())
+    rec = {"kernel": "make_fused_eps_step", "case": "step_ns_philox",
+           "B": B, "D": D, "good": [bool(k[2]), bool(p[2])],
+           "mean_err": em, "f_err": ef_,
+           "f_tol": STEP_TOL * float(p[1].abs().max())}
+    emit({"phase": "eps_step_kernels", **rec})
+    check(bool(k[2]) == bool(p[2]) is True and em <= STEP_TOL
+          and ef_ <= rec["f_tol"], f"K4 on-card draw step {rec}")
+    return worst
+
+
+def phase_eps_step_path(FactorGSM, fs, t, st_spc8, torch):
+    """Phase 15: FactorGSM(fused_score, steps_per_call=1) on K4."""
+    g = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=1, device="cuda")
+    check(g._fused_mode(B) == "step", "spc=1 must run the step mode")
+    fs.reset_launch_counts()
+    st, wall = _timed(lambda: g.fit(FIT_SEED, batch_size=B, niter=N_ITER,
+                                    verbose=False, return_state=True), torch)
+    c = fs.launch_counts()
+    same = bool(torch.equal(st.mean, st_spc8.mean)
+                and torch.equal(st.factor, st_spc8.factor)
+                and int(st.n_accepted) == int(st_spc8.n_accepted))
+    emit({"phase": "eps_step_path",
+          "fitter": "FactorGSM(fused_score, steps_per_call=1)", "D": D,
+          "B": B, "niter": N_ITER, "launches": c,
+          "n_accepted": int(st.n_accepted), "equals_spc8_state": same,
+          "iters_per_s": (N_ITER + 1) / wall})
+    check(c["make_fused_eps_step"] == N_ITER + 1,
+          f"K4 launches {c['make_fused_eps_step']} != niter+1")
+    check(c["make_fused_eps_multistep"] == 0, "K2 launched at spc=1")
+    check(same, "the spc=1 K4 fit differs from the spc=8 K2 fit")
+    return c
+
+
+def phase_audit_paths(FactorGSM, FactorBaM, Regularizers, fs, t, st_gsm,
+                      st_bam, torch):
+    """Phase 16: the audited FactorGSM (K2 + K4 audits) and FactorBaM
+    (K8 + K7 audits) fits against their unaudited states."""
+    import warnings
+
+    counts = []
+    g = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score, device="cuda")
+    fs.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        st, wall = _timed(lambda: g.fit(
+            FIT_SEED, batch_size=B, niter=N_ITER, verbose=False,
+            return_state=True, audit_every=AUDIT_EVERY,
+            audit_tol=AUDIT_TOL), torch)
+    c = fs.launch_counts()
+    counts.append(c)
+    warned = [str(w.message) for w in caught if "audit" in str(w.message)]
+    same = bool(torch.equal(st.mean, st_gsm.mean)
+                and torch.equal(st.factor, st_gsm.factor)
+                and int(st.n_accepted) == int(st_gsm.n_accepted))
+    log = g.audit_log
+    emit({"phase": "audit_paths", "fitter": "FactorGSM(fused_score)",
+          "D": D, "B": B, "niter": N_ITER, "audit_every": AUDIT_EVERY,
+          "launches": c, "records": log, "warnings": warned,
+          "max_err": max(max(r["mean_err"], r["cov_err"]) for r in log),
+          "equals_unaudited_state": same,
+          "iters_per_s": (N_ITER + 1) / wall})
+    check([r["i"] for r in log] == list(range(AUDIT_EVERY, N_ITER + 1,
+                                              AUDIT_EVERY))
+          and len(log) == 6 and all(r["valid"] for r in log),
+          "FactorGSM audit records")
+    check(not warned, f"FactorGSM audit warned: {warned}")
+    check(c["make_fused_eps_step"] == 6, "K4 must launch once per audit")
+    check(same, "the audited FactorGSM fit differs from the unaudited one")
+
+    regf = Regularizers().linear(BAM_REGF0)
+    fb = FactorBaM(D, t.lp, t.lp_g, fused_score=t.fused_score, device="cuda")
+    fs.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        st, wall = _timed(lambda: fb.fit(
+            FIT_SEED, regf, batch_size=B, niter=N_BAM, verbose=False,
+            retries=0, return_state=True, audit_every=AUDIT_EVERY,
+            audit_tol=AUDIT_TOL), torch)
+    c = fs.launch_counts()
+    counts.append(c)
+    warned = [str(w.message) for w in caught if "audit" in str(w.message)]
+    same = bool(torch.equal(st.mean, st_bam.mean)
+                and torch.equal(st.factor, st_bam.factor)
+                and int(st.n_accepted) == int(st_bam.n_accepted)
+                and tuple(st.ns_stats) == tuple(st_bam.ns_stats))
+    log = fb.audit_log
+    valid = [r for r in log if r["valid"]]
+    emit({"phase": "audit_paths", "fitter": "FactorBaM(fused_score)",
+          "D": D, "B": B, "niter": N_BAM, "regf": f"linear({BAM_REGF0})",
+          "audit_every": AUDIT_EVERY, "launches": c, "records": log,
+          "warnings": warned,
+          "max_valid_err": max((max(r["mean_err"], r["cov_err"])
+                                for r in valid), default=None),
+          "equals_unaudited_state": same,
+          "iters_per_s": (N_BAM + 1) / wall})
+    check([r["i"] for r in log] == list(range(AUDIT_EVERY, N_BAM + 1,
+                                              AUDIT_EVERY)) and len(log) == 4,
+          "FactorBaM audit records")
+    check(not warned, f"FactorBaM audit warned on a valid record: {warned}")
+    check(c["bam_eps_update_fused"] == 4, "K7 must launch once per audit")
+    check(same, "the audited FactorBaM fit differs from the unaudited one")
+    return counts
+
+
+def phase_eps_step_times(fs, t, torch):
+    """Per-call times of K4 (ns and chol, external draw; ns on the on-card
+    draw), K4a and the Philox draw at D=256, B=32 from (0, I), kernel vs
+    plain version (CUDA events), and K4's bound inputs."""
+    dev = torch.device("cuda")
+    score_fn, params = t.fused_score
+    ref = fs.gaussian_score_reference
+    gen = torch.Generator(device=dev).manual_seed(17)
+    e = torch.randn((B, D), generator=gen, device=dev)
+    mean, f = torch.zeros(D, device=dev), torch.eye(D, device=dev)
+    v = t.lp_g(mean + e @ f.T)
+    ns = fs.make_fused_eps_step(score_fn, len(params), B, D,
+                                external_eps=True)
+    chol = fs.make_fused_eps_step(score_fn, len(params), B, D,
+                                  external_eps=True, method="chol")
+    on_card = fs.make_fused_eps_step(score_fn, len(params), B, D)
+    times = {
+        "make_fused_eps_step": (
+            cuda_ms(lambda: ns(e, mean, f, *params)),
+            cuda_ms(lambda: fs.eps_step_reference(ref, params, e, mean, f))),
+        "make_fused_eps_step_chol": (
+            cuda_ms(lambda: chol(e, mean, f, *params), reps=20),
+            cuda_ms(lambda: fs.eps_step_reference(ref, params, e, mean, f,
+                                                  method="chol"),
+                    reps=3, warmup=1)),
+        "gsm_eps_update_fused_chol": (
+            cuda_ms(lambda: fs.gsm_eps_update_fused(e, v, mean, f,
+                                                    method="chol"), reps=20),
+            cuda_ms(lambda: fs.gsm_eps_update_chol_reference(e, v, mean, f),
+                    reps=3, warmup=1)),
+        "make_fused_eps_step_philox": (
+            cuda_ms(lambda: on_card(7, mean, f, *params)),
+            cuda_ms(lambda: fs.eps_step_reference(
+                ref, params, fs.philox_normal_reference(7, B, D, dev), mean,
+                f))),
+        "philox_normal": (
+            cuda_ms(lambda: fs.philox_normal(7, B, D, device=dev), reps=200),
+            cuda_ms(lambda: fs.philox_normal_reference(7, B, D, dev),
+                    reps=20)),
+    }
+    emit({"phase": "eps_step_times", "B": B, "D": D,
+          "ms_per_call": {k: {"kernel": a, "plain": p}
+                          for k, (a, p) in times.items()}})
+    work = {
+        "make_fused_eps_step": (
+            lambda: fs.eps_step_reference(ref, params, e, mean, f),
+            (e, mean, f, *params)),
+        "make_fused_eps_step_chol": (
+            lambda: fs.eps_step_reference(ref, params, e, mean, f,
+                                          method="chol"),
+            (e, mean, f, *params)),
+        "gsm_eps_update_fused_chol": (
+            lambda: fs.gsm_eps_update_chol_reference(e, v, mean, f),
+            (e, v, mean, f)),
+        "philox_normal": (
+            lambda: fs.philox_normal_reference(7, B, D, dev), ()),
+    }
+    return times, work
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1413,16 +1783,24 @@ def main() -> int:
     batch_counts = phase_fit_batch_paths(GSM, FactorGSM, fs, t, st, torch)
     phase_fit_batch_rates(FactorGSM, dense_gaussian, torch)
 
+    worst["make_fused_eps_step"] = phase_eps_step_kernels(
+        fs, dense_gaussian, torch, np)
+    step_counts = phase_eps_step_path(FactorGSM, fs, t, st, torch)
+    audit_counts = phase_audit_paths(FactorGSM, FactorBaM, Regularizers, fs,
+                                     t, st, st6, torch)
+
     times, work, library = phase_times(fs, dense_gaussian, torch, np)
     for more in (phase_bam_times(bf, fs, fb, t, st6, torch),
                  phase_advi_times(af, fs, torch, np),
-                 phase_dense_batch_times(gs, bfm, fs, t, torch, np)):
+                 phase_dense_batch_times(gs, bfm, fs, t, torch, np),
+                 phase_eps_step_times(fs, t, torch)):
         times.update(more[0])
         work.update(more[1])
-    bounds = {name: bound(*work[name]) for name in SOURCES}
+    bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
     emit({"phase": "bounds", **bounds})
     path_counts = ([main_counts, counts] + list(bam_counts)
-                   + list(advi_counts) + dense_counts + batch_counts)
+                   + list(advi_counts) + dense_counts + batch_counts
+                   + [step_counts] + audit_counts)
     launches = {name: sum(c[name] for c in path_counts) for name in SOURCES}
     print(card, flush=True)
     emit({"kernels": [

@@ -29,11 +29,20 @@ trajectory does not depend on ``steps_per_call`` or the chunk cadence.
 Eps for absolute step ``s`` comes from ``driver.step_seed(seed, s)``;
 resample attempts from the disjoint ``driver.retry_seed`` stream.
 
+``fit(..., audit_every=N)`` audits the kernel path every N iterations
+(``utils/audit.py``): one fresh, stream-disjoint draw from the live state
+goes through K7 on the NS tier the carried stats pick (the tier the fit
+runs there) and the exact thin-SVD step; an accepted, non-stiff step that
+deviates beyond ``audit_tol`` warns, and records land in ``audit_log``.
+The audit leaves the fit's trajectory unchanged.
+
 On a CUDA device a dtype or shape the kernels do not take raises;
 ``use_fused=False`` is the one plain route there.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -51,6 +60,7 @@ from .ops.bam_fused import (BAM_KERNEL_BATCH_RANGE, BAM_KERNEL_DIM_RANGE,
                             make_fused_bam_multistep, ns_tier_from_stats)
 from .ops.gsm_factor import factor_to_cov
 from .state import FactorVIState
+from .utils.audit import make_audit_hook, make_bam_audit
 
 __all__ = ["FactorBaM"]
 
@@ -97,6 +107,7 @@ class FactorBaM:
         self._reset_counts()
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
+        self.audit_log = []
 
     def _reset_counts(self) -> None:
         self.fit_counts.update(kernel_calls=0, report_reads=0, replays=0,
@@ -287,6 +298,38 @@ class FactorBaM:
 
         return run_chunk
 
+    def _make_tiered_update(self):
+        """K7 on the NS tier that carried stats pick: ``update(eps, vs,
+        mean, f, reg, ns_stats) -> (mean, f, good, stiff)`` (the audit's
+        fused side; ``good`` is K7's keep flag)."""
+        tiers = self._ns_tiers()
+
+        def update(eps, vs, mean, f, reg, ns_stats):
+            it, gg, lm = tiers[ns_tier_from_stats(*ns_stats, tiers)]
+            mean_new, f_new, rep = _bam_update_packed(
+                eps, vs, mean, f, reg, iters=it, lmax_gate=lm, gu_gate=gg)
+            return mean_new, f_new, rep[REP_KEEP] != 0, rep[REP_STIFF] != 0
+
+        return update
+
+    def _make_audit_hook(self, batch_size: int, regf, tol: float):
+        """The periodic fused-vs-SVD audit hook (``utils/audit.py``), its
+        audit cached per config; None, with a warning, when this config runs
+        no kernel."""
+        self.audit_log = []
+        if self._fused_mode(batch_size) is None:
+            warnings.warn("audit_every set but the fused kernel path is not "
+                          "active for this config; no audits will run",
+                          stacklevel=3)
+            return None
+        audit_fn = self._runners.get(
+            ("audit", batch_size, self.ns_iters, self.ns_profile,
+             self.lmax_gate, self.gu_gate, self.dtype),
+            (regf, self.lp_g),
+            lambda: make_bam_audit(self.lp_g, batch_size, self.D, regf,
+                                   self._make_tiered_update()))
+        return make_audit_hook(audit_fn, self.audit_log, tol, "FactorBaM")
+
     def _get_runner(self, batch_size: int, regf, retries: int):
         mode = self._fused_mode(batch_size)
         score_objs = ()
@@ -314,11 +357,14 @@ class FactorBaM:
         resumes a saved trajectory exactly, ignoring ``seed``/``mean``/
         ``cov``.  ``jitter`` is accepted and inert: this route's proposal is
         PD by construction.  ``check_goodness`` is accepted for parity;
-        checking is always on.  ``audit_every`` (the periodic kernel-vs-SVD
-        audit) is not ported."""
-        if audit_every:
-            raise NotImplementedError("audit_every: the fused-vs-SVD audit "
-                                      "is not ported")
+        checking is always on.
+
+        ``audit_every`` — when > 0 and a kernel path is active, every
+        ``audit_every`` iterations compare the (tiered) fused NS update
+        with the exact thin-SVD step on a fresh, stream-disjoint draw from
+        the live state (``utils/audit.py``); an accepted non-stiff step
+        deviating beyond ``audit_tol`` warns.  Records land in
+        ``self.audit_log``; the trajectory is unchanged."""
         pin_fp32()
         dev, dtype = self.device, self.dtype
         if state is None:
@@ -334,12 +380,15 @@ class FactorBaM:
         state = state._replace(mean=state.mean.contiguous(),
                                factor=state.factor.contiguous())
         self._reset_counts()
+        state_hook = (self._make_audit_hook(batch_size, regf, audit_tol)
+                      if audit_every else None)
         state = run_fit_loop(
             state, niter, self._get_runner(batch_size, regf, retries),
             monitor=monitor,
             monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
             lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size)
+            batch_size=batch_size, state_hook=state_hook,
+            state_hook_every=audit_every)
         if return_state:
             return state
         return state.mean, factor_to_cov(state.factor)

@@ -143,6 +143,20 @@ def monitor_seed(seed: int, i: int) -> int:
     return step_seed(seed ^ 0x5DEECE66D, i)
 
 
+# Salt of the audit draws (``utils/audit.py``): the audit at iteration ``i``
+# draws from a generator seeded with ``audit_seed(seed, i)``, a second
+# salted mix on top of ``step_seed(seed, i)``, as JAX folds ``AUDIT_SALT``
+# on top of ``fold_in(key, i)`` (``gsmvi_tpu/utils/audit.py:38-48``): its
+# stream shares no seed with the per-step, monitor or retry streams, so an
+# audit never perturbs a fit.
+AUDIT_SALT = 0x5D17
+
+
+def audit_seed(seed: int, i: int) -> int:
+    """Generator seed of the audit draw at iteration ``i``."""
+    return step_seed(step_seed(seed, i) ^ AUDIT_SALT, AUDIT_SALT)
+
+
 def _next_event(i: int, total: int, cadences) -> int:
     """First iteration > i that is a multiple of any cadence (or ``total``)."""
     nxt = total
@@ -155,7 +169,9 @@ def _next_event(i: int, total: int, cadences) -> int:
 def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
                  monitor_params: Optional[Callable] = None, lp=None,
                  nprint: int = 10, verbose: bool = True,
-                 batch_size: int = 1, collect_aux: bool = False):
+                 batch_size: int = 1, collect_aux: bool = False,
+                 state_hook: Optional[Callable] = None,
+                 state_hook_every: int = 0):
     """Run ``niter + 1`` steps with the reference's print and monitor cadence.
 
     ``monitor`` follows the reference hook protocol
@@ -165,6 +181,10 @@ def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
     ``run_chunk`` returns ``(state, aux)`` (``make_chunk_runner(...,
     collect_aux=True)``) and the loop returns ``(state, aux)``, the chunks'
     aux concatenated on the device over all ``niter + 1`` steps.
+    ``state_hook(i, state)`` runs on the live state every
+    ``state_hook_every`` iterations (i > 0, before the monitor; chunk ends
+    align to the cadence): the factor fitters' ``audit_every``
+    (``utils/audit.py``).  Unlike ``monitor`` it sees the raw state.
     """
     total = niter + 1
     checkpoint = getattr(monitor, "checkpoint", None) if monitor is not None else None
@@ -173,12 +193,15 @@ def run_fit_loop(state, niter: int, run_chunk: Callable, *, monitor=None,
     nevals = 1
     print_every = (max(1, niter // min(nprint, max(niter, 1)))
                    if (verbose and nprint) else 0)
-    cadences = (checkpoint, print_every)
+    hook_every = state_hook_every if state_hook is not None else 0
+    cadences = (checkpoint, print_every, hook_every)
     aux_chunks = []
     i = 0
     while i < total:
         if print_every and i % print_every == 0:
             print(f"Iteration {i} of {niter}")
+        if hook_every and i % hook_every == 0 and i > 0:
+            state_hook(i, state)
         if monitor is not None and checkpoint and i % checkpoint == 0:
             monitor(i, monitor_params(state), lp, monitor_seed(state.seed, i),
                     nevals=nevals)

@@ -10,11 +10,20 @@ hand-written Hopper kernels (``ops/fused_step.py``):
   then K1 ``gsm_eps_update_fused`` (update, residual gates, select);
 - ``"step"`` mode (``fused_score=(score_fn, params)``, e.g.
   ``target.fused_score``): K2 ``make_fused_eps_multistep`` runs
-  ``steps_per_call`` whole steps per call with the score inside.
+  ``steps_per_call`` whole steps per call with the score inside; at
+  ``steps_per_call=1`` each step is one call of K4 ``make_fused_eps_step``
+  (external draw, NS update), as the JAX package runs it there.
 
 ``fit_batch`` runs K replica fits together on the same modes: batched K1
 (``small_solver`` "auto"/"ns") or K6 ``make_fused_eps_batch_multistep``
 ("fused", ``ops/batch_fused.py``), each launch covering all K replicas.
+
+``fit(..., audit_every=N)`` audits the kernel path every N iterations
+(``utils/audit.py``): one fresh, stream-disjoint draw from the live state
+goes through the fused kernel (K4 in "step" mode, K1 in "update" mode) and
+the exact plain eps step, and an accepted step that deviates beyond
+``audit_tol`` warns; records land in ``audit_log``.  The audit leaves the
+fit's trajectory unchanged.
 
 On a CUDA device a dtype or shape the kernels do not take raises;
 ``use_fused=False`` (and ``small_solver="chol"``) is the one plain route
@@ -28,6 +37,8 @@ what the single fit with its seed draws.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from .config import default_dtype, pin_fp32, resolve_device
@@ -37,10 +48,12 @@ from .driver import (EpsStream, RunnerCache, broadcast_replicas,
 from .ops.batch_fused import make_fused_eps_batch_multistep
 from .ops.fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
                              gsm_eps_update_fused, kernel_supports,
-                             make_fused_eps_multistep, ns_iters_for_batch)
+                             make_fused_eps_multistep, make_fused_eps_step,
+                             ns_iters_for_batch)
 from .ops.gsm_eps import apply_eps_step
 from .ops.gsm_factor import factor_to_cov
 from .state import FactorVIState, per_replica
+from .utils.audit import make_audit_hook, make_gsm_audit
 
 SMALL_SOLVERS = ("auto", "ns", "fused", "chol")
 
@@ -90,6 +103,7 @@ class FactorGSM:
         self.ns_iters = tuple(ns_iters) if ns_iters is not None else None
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
+        self.audit_log = []
 
     def _fused_mode(self, batch_size: int):
         """None | "update" | "step": which kernel path this config runs.
@@ -145,7 +159,7 @@ class FactorGSM:
             score_objs = (self.fused_score[0], *self.fused_score[1])
 
         def build():
-            if mode == "step":
+            if mode == "step" and (k is not None or self.steps_per_call > 1):
                 return self._make_fused_runner(batch_size, k)
             step = self._make_step(batch_size, mode)
             if k is not None and mode is None:
@@ -167,7 +181,8 @@ class FactorGSM:
 
     def _make_step(self, batch_size: int, mode):
         """One-step runner of the "update" mode (K1; it also takes stacked
-        replicas) or the plain route (one fit); the "step" mode runs on
+        replicas), of the "step" mode at ``steps_per_call=1`` (K4, one fit)
+        or of the plain route (one fit); the "step" mode at spc > 1 runs on
         ``_make_fused_runner``."""
         lp_g = self.lp_g
         dtype = self.dtype
@@ -189,6 +204,18 @@ class FactorGSM:
                 mean, f, good = gsm_eps_update_fused(eps, vs, s.mean,
                                                      s.factor, iters=iters,
                                                      ef=ef)
+                return advance(s, mean, f, good)
+
+            return step
+
+        if mode == "step":
+            score_fn, params = self.fused_score
+            fused = make_fused_eps_step(score_fn, len(params), batch_size, d,
+                                        external_eps=True, iters=iters)
+
+            def step(s: FactorVIState) -> FactorVIState:
+                mean, f, good = fused(self._draw(s, batch_size), s.mean,
+                                      s.factor, *params)
                 return advance(s, mean, f, good)
 
             return step
@@ -237,13 +264,45 @@ class FactorGSM:
 
         return run_chunk
 
+    def _make_audit_hook(self, batch_size: int, tol: float):
+        """The periodic fused-vs-exact audit hook (``utils/audit.py``), its
+        audit cached per config; None, with a warning, when this config runs
+        no kernel: there is nothing fused to audit then."""
+        mode = self._fused_mode(batch_size)
+        self.audit_log = []
+        if mode is None:
+            warnings.warn("audit_every set but the fused kernel path is not "
+                          "active for this config; no audits will run",
+                          stacklevel=3)
+            return None
+        # The whole-step audit (K4) in "step" mode also certifies the fused
+        # score against lp_g; "update" mode audits K1 on lp_g's scores.
+        score = self.fused_score if mode == "step" else None
+        score_objs = () if score is None else (score[0], *score[1])
+        audit_fn = self._runners.get(
+            ("audit", batch_size, mode, self._iters(batch_size), self.dtype),
+            (self.lp_g, *score_objs),
+            lambda: make_gsm_audit(self.lp_g, batch_size, self.D,
+                                   self._iters(batch_size),
+                                   fused_score=score))
+        return make_audit_hook(audit_fn, self.audit_log, tol, "FactorGSM")
+
     def fit(self, seed: int, mean=None, cov=None, batch_size=2, niter=5000,
             nprint=10, verbose=True, check_goodness=True, monitor=None,
-            return_state=False, state=None):
+            return_state=False, state=None, audit_every=0, audit_tol=1e-3):
         """Run ``niter + 1`` steps; returns (mean, cov), or the
         ``FactorVIState`` with ``return_state``.  ``state`` resumes a saved
         trajectory exactly, ignoring ``seed``/``mean``/``cov``.
-        ``check_goodness`` is accepted for parity; checking is always on."""
+        ``check_goodness`` is accepted for parity; checking is always on.
+
+        ``audit_every`` — when > 0 and a kernel path is active, every
+        ``audit_every`` iterations one fresh draw from the live state goes
+        through the fused kernel and the exact eps step
+        (``utils/audit.py``); an accepted step deviating beyond
+        ``audit_tol`` (relative, either moment) warns.  Records land in
+        ``self.audit_log``.  The audit draw is stream-disjoint from the
+        fit, so the trajectory is unchanged.  This catches slow NS bias,
+        which the residual gates cannot (they catch catastrophic loss)."""
         pin_fp32()
         dev, dtype = self.device, self.dtype
         if state is None:
@@ -258,13 +317,16 @@ class FactorGSM:
         # The kernels take contiguous operands (a LAPACK factor may not be).
         state = state._replace(mean=state.mean.contiguous(),
                                factor=state.factor.contiguous())
+        state_hook = (self._make_audit_hook(batch_size, audit_tol)
+                      if audit_every else None)
         state = run_fit_loop(
             state, niter, self._get_runner(batch_size,
                                            self._fused_mode(batch_size)),
             monitor=monitor,
             monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
             lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size)
+            batch_size=batch_size, state_hook=state_hook,
+            state_hook_every=audit_every)
         if return_state:
             return state
         return state.mean, factor_to_cov(state.factor)

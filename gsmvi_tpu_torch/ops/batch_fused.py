@@ -26,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from .fused_step import (KERNEL_WRAPPERS, _launch_update, _library, _on_cpu,
-                         _require, _require_shape_supported, _rows, _stream,
+from .fused_step import (KERNEL_WRAPPERS, _launch_step, _library, _on_cpu,
+                         _require, _require_shape_supported, _stream,
                          _UpdateBuffers, eps_multistep_reference,
                          ns_iters_for_batch, over_replicas)
 
@@ -88,12 +88,9 @@ def make_fused_eps_batch_multistep(score_fn, n_params: int, batch: int,
         buf = _UpdateBuffers(batch, d, dev, k)
         make_fused_eps_batch_multistep.launches += 1 if nmax else 0
         for j in range(nmax):
-            e = eps_blocks[:, j * batch:(j + 1) * batch]
-            _rows(lib, stream, e, f_w, ef, trans=True, mu=means_w, x_out=x)
-            v = score_fn(x.reshape(k * batch, d), *params)
-            _require("score", v, (k * batch, d))
-            _launch_update(lib, stream, e, v.reshape(k, batch, d), ef,
-                           means_w, means_w, f_w, f_w, buf, iters, nacc=acc)
+            _launch_step(lib, stream, eps_blocks[:, j * batch:(j + 1) * batch],
+                         score_fn, params, means_w, means_w, f_w, f_w, ef, x,
+                         buf, iters, nacc=acc)
         return means_w, f_w, acc
 
     return step

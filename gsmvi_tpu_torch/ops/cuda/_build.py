@@ -31,12 +31,15 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_U = ctypes.c_uint
 # C entry points: argument types (all return an int cudaError_t).
 SIGNATURES = {
     "gsmvi_rows": [_P] * 6 + [_I] * 4 + [_L, _P],
     "gsmvi_gaussian_score": [_P, _P, _P, _P, _I, _I, _P],
     "gsmvi_factor_apply": [_P] * 5 + [_I] * 3 + [_P],
     "gsmvi_eps_smallspace": [_P] * 13 + [_I] * 7 + [_F, _I, _L, _P],
+    "gsmvi_eps_chol": [_P] * 14 + [_I, _I, _F, _P],
+    "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 11 + [_I] * 3 + [_P],
     "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
     "gsmvi_bam_smallspace": [_P] * 12 + [_I, _I, _F] + [_I] * 5

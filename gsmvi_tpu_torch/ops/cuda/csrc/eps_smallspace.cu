@@ -83,35 +83,9 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
     float* w[5] = {W0 + nn, W0 + 2 * nn, W0 + 3 * nn, W0 + 4 * nn, W0 + 5 * nn};
     const float zc = 1.f / sqrtf((float)n);
     const float scale2 = 1.f / (float)n;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
 
     // Row scalars: rho, w/den, 1/(1+rho), gamma (fused_step.py:285-296).
-    for (int r = warp; r < n; r += nwarps) {
-        float vsv = 0.f, mv = 0.f, wsum = 0.f;
-        for (int col = lane; col < d; col += 32) {
-            const size_t o = (size_t)r * d + col;
-            const float vv = p.v[o], tt = p.t[o], a = -p.ef[o];
-            vsv += vv * tt;
-            mv += a * vv;
-            wsum += vv * (tt - a);
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-            vsv += __shfl_xor_sync(0xffffffffu, vsv, o);
-            mv += __shfl_xor_sync(0xffffffffu, mv, o);
-            wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
-        }
-        if (lane == 0) {
-            const float rho = 0.5f * (sqrtf(1.f + 4.f * (vsv + mv * mv)) - 1.f);
-            const float den = 1.f + rho + mv;
-            const float inv1r = 1.f / (1.f + rho);
-            const float wden = wsum / den;
-            s_inv1r[r] = inv1r;
-            s_wden[r] = wden;
-            s_gamma[r] = 1.f - (1.f + wden) * inv1r;
-        }
-    }
-    __syncthreads();
+    eps_row_scalars(p.v, p.t, p.ef, n, d, s_inv1r, s_wden, s_gamma);
 
     // Downdate rows c = -e gamma + vf / (1 + rho).
     for (int q = threadIdx.x; q < n * d; q += blockDim.x) {
@@ -210,16 +184,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) eps_smallspace_kernel(SmallSpac
     }
 
     // Mean with its select: mu' = mu + mean_b dmu_b where accepted.
-    for (int col = threadIdx.x; col < d; col += blockDim.x) {
-        float s = 0.f;
-        for (int b = 0; b < n; ++b) {
-            const size_t o = (size_t)b * d + col;
-            const float ef = p.ef[o];
-            s += ((p.t[o] + ef) + ef * s_wden[b]) * s_inv1r[b];
-        }
-        const float m = p.mean_in[col];
-        p.mean_out[col] = good ? m + s / (float)n : m;
-    }
+    eps_mean_select(p.t, p.ef, s_wden, s_inv1r, p.mean_in, p.mean_out, n, d, good);
     if (threadIdx.x == 0) {
         *p.good = good ? 1 : 0;
         if (p.nacc != nullptr) *p.nacc += good ? 1 : 0;

@@ -1,9 +1,11 @@
 // Device functions shared by the one-block small-space kernels
 // (eps_smallspace.cu for the eps-NS GSM update, bam_smallspace.cu for the
-// BaM NS update): block reductions, (n, n) products and symmetrisation in
-// shared memory, the matmul-only Newton-Schulz square root (with its
-// inverse-root iterate) and Newton-Hotelling inverse, and the slab-staged
-// products between (n, n) shared matrices and (m, D) global row tensors.
+// BaM NS update, eps_chol.cu for the exact eps update): block reductions,
+// (n, n) products and symmetrisation in shared memory, the matmul-only
+// Newton-Schulz square root (with its inverse-root iterate) and
+// Newton-Hotelling inverse, the slab-staged products between (n, n) shared
+// matrices and (m, D) global row tensors, and the eps step's row scalars
+// and mean select.
 //
 // They replace the Pallas helpers `_spd_norm_ub` (:189), `_ns_sqrt` (:198)
 // and `_newton_inv` (:214) of gsmvi_tpu/ops/pallas/fused_step.py and
@@ -196,6 +198,61 @@ __device__ void gram_rows(const float* X, const float* Y, float* G, int m, int l
     for (int r = 0; r < 4; ++r) {
         const int idx = threadIdx.x + r * blockDim.x;
         if (idx < ld * ld) G[idx] = acc[r] * scale;
+    }
+    __syncthreads();
+}
+
+// Row scalars of the eps-coordinate step (fused_step.py:285-296 and
+// :379-389): for each of the n rows, 1/(1 + rho), w/den and gamma, from the
+// (n, D) rows v, t = vf F^T and ef = e F^T, a warp per row; the three
+// (n,) results land in shared memory.  Shared by the NS small space
+// (eps_smallspace.cu) and the Cholesky one (eps_chol.cu).
+__device__ void eps_row_scalars(const float* v, const float* t, const float* ef, int n, int d,
+                                float* s_inv1r, float* s_wden, float* s_gamma) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int r = warp; r < n; r += nwarps) {
+        float vsv = 0.f, mv = 0.f, wsum = 0.f;
+        for (int col = lane; col < d; col += 32) {
+            const size_t o = (size_t)r * d + col;
+            const float vv = v[o], tt = t[o], a = -ef[o];
+            vsv += vv * tt;
+            mv += a * vv;
+            wsum += vv * (tt - a);
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+            vsv += __shfl_xor_sync(0xffffffffu, vsv, o);
+            mv += __shfl_xor_sync(0xffffffffu, mv, o);
+            wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+        }
+        if (lane == 0) {
+            const float rho = 0.5f * (sqrtf(1.f + 4.f * (vsv + mv * mv)) - 1.f);
+            const float den = 1.f + rho + mv;
+            const float inv1r = 1.f / (1.f + rho);
+            const float wden = wsum / den;
+            s_inv1r[r] = inv1r;
+            s_wden[r] = wden;
+            s_gamma[r] = 1.f - (1.f + wden) * inv1r;
+        }
+    }
+    __syncthreads();
+}
+
+// The mean with its select: mean_out = mean_in + mean_b dmu_b where good,
+// else mean_in; dmu_b = (t + ef + ef w/den) / (1 + rho).  One thread per
+// column sums the n rows in order (no atomics); mean_out may be mean_in.
+__device__ void eps_mean_select(const float* t, const float* ef, const float* s_wden,
+                                const float* s_inv1r, const float* mean_in, float* mean_out,
+                                int n, int d, bool good) {
+    for (int col = threadIdx.x; col < d; col += blockDim.x) {
+        float s = 0.f;
+        for (int b = 0; b < n; ++b) {
+            const size_t o = (size_t)b * d + col;
+            const float e = ef[o];
+            s += ((t[o] + e) + e * s_wden[b]) * s_inv1r[b];
+        }
+        const float m = mean_in[col];
+        mean_out[col] = good ? m + s / (float)n : m;
     }
     __syncthreads();
 }

@@ -1,19 +1,28 @@
-"""The eps-NS GSM step: plain torch versions and the Hopper kernel wrappers.
+"""The eps-coordinate GSM step: plain torch versions and the Hopper kernel
+wrappers.
 
-Counterpart of ``gsmvi_tpu/ops/pallas/fused_step.py``.  Three TPU kernels
-carry the main path and are ported here:
+Counterpart of ``gsmvi_tpu/ops/pallas/fused_step.py``.  Four TPU kernels
+are ported here:
 
 - K1 ``gsm_eps_update_fused`` (``method="ns"``): the eps-coordinate update
   after the score — row work, the two-phase Newton-Schulz small space with
   its residual gates, one fat (D, 2B) @ (2B, D) factor apply, and the
   accept/revert select.  Plain version: ``gsm_eps_update_ns_reference``
   (twin of ``gsm_eps_update_ns_xla``) over ``eps_smallspace_ns_reference``
-  (twin of ``_eps_smallspace_ns``).
+  (twin of ``_eps_smallspace_ns``).  ``method="chol"`` (K4a) is the exact
+  variant: two (2B)^2 Choleskys, a triangular inverse and the min-pivot PD
+  check.  Plain version: ``gsm_eps_update_chol_reference`` over
+  ``eps_update_core_reference`` (twin of ``_eps_update_core``).
 - K2 ``make_fused_eps_multistep``: up to ``steps_per_call`` whole steps
   (sampling product, score, K1's math, select) per call.  Plain version:
   ``eps_multistep_reference``.
 - K3 ``gaussian_score``: v = (mu_t - x) @ prec.  Plain version:
   ``gaussian_score_reference``.
+- K4 ``make_fused_eps_step``: one whole step per call, on the ns or the
+  chol update, its draw passed in (``external_eps=True``) or made on the
+  card by a Philox4x32-10 generator (``philox_normal``, in place of the
+  TPU's hardware PRNG, whose stream cannot be reproduced).  Plain versions:
+  ``eps_step_reference`` and ``philox_normal_reference``.
 
 K1 also takes a leading replica axis K (eps, vs (K, B, D), mean (K, D), f
 (K, D, D)): the batched step of ``FactorGSM.fit_batch`` (the JAX package's
@@ -30,17 +39,24 @@ wrapper counts its calls on the card in a plain integer attribute
 On the card a K1 call is four launches on the current stream: ``vf = v F``
 and ``t = vf F^T`` on the GEMM template, the one-block small-space kernel
 (which writes ``good`` and the new mean), and the fat apply, whose epilogue
-reads ``good`` and writes F or F' (the select).  A K2 call loops its
-sub-steps on the host: the ``ef = e F^T`` / ``x = mu + ef`` GEMM, the score,
-then K1's launches on a working copy of (mean, F), with the accepted count
-accumulated on the device.  No launch waits for the host.
+reads ``good`` and writes F or F' (the select).  A K4a call is six: the same
+two row products, a one-block row kernel (Z^T and (F Z)^T rows), the Gram
+Z^T Z on the GEMM template, the one-block Cholesky small space
+(``ops/cuda/csrc/eps_chol.cu``) and the fat apply.  A whole step
+(``_launch_step``) is the ``ef = e F^T`` / ``x = mu + ef`` GEMM, the score,
+then one update's launches: a K4 call is one whole step, a K2 call loops
+its sub-steps on the host on a working copy of (mean, F), with the accepted
+count accumulated on the device.  No launch waits for the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+
+from ..config import resolve_device
 
 # Newton-Schulz sweep counts (sqrt1, inv1, inv2, sqrt2, inv3) of the small
 # space.  The short profile is the JAX package's validated frontier for
@@ -52,10 +68,20 @@ import torch
 NS_ITERS_DEFAULT = (5, 4, 6, 7, 4)
 NS_ITERS_LARGE_B = (8, 6, 9, 10, 6)
 NS_TOL = 3e-3
+# G-jitter of the exact (chol) variant, relative to tr(G)/2B + 1.
+CHOL_JITTER = 1e-6
+
+# Philox4x32-10 (Salmon et al., SC'11): round multipliers, Weyl key bumps,
+# and the fixed second key word of the on-card draw (the first is the seed).
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+PHILOX_KEY1 = 0xA4093822
+_M32 = 0xFFFFFFFF
 
 # Shapes the CUDA kernels take: the small-space kernel holds ten (B, B)
-# matrices in one block's shared memory (B <= 64); D is masked at the tile
-# edges and needs no alignment.
+# matrices in one block's shared memory (B <= 64), the Cholesky one three
+# (2B, 2B) matrices (192 KiB at B=64); D is masked at the tile edges and
+# needs no alignment.
 KERNEL_BATCH_RANGE = (8, 64)
 KERNEL_DIM_RANGE = (16, 1024)
 
@@ -192,24 +218,185 @@ def gsm_eps_update_ns_reference(eps, vs, mean, f, iters=None, ef_t=None):
             good)
 
 
+def _cholt_reference(w):
+    """Twin of ``_cholt_inplace``: the transposed Cholesky factor L^T
+    (upper) of the (k, k) SPD ``w`` by the right-looking sweep, and the
+    minimum pivot.  A NaN pivot makes the minimum NaN (``torch.minimum``
+    and ``torch.maximum`` propagate it, as ``jnp.minimum``/``jnp.maximum``
+    do), so ``minpiv > 0`` rejects it."""
+    k = w.shape[-1]
+    cols = torch.arange(k, device=w.device)
+    lt = torch.zeros_like(w)
+    minpiv = torch.full((), float("inf"), dtype=w.dtype, device=w.device)
+    for j in range(k):
+        row = w[j]
+        piv = row[j]
+        minpiv = torch.minimum(minpiv, piv)
+        inv = torch.rsqrt(torch.maximum(piv, piv.new_tensor(1e-30)))
+        lrow = torch.where(cols >= j, row * inv, torch.zeros_like(row))
+        lt[j] = lrow
+        w = w - torch.outer(lrow, lrow)
+    return lt, minpiv
+
+
+def _triu_inv_reference(lt):
+    """Twin of ``_triu_inv_inplace``: the inverse of the (k, k) upper
+    triangle ``lt`` by backward substitution, row k-1 first."""
+    k = lt.shape[-1]
+    cols = torch.arange(k, device=lt.device)
+    m = torch.zeros_like(lt)
+    for j in range(k - 1, -1, -1):
+        ltrow = lt[j]
+        acc = ltrow @ m
+        m[j] = ((cols == j).to(lt.dtype) - acc) / ltrow[j]
+    return m
+
+
+def eps_update_core_reference(e, v, mu, f, *, batch: int,
+                              jitter: float = CHOL_JITTER, ef_t=None):
+    """Twin of ``_eps_update_core``: the exact eps-coordinate update with
+    the in-block (2B)^2 Choleskys.  e, v (B, D); mu (1, D); f (D, D);
+    ``ef_t`` optional ``e @ f.T``.  Returns the proposals (mu_new (1, D),
+    f_new (D, D), good): ``good`` is the minimum pivot of the Cholesky of
+    K = I + Lg^T J Lg above 0, the exact PD test of the proposal.
+
+    Unlike ``ops/gsm_eps.apply_eps_step`` it has no 2B >= D branch: G is
+    always jittered and factored in the (2B)^2 space, as the TPU kernel
+    does."""
+    b = batch
+    k2 = 2 * b
+    ef = e @ f.T if ef_t is None else ef_t
+    a = -ef                                                # rows mu - x
+    vf = v @ f
+    t = vf @ f.T
+    vsv = torch.sum(v * t, dim=1, keepdim=True)
+    mv = torch.sum(a * v, dim=1, keepdim=True)
+    rho = 0.5 * (torch.sqrt(1.0 + 4.0 * (vsv + mv * mv)) - 1.0)
+    eps0 = t - a
+    w = torch.sum(v * eps0, dim=1, keepdim=True)
+    den = 1.0 + rho + mv
+    inv1r = 1.0 / (1.0 + rho)
+    dmu_b = (eps0 - a * (w / den)) * inv1r
+    dmu = torch.sum(dmu_b, dim=0, keepdim=True) / b
+    bm = a + dmu_b
+    gamma = 1.0 - (1.0 + w / den) * inv1r
+    c = -e * gamma + vf * inv1r
+    scale = 1.0 / b ** 0.5
+    zt = torch.cat([-e, c], dim=0) * scale                 # (2B, D)
+    fzt = torch.cat([a, bm], dim=0) * scale                # (2B, D)
+
+    # Small space: G -> Lg^T -> K -> Ck^T -> S2, factors kept transposed.
+    g = zt @ zt.T
+    g = 0.5 * (g + g.T)
+    eye = torch.eye(k2, dtype=e.dtype, device=e.device)
+    tr = torch.sum(g * eye)
+    lgt, _ = _cholt_reference(g + (jitter * (tr / k2 + 1.0)) * eye)
+    jj_row = torch.where(torch.arange(k2, device=e.device) < b, 1.0, -1.0
+                         ).to(e.dtype)
+    kmat = eye + (lgt * jj_row) @ lgt.T                    # I + Lg^T J Lg
+    kmat = 0.5 * (kmat + kmat.T)
+    m_mat = _triu_inv_reference(lgt)                       # Lg^{-T}
+    ckt, minpiv = _cholt_reference(kmat)
+    good = minpiv > 0.0
+    # S2 = Lg^{-T} (Ck - I) Lg^{-1} = M (Ck^T - I)^T M^T
+    s2 = (m_mat @ (ckt - eye).T) @ m_mat.T
+    return mu + dmu, f + fzt.T @ (s2 @ zt), good
+
+
+def gsm_eps_update_chol_reference(eps, vs, mean, f, jitter=CHOL_JITTER,
+                                  ef_t=None):
+    """Update + select with the Cholesky small space: (mean, f, good), the
+    old values kept where ``good`` is false."""
+    b, d = eps.shape
+    mu_new, f_new, good = eps_update_core_reference(
+        eps, vs, mean.reshape(1, d), f, batch=b, jitter=jitter, ef_t=ef_t)
+    return (torch.where(good, mu_new[0], mean), torch.where(good, f_new, f),
+            good)
+
+
+def eps_step_reference(score_fn, params, e, mean, f, *, method: str = "ns",
+                       iters=None, jitter: float = CHOL_JITTER):
+    """One whole step: ``ef = e F^T``, ``x = mu + ef``, ``v = score_fn(x,
+    *params)``, the ns or chol update and the select.  Returns (mean, f,
+    good)."""
+    ef = e @ f.T
+    v = score_fn(mean + ef, *params)
+    if method == "ns":
+        d = f.shape[-1]
+        mu_new, f_new, good = eps_smallspace_ns_reference(
+            e, v, v @ f, mean.reshape(1, d), f, batch=e.shape[0],
+            iters=iters, ef_t=ef)
+        return (torch.where(good, mu_new[0], mean),
+                torch.where(good, f_new, f), good)
+    return gsm_eps_update_chol_reference(e, v, mean, f, jitter=jitter,
+                                         ef_t=ef)
+
+
 def eps_multistep_reference(score_fn, params, nmax: int, eps_block, mean, f,
                             *, batch: int, iters=None):
-    """The first ``nmax`` whole steps of an eps block: per sub-step
-    ``ef = e F^T``, ``x = mu + ef``, ``v = score_fn(x, *params)``, the NS
-    update and the select.  Returns (mean, f, n_accepted int32)."""
-    d = f.shape[-1]
+    """The first ``nmax`` whole ns steps of an eps block
+    (``eps_step_reference`` on each sub-step's rows).  Returns (mean, f,
+    n_accepted int32)."""
     acc = torch.zeros((), dtype=torch.int32, device=f.device)
     for j in range(int(nmax)):
-        e = eps_block[j * batch:(j + 1) * batch]
-        ef = e @ f.T
-        v = score_fn(mean + ef, *params)
-        mu_new, f_new, good = eps_smallspace_ns_reference(
-            e, v, v @ f, mean.reshape(1, d), f, batch=batch, iters=iters,
-            ef_t=ef)
-        mean = torch.where(good, mu_new[0], mean)
-        f = torch.where(good, f_new, f)
+        mean, f, good = eps_step_reference(
+            score_fn, params, eps_block[j * batch:(j + 1) * batch], mean, f,
+            iters=iters)
         acc = acc + good.to(torch.int32)
     return mean, f, acc
+
+
+def _mulhilo32(a, m: int):
+    """(hi, lo) 32-bit words of a * m, for an int64 tensor ``a`` of uint32
+    values and a 32-bit constant ``m``.  The product can reach 2^64 and
+    overflow int64, so ``m`` enters as two 16-bit limbs."""
+    p0 = a * (m & 0xFFFF)                                  # < 2^48
+    p1 = a * (m >> 16)                                     # < 2^48
+    s = p0 + ((p1 & 0xFFFF) << 16)                         # < 2^49
+    return (s >> 32) + (p1 >> 16), s & _M32
+
+
+def philox4x32_reference(counters, key0: int, key1: int, rounds: int = 10):
+    """Philox4x32-``rounds`` of the (N, 4) int64 counter words (uint32
+    values) under key (key0, key1): (N, 4) int64 output words.  Counter 0
+    under key 0 gives 6627e8d5 e169c58d bc57ac4c 9b00dbd8 (Random123's
+    known answer)."""
+    c0, c1, c2, c3 = counters.unbind(-1)
+    k0, k1 = int(key0) & _M32, int(key1) & _M32
+    for r in range(rounds):
+        if r:
+            k0, k1 = (k0 + PHILOX_W0) & _M32, (k1 + PHILOX_W1) & _M32
+        hi0, lo0 = _mulhilo32(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo32(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def _philox_counters(n_blocks: int, device):
+    """Counter block i = (i mod 2^32, i >> 32, 0, 0), as the kernel forms it."""
+    i = torch.arange(n_blocks, dtype=torch.int64, device=device)
+    z = torch.zeros_like(i)
+    return torch.stack([i & _M32, i >> 32, z, z], dim=-1)
+
+
+def _box_muller_reference(bits1, bits2):
+    """Twin of ``_uniform_from_bits`` and ``_boxmuller``: uniforms from the
+    top 24 bits (never 0), then the cos branch of Box-Muller, in float32."""
+    u1, u2 = ((b >> 8).to(torch.float32) * (1.0 / (1 << 24))
+              + (0.5 / (1 << 24)) for b in (bits1, bits2))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def philox_normal_reference(seed: int, batch: int, d: int, device=None):
+    """The (batch, d) float32 standard-normal draw of seed ``seed``:
+    counter block i gives the row-major normals 2i (from words 0, 1) and
+    2i + 1 (from words 2, 3), key (seed mod 2^32, PHILOX_KEY1)."""
+    n = batch * d
+    w = philox4x32_reference(_philox_counters((n + 1) // 2, device),
+                             seed, PHILOX_KEY1)
+    z = torch.stack([_box_muller_reference(w[:, 0], w[:, 1]),
+                     _box_muller_reference(w[:, 2], w[:, 3])], dim=-1)
+    return z.reshape(-1)[:n].reshape(batch, d)
 
 
 def gaussian_score_reference(x, mu_t, prec):
@@ -303,16 +490,22 @@ def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
 
 
 class _UpdateBuffers:
-    """Scratch of one K1 update on the card (of K replicas: a leading axis
-    K), allocated once per call."""
+    """Scratch of one update on the card (of K replicas: a leading axis K,
+    ns only), allocated once per call.  ``su``/``sw`` are the fat apply's
+    (2B, D) operands: stack_u/stack_w (ns), (F Z)^T and S2 Z^T (chol)."""
 
-    def __init__(self, b: int, d: int, device, k=None):
+    def __init__(self, b: int, d: int, device, k=None, method: str = "ns"):
         lead = () if k is None else (k,)
         empty = lambda *s: torch.empty((*lead, *s), dtype=torch.float32,
                                        device=device)
+        self.method = method
         self.vf, self.t = empty(b, d), empty(b, d)
-        self.c, self.xim = empty(b, d), empty(b, d)
         self.su, self.sw = empty(2 * b, d), empty(2 * b, d)
+        if method == "ns":
+            self.c, self.xim = empty(b, d), empty(b, d)
+        else:
+            self.zt, self.g = empty(2 * b, d), empty(2 * b, 2 * b)
+            self.rs = empty(2 * b)
         self.good = torch.zeros(lead or (1,), dtype=torch.int32,
                                 device=device)
 
@@ -333,6 +526,50 @@ def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
              stream)
     lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
              _ptr(f_out), _ptr(buf.good), 2 * b, d, k, stream)
+
+
+def _launch_chol_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in,
+                        f_out, buf: _UpdateBuffers, jitter: float,
+                        nacc=None) -> None:
+    """K4a's launches: vf, t, then ``gsmvi_eps_chol`` (row kernel, Gram
+    GEMM, Cholesky small space: mean + good + S2 Z^T) and the fat apply."""
+    b, d = eps.shape
+    _rows(lib, stream, vs, f_in, buf.vf, trans=False)
+    _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
+    lib.call("gsmvi_eps_chol", _ptr(eps), _ptr(vs), _ptr(buf.vf),
+             _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
+             _ptr(buf.good), _ptr(nacc), _ptr(buf.zt), _ptr(buf.su),
+             _ptr(buf.g), _ptr(buf.sw), _ptr(buf.rs), b, d, float(jitter),
+             stream)
+    lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
+             _ptr(f_out), _ptr(buf.good), 2 * b, d, 1, stream)
+
+
+def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
+                 f_out, ef, x, buf: _UpdateBuffers, iters,
+                 jitter: float = CHOL_JITTER, nacc=None) -> None:
+    """One whole step on the card: ``ef = e F^T`` and ``x = mu + ef`` (one
+    GEMM), the score on x's rows, then one update's launches (``buf.method``)
+    from (mean_in, f_in) into (mean_out, f_out), which may be the same
+    tensors.  K4 makes one such step per call, K2 and K6 one per sub-step;
+    a leading replica axis (K6) stacks the K replicas' rows for the score."""
+    d = e.shape[-1]
+    _rows(lib, stream, e, f_in, ef, trans=True, mu=mean_in, x_out=x)
+    rows = x.reshape(-1, d)
+    v = score_fn(rows, *params)
+    _require("score", v, tuple(rows.shape))
+    v = v.reshape(ef.shape)
+    if buf.method == "ns":
+        _launch_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_out,
+                       buf, iters, nacc=nacc)
+    else:
+        _launch_chol_update(lib, stream, e, v, ef, mean_in, mean_out, f_in,
+                            f_out, buf, jitter, nacc=nacc)
+
+
+def _check_method(method: str) -> None:
+    if method not in ("ns", "chol"):
+        raise ValueError(f"method must be 'ns' or 'chol', got {method!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -358,27 +595,38 @@ def gsm_eps_update_replicas_reference(eps, vs, mean, f, iters=None,
     return over_replicas(one, eps, vs, mean, f, efs)
 
 
-def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
-    """K1: eps-coordinate GSM update + residual gates + select.
+def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
+                         jitter: float = CHOL_JITTER, method: str = "ns"):
+    """K1 (``method="ns"``) and K4a (``method="chol"``): eps-coordinate GSM
+    update + validity + select.
 
     eps, vs (B, D); mean (D,); f (D, D); ``ef`` optional ``eps @ f.T`` (the
     sampling product the caller already formed).  Returns (mean, f, good)
-    with the old values kept where ``good`` is false.  ``iters=None``
-    resolves through ``ns_iters_for_batch(B)``.  With a leading replica
-    axis K on every operand it updates K independent fits: (mean (K, D),
-    f (K, D, D), good (K,)).
+    with the old values kept where ``good`` is false.
+
+    - "ns": the Newton-Schulz small space with its residual gates;
+      ``iters=None`` resolves through ``ns_iters_for_batch(B)``.  With a
+      leading replica axis K on every operand it updates K independent
+      fits: (mean (K, D), f (K, D, D), good (K,)).
+    - "chol": the exact variant, two (2B)^2 Choleskys with ``jitter`` on
+      the Gram and the min-pivot PD check; (B, D) only.
     """
+    _check_method(method)
     b, d = eps.shape[-2:]
     lead = tuple(eps.shape[:-2])
+    if len(lead) > (1 if method == "ns" else 0):
+        shapes = "(B, D) or (K, B, D)" if method == "ns" else "(B, D)"
+        raise ValueError(f"eps: {shapes} required for method={method!r}, "
+                         f"got {tuple(eps.shape)}")
     iters = ns_iters_for_batch(b, iters)
     tensors = [eps, vs, mean, f] + ([ef] if ef is not None else [])
     if _on_cpu(*tensors):
+        if method == "chol":
+            return gsm_eps_update_chol_reference(eps, vs, mean, f,
+                                                 jitter=jitter, ef_t=ef)
         return gsm_eps_update_replicas_reference(eps, vs, mean, f,
                                                  iters=iters, ef_t=ef)
     _require_shape_supported(b, d)
-    if len(lead) > 1:
-        raise ValueError(f"eps: (B, D) or (K, B, D) required, got "
-                         f"{tuple(eps.shape)}")
     for name, t, shape in (("eps", eps, (b, d)), ("vs", vs, (b, d)),
                            ("mean", mean, (d,)), ("f", f, (d, d))):
         _require(name, t, lead + shape)
@@ -390,16 +638,111 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None):
         _rows(lib, stream, eps, f, ef, trans=True)
     else:
         _require("ef", ef, lead + (b, d))
-    buf = _UpdateBuffers(b, d, eps.device, *lead)
+    buf = _UpdateBuffers(b, d, eps.device, *lead, method=method)
     mean_out = torch.empty_like(mean)
     f_out = torch.empty_like(f)
-    _launch_update(lib, stream, eps, vs, ef, mean, mean_out, f, f_out, buf,
-                   iters)
+    if method == "ns":
+        _launch_update(lib, stream, eps, vs, ef, mean, mean_out, f, f_out,
+                       buf, iters)
+    else:
+        _launch_chol_update(lib, stream, eps, vs, ef, mean, mean_out, f,
+                            f_out, buf, jitter)
     good = buf.good != 0
     return mean_out, f_out, good if lead else good[0]
 
 
 gsm_eps_update_fused.launches = 0
+
+
+def philox4x32(n_blocks: int, key0: int, key1: int, device=None):
+    """Philox4x32-10 words of counter blocks 0 .. n_blocks-1 under key
+    (key0, key1): (n_blocks, 4) int64 (uint32 values).  The kernel on a
+    CUDA ``device`` (default: the card; ``ops/cuda/csrc/prng.cu``), the
+    plain version ``philox4x32_reference`` on the CPU."""
+    device = resolve_device(device)
+    if _on_cpu(torch.empty(0, device=device)):
+        return philox4x32_reference(_philox_counters(n_blocks, device),
+                                    key0, key1)
+    words = torch.empty((n_blocks, 4), dtype=torch.int32, device=device)
+    philox4x32.launches += 1
+    _library().call("gsmvi_philox", _ptr(words), _ptr(None), n_blocks, 0,
+                    int(key0) & _M32, int(key1) & _M32, _stream(device))
+    return words.to(torch.int64) & _M32
+
+
+philox4x32.launches = 0
+
+
+def philox_normal(seed: int, batch: int, d: int, device=None):
+    """The (batch, d) standard-normal draw of ``seed``: the kernel on a
+    CUDA ``device`` (default: the card), ``philox_normal_reference`` on the
+    CPU."""
+    device = resolve_device(device)
+    if _on_cpu(torch.empty(0, device=device)):
+        return philox_normal_reference(seed, batch, d, device)
+    out = torch.empty((batch, d), dtype=torch.float32, device=device)
+    n = batch * d
+    philox_normal.launches += 1
+    _library().call("gsmvi_philox", _ptr(None), _ptr(out), (n + 1) // 2, n,
+                    int(seed) & _M32, PHILOX_KEY1, _stream(device))
+    return out
+
+
+philox_normal.launches = 0
+
+
+def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
+                        jitter: float = CHOL_JITTER,
+                        external_eps: bool = False, method: str = "ns",
+                        iters=None):
+    """K4: one whole GSM step per call.
+
+    Returns ``step(first, mean, f, *params) -> (mean, f, good)``: the draw
+    (``external_eps=True``: ``first`` is the (B, D) draw itself;
+    ``external_eps=False``: ``first`` is an integer seed, which must differ
+    per step, and the draw is ``philox_normal(first, B, D)`` on the card),
+    ``ef = e F^T``, ``x = mu + ef``, ``v = score_fn(x, *params)``, the
+    ``method`` update ("ns": K1's Newton-Schulz small space with ``iters``;
+    "chol": K4a's Choleskys with ``jitter``) and the select.
+    """
+    _check_method(method)
+    iters = ns_iters_for_batch(batch, iters)
+
+    def step(first, mean, f, *params):
+        if len(params) != n_params:
+            raise ValueError(f"expected {n_params} score params, got "
+                             f"{len(params)}")
+        operands = (first, mean, f) if external_eps else (mean, f)
+        if _on_cpu(*operands):
+            e = first if external_eps else philox_normal(first, batch, d,
+                                                         mean.device)
+            return eps_step_reference(score_fn, params, e, mean, f,
+                                      method=method, iters=iters,
+                                      jitter=jitter)
+        _require_shape_supported(batch, d)
+        for name, t, shape in (("mean", mean, (d,)), ("f", f, (d, d))):
+            _require(name, t, shape)
+        dev = mean.device
+        if external_eps:
+            _require("eps", first, (batch, d))
+            e = first
+        else:
+            e = philox_normal(first, batch, d, dev)
+        lib = _library()
+        stream = _stream(dev)
+        make_fused_eps_step.launches += 1
+        buf = _UpdateBuffers(batch, d, dev, method=method)
+        ef = torch.empty((batch, d), dtype=torch.float32, device=dev)
+        x = torch.empty_like(ef)
+        mean_out, f_out = torch.empty_like(mean), torch.empty_like(f)
+        _launch_step(lib, stream, e, score_fn, params, mean, mean_out, f,
+                     f_out, ef, x, buf, iters, jitter=jitter)
+        return mean_out, f_out, buf.good[0] != 0
+
+    return step
+
+
+make_fused_eps_step.launches = 0
 
 
 def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
@@ -440,12 +783,9 @@ def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
         buf = _UpdateBuffers(batch, d, dev)
         make_fused_eps_multistep.launches += 1 if nmax else 0
         for j in range(nmax):
-            e = eps_block[j * batch:(j + 1) * batch]
-            _rows(lib, stream, e, f_w, ef, trans=True, mu=mean_w, x_out=x)
-            v = score_fn(x, *params)
-            _require("score", v, (batch, d))
-            _launch_update(lib, stream, e, v, ef, mean_w, mean_w, f_w, f_w,
-                           buf, iters, nacc=acc)
+            _launch_step(lib, stream, eps_block[j * batch:(j + 1) * batch],
+                         score_fn, params, mean_w, mean_w, f_w, f_w, ef, x,
+                         buf, iters, nacc=acc)
         return mean_w, f_w, acc[0]
 
     return step
@@ -478,6 +818,9 @@ KERNEL_WRAPPERS = {
     "gsm_eps_update_fused": gsm_eps_update_fused,
     "make_fused_eps_multistep": make_fused_eps_multistep,
     "gaussian_score": gaussian_score,
+    "make_fused_eps_step": make_fused_eps_step,
+    "philox_normal": philox_normal,
+    "philox4x32": philox4x32,
 }
 
 

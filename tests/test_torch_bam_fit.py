@@ -299,9 +299,11 @@ def test_routes_state_boundary_and_gates(monkeypatch, kernel_paths):
         FactorBaM(d, t.lp, t.lp_g, device=DEV)._fused_mode(64)
     assert FactorBaM(d, t.lp, t.lp_g, use_fused=False,
                      dtype=torch.float64, device=DEV)._fused_mode(64) is None
-    with pytest.raises(NotImplementedError, match="audit"):
-        FactorBaM(d, t.lp, t.lp_g, device=DEV).fit(
-            0, Regularizers().linear(1.0), niter=1, audit_every=5)
+    # audit_every is ported: the K7 path audits at its cadence.
+    fb = FactorBaM(d, t.lp, t.lp_g, device=DEV)
+    fb.fit(0, Regularizers().linear(1.0), niter=10, batch_size=8,
+           verbose=False, retries=0, audit_every=5)
+    assert [r["i"] for r in fb.audit_log] == [5, 10]
     with pytest.raises(NotImplementedError):
         BaM(d, t.lp, t.lp_g, jit_compile=False, device=DEV)
     assert FactorVIState(*s[:2], 0, 0, s.n_accepted,

@@ -270,7 +270,8 @@ def test_import_loads_neither_jax_nor_triton():
             "gsmvi_tpu_torch.bam, gsmvi_tpu_torch.bam_factor, "
             "gsmvi_tpu_torch.ops.bam, gsmvi_tpu_torch.ops.bam_eps, "
             "gsmvi_tpu_torch.ops.bam_fused, gsmvi_tpu_torch.ops.sqrtm, "
-            "gsmvi_tpu_torch.ops.gsm_step, gsmvi_tpu_torch.ops.batch_fused; "
+            "gsmvi_tpu_torch.ops.gsm_step, gsmvi_tpu_torch.ops.batch_fused, "
+            "gsmvi_tpu_torch.utils.audit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'gsmvi_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

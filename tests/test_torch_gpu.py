@@ -578,3 +578,153 @@ def test_dense_and_batch_fitters_raise_outside_the_kernel_range(cuda):
     assert sum(fs.launch_counts().values()) == 0
     huge = GSM(d, t.lp, t.lp_g, device="cuda")
     assert not huge._factor_route(128) and huge._dense_fused(128)
+
+
+# ---------------------------------------------------------------------------
+# K4 make_fused_eps_step, K4a gsm_eps_update_fused(method="chol"), Philox,
+# and the audits.  A whole ns step within 1e-4 (the score's rounding enters
+# the update).  The chol variant factors a jittered, nearly singular Gram on
+# the dense target from (0, I), so as in chip_smoke.py it is held to the
+# larger of 1e-4 on the mean and 2e-4 * max|S| on S = F F^T (the JAX
+# package's chol-kernel bound, tests/test_pallas.py) and 4x the plain
+# float32 version's own distance from float64 on the same input.
+# ---------------------------------------------------------------------------
+
+def _chol_within(k, p, p64):
+    cov = lambda f: f.double() @ f.double().T
+    s_p = cov(p[1])
+    mean_tol = max(1e-4, 4 * float((p[0].double() - p64[0]).abs().max()))
+    cov_tol = max(2e-4 * max(1.0, float(s_p.abs().max())),
+                  4 * float((s_p - cov(p64[1])).abs().max()))
+    return (float((k[0] - p[0]).abs().max()) <= mean_tol
+            and float((cov(k[1]) - s_p).abs().max()) <= cov_tol)
+
+
+@pytest.mark.parametrize("method", ["ns", "chol"])
+@pytest.mark.parametrize("b,d", [(8, 200), (32, 256), (33, 256), (64, 256)])
+def test_eps_step_kernel_matches_plain(cuda, b, d, method):
+    t = dense_gaussian(0, d, device=cuda)
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device=cuda).manual_seed(b + d)
+    e = torch.randn((b, d), generator=gen, device=cuda)
+    mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    step = fs.make_fused_eps_step(score_fn, len(params), b, d,
+                                  external_eps=True, method=method)
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = step(e, mean0, f0, *params)
+    assert fs.launch_counts()["make_fused_eps_step"] == 1
+    m_p, f_p, g_p = fs.eps_step_reference(fs.gaussian_score_reference,
+                                          params, e, mean0, f0,
+                                          method=method)
+    assert bool(g_k) and bool(g_p)
+    if method == "ns":
+        assert float((m_k - m_p).abs().max()) <= 1e-4
+        assert float((f_k - f_p).abs().max()) <= 1e-4 * float(
+            f_p.abs().max())
+    else:
+        p64 = fs.eps_step_reference(
+            fs.gaussian_score_reference, [x.double() for x in params],
+            e.double(), mean0.double(), f0.double(), method=method)
+        assert _chol_within((m_k, f_k), (m_p, f_p), p64)
+
+
+@pytest.mark.parametrize("b,d", [(8, 16), (8, 200), (12, 200), (32, 256),
+                                 (33, 256), (64, 1024)])
+def test_chol_update_kernel_matches_plain(cuda, b, d):
+    """Odd B included: at B=33 each substitution column's lane group (8
+    lanes) leaves part of a warp idle, which must still join the shuffles."""
+    eps, v, mu, f = _inputs(cuda, b, d, seed=7 * b + d)
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f, method="chol")
+    m_p, f_p, g_p = fs.gsm_eps_update_chol_reference(eps, v, mu, f)
+    assert bool(g_k) and bool(g_p)
+    p64 = fs.gsm_eps_update_chol_reference(
+        *[x.double() for x in (eps, v, mu, f)])
+    assert _chol_within((m_k, f_k), (m_p, f_p), p64)
+
+
+@pytest.mark.parametrize("case", ["indefinite", "nan_score"])
+@pytest.mark.parametrize("b", [8, 32, 64])
+def test_chol_kernel_rejects_like_plain(cuda, b, case):
+    """K indefinite in float32 (draws at 1e4 with v = e) and a NaN score:
+    good = 0 on the kernel and the plain version, the old state kept."""
+    d = 256
+    eps, v, mu, f = _inputs(cuda, b, d, seed=b)
+    if case == "indefinite":
+        eps = 1e4 * eps
+        v, mu, f = eps.clone(), torch.zeros_like(mu), torch.eye(d,
+                                                                device=cuda)
+    else:
+        v[b // 2, 7] = float("nan")
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f, method="chol")
+    _, _, g_p = fs.gsm_eps_update_chol_reference(eps, v, mu, f)
+    assert not bool(g_k) and not bool(g_p)
+    assert torch.equal(m_k, mu) and torch.equal(f_k, f)
+    if case == "nan_score":
+        m_n, f_n, g_n = fs.gsm_eps_update_fused(eps, v, mu, f)
+        assert not bool(g_n) and torch.equal(f_n, f)
+
+
+def test_philox_kernel_matches_plain(cuda):
+    """Words bit for bit (the known answer at counter 0, key 0 included),
+    normals within 4 ulp, and the on-card-draw step on the same draw."""
+    assert fs.philox4x32(1, 0, 0, device=cuda)[0].tolist() == [
+        0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    n_blocks = 3 * 4096 + 5
+    words = fs.philox4x32(n_blocks, 99, fs.PHILOX_KEY1, device=cuda)
+    assert torch.equal(words, fs.philox4x32_reference(
+        fs._philox_counters(n_blocks, cuda), 99, fs.PHILOX_KEY1))
+    z = fs.philox_normal(99, 37, 201, device=cuda)
+    z_p = fs.philox_normal_reference(99, 37, 201, device=cuda)
+    bits = lambda x: x.view(torch.int32).to(torch.int64)
+    assert torch.equal(torch.sign(z), torch.sign(z_p))
+    assert int((bits(z) - bits(z_p)).abs().max()) <= 4
+
+
+def test_spc1_route_runs_k4_once_per_step(cuda):
+    d, b, niter = 64, 16, 40
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=1, device="cuda")
+    fs.reset_launch_counts()
+    g.fit(0, batch_size=b, niter=niter, verbose=False)
+    counts = fs.launch_counts()
+    assert counts["make_fused_eps_step"] == niter + 1
+    assert counts["make_fused_eps_multistep"] == 0
+
+
+def test_audited_fits_equal_unaudited(cuda):
+    """FactorGSM (K2, K4 audits) and FactorBaM (K8, K7 audits): the audited
+    fit ends in the unaudited fit's state bit for bit, with one kernel call
+    per audit and no warning."""
+    import warnings
+
+    from gsmvi_tpu_torch import FactorBaM, Regularizers
+
+    d, b, niter, every = 64, 16, 200, 50
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    regf = Regularizers().linear(20.0)
+    fits = {
+        "gsm": (lambda: FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                                  device="cuda"),
+                lambda g, **kw: g.fit(0, batch_size=b, niter=niter,
+                                      verbose=False, return_state=True,
+                                      **kw),
+                "make_fused_eps_step"),
+        "bam": (lambda: FactorBaM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                                  device="cuda"),
+                lambda g, **kw: g.fit(0, regf, batch_size=b, niter=niter,
+                                      verbose=False, retries=0,
+                                      return_state=True, **kw),
+                "bam_eps_update_fused"),
+    }
+    for name, (make, run, kernel) in fits.items():
+        plain = run(make())
+        g = make()
+        fs.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*audit")
+            audited = run(g, audit_every=every)
+        assert fs.launch_counts()[kernel] == niter // every, name
+        assert [r["i"] for r in g.audit_log] == [50, 100, 150, 200], name
+        assert torch.equal(audited.mean, plain.mean), name
+        assert torch.equal(audited.factor, plain.factor), name

@@ -6,14 +6,18 @@
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
 ``GSM(..., device="cuda")`` (K1 per step),
-``FactorGSM(..., fused_score=...)`` (K2 with K3 inside, spc=8), the dense
+``FactorGSM(..., fused_score=...)`` (K2 with K3 inside, spc=8), the same
+at ``steps_per_call=1`` (K4 with K3 inside, one call per step), the dense
 route ``GSM(..., use_factor=False)`` (K5 and the ``cholesky_ex``
 accept/revert per step) and ``fit_batch`` of K=8 replicas on its "fused"
 (K6) and "ns" (batched K1) routes.  For each it prints one JSON line: the
 host wall time per step (profiler on, so inflated), the device busy time
 per step (union of kernel intervals), the device's idle share of the
 profiled window, and device time per kernel name (per step of all the
-replicas together for ``fit_batch``).  The profiler slows the host, so it
+replicas together for ``fit_batch``).  Then the same device breakdown per
+call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
+(``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
+(0, I).  The profiler slows the host, so it
 also times the same fit unprofiled and prints the idle share that the
 profiled device time leaves of that wall time.  First, before any
 profiler has run in the process, the host cost of the eps draws per step of
@@ -96,6 +100,35 @@ def profile_fit(name, fitter, steps, torch, replicas=None, **kw):
     }), flush=True)
 
 
+def profile_calls(name, fn, calls, torch):
+    """Device time per call, by kernel, of ``calls`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):                                          # warm up
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for k in kernels:
+        key = k.name[:90]
+        by_name[key] = by_name.get(key, 0.0) + (k.time_range.end
+                                                - k.time_range.start)
+    print(json.dumps({
+        "call": name, "calls": calls,
+        "device_busy_us_per_call": busy_us(kernels) / calls,
+        "kernel_launches_per_call": len(kernels) / calls,
+        "device_us_per_call_by_kernel": {
+            k: v / calls for k, v in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])},
+    }), flush=True)
+
+
 def draw_cost(fitter, k, torch, blocks=50, spc=8):
     """Host microseconds per step of a K6 block's eps draws for ``k``
     replicas (K2's block for k=1), synchronized at the end."""
@@ -137,6 +170,9 @@ def main() -> int:
                 args.steps, torch)
     profile_fit("FactorGSM fused_score (K2+K3, spc=8)", fused, args.steps,
                 torch)
+    profile_fit("FactorGSM fused_score spc=1 (K4+K3 per step)",
+                FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                          steps_per_call=1, device="cuda"), args.steps, torch)
     profile_fit("GSM use_factor=False (K5 + cholesky_ex per step)",
                 GSM(256, t.lp, t.lp_g, device="cuda", use_factor=False),
                 args.steps, torch)
@@ -145,6 +181,22 @@ def main() -> int:
     profile_fit("FactorGSM.fit_batch ns (batched K1), K=8",
                 FactorGSM(256, t.lp, t.lp_g, device="cuda"), args.steps,
                 torch, replicas=8, small_solver="ns")
+
+    from gsmvi_tpu_torch.ops import fused_step as fs
+
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    e = torch.randn((32, 256), generator=gen, device="cuda")
+    mean, f = torch.zeros(256, device="cuda"), torch.eye(256, device="cuda")
+    v = t.lp_g(mean + e @ f.T)
+    for method in ("ns", "chol"):
+        step = fs.make_fused_eps_step(score_fn, len(params), 32, 256,
+                                      external_eps=True, method=method)
+        profile_calls(f"K4 make_fused_eps_step ({method}, external draw)",
+                      lambda: step(e, mean, f, *params), 64, torch)
+    profile_calls("K4a gsm_eps_update_fused(method='chol')",
+                  lambda: fs.gsm_eps_update_fused(e, v, mean, f,
+                                                  method="chol"), 64, torch)
     return 0
 
 
