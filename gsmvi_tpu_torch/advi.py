@@ -44,11 +44,11 @@ from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
                      run_fit_loop)
-from .ops.advi_fused import (REP_NDONE, REP_STIFF, _adam_apply,
+from .ops.advi_fused import (ADVI_KERNEL_BATCH_RANGE, ADVI_KERNEL_DIM_RANGE,
+                             REP_NDONE, REP_STIFF, _adam_apply,
                              advi_kernel_supports, lr_bias_arrays,
                              make_fused_advi_multistep,
                              make_fused_advi_stl_multistep)
-from .ops.fused_step import KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE
 
 __all__ = ["ADVI", "ADVIState", "Adam", "AdamState", "FusedADVIState",
            "FusedADVISTLState", "advi_state_from_numpy"]
@@ -393,8 +393,8 @@ class ADVI:
         if not advi_kernel_supports(batch_size, self.D):
             raise ValueError(
                 f"B={batch_size}, D={self.D}: the ADVI CUDA kernels take B "
-                f"in {list(KERNEL_BATCH_RANGE)} and D in "
-                f"{list(KERNEL_DIM_RANGE)}; use fit for the plain-torch "
+                f"in {list(ADVI_KERNEL_BATCH_RANGE)} and D in "
+                f"{list(ADVI_KERNEL_DIM_RANGE)}; use fit for the plain-torch "
                 "step on the card")
 
     def _block_inputs(self, state, batch_size: int, nmax: int, lr_fn,

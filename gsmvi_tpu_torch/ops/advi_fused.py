@@ -52,8 +52,7 @@ import numpy as np
 import torch
 
 from .fused_step import (KERNEL_WRAPPERS, _library, _on_cpu, _ptr, _require,
-                         _require_shape_supported, _rows, _stream,
-                         kernel_supports)
+                         _rows, _stream)
 
 # Post-sweep tracking-residual bound (row-sum norm of I - L A raised to
 # 2^sweeps) above which an STL sub-step is not trusted (advi_fused.py:99-103).
@@ -65,12 +64,23 @@ STL_SWEEPS_DEFAULT = 2
 REP_NDONE, REP_STIFF, REP_CONSUME, REP_BAD, REP_NONFINITE, REP_RNORM = range(6)
 REP_SIZE = 6
 
-# Shapes the kernels take: those of the score kernel K3 that both run
-# (``fused_step.KERNEL_*_RANGE``: B in 8-64, D in 16-1024).  The JAX
-# package's VMEM gates (``advi_fused_supported``/``advi_stl_fused_supported``)
-# are Mosaic budgets and do not carry over; its D <= 512 cap on STL was a
-# VMEM wall plus a TPU crossover, so K10 takes D up to 1024 like K9.
-advi_kernel_supports = kernel_supports
+# Shapes the kernels take.  Every launch is a GEMM of the template or a
+# row, column or elementwise grid kernel, none with a shared-memory buffer
+# sized by B or D, so the range is that of the dense kernel K5
+# (``ops/gsm_step.py``): B up to 65536, D up to 8192.  K10's (D, D, D)
+# sweeps grow as D^3 (17 M FMA each at D=256, 1.1 G at D=1024), which bounds
+# its time, not its range.  The JAX package's VMEM gates
+# (``advi_fused_supported``/``advi_stl_fused_supported``) are Mosaic budgets
+# and do not carry over.
+ADVI_KERNEL_BATCH_RANGE = (1, 65536)
+ADVI_KERNEL_DIM_RANGE = (1, 8192)
+
+
+def advi_kernel_supports(b: int, d: int) -> bool:
+    """True iff the ADVI CUDA kernels take batch ``b`` and dimension
+    ``d``."""
+    return (ADVI_KERNEL_BATCH_RANGE[0] <= b <= ADVI_KERNEL_BATCH_RANGE[1]
+            and ADVI_KERNEL_DIM_RANGE[0] <= d <= ADVI_KERNEL_DIM_RANGE[1])
 
 
 def _adam_apply(p, m, v, g, lr, bc1, bc2, b1: float, b2: float, eps: float):
@@ -205,7 +215,10 @@ def advi_stl_multistep_reference(score_fn, params, lrs, bc1s, bc2s,
 # ---------------------------------------------------------------------------
 
 def _check_state(spc, batch, d, eps_block, vecs, mats) -> None:
-    _require_shape_supported(batch, d)
+    if not advi_kernel_supports(batch, d):
+        raise ValueError(
+            f"ADVI CUDA kernels take B in {list(ADVI_KERNEL_BATCH_RANGE)} "
+            f"and D in {list(ADVI_KERNEL_DIM_RANGE)}, got B={batch}, D={d}")
     _require("eps_block", eps_block, (spc * batch, d))
     for i, t in enumerate(vecs):
         _require(f"vector operand {i}", t, (d,))

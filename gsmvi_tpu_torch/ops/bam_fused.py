@@ -26,8 +26,10 @@ ported here:
 
 On the card a K7 call is eight launches (``ops/cuda/csrc/bam_smallspace.cu``
 and the GEMM template): ``vf = v F``, ``t = vf F^T``, the one-block small
-space, the fat apply into a second buffer with per-tile sums of squares,
-the two mean matvecs on F', a one-block finalize (trace gate, keep, mean,
+space (above ``BAM_SHARED_MAX_B`` the global-memory chain
+``bam_smallspace_large`` of ``smallspace_global.cu`` in its place), the fat
+apply into a second buffer with per-tile sums of squares, the two mean
+matvecs on F', a one-block finalize (trace gate, keep, mean,
 report) and a grid select of F or F'.  A K8 call loops its sub-steps on the
 host with the ``ef``/``x`` GEMM and the score before those; each launch
 reads the report's ``stopped`` word and does nothing once the block has
@@ -46,10 +48,9 @@ import numpy as np
 import torch
 
 from ..state import NS_STATS_INIT
-from .fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
-                         KERNEL_WRAPPERS, _library, _newton_inv, _ns_sqrt,
-                         _on_cpu, _ptr, _require, _rows, _spd_norm_ub,
-                         _stream, ns_sqrt_both)
+from .fused_step import (KERNEL_DIM_RANGE, KERNEL_WRAPPERS, _library,
+                         _newton_inv, _ns_sqrt, _on_cpu, _ptr, _require,
+                         _rows, _spd_norm_ub, _stream, ns_sqrt_both)
 
 # Newton-Schulz sweep counts (u_sqrt, cu_inv, s1_sqrt, p_invsqrt, w_inv),
 # sized by the JAX package for the gated envelope (bam_fused.py:65-76).
@@ -81,13 +82,16 @@ REP_NDONE, REP_NACC, REP_STOPPED, REP_APPLY = 4, 5, 6, 7
 REP_SIZE = 8
 
 # Shapes the CUDA kernels take.  The small space is padded to kpad = B + 8
-# (the TPU kernel's padding, which the gates depend on); one block keeps
-# twelve (kpad, kpad) float32 matrices and two (64, 33) row slabs in shared
-# memory, and its Gram routine gives each of 1024 threads four entries, so
-# kpad <= 64: B <= 56 at 213,632 of the 232,448 bytes a block may use on
-# Hopper.  The lower end, B >= 8, and the D range are those of the score
-# kernel K3 that K8 runs (``fused_step.KERNEL_*_RANGE``); D is masked at
-# the tile edges and needs no alignment.
+# (the TPU kernel's padding, which the gates depend on).  The one-block
+# kernel (``bam_smallspace.cu``) keeps twelve (kpad, kpad) float32 matrices
+# and two (64, 33) row slabs in shared memory, and its Gram routine gives
+# each of 1024 threads four entries, so kpad <= 64: B <= 56
+# (BAM_SHARED_MAX_B) at 213,632 of the 232,448 bytes a block may use on
+# Hopper.  Above, up to B = 128 (the JAX kernel's own top,
+# ``gsmvi_tpu/ops/pallas/bam_fused.py:345-352``), the small space is a chain
+# of grid launches with its matrices in global memory
+# (``smallspace_global.cu``).  The D range is that of the GSM kernels
+# (``fused_step.KERNEL_DIM_RANGE``); D is masked at the tile edges.
 SMEM_LIMIT_BYTES = 232448
 _KPAD_MAX, _NMAT, _SLAB_LD = 64, 12, 33
 _GEMM_TILE = 32                      # gemm.cuh's output tile
@@ -99,10 +103,9 @@ def bam_smallspace_smem_bytes(b: int) -> int:
     return 4 * (32 + 2 * _KPAD_MAX * _SLAB_LD + _NMAT * kpad * kpad)
 
 
-BAM_KERNEL_BATCH_RANGE = (KERNEL_BATCH_RANGE[0],
-                          max(b for b in range(1, _KPAD_MAX - 7)
-                              if bam_smallspace_smem_bytes(b)
-                              <= SMEM_LIMIT_BYTES))
+BAM_SHARED_MAX_B = max(b for b in range(1, _KPAD_MAX - 7)
+                       if bam_smallspace_smem_bytes(b) <= SMEM_LIMIT_BYTES)
+BAM_KERNEL_BATCH_RANGE = (1, 128)
 BAM_KERNEL_DIM_RANGE = KERNEL_DIM_RANGE
 
 
@@ -310,6 +313,8 @@ class _BamBuffers:
         self.nparts = (-(-d // _GEMM_TILE)) ** 2
         self.partial = empty(2 * self.nparts)
         self.f_prop = empty(d, d) if with_f_prop else None
+        self.ws = (empty(_library().size("gsmvi_bam_large_ws", b))
+                   if b > BAM_SHARED_MAX_B else None)
 
 
 def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
@@ -324,11 +329,14 @@ def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
     h = _ptr(halt)
     _rows(lib, stream, v, f_in, buf.vf, trans=False, halt=halt)
     _rows(lib, stream, buf.vf, f_in, buf.t, trans=True, halt=halt)
-    lib.call("gsmvi_bam_smallspace", _ptr(e), _ptr(v), _ptr(buf.vf),
-             _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(buf.rows),
-             _ptr(buf.su), _ptr(buf.sw), _ptr(buf.vec), _ptr(buf.ss), h, b, d,
-             float(reg), *iters, float(lmax_gate), float(gu_gate), NS_TOL,
-             stream)
+    args = (_ptr(e), _ptr(v), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
+            _ptr(mean_in), _ptr(buf.rows), _ptr(buf.su), _ptr(buf.sw),
+            _ptr(buf.vec), _ptr(buf.ss), h)
+    scalars = (float(reg), *iters, float(lmax_gate), float(gu_gate), NS_TOL)
+    if buf.ws is None:
+        lib.call("gsmvi_bam_smallspace", *args, b, d, *scalars, stream)
+    else:
+        bam_smallspace_large(lib, stream, args, buf.ws, b, d, scalars)
     lib.call("gsmvi_bam_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
              _ptr(f_prop), _ptr(buf.partial), h, 2 * (b + 1), d, stream)
     _rows(lib, stream, buf.vec[:1], f_prop, buf.t1, trans=False, halt=halt)
@@ -339,6 +347,21 @@ def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
              float(reg), d, stream)
     lib.call("gsmvi_bam_select", _ptr(rep), _ptr(f_prop), _ptr(f_in),
              _ptr(f_dst), d * d, stream)
+
+
+def bam_smallspace_large(lib, stream, args, ws, b: int, d: int,
+                         scalars) -> None:
+    """Launch the global-memory BaM small space (``smallspace_global.cu``)
+    that K7 and K8 run above ``BAM_SHARED_MAX_B``: ``args`` are
+    ``gsmvi_bam_smallspace``'s pointers, ``scalars`` (reg, iters, gates,
+    tol), ``ws`` its workspace.  ``launches`` counts the updates that took
+    it, so a run shows which small space ran."""
+    bam_smallspace_large.launches += 1
+    lib.call("gsmvi_bam_smallspace_large", *args, _ptr(ws), b, d, *scalars,
+             stream)
+
+
+bam_smallspace_large.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -486,4 +509,5 @@ make_fused_bam_multistep.launches = 0
 KERNEL_WRAPPERS.update({
     "bam_eps_update_fused": bam_eps_update_fused,
     "make_fused_bam_multistep": make_fused_bam_multistep,
+    "bam_smallspace_large": bam_smallspace_large,
 })

@@ -55,6 +55,17 @@ SIGNATURES = {
     "gsmvi_advi_grad_l": [_P] * 4 + [_I, _I, _P],
     "gsmvi_advi_stl_decide": [_P, _P],
     "gsmvi_advi_stl_apply": [_P] * 11 + [_I] + [_F] * 8 + [_P],
+    "gsmvi_eps_smallspace_large": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
+    "gsmvi_bam_smallspace_large": [_P] * 13 + [_I, _I, _F] + [_I] * 5
+    + [_F, _F, _F, _P],
+    "gsmvi_funnel_score": [_P] * 3 + [_I, _I, _P],
+    "gsmvi_banana_score": [_P] * 3 + [_I, _I, _P],
+    "gsmvi_student_t_score": [_P] * 5 + [_I, _I, _P],
+}
+# C entry points returning a size (long long): argument types.
+SIZES = {
+    "gsmvi_eps_large_ws": [_I],
+    "gsmvi_bam_large_ws": [_I],
 }
 
 
@@ -149,8 +160,16 @@ class KernelLibrary:
             fn = getattr(self._lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in SIZES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         self._lib.gsmvi_error_string.argtypes = [ctypes.c_int]
         self._lib.gsmvi_error_string.restype = ctypes.c_char_p
+
+    def size(self, name: str, *args) -> int:
+        """The value of a size entry point (``SIZES``)."""
+        return int(getattr(self._lib, name)(*args))
 
     def call(self, name: str, *args) -> None:
         rc = getattr(self._lib, name)(*args)

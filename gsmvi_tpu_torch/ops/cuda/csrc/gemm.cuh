@@ -44,10 +44,11 @@ constexpr int GEMM_BN = 32;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
-enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1 };
+enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
-                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8 };
+                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8,
+                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11 };
 
 // optax.adam's update with precomputed bias corrections (the ADVI kernels,
 // advi.cu): omb1 = 1 - b1 and omb2 = 1 - b2 as float32.
@@ -71,6 +72,7 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
 // A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
 //   PRO_VEC_MINUS_A: A'(m, k) = pro_vec[k] - A'(m, k).
+//   PRO_A_MINUS_VEC: A'(m, k) = A'(m, k) - pro_vec[k].
 // B'(k, n) = TB ? b[n * ldb + k] : b[k * ldb + n].
 // Epilogues:
 //   EPI_STORE:             c = acc
@@ -80,6 +82,9 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
 //   EPI_ADD:               c = c_in + acc (c distinct from c_in and the operands)
 //   EPI_ADD_DIV:           c = c_in + acc / div
+//   EPI_SCALE:             c = acc * alpha
+//   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
+//   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
 //   EPI_EYE_MINUS:         c = I - acc, and with a non-null partial,
 //                          partial[row * gridDim.x + blockIdx.x] = sum |c| over the
 //                          tile's columns of that row (square C)
@@ -112,6 +117,7 @@ struct GemmArgs {
     int batch;
     long long sa, sb, sc, svec, sgood;
     float div;
+    float alpha, beta;
 };
 
 template <bool TA, bool TB, int PRO, int EPI>
@@ -145,6 +151,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             if (gm < p.m && gk < p.k) {
                 v = TA ? pa[(size_t)gk * p.lda + gm] : pa[(size_t)gm * p.lda + gk];
                 if (PRO == PRO_VEC_MINUS_A) v = pro_vec[gk] - v;
+                if (PRO == PRO_A_MINUS_VEC) v = v - pro_vec[gk];
             }
             As[r][kk] = v;
         }
@@ -238,6 +245,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             pc[o] = c_in[o] + acc[r];
         } else if (EPI == EPI_ADD_DIV) {
             pc[o] = c_in[o] + acc[r] / p.div;
+        } else if (EPI == EPI_SCALE) {
+            pc[o] = acc[r] * p.alpha;
+        } else if (EPI == EPI_AFFINE_EYE) {
+            pc[o] = p.alpha * ((gm == gn ? p.beta : 0.f) - acc[r]);
+        } else if (EPI == EPI_SUB_SCALE) {
+            pc[o] = (c_in[o] - acc[r]) * p.alpha;
         } else if (EPI == EPI_ADVI_ADAM) {
             float g = 0.f;
             if (gm >= gn) {

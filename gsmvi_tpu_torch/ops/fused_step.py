@@ -1,7 +1,7 @@
 """The eps-coordinate GSM step: plain torch versions and the Hopper kernel
 wrappers.
 
-Counterpart of ``gsmvi_tpu/ops/pallas/fused_step.py``.  Four TPU kernels
+Counterpart of ``gsmvi_tpu/ops/pallas/fused_step.py``.  Its TPU kernels
 are ported here:
 
 - K1 ``gsm_eps_update_fused`` (``method="ns"``): the eps-coordinate update
@@ -18,6 +18,9 @@ are ported here:
   ``eps_multistep_reference``.
 - K3 ``gaussian_score``: v = (mu_t - x) @ prec.  Plain version:
   ``gaussian_score_reference``.
+- K11a ``funnel_score``, ``banana_score``, ``student_t_score``: the zoo
+  targets' analytic scores (``zoo_score.cu``).  Plain versions:
+  ``*_score_reference``.
 - K4 ``make_fused_eps_step``: one whole step per call, on the ns or the
   chol update, its draw passed in (``external_eps=True``) or made on the
   card by a Philox4x32-10 generator (``philox_normal``, in place of the
@@ -39,10 +42,13 @@ wrapper counts its calls on the card in a plain integer attribute
 On the card a K1 call is four launches on the current stream: ``vf = v F``
 and ``t = vf F^T`` on the GEMM template, the one-block small-space kernel
 (which writes ``good`` and the new mean), and the fat apply, whose epilogue
-reads ``good`` and writes F or F' (the select).  A K4a call is six: the same
-two row products, a one-block row kernel (Z^T and (F Z)^T rows), the Gram
-Z^T Z on the GEMM template, the one-block Cholesky small space
-(``ops/cuda/csrc/eps_chol.cu``) and the fat apply.  A whole step
+reads ``good`` and writes F or F' (the select).  Above
+``SHARED_SMALLSPACE_MAX_B`` the small space is ``eps_smallspace_large``, a
+chain of grid launches with its (B, B) matrices in global memory
+(``smallspace_global.cu``; ~140 launches at the long NS profile).  A K4a
+call is six: the same two row products, a one-block row kernel (Z^T and
+(F Z)^T rows), the Gram Z^T Z on the GEMM template, the one-block Cholesky
+small space (``ops/cuda/csrc/eps_chol.cu``) and the fat apply.  A whole step
 (``_launch_step``) is the ``ef = e F^T`` / ``x = mu + ef`` GEMM, the score,
 then one update's launches: a K4 call is one whole step, a K2 call loops
 its sub-steps on the host on a working copy of (mean, F), with the accepted
@@ -78,12 +84,18 @@ PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 PHILOX_KEY1 = 0xA4093822
 _M32 = 0xFFFFFFFF
 
-# Shapes the CUDA kernels take: the small-space kernel holds ten (B, B)
-# matrices in one block's shared memory (B <= 64), the Cholesky one three
-# (2B, 2B) matrices (192 KiB at B=64); D is masked at the tile edges and
-# needs no alignment.
-KERNEL_BATCH_RANGE = (8, 64)
-KERNEL_DIM_RANGE = (16, 1024)
+# Shapes the CUDA kernels take.  The NS small space runs one block with its
+# ten (B, B) matrices in shared memory up to SHARED_SMALLSPACE_MAX_B
+# (``eps_smallspace.cu``) and, above, a chain of grid launches with them in
+# global memory (``smallspace_global.cu``) up to 512, the JAX package's
+# largest fused batch (its B sweep's top, ``bench.py:551-590``).  The
+# Cholesky variant (K4a) keeps three (2B, 2B) matrices in one block's shared
+# memory (192 KiB at B=64), so it stops at 64.  D is masked at the tile
+# edges and needs no alignment; its ceiling is K5's (``ops/gsm_step.py``).
+KERNEL_BATCH_RANGE = (1, 512)
+KERNEL_DIM_RANGE = (1, 8192)
+SHARED_SMALLSPACE_MAX_B = 64
+CHOL_BATCH_RANGE = (1, 64)
 
 
 def ns_iters_for_batch(b: int, override=None) -> tuple:
@@ -94,10 +106,11 @@ def ns_iters_for_batch(b: int, override=None) -> tuple:
     return NS_ITERS_DEFAULT if b <= 32 else NS_ITERS_LARGE_B
 
 
-def kernel_supports(b: int, d: int) -> bool:
-    """True iff the CUDA kernels take batch ``b`` and dimension ``d``."""
-    return (KERNEL_BATCH_RANGE[0] <= b <= KERNEL_BATCH_RANGE[1]
-            and KERNEL_DIM_RANGE[0] <= d <= KERNEL_DIM_RANGE[1])
+def kernel_supports(b: int, d: int, method: str = "ns") -> bool:
+    """True iff the CUDA kernels of ``method`` take batch ``b`` and
+    dimension ``d``."""
+    lo, hi = CHOL_BATCH_RANGE if method == "chol" else KERNEL_BATCH_RANGE
+    return lo <= b <= hi and KERNEL_DIM_RANGE[0] <= d <= KERNEL_DIM_RANGE[1]
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +417,41 @@ def gaussian_score_reference(x, mu_t, prec):
     return (mu_t - x) @ prec
 
 
+def funnel_score_reference(x, sigma_d):
+    """Neal's funnel score (twin of ``funnel_score_kernel``), sigma_d =
+    [[sigma, D]]: g0 = -x0/sigma^2 + e^{-x0} sum(rest^2)/2 - (D-1)/2,
+    g_rest = -rest e^{-x0}."""
+    sigma, dd = sigma_d[0, 0], sigma_d[0, 1]
+    x0, rest = x[:, :1], x[:, 1:]
+    rest2 = torch.sum(rest * rest, dim=1, keepdim=True)
+    e = torch.exp(-x0)
+    g0 = -x0 / (sigma * sigma) + 0.5 * e * rest2 - 0.5 * (dd - 1.0)
+    return torch.cat([g0, -rest * e], dim=1)
+
+
+def banana_score_reference(x, cs):
+    """Banana score (twin of ``banana_score_kernel``), cs = [[b, s]]: with
+    h = x1 - b (x0^2 - s^2), g0 = -x0/s^2 + 2 b x0 h, g1 = -h, g_tail =
+    -tail."""
+    curv, s = cs[0, 0], cs[0, 1]
+    x0, x1 = x[:, :1], x[:, 1:2]
+    h = x1 - curv * (x0 * x0 - s * s)
+    g0 = -x0 / (s * s) + 2.0 * curv * x0 * h
+    return torch.cat([g0, -h, -x[:, 2:]], dim=1)
+
+
+def student_t_score_reference(x, loc, prec, df_d):
+    """Multivariate-t score (twin of ``student_t_score_kernel``), loc
+    (1, D), prec (D, D) symmetric, df_d = [[df, D]]:
+    -(df + D)/(df + maha) P with P = (x - loc) prec, maha = rowsum(P o
+    (x - loc))."""
+    df, dd = df_d[0, 0], df_d[0, 1]
+    diff = x - loc
+    p = diff @ prec
+    maha = torch.sum(p * diff, dim=1, keepdim=True)
+    return -(df + dd) / (df + maha) * p
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch helpers
 # ---------------------------------------------------------------------------
@@ -457,12 +505,13 @@ def _require_dim_supported(d: int) -> None:
             f"{KERNEL_DIM_RANGE[1]}], got D={d}")
 
 
-def _require_shape_supported(b: int, d: int) -> None:
-    if not kernel_supports(b, d):
+def _require_shape_supported(b: int, d: int, method: str = "ns") -> None:
+    if not kernel_supports(b, d, method):
+        lo, hi = CHOL_BATCH_RANGE if method == "chol" else KERNEL_BATCH_RANGE
         raise ValueError(
-            f"CUDA kernels take B in [{KERNEL_BATCH_RANGE[0]}, "
-            f"{KERNEL_BATCH_RANGE[1]}] and D in [{KERNEL_DIM_RANGE[0]}, "
-            f"{KERNEL_DIM_RANGE[1]}], got B={b}, D={d}")
+            f"CUDA kernels ({method}) take B in [{lo}, {hi}] and D in "
+            f"[{KERNEL_DIM_RANGE[0]}, {KERNEL_DIM_RANGE[1]}], got B={b}, "
+            f"D={d}")
 
 
 def _replicas(rows):
@@ -503,6 +552,9 @@ class _UpdateBuffers:
         self.su, self.sw = empty(2 * b, d), empty(2 * b, d)
         if method == "ns":
             self.c, self.xim = empty(b, d), empty(b, d)
+            # The global-memory small space's (B, B) matrices and scalars.
+            self.ws = (empty(_library().size("gsmvi_eps_large_ws", b))
+                       if b > SHARED_SMALLSPACE_MAX_B else None)
         else:
             self.zt, self.g = empty(2 * b, d), empty(2 * b, 2 * b)
             self.rs = empty(2 * b)
@@ -519,11 +571,15 @@ def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
     b, d = eps.shape[-2:]
     _rows(lib, stream, vs, f_in, buf.vf, trans=False)
     _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
-    lib.call("gsmvi_eps_smallspace", _ptr(eps), _ptr(vs), _ptr(buf.vf),
-             _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
-             _ptr(buf.good), _ptr(nacc), _ptr(buf.su), _ptr(buf.sw),
-             _ptr(buf.c), _ptr(buf.xim), b, d, *iters, NS_TOL, k, e_stride,
-             stream)
+    args = (_ptr(eps), _ptr(vs), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
+            _ptr(mean_in), _ptr(mean_out), _ptr(buf.good), _ptr(nacc),
+            _ptr(buf.su), _ptr(buf.sw), _ptr(buf.c), _ptr(buf.xim))
+    if buf.ws is None:
+        lib.call("gsmvi_eps_smallspace", *args, b, d, *iters, NS_TOL, k,
+                 e_stride, stream)
+    else:
+        eps_smallspace_large(lib, stream, args, buf.ws, b, d, iters, k,
+                             e_stride)
     lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
              _ptr(f_out), _ptr(buf.good), 2 * b, d, k, stream)
 
@@ -565,6 +621,21 @@ def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
     else:
         _launch_chol_update(lib, stream, e, v, ef, mean_in, mean_out, f_in,
                             f_out, buf, jitter, nacc=nacc)
+
+
+def eps_smallspace_large(lib, stream, args, ws, b: int, d: int, iters, k: int,
+                         e_stride: int) -> None:
+    """Launch the global-memory NS small space (``smallspace_global.cu``)
+    that K1, K2, K4 and K6 run above ``SHARED_SMALLSPACE_MAX_B``: ``args``
+    are ``gsmvi_eps_smallspace``'s pointers, ``ws`` its workspace.  Its
+    ``launches`` counts the updates that took it, beside the wrappers'
+    counts, so a run shows which small space ran."""
+    eps_smallspace_large.launches += 1
+    lib.call("gsmvi_eps_smallspace_large", *args, _ptr(ws), b, d, *iters,
+             NS_TOL, k, e_stride, stream)
+
+
+eps_smallspace_large.launches = 0
 
 
 def _check_method(method: str) -> None:
@@ -626,7 +697,7 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
                                                  jitter=jitter, ef_t=ef)
         return gsm_eps_update_replicas_reference(eps, vs, mean, f,
                                                  iters=iters, ef_t=ef)
-    _require_shape_supported(b, d)
+    _require_shape_supported(b, d, method)
     for name, t, shape in (("eps", eps, (b, d)), ("vs", vs, (b, d)),
                            ("mean", mean, (d,)), ("f", f, (d, d))):
         _require(name, t, lead + shape)
@@ -719,7 +790,7 @@ def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
             return eps_step_reference(score_fn, params, e, mean, f,
                                       method=method, iters=iters,
                                       jitter=jitter)
-        _require_shape_supported(batch, d)
+        _require_shape_supported(batch, d, method)
         for name, t, shape in (("mean", mean, (d,)), ("f", f, (d, d))):
             _require(name, t, shape)
         dev = mean.device
@@ -814,6 +885,73 @@ def gaussian_score(x, mu_t, prec):
 
 gaussian_score.launches = 0
 
+
+def _zoo_operands(x, params) -> tuple:
+    """(M, D) of the score rows x, after checking x and the (1, 2) scalar
+    row of a zoo score's ``params`` (its last)."""
+    if x.dim() != 2:
+        raise ValueError(f"x: (M, D) required, got {tuple(x.shape)}")
+    m, d = x.shape
+    _require_dim_supported(d)
+    _require("x", x, (m, d))
+    _require("params", params, (1, 2))
+    return m, d
+
+
+def funnel_score(x, sigma_d):
+    """K11a: Neal's funnel score of the rows x (M, D), sigma_d = [[sigma,
+    D]] (``ops/cuda/csrc/zoo_score.cu``, one warp per row)."""
+    if _on_cpu(x, sigma_d):
+        return funnel_score_reference(x, sigma_d)
+    m, d = _zoo_operands(x, sigma_d)
+    v = torch.empty_like(x)
+    funnel_score.launches += 1
+    _library().call("gsmvi_funnel_score", _ptr(x), _ptr(sigma_d), _ptr(v),
+                    m, d, _stream(x.device))
+    return v
+
+
+funnel_score.launches = 0
+
+
+def banana_score(x, cs):
+    """K11a: banana score of the rows x (M, D), D >= 2, cs = [[curvature,
+    scale]] (``ops/cuda/csrc/zoo_score.cu``, one thread per element)."""
+    if x.dim() != 2 or x.shape[1] < 2:
+        raise ValueError(f"banana_score: x (M, D) with D >= 2 required, got "
+                         f"{tuple(x.shape)}")
+    if _on_cpu(x, cs):
+        return banana_score_reference(x, cs)
+    m, d = _zoo_operands(x, cs)
+    v = torch.empty_like(x)
+    banana_score.launches += 1
+    _library().call("gsmvi_banana_score", _ptr(x), _ptr(cs), _ptr(v), m, d,
+                    _stream(x.device))
+    return v
+
+
+banana_score.launches = 0
+
+
+def student_t_score(x, loc, prec, df_d):
+    """K11a: multivariate-t score of the rows x (M, D); loc (1, D), prec
+    (D, D) symmetric, df_d = [[df, D]]: the product (x - loc) prec on the
+    GEMM template, then a row kernel forming maha and scaling the row
+    (``ops/cuda/csrc/zoo_score.cu``, two launches)."""
+    if _on_cpu(x, loc, prec, df_d):
+        return student_t_score_reference(x, loc, prec, df_d)
+    m, d = _zoo_operands(x, df_d)
+    _require("loc", loc, (1, d))
+    _require("prec", prec, (d, d))
+    v = torch.empty_like(x)
+    student_t_score.launches += 1
+    _library().call("gsmvi_student_t_score", _ptr(x), _ptr(loc), _ptr(prec),
+                    _ptr(df_d), _ptr(v), m, d, _stream(x.device))
+    return v
+
+
+student_t_score.launches = 0
+
 KERNEL_WRAPPERS = {
     "gsm_eps_update_fused": gsm_eps_update_fused,
     "make_fused_eps_multistep": make_fused_eps_multistep,
@@ -821,6 +959,10 @@ KERNEL_WRAPPERS = {
     "make_fused_eps_step": make_fused_eps_step,
     "philox_normal": philox_normal,
     "philox4x32": philox4x32,
+    "eps_smallspace_large": eps_smallspace_large,
+    "funnel_score": funnel_score,
+    "banana_score": banana_score,
+    "student_t_score": student_t_score,
 }
 
 

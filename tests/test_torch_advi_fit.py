@@ -340,13 +340,13 @@ def test_fit_fused_routing_and_errors(monkeypatch):
     with pytest.raises(ValueError, match="fused_score"):
         ADVI(d, t.lp, device=DEV).fit_fused(0, niter=2, verbose=False)
     monkeypatch.setattr(t_advi, "on_gpu", lambda device: True)
-    with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
-        g.fit_fused(0, niter=2, batch_size=8, verbose=False)
+    with pytest.raises(ValueError, match=r"D in \[1, 8192\]"):
+        ADVI(8193, t.lp, fused_score=t.fused_score, device=DEV)._check_fused(8)
     d = 16
     t = dense_gaussian(1, d, scale=0.5, device=DEV)
-    with pytest.raises(ValueError, match=r"B in \[8, 64\]"):
+    with pytest.raises(ValueError, match=r"B in \[1, 65536\]"):
         ADVI(d, t.lp, fused_score=t.fused_score, device=DEV).fit_fused(
-            0, niter=2, batch_size=4, verbose=False)
+            0, niter=2, batch_size=65537, verbose=False)
     with pytest.raises(NotImplementedError, match="float32"):
         ADVI(d, t.lp, fused_score=t.fused_score,
              dtype=torch.float64, device=DEV).fit_fused(

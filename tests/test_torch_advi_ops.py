@@ -279,8 +279,9 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     counts = tfs.launch_counts()
     assert counts["make_fused_advi_multistep"] == 0
     assert counts["make_fused_advi_stl_multistep"] == 0
-    assert taf.advi_kernel_supports(8, 16) and taf.advi_kernel_supports(
-        64, 1024)
-    assert not taf.advi_kernel_supports(4, 256)
-    assert not taf.advi_kernel_supports(32, 2048)
+    assert taf.advi_kernel_supports(1, 1) and taf.advi_kernel_supports(
+        512, 1024)
+    assert taf.advi_kernel_supports(65536, 8192)
+    assert not taf.advi_kernel_supports(65537, 256)
+    assert not taf.advi_kernel_supports(32, 8193)
     assert taf.stl_gate_first(0.05, 2) == 0.05 ** 0.25

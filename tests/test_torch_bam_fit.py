@@ -283,9 +283,8 @@ def test_routes_state_boundary_and_gates(monkeypatch, kernel_paths):
     assert BaM(d, t.lp, t.lp_g, use_factor=True, device=DEV)._factor_route()
     monkeypatch.setattr(t_bam, "on_gpu", lambda device: True)
     assert g._factor_route()
-    with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
-        g.fit(0, Regularizers().linear(20.0), niter=2, batch_size=8,
-              verbose=False)
+    with pytest.raises(ValueError, match=r"D in \[1, 8192\]"):
+        FactorBaM(8193, t.lp, t.lp_g, device=DEV)._fused_mode(8)
     d = 16
     t = dense_gaussian(7, d, scale=0.3, device=DEV)
     s = BaM(d, t.lp, t.lp_g, device=DEV).fit(
@@ -295,8 +294,8 @@ def test_routes_state_boundary_and_gates(monkeypatch, kernel_paths):
     with pytest.raises(NotImplementedError, match="float32"):
         FactorBaM(d, t.lp, t.lp_g, dtype=torch.float64,
                   device=DEV)._fused_mode(8)
-    with pytest.raises(ValueError, match=r"B in \[8, 56\]"):
-        FactorBaM(d, t.lp, t.lp_g, device=DEV)._fused_mode(64)
+    with pytest.raises(ValueError, match=r"B in \[1, 128\]"):
+        FactorBaM(d, t.lp, t.lp_g, device=DEV)._fused_mode(129)
     assert FactorBaM(d, t.lp, t.lp_g, use_fused=False,
                      dtype=torch.float64, device=DEV)._fused_mode(64) is None
     # audit_every is ported: the K7 path audits at its cadence.

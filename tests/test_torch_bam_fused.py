@@ -233,15 +233,16 @@ def test_constants_and_kernel_range():
                  "FEEDBACK_MARGIN"):
         assert getattr(tbf, name) == getattr(jbf, name), name
     assert np.isinf(tbf.NS_STATS_INIT).all()
-    # B=32 and D in 16..1024 are inside the range; it ends where the
-    # kernel's shared memory (kpad = B + 8 <= 64) does, and starts where the
-    # score kernel K8 runs does.
-    assert all(tbf.bam_kernel_supports(32, d) for d in (16, 200, 256, 1024))
-    assert tbf.BAM_KERNEL_BATCH_RANGE == (8, 56)
+    # B from 1 to the JAX kernel's 128 and D from 1 are inside the range;
+    # the one-block kernel ends where its shared memory (kpad = B + 8 <= 64)
+    # does, and the global-memory small space takes over above.
+    assert all(tbf.bam_kernel_supports(32, d) for d in (1, 16, 200, 1024))
+    assert tbf.BAM_KERNEL_BATCH_RANGE == (1, 128)
+    assert tbf.BAM_SHARED_MAX_B == 56
     assert tbf.bam_smallspace_smem_bytes(56) <= tbf.SMEM_LIMIT_BYTES
-    assert not tbf.bam_kernel_supports(57, 256)
-    assert not tbf.bam_kernel_supports(32, 8)
-    assert not tbf.bam_kernel_supports(4, 256)
+    assert tbf.bam_kernel_supports(1, 256) and tbf.bam_kernel_supports(128, 8)
+    assert not tbf.bam_kernel_supports(129, 256)
+    assert not tbf.bam_kernel_supports(32, 8193)
 
 
 def test_cpu_calls_launch_nothing():

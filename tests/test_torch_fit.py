@@ -178,16 +178,18 @@ def test_kernel_gate_raises_on_the_card(monkeypatch, kernel_paths):
     with pytest.raises(NotImplementedError, match="float32"):
         FactorGSM(d, t.lp, t.lp_g, dtype=torch.float64,
                   device=DEV)._fused_mode(8)
-    with pytest.raises(ValueError, match=r"B in \[8, 64\]"):
-        FactorGSM(d, t.lp, t.lp_g, device=DEV)._fused_mode(96)
-    with pytest.raises(ValueError, match=r"D in \[16, 1024\]"):
-        FactorGSM(8, t.lp, t.lp_g, device=DEV)._fused_mode(8)
+    with pytest.raises(ValueError, match=r"B in \[1, 512\]"):
+        FactorGSM(d, t.lp, t.lp_g, device=DEV)._fused_mode(513)
+    with pytest.raises(ValueError, match=r"D in \[1, 8192\]"):
+        FactorGSM(8193, t.lp, t.lp_g, device=DEV)._fused_mode(8)
     assert FactorGSM(d, t.lp, t.lp_g, use_fused=False,
-                     dtype=torch.float64, device=DEV)._fused_mode(96) is None
+                     dtype=torch.float64, device=DEV)._fused_mode(600) is None
     monkeypatch.setattr(t_gsm, "on_gpu", lambda device: True)
+    # B=600 at D=2048 keeps the factor route (2B <= D), whose gate raises
+    # before any step runs.
     with pytest.raises(ValueError, match="use_fused=False"):
-        GSM(d, t.lp, t.lp_g, device=DEV).fit(0, niter=2, batch_size=4,
-                                             verbose=False)
+        GSM(2048, t.lp, t.lp_g, device=DEV).fit(0, niter=2, batch_size=600,
+                                                verbose=False)
 
 
 def test_eps_stream_seeding():

@@ -226,9 +226,9 @@ def test_fit_batch_gates(kernel_paths, monkeypatch):
         g.fit_batch((0, 1), batch_size=8, niter=2, small_solver="fused")
     with pytest.raises(ValueError, match="small_solver"):
         g.fit_batch((0, 1), batch_size=8, niter=2, small_solver="qr")
-    with pytest.raises(ValueError, match=r"B in \[8, 64\]"):
-        g.fit_batch((0, 1), batch_size=4, niter=2)
-    assert g._batch_mode(4, "chol") is None
+    with pytest.raises(ValueError, match=r"B in \[1, 512\]"):
+        g.fit_batch((0, 1), batch_size=513, niter=2)
+    assert g._batch_mode(513, "chol") is None
     with pytest.raises(ValueError, match="expected"):
         broadcast_replicas(torch.zeros(3, d), None, 2, (d,), torch.float32,
                            DEV)

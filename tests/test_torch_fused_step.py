@@ -180,9 +180,11 @@ def test_wrappers_take_cpu_or_cuda_only():
     step = tfs.make_fused_eps_multistep(tfs.gaussian_score, 2, b, d, 2)
     with pytest.raises(ValueError, match="nmax"):
         step(3, torch.zeros(2 * b, d), mu, f, mu[None], f)
-    assert tfs.kernel_supports(8, 16) and tfs.kernel_supports(64, 1024)
-    assert not tfs.kernel_supports(4, 256)
-    assert not tfs.kernel_supports(32, 2048)
+    assert tfs.kernel_supports(1, 1) and tfs.kernel_supports(512, 8192)
+    assert tfs.kernel_supports(64, 256, "chol")
+    assert not tfs.kernel_supports(65, 256, "chol")
+    assert not tfs.kernel_supports(513, 256)
+    assert not tfs.kernel_supports(32, 8193)
 
 
 def test_cpu_calls_launch_nothing_and_build_is_lazy(monkeypatch, tmp_path):

@@ -103,8 +103,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                 f.double())
     with pytest.raises(ValueError, match="contiguous"):
         fs.gsm_eps_update_fused(eps, v, mu, f.T)
-    with pytest.raises(ValueError, match="CUDA kernels take"):
-        fs.gsm_eps_update_fused(eps[:4], v[:4], mu, f)
+    e65, v65, _, _ = _inputs(cuda, 65, 64)
+    with pytest.raises(ValueError, match=r"CUDA kernels \(chol\) take"):
+        fs.gsm_eps_update_fused(e65, v65, mu, f, method="chol")
     with pytest.raises(ValueError, match="several devices"):
         fs.gsm_eps_update_fused(eps, v, mu.cpu(), f)
 
@@ -115,14 +116,14 @@ def test_fitters_raise_outside_the_kernel_range(cuda):
     d = 64
     t = dense_gaussian(3, d, scale=0.5, device=cuda)
     with pytest.raises(ValueError, match="CUDA kernels take B"):
-        GSM(d, t.lp, t.lp_g, device="cuda").fit(0, batch_size=96, niter=2,
-                                                verbose=False)
+        FactorGSM(d, t.lp, t.lp_g, device="cuda").fit(
+            0, batch_size=1024, niter=2, verbose=False)
     with pytest.raises(NotImplementedError, match="float32"):
         FactorGSM(d, t.lp, t.lp_g, device="cuda", dtype=torch.float64).fit(
             0, batch_size=16, niter=2, verbose=False)
     fs.reset_launch_counts()
     mean, _ = FactorGSM(d, t.lp, t.lp_g, device="cuda", use_fused=False).fit(
-        0, batch_size=96, niter=2, verbose=False)
+        0, batch_size=1024, niter=2, verbose=False)
     assert mean.is_cuda and sum(fs.launch_counts().values()) == 0
 
 
@@ -241,14 +242,14 @@ def test_bam_fitters_raise_outside_the_kernel_range(cuda):
     t = dense_gaussian(3, d, scale=0.5, device=cuda)
     regf = Regularizers().linear(20.0)
     with pytest.raises(ValueError, match="BaM CUDA kernels take B"):
-        BaM(d, t.lp, t.lp_g, device="cuda").fit(0, regf, batch_size=64,
+        BaM(d, t.lp, t.lp_g, device="cuda").fit(0, regf, batch_size=129,
                                                 niter=2, verbose=False)
     with pytest.raises(NotImplementedError, match="float32"):
         FactorBaM(d, t.lp, t.lp_g, device="cuda", dtype=torch.float64).fit(
             0, regf, batch_size=16, niter=2, verbose=False)
     fs.reset_launch_counts()
     mean, _ = FactorBaM(d, t.lp, t.lp_g, device="cuda", use_fused=False).fit(
-        0, regf, batch_size=64, niter=2, verbose=False, retries=0)
+        0, regf, batch_size=129, niter=2, verbose=False, retries=0)
     assert mean.is_cuda and sum(fs.launch_counts().values()) == 0
 
 
@@ -376,7 +377,7 @@ def test_advi_fit_fused_raises_outside_the_kernel_range(cuda):
     t = dense_gaussian(3, d, scale=0.5, device=cuda)
     g = ADVI(d, t.lp, fused_score=t.fused_score, device="cuda")
     with pytest.raises(ValueError, match="ADVI CUDA kernels take B"):
-        g.fit_fused(0, batch_size=96, niter=2, verbose=False)
+        g.fit_fused(0, batch_size=65537, niter=2, verbose=False)
     with pytest.raises(NotImplementedError, match="float32"):
         ADVI(d, t.lp, fused_score=t.fused_score, device="cuda",
              dtype=torch.float64).fit_fused(0, batch_size=16, niter=2,
@@ -566,7 +567,7 @@ def test_dense_and_batch_fitters_raise_outside_the_kernel_range(cuda):
             range(2), batch_size=16, niter=2, small_solver="fused")
     with pytest.raises(ValueError, match="CUDA kernels take B"):
         FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
-                  device="cuda").fit_batch(range(2), batch_size=96, niter=2,
+                  device="cuda").fit_batch(range(2), batch_size=513, niter=2,
                                            small_solver="fused")
     fs.reset_launch_counts()
     mean, _ = GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False,
@@ -728,3 +729,119 @@ def test_audited_fits_equal_unaudited(cuda):
         assert [r["i"] for r in g.audit_log] == [50, 100, 150, 200], name
         assert torch.equal(audited.mean, plain.mean), name
         assert torch.equal(audited.factor, plain.factor), name
+
+
+# ---------------------------------------------------------------------------
+# The kernels' shape ranges: B from 1 (the reference examples) to 512 on the
+# eps kernels (the global-memory small space above B=64) and 128 on BaM.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,d", [(1, 1), (2, 10), (3, 5), (7, 16),
+                                 (65, 64), (128, 256), (512, 256)])
+def test_update_and_multistep_kernels_match_plain_over_the_range(cuda, b, d):
+    from gsmvi_tpu_torch.models import ill_conditioned_gaussian
+
+    eps, v, mu, f = _inputs(cuda, b, d, seed=b + d)
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    assert fs.launch_counts()["eps_smallspace_large"] == int(b > 64)
+    m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
+    assert bool(g_k) == bool(g_p)
+    assert float((m_k - m_p).abs().max()) <= 1e-5
+    assert float((f_k - f_p).abs().max()) <= 1e-5 * float(f.abs().max())
+    t = ill_conditioned_gaussian(0, d, 10.0, device=cuda)
+    score_fn, params = t.fused_score
+    spc = 8
+    block = torch.randn((spc * b, d), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(b))
+    step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    m0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    m_k, f_k, n_k = step(spc, block, m0, f0, *params)
+    m_p, f_p, n_p = fs.eps_multistep_reference(
+        fs.gaussian_score_reference, params, spc, block, m0, f0, batch=b)
+    assert int(n_k) == int(n_p)
+    assert float((m_k - m_p).abs().max()) <= 1e-4
+    assert float((f_k - f_p).abs().max()) <= 1e-4 * float(f_p.abs().max())
+
+
+def test_large_batch_replicas_equal_single_calls(cuda):
+    """The global-memory small space takes K1's replica axis: batched K1 at
+    B=96 equals its single calls bit for bit, and fit_batch "fused" (K6)
+    at B=96 equals the single K2 fits."""
+    ins = [_inputs(cuda, 96, 128, seed=i) for i in range(2)]
+    eps, v, mu, f = (torch.stack(z) for z in zip(*ins))
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    for i in range(2):
+        m_i, f_i, g_i = fs.gsm_eps_update_fused(*ins[i])
+        assert torch.equal(m_k[i], m_i) and torch.equal(f_k[i], f_i)
+        assert bool(g_i) == bool(g_k[i])
+    d, b, niter = 64, 96, 20
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=8, device="cuda")
+    st = g.fit_batch(range(2), batch_size=b, niter=niter, return_state=True,
+                     small_solver="fused")
+    for i in range(2):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert torch.equal(st.mean[i], si.mean)
+        assert torch.equal(st.factor[i], si.factor)
+
+
+@pytest.mark.parametrize("b,d", [(1, 16), (2, 256), (60, 100), (128, 256)])
+def test_bam_update_kernel_matches_plain_over_the_range(cuda, b, d):
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    e, v, mu, f = _bam_inputs(cuda, b, d, seed=b + d, v_scale=0.05)
+    fs.reset_launch_counts()
+    k = bf.bam_eps_update_fused(e, v, mu, f, 0.5)
+    assert fs.launch_counts()["bam_smallspace_large"] == int(b > 56)
+    p = bf.bam_eps_update_ns_reference(e, v, mu, f, 0.5)
+    assert (bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3]))
+    assert np.allclose(k[4].tolist(), p[4].tolist(), rtol=1e-3, atol=0)
+    assert _within(k[0], p[0], 1e-5) and _within(k[1], p[1], 1e-5)
+
+
+def test_example_configurations_run_on_the_kernels(cuda):
+    """The reference examples' shapes with the fitters' defaults: GSM(10)
+    (B=2) runs K1 once per step, BaM(5, use_lowrank=True) at B=2 runs K7,
+    GSM(16) at B=1 runs K1; the moments come out finite (chip_smoke.py
+    phase 18 bounds them)."""
+    from gsmvi_tpu_torch import BaM, Regularizers
+
+    for d, seed, b in ((10, 3, 2), (16, 11, 1)):
+        t = dense_gaussian(seed, d, device=cuda)
+        fs.reset_launch_counts()
+        kw = {} if b == 2 else {"batch_size": b}
+        mean, cov = GSM(d, t.lp, t.lp_g, device="cuda").fit(
+            0, niter=500, verbose=False, **kw)
+        assert fs.launch_counts()["gsm_eps_update_fused"] == 501
+        assert bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
+    t = dense_gaussian(5, 5, device=cuda)
+    fs.reset_launch_counts()
+    mean, cov = BaM(5, t.lp, t.lp_g, use_lowrank=True, device="cuda").fit(
+        0, Regularizers().custom(lambda i: 100 / (1 + i)), niter=100,
+        batch_size=2, verbose=False)
+    assert fs.launch_counts()["bam_eps_update_fused"] >= 101
+    assert bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
+
+
+@pytest.mark.parametrize("name", ["funnel", "banana", "student_t"])
+@pytest.mark.parametrize("b,d", [(32, 256), (3, 10)])
+def test_zoo_score_kernels_match_plain(cuda, name, b, d):
+    from gsmvi_tpu_torch import models
+
+    t = (models.student_t(0, d, df=6.0, device=cuda) if name == "student_t"
+         else getattr(models, name)(d, device=cuda))
+    score_fn, params = t.fused_score
+    rng = np.random.default_rng(b + d)
+    x = rng.standard_normal((b, d)).astype(np.float32)
+    x[:, 0] = rng.uniform(-3.0, 3.0, b)
+    x = torch.from_numpy(x).to(cuda)
+    fs.reset_launch_counts()
+    v_k = score_fn(x, *params)
+    assert fs.launch_counts()[f"{name}_score"] == 1
+    v_p = getattr(fs, f"{name}_score_reference")(x, *params)
+    tol = 1e-4 if name == "student_t" else 1e-5
+    assert float((v_k - v_p).abs().max()) <= tol * max(
+        1.0, float(v_p.abs().max()))

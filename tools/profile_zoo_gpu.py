@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Where the time of the zoo path and of the large-batch small spaces goes
+on one NVIDIA GPU.
+
+    python3 tools/profile_zoo_gpu.py [--steps 64]
+
+With ``torch.profiler``, as ``tools/profile_gpu.py`` profiles the GSM
+paths (its ``profile_fit`` and ``profile_calls``; one JSON line each: host
+wall per step profiled and unprofiled, device busy per step, the device's
+idle share, launches per step and device time by kernel name):
+
+- the zoo path, ``FactorGSM(..., fused_score=t.fused_score)`` (K2 with the
+  K11a score inside, spc=8) at D=256, B=32 on ``funnel(256)``,
+  ``banana(256)`` and ``student_t(0, 256, df=6)``;
+- ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
+  where K2 runs the global-memory small space (``eps_smallspace_large``);
+- single K1 calls (``gsm_eps_update_fused``) at B=128 and B=512, D=256,
+  from (0, I), on the same small space.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from profile_gpu import profile_calls, profile_fit  # noqa: E402
+
+
+class AtBatch:
+    """``fitter`` with ``fit`` run at batch ``batch`` (``profile_fit``
+    drives the headline's B=32)."""
+
+    def __init__(self, fitter, batch: int):
+        self.fitter, self.batch = fitter, batch
+
+    def fit(self, seed, batch_size, niter, verbose):
+        return self.fitter.fit(seed, batch_size=self.batch, niter=niter,
+                               verbose=verbose)
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=64)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_zoo_gpu: no CUDA device", file=sys.stderr)
+        return 1
+    from gsmvi_tpu_torch import FactorGSM
+    from gsmvi_tpu_torch.models import (banana, dense_gaussian, funnel,
+                                        student_t)
+    from gsmvi_tpu_torch.ops import fused_step as fs
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    for t in (funnel(256, device="cuda"), banana(256, device="cuda"),
+              student_t(0, 256, df=6.0, device="cuda")):
+        profile_fit(f"FactorGSM fused_score on {t.name} (K2+K11a, spc=8)",
+                    FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                              device="cuda"), args.steps, torch)
+    t = dense_gaussian(0, 256, device="cuda")
+    fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                      device="cuda")
+    profile_fit("FactorGSM fused_score B=128 (K2 on eps_smallspace_large "
+                "+ K3, spc=8)", AtBatch(fused, 128), args.steps, torch)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    mean, f = torch.zeros(256, device="cuda"), torch.eye(256, device="cuda")
+    for b in (128, 512):
+        e = torch.randn((b, 256), generator=gen, device="cuda")
+        v = t.lp_g(mean + e)
+        profile_calls(f"K1 gsm_eps_update_fused B={b} (eps_smallspace_large)",
+                      lambda: fs.gsm_eps_update_fused(e, v, mean, f), 16,
+                      torch)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
