@@ -107,15 +107,20 @@ the script exits non-zero):
     (``tools/jax_example_bound.py``); ``FactorGSM(fused_score)`` at B=128
     to convergence on the global-memory small space, bounded the same way;
     a ``FactorBaM(fused_score)`` run at B=128.
-19. zoo kernels: ``funnel_score``, ``banana_score`` and
-    ``student_t_score`` (K11a) against their plain versions at (32, 256),
-    (3, 10) and (512, 1024); per-call times at (32, 256).
+19. zoo kernels: ``funnel_score``, ``banana_score``, ``student_t_score``
+    (K11a), ``mixture_score`` and ``logreg_score`` (K11b) against their
+    plain versions at (32, 256), (3, 10) and (512, 1024); the mixture also
+    with the JAX target's padded K=8 (five -1e30 rows), at K=1024 and at
+    separation 0.3 (blended responsibilities), logreg at N=1, N=4096 and on
+    rows with |z| > 100 (saturated, finite); per-call times at (32, 256).
 20. zoo path: ``FactorGSM(fused_score=t.fused_score)`` on ``funnel(256)``,
-    ``banana(256)`` and ``student_t(0, 256, df=6)`` at B=32, niter=3000,
-    spc=8 (K2 and the zoo kernel must launch; banana and Student-t under
-    1.5 x the worst JAX CPU fit, funnel finite and PD), its it/s beside the
-    card; one ``FactorBaM(fused_score)`` and one ``ADVI.fit_fused`` run per
-    target.
+    ``banana(256)``, ``student_t(0, 256, df=6)``, ``gaussian_mixture(0,
+    256)`` and ``logistic_regression(0, 256)`` at B=32, niter=3000, spc=8
+    (K2 and the zoo kernel must launch, K1 and K3 not; banana, Student-t,
+    the mixture (against the component it lands in) and logreg (against
+    the Laplace approximation) under 1.5 x the worst JAX CPU fit, funnel
+    finite and PD), its it/s beside the card; one ``FactorBaM(fused_score)``
+    and one ``ADVI.fit_fused`` run per target.
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
@@ -267,6 +272,12 @@ SOURCES = {
     "student_t_score": (
         "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:831"),
+    "mixture_score": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score_b.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:848"),
+    "logreg_score": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score_b.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:869"),
 }
 # K4: the shapes of phase 14.  A whole step carries the score's GEMM
 # rounding into the update, as K2's sub-steps do, so the ns step is held to
@@ -351,11 +362,55 @@ def bound(plain, inputs) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def moment_errs(mean, cov, true_mean, true_cov) -> tuple:
+    """(mean_err, cov_err) as bench.py:207-211 defines them, on numpy
+    arrays."""
+    import numpy as np
+
+    scale = max(1.0, float(np.abs(true_cov).max()))
+    return (float(np.abs(mean - true_mean).max()),
+            float(np.abs(cov - true_cov).max()) / scale)
+
+
 def errs(mean, cov, t):
-    """(mean_err, cov_err) as bench.py:207-211 defines them."""
-    m = float((mean - t.mean).abs().max())
-    scale = max(1.0, float(t.cov.abs().max()))
-    return m, float((cov - t.cov).abs().max()) / scale
+    """``moment_errs`` of a fit's tensors against the target's moments."""
+    return moment_errs(*(a.detach().cpu().numpy()
+                         for a in (mean, cov, t.mean, t.cov)))
+
+
+def nearest_component_errs(mean, cov, means) -> tuple:
+    """``errs`` of a fit of the identity-covariance mixture with the means
+    (K, D) against its component nearest the fit's mean, N(m_k*, I): at
+    separation 3 and D=256 the components lie ~68 apart, the other
+    responsibilities underflow to 0 near a mode, and GSM's fixed point is
+    that component."""
+    import numpy as np
+
+    k = int(np.argmin(((means - mean) ** 2).sum(axis=1)))
+    return moment_errs(mean, cov, means[k], np.eye(means.shape[1]))
+
+
+def laplace_moments(x, y, prior_scale: float, iters: int = 30) -> tuple:
+    """(MAP, inverse Hessian at the MAP) of the logistic-regression
+    posterior with data x (N, D), labels y (N,) and prior N(0, ps^2 I), by
+    Newton's method in float64 from w = 0: the Laplace approximation, the
+    reference the logreg fits are measured against (it has no analytic
+    moments)."""
+    import numpy as np
+
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    prec0 = np.eye(x.shape[1]) / prior_scale ** 2
+
+    def newton(w):
+        """(the negative Hessian, the gradient) of the log-posterior at w."""
+        p = 1.0 / (1.0 + np.exp(-(x @ w)))
+        return (x.T @ (x * (p * (1.0 - p))[:, None]) + prec0,
+                x.T @ (y - p) - prec0 @ w)
+
+    w = np.zeros(x.shape[1])
+    for _ in range(iters):
+        w = w + np.linalg.solve(*newton(w))
+    return w, np.linalg.inv(newton(w)[0])
 
 
 def phase_kernels(fs, dense_gaussian, torch, np):
@@ -1746,19 +1801,33 @@ EXAMPLES = {
 B128, N_B128 = 128, 3000
 B128_MEAN_REF, B128_COV_REF = 9.0187e-4, 2.3533e-4
 N_BAM128 = 200
-# Phases 19-20: the zoo's K11a kernels and the zoo path.  Kernel vs plain
-# version (float32 on the card, sums in other orders): funnel and banana
-# within 1e-5 * max(1, max|v|) (elementwise work and one row sum), the
-# Student-t within 1e-4 * max(1, max|v|) (a D-long product, then a row sum
-# and a division).  funnel's x0 is drawn in [-3, 3], where e^{-x0} stays
-# finite.  Bounds on the zoo fits: 1.5 x the worst of 4 JAX CPU FactorGSM
-# fits of the same target (tools/jax_example_bound.py, errors against the
-# analytic moments); funnel has none, so its fit must stay finite and PD.
+# Phases 19-20: the zoo's K11a and K11b kernels and the zoo path.  Kernel
+# vs plain version (float32 on the card, sums in other orders): funnel and
+# banana within 1e-5 * max(1, max|v|) (elementwise work and one row sum),
+# the Student-t within 1e-4 * max(1, max|v|) (a D-long product, then a row
+# sum and a division), logreg within 1e-5 * max(1, max|v|) (z ~ N(0, 1): two
+# well-conditioned products).  The mixture's logits are differences of
+# terms ~1e3 at separation 3 (x . m_k and ||m_k||^2/2 at D=256), so any
+# float32 order of sums moves them by ~1e-4, and a row whose top two
+# logits nearly tie turns that into ~1e-3 of v (the plain float32
+# version's own distance from float64 there); the mixture is held to the
+# larger of 1e-5 * max(1, max|v|) and ZOO_FLOOR x that distance, the
+# rounding floor of its input.  funnel's x0 is drawn in [-3, 3], where
+# e^{-x0} stays finite; logreg's saturated case scales every other row by
+# ZOO_SATURATE, so that |z| > 100 there.  Bounds on the zoo fits: 1.5 x the
+# worst of 4 (logreg: 8) JAX CPU FactorGSM fits of the same target
+# (tools/jax_example_bound.py; errors against the analytic moments, for the
+# mixture against the component the fit lands in, for logreg against the
+# Laplace approximation); funnel has none, so its fit must stay finite and
+# PD.
 ZOO_SHAPES = ((B, D), (3, 10), (512, 1024))
 ZOO_TOL = {"funnel_score": 1e-5, "banana_score": 1e-5,
-           "student_t_score": 1e-4}
+           "student_t_score": 1e-4, "mixture_score": 1e-5,
+           "logreg_score": 1e-5}
+ZOO_FLOOR, ZOO_SATURATE = 8.0, 400.0
 ZOO_DF = 6.0
-ZOO_WORST = {"banana": (1.5583, 0.88977), "student_t": (1.7734e-3, 0.18539)}
+ZOO_WORST = {"banana": (1.5583, 0.88977), "student_t": (1.7734e-3, 0.18539),
+             "mixture": (6.0961e-3, 1.1539e-3), "logreg": (0.41377, 0.056698)}
 N_ZOO, N_ZOO_SIDE = 3000, 200
 
 
@@ -1974,62 +2043,134 @@ def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
 def _zoo_target(name, d, models, dev):
     if name == "student_t":
         return models.student_t(TARGET_SEED, d, df=ZOO_DF, device=dev)
+    if name == "mixture":
+        return models.gaussian_mixture(TARGET_SEED, d, device=dev)
+    if name == "logreg":
+        return models.logistic_regression(TARGET_SEED, d, device=dev)
     return getattr(models, name)(d, device=dev)
 
 
 ZOO = {"funnel": "funnel_score", "banana": "banana_score",
-       "student_t": "student_t_score"}
+       "student_t": "student_t_score", "mixture": "mixture_score",
+       "logreg": "logreg_score"}
+
+
+def _zoo_cases(name, models, dev, np):
+    """Phase 19's inputs for one zoo target, (case, B, D, target, scale of
+    every other row of x): ZOO_SHAPES on the target, then the K11b
+    kernels' own cases."""
+    cases = [("", b, d, _zoo_target(name, d, models, dev), 1.0)
+             for b, d in ZOO_SHAPES]
+    if name == "mixture":
+        means = models.gaussian_mixture(TARGET_SEED, D, device="cpu")
+        means = means.fused_score[1][0].numpy()
+        k = means.shape[0]
+        pad = np.concatenate([means, np.repeat(means[:1], 8 - k, axis=0)])
+        mask = np.where(np.arange(8) < k, 0.0, -1e30)[None]
+        cases += [
+            ("padded K=8", B, D, models.gaussian_mixture_from_arrays(
+                pad, mask.astype(np.float32), device=dev), 1.0),
+            ("K=1024", 3, 10, models.gaussian_mixture(
+                TARGET_SEED, 10, n_components=1024, device=dev), 1.0),
+            ("separation 0.3", B, D, models.gaussian_mixture(
+                TARGET_SEED, D, separation=0.3, device=dev), 1.0)]
+    if name == "logreg":
+        cases += [
+            ("N=1", B, D, models.logistic_regression(
+                TARGET_SEED, D, n_data=1, device=dev), 1.0),
+            ("N=4096", 3, 10, models.logistic_regression(
+                TARGET_SEED, 10, n_data=4096, device=dev), 1.0),
+            ("saturated", B, D, _zoo_target(name, D, models, dev),
+             ZOO_SATURATE)]
+    return cases
 
 
 def phase_zoo_kernels(fs, models, torch, np):
-    """Phase 19: each K11a kernel against its plain version at ZOO_SHAPES;
-    then per-call times at the path's shape.  Returns (worst, times, work,
-    library)."""
+    """Phase 19: each zoo kernel against its plain version at ZOO_SHAPES
+    and the K11b kernels' own cases (``_zoo_cases``); then per-call times
+    at the path's shape.  Returns (worst, times, work, library)."""
     dev = torch.device("cuda")
     worst = {k: 0.0 for k in ZOO.values()}
     times, work, library = {}, {}, {}
     for name, key in ZOO.items():
         plain = getattr(fs, f"{key}_reference")
-        for b, d in ZOO_SHAPES:
-            t = _zoo_target(name, d, models, dev)
+        for case, b, d, t, scale in _zoo_cases(name, models, dev, np):
             score_fn, params = t.fused_score
             rng = np.random.default_rng(7000 + b + d)
             x = rng.standard_normal((b, d)).astype(np.float32)
             x[:, 0] = rng.uniform(-3.0, 3.0, b)
+            x[::2] *= scale
             x = torch.from_numpy(x).to(dev)
             v_k = score_fn(x, *params)
             v_p = plain(x, *params)
             torch.cuda.synchronize()
             err = float((v_k - v_p).abs().max())
             tol = ZOO_TOL[key] * max(1.0, float(v_p.abs().max()))
-            emit({"phase": "zoo_kernels", "kernel": key, "B": b, "D": d,
-                  "v_err": err, "v_tol": tol})
+            rec = {"phase": "zoo_kernels", "kernel": key, "case": case,
+                   "B": b, "D": d, "params": [list(p.shape) for p in params],
+                   "v_err": err}
+            if name == "mixture":
+                v64 = plain(x.double(), *(p.double() for p in params))
+                floor = float((v_p.double() - v64).abs().max())
+                rec["plain_err_f64"] = floor
+                tol = max(tol, ZOO_FLOOR * floor)
+            if name == "logreg":
+                z = x @ params[0].T
+                rec["rows_saturated"] = int((z.abs() > 100).any(1).sum())
+                check(case != "saturated" or rec["rows_saturated"] > 0,
+                      "logreg: the saturated case has no |z| > 100")
+            emit({**rec, "v_tol": tol})
             check(bool(torch.isfinite(v_k).all()) and err <= tol,
-                  f"{key} disagrees with its plain version at ({b}, {d})")
+                  f"{key} disagrees with its plain version: {rec}")
             worst[key] = max(worst[key], err)
-            if (b, d) == (B, D):
+            if (case, b, d) == ("", B, D):
                 times[key] = (cuda_ms(lambda: score_fn(x, *params), reps=200),
                               cuda_ms(lambda: plain(x, *params), reps=200))
                 work[key] = (lambda x=x, p=params, f=plain: f(x, *p),
                              (x, *params))
+                # Partial yardsticks, the first product alone: (x - loc)
+                # prec for the Student-t, x M^T for the mixture, w X^T for
+                # logreg.
                 if name == "student_t":
-                    # Partial yardstick: the product (x - loc) prec alone.
                     loc, prec = params[0], params[1]
                     lp = loc @ prec
                     library[key] = cuda_ms(lambda: torch.addmm(
                         lp, x, prec, beta=-1.0), reps=200)
+                elif name in ("mixture", "logreg"):
+                    mt = params[0].T
+                    library[key] = cuda_ms(lambda: torch.mm(x, mt), reps=200)
     emit({"phase": "zoo_times", "B": B, "D": D, "ms_per_call": {
         k: {"kernel": a, "plain": p, "library": library.get(k)}
         for k, (a, p) in times.items()}})
     return worst, times, work, library
 
 
+def _zoo_errs(name, t, mean, cov, np) -> tuple:
+    """(mean_err, cov_err, record) of a zoo fit: against the analytic
+    moments; the mixture's against the component the fit lands in (and, in
+    the record only, against the mixture's moments); logreg's against the
+    Laplace approximation on its own arrays."""
+    m, c = (a.double().cpu().numpy() for a in (mean, cov))
+    if name == "mixture":
+        means = t.fused_score[1][0].double().cpu().numpy()
+        em, ec = nearest_component_errs(m, c, means)
+        mix = moment_errs(m, c, t.mean.double().cpu().numpy(),
+                          t.cov.double().cpu().numpy())
+        return em, ec, {"mixture_moment_errs": list(mix)}
+    if name == "logreg":
+        xd, y, inv_ps2 = (p.double().cpu().numpy() for p in t.fused_score[1])
+        w_map, cov_lap = laplace_moments(xd, y[0], float(inv_ps2[0, 0]) ** -0.5)
+        return (*moment_errs(m, c, w_map, cov_lap), {})
+    return (*errs(mean, cov, t), {})
+
+
 def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
-                    card, torch):
+                    card, torch, np):
     """Phase 20: FactorGSM(fused_score=t.fused_score) on funnel(256),
-    banana(256) and student_t(0, 256, df=6) at B=32, spc=8 (K2 with the zoo
-    kernel inside each sub-step); then one FactorBaM(fused_score) (K8) and
-    one ADVI.fit_fused (K9) run per target.  Returns each run's counts."""
+    banana(256), student_t(0, 256, df=6), gaussian_mixture(0, 256) and
+    logistic_regression(0, 256) at B=32, spc=8 (K2 with the zoo kernel
+    inside each sub-step); then one FactorBaM(fused_score) (K8) and one
+    ADVI.fit_fused (K9) run per target.  Returns each run's counts."""
     dev = torch.device("cuda")
     counts = []
     for name, key in ZOO.items():
@@ -2055,10 +2196,10 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
                               and torch.isfinite(st.cov).all()),
                "pd": pd, "iters_per_s": (N_ZOO + 1) / wall, "card": card}
         if name in ZOO_WORST:
-            em, ec = errs(st.mean, st.cov, t)
+            em, ec, more = _zoo_errs(name, t, st.mean, st.cov, np)
             rec.update(mean_err=em, cov_err=ec,
                        mean_err_bound=1.5 * ZOO_WORST[name][0],
-                       cov_err_bound=1.5 * ZOO_WORST[name][1])
+                       cov_err_bound=1.5 * ZOO_WORST[name][1], **more)
         emit(rec)
         check(c["make_fused_eps_multistep"] > 0 and c[key] > 0,
               f"{name}: K2 and {key} must launch")
@@ -2249,7 +2390,7 @@ def main() -> int:
         fs, models, torch, np)
     worst.update(zoo_worst)
     zoo_counts = phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers,
-                                 fs, models, card, torch)
+                                 fs, models, card, torch, np)
 
     times, work, library = phase_times(fs, dense_gaussian, torch, np)
     for more in (phase_bam_times(bf, fs, fb, t, st6, torch),

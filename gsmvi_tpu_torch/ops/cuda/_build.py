@@ -61,6 +61,8 @@ SIGNATURES = {
     "gsmvi_funnel_score": [_P] * 3 + [_I, _I, _P],
     "gsmvi_banana_score": [_P] * 3 + [_I, _I, _P],
     "gsmvi_student_t_score": [_P] * 5 + [_I, _I, _P],
+    "gsmvi_mixture_score": [_P] * 4 + [_I] * 3 + [_P],
+    "gsmvi_logreg_score": [_P] * 6 + [_I] * 3 + [_P],
 }
 # C entry points returning a size (long long): argument types.
 SIZES = {

@@ -4,7 +4,9 @@
 // the Pallas kernels run in their own bodies
 // (gsmvi_tpu/ops/pallas/fused_step.py: `ef = e F^T` at :622/:727, `vf = v F`
 // at :450/:732, `t = vf F^T` at :286, the fat apply `F + stack_u^T stack_w`
-// at :346, and `gaussian_score_kernel` at :778).
+// at :346, and `gaussian_score_kernel` at :778; the Student-t and
+// logistic-regression scores' products at :842 and :878-882, zoo_score.cu and
+// zoo_score_b.cu).
 //
 // The BaM step (bam_smallspace.cu) uses the same template for its products
 // (gsmvi_tpu/ops/pallas/bam_fused.py: `ef` at :467, `q_t`/`qf`/`fom_t` at
@@ -48,7 +50,8 @@ enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
                 EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8,
-                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11 };
+                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11,
+                EPI_LOGISTIC_RESID = 12, EPI_ACC_SUB_SCALE = 13 };
 
 // optax.adam's update with precomputed bias corrections (the ADVI kernels,
 // advi.cu): omb1 = 1 - b1 and omb2 = 1 - b2 as float32.
@@ -85,6 +88,8 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //   EPI_SCALE:             c = acc * alpha
 //   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
 //   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
+//   EPI_LOGISTIC_RESID:    c = epi_vec[n] - 1 / (1 + e^{-acc})
+//   EPI_ACC_SUB_SCALE:     c = acc - c_in * epi_vec[0] (a scale in device memory)
 //   EPI_EYE_MINUS:         c = I - acc, and with a non-null partial,
 //                          partial[row * gridDim.x + blockIdx.x] = sum |c| over the
 //                          tile's columns of that row (square C)
@@ -251,6 +256,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             pc[o] = p.alpha * ((gm == gn ? p.beta : 0.f) - acc[r]);
         } else if (EPI == EPI_SUB_SCALE) {
             pc[o] = (c_in[o] - acc[r]) * p.alpha;
+        } else if (EPI == EPI_LOGISTIC_RESID) {
+            pc[o] = epi_vec[gn] - 1.f / (1.f + expf(-acc[r]));
+        } else if (EPI == EPI_ACC_SUB_SCALE) {
+            pc[o] = acc[r] - __fmul_rn(c_in[o], epi_vec[0]);
         } else if (EPI == EPI_ADVI_ADAM) {
             float g = 0.f;
             if (gm >= gn) {

@@ -21,6 +21,9 @@ are ported here:
 - K11a ``funnel_score``, ``banana_score``, ``student_t_score``: the zoo
   targets' analytic scores (``zoo_score.cu``).  Plain versions:
   ``*_score_reference``.
+- K11b ``mixture_score``, ``logreg_score``: the Gaussian-mixture and
+  logistic-regression scores (``zoo_score_b.cu``).  Plain versions:
+  ``mixture_score_reference``, ``logreg_score_reference``.
 - K4 ``make_fused_eps_step``: one whole step per call, on the ns or the
   chol update, its draw passed in (``external_eps=True``) or made on the
   card by a Philox4x32-10 generator (``philox_normal``, in place of the
@@ -96,6 +99,9 @@ KERNEL_BATCH_RANGE = (1, 512)
 KERNEL_DIM_RANGE = (1, 8192)
 SHARED_SMALLSPACE_MAX_B = 64
 CHOL_BATCH_RANGE = (1, 64)
+# The mixture score keeps each of its block's 8 rows' K logits (and the K
+# half squared norms) in shared memory: 36 KiB at K = 1024.
+MIXTURE_COMPONENT_RANGE = (1, 1024)
 
 
 def ns_iters_for_batch(b: int, override=None) -> tuple:
@@ -452,6 +458,29 @@ def student_t_score_reference(x, loc, prec, df_d):
     return -(df + dd) / (df + maha) * p
 
 
+def mixture_score_reference(x, means, logmask):
+    """Equal-weight identity-covariance mixture score (twin of
+    ``mixture_score_kernel``), means (K, D), logmask (1, K) 0 for a
+    component and -1e30 for padding: r = softmax_k(x . m_k - ||m_k||^2/2 +
+    logmask_k), v = r M - x."""
+    logits = x @ means.T
+    logits = logits - 0.5 * torch.sum(means * means, dim=1)[None, :] + logmask
+    m = torch.max(logits, dim=1, keepdim=True).values
+    e = torch.exp(logits - m)
+    r = e / torch.sum(e, dim=1, keepdim=True)
+    return r @ means - x
+
+
+def logreg_score_reference(w, xdata, y_row, inv_ps2):
+    """Logistic-regression posterior score (twin of ``logreg_score_kernel``),
+    xdata (N, D), y_row (1, N), inv_ps2 = [[1/ps^2]]: (y - sigmoid(w X^T))
+    X - w / ps^2, the sigmoid as 1 / (1 + e^{-z}), which saturates to 0 or 1
+    without NaN."""
+    z = w @ xdata.T
+    resid = y_row - 1.0 / (1.0 + torch.exp(-z))
+    return resid @ xdata - w * inv_ps2[0, 0]
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch helpers
 # ---------------------------------------------------------------------------
@@ -487,13 +516,17 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
+def _require_shape(name: str, t, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(shape)} required, got "
+                         f"{tuple(t.shape)}")
+
+
 def _require(name: str, t, shape) -> None:
     """The kernels take contiguous float32 CUDA tensors of exact shapes."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: float32 required, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(shape)} required, got "
-                         f"{tuple(t.shape)}")
+    _require_shape(name, t, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name}: contiguous tensor required")
 
@@ -886,16 +919,22 @@ def gaussian_score(x, mu_t, prec):
 gaussian_score.launches = 0
 
 
-def _zoo_operands(x, params) -> tuple:
-    """(M, D) of the score rows x, after checking x and the (1, 2) scalar
-    row of a zoo score's ``params`` (its last)."""
+def _zoo_operands(x, params, shape=(1, 2)) -> tuple:
+    """(M, D) of the score rows x, after checking x and the scalar row of a
+    zoo score's ``params`` (its last; (1, 2) unless ``shape`` says)."""
     if x.dim() != 2:
         raise ValueError(f"x: (M, D) required, got {tuple(x.shape)}")
     m, d = x.shape
     _require_dim_supported(d)
     _require("x", x, (m, d))
-    _require("params", params, (1, 2))
+    _require("params", params, shape)
     return m, d
+
+
+def _two_matrices(name: str, x, a) -> None:
+    if x.dim() != 2 or a.dim() != 2:
+        raise ValueError(f"{name}: two matrices required, got "
+                         f"{tuple(x.shape)} and {tuple(a.shape)}")
 
 
 def funnel_score(x, sigma_d):
@@ -952,6 +991,65 @@ def student_t_score(x, loc, prec, df_d):
 
 student_t_score.launches = 0
 
+
+def mixture_score(x, means, logmask):
+    """K11b: the equal-weight identity-covariance mixture's score of the
+    rows x (M, D); means (K, D), logmask (1, K) 0 for a component and -1e30
+    for padding (the JAX target's K padded to 8 is taken as it is).  One
+    launch, a warp per row (``ops/cuda/csrc/zoo_score_b.cu``); the kernel
+    takes K in ``MIXTURE_COMPONENT_RANGE``."""
+    _two_matrices("mixture_score", x, means)
+    (m, d), k = x.shape, means.shape[0]
+    _require_shape("means", means, (k, d))
+    _require_shape("logmask", logmask, (1, k))
+    if _on_cpu(x, means, logmask):
+        return mixture_score_reference(x, means, logmask)
+    lo, hi = MIXTURE_COMPONENT_RANGE
+    if not lo <= k <= hi:
+        raise ValueError(f"mixture_score: the CUDA kernel takes K in [{lo}, "
+                         f"{hi}] components, got K={k}")
+    _zoo_operands(x, logmask, logmask.shape)
+    _require("means", means, (k, d))
+    v = torch.empty_like(x)
+    mixture_score.launches += 1
+    _library().call("gsmvi_mixture_score", _ptr(x), _ptr(means),
+                    _ptr(logmask), _ptr(v), m, d, k, _stream(x.device))
+    return v
+
+
+mixture_score.launches = 0
+
+
+def logreg_score(w, xdata, y_row, inv_ps2):
+    """K11b: the logistic-regression posterior's score of the weight rows w
+    (M, D); xdata (N, D), y_row (1, N), inv_ps2 = [[1/ps^2]], all on the
+    device.  Two launches on the GEMM template: resid = y - sigmoid(w X^T)
+    in the first one's epilogue, then resid X - w/ps^2
+    (``ops/cuda/csrc/zoo_score_b.cu``)."""
+    _two_matrices("logreg_score", w, xdata)
+    (m, d), n = w.shape, xdata.shape[0]
+    _require_shape("xdata", xdata, (n, d))
+    _require_shape("y_row", y_row, (1, n))
+    _require_shape("inv_ps2", inv_ps2, (1, 1))
+    if _on_cpu(w, xdata, y_row, inv_ps2):
+        return logreg_score_reference(w, xdata, y_row, inv_ps2)
+    if n < 1:
+        raise ValueError("logreg_score: the CUDA kernel takes N >= 1 rows of "
+                         "data")
+    _zoo_operands(w, inv_ps2, inv_ps2.shape)
+    _require("xdata", xdata, (n, d))
+    _require("y_row", y_row, (1, n))
+    resid = torch.empty((m, n), dtype=torch.float32, device=w.device)
+    v = torch.empty_like(w)
+    logreg_score.launches += 1
+    _library().call("gsmvi_logreg_score", _ptr(w), _ptr(xdata), _ptr(y_row),
+                    _ptr(inv_ps2), _ptr(resid), _ptr(v), m, d, n,
+                    _stream(w.device))
+    return v
+
+
+logreg_score.launches = 0
+
 KERNEL_WRAPPERS = {
     "gsm_eps_update_fused": gsm_eps_update_fused,
     "make_fused_eps_multistep": make_fused_eps_multistep,
@@ -963,6 +1061,8 @@ KERNEL_WRAPPERS = {
     "funnel_score": funnel_score,
     "banana_score": banana_score,
     "student_t_score": student_t_score,
+    "mixture_score": mixture_score,
+    "logreg_score": logreg_score,
 }
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..distributions import safe_cholesky
+
 
 def gsm_eps_rowwork(eps, vs, vf, f):
     """Row-space math of the eps step: (dmu (D,), zt (2B, D), fz_t (2B, D)),
@@ -56,7 +58,11 @@ def _chol_pd(k):
 
 def eps_core(zt, n_plus: int, jitter=None):
     """Factor I + Z J Z^T from Z^T rows, J = diag(+1 x n_plus, -1 x rest).
-    Returns (s2, good): W = I + Z S2 Z^T has W W^T = I + Z J Z^T."""
+    Returns (s2, good): W = I + Z S2 Z^T has W W^T = I + Z J Z^T.  A
+    jittered G that float32 cannot factor (near-parallel rows: its rounding
+    outweighs the jitter) gives an all-NaN Lg, as ``jnp.linalg.cholesky``
+    does, so K is NaN and the step is rejected; ``cholesky_ex``'s partial
+    factor would zero the failed pivot and pass a NaN S2 as good."""
     dtype = zt.dtype
     if jitter is None:
         jitter = _default_jitter(dtype)
@@ -65,7 +71,7 @@ def eps_core(zt, n_plus: int, jitter=None):
     g = 0.5 * (g + g.T)
     eye = torch.eye(k2, dtype=dtype, device=zt.device)
     g = g + (jitter * (torch.trace(g) / k2 + 1.0)) * eye
-    lg = torch.linalg.cholesky_ex(g)[0]
+    lg = safe_cholesky(g)
     jj = torch.cat([torch.ones(n_plus, dtype=dtype, device=zt.device),
                     -torch.ones(k2 - n_plus, dtype=dtype, device=zt.device)])
     k = eye + lg.T @ (lg * jj[:, None])            # I + Lg^T J Lg

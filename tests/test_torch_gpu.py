@@ -826,13 +826,28 @@ def test_example_configurations_run_on_the_kernels(cuda):
     assert bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
 
 
-@pytest.mark.parametrize("name", ["funnel", "banana", "student_t"])
+def _score_tol(plain, x, params, rel):
+    """rel * max(1, max|v|) of the plain version's v; for the mixture at
+    least 8x the plain float32 version's distance from float64 (its logits
+    cancel terms ~1e3, chip_smoke.py's ZOO_FLOOR)."""
+    v_p = plain(x, *params)
+    tol = rel * max(1.0, float(v_p.abs().max()))
+    if plain is fs.mixture_score_reference:
+        v64 = plain(x.double(), *(p.double() for p in params))
+        tol = max(tol, 8.0 * float((v_p.double() - v64).abs().max()))
+    return v_p, tol
+
+
+@pytest.mark.parametrize("name", ["funnel", "banana", "student_t",
+                                  "mixture", "logreg"])
 @pytest.mark.parametrize("b,d", [(32, 256), (3, 10)])
 def test_zoo_score_kernels_match_plain(cuda, name, b, d):
     from gsmvi_tpu_torch import models
 
-    t = (models.student_t(0, d, df=6.0, device=cuda) if name == "student_t"
-         else getattr(models, name)(d, device=cuda))
+    make = {"student_t": lambda: models.student_t(0, d, df=6.0, device=cuda),
+            "mixture": lambda: models.gaussian_mixture(0, d, device=cuda),
+            "logreg": lambda: models.logistic_regression(0, d, device=cuda)}
+    t = make.get(name, lambda: getattr(models, name)(d, device=cuda))()
     score_fn, params = t.fused_score
     rng = np.random.default_rng(b + d)
     x = rng.standard_normal((b, d)).astype(np.float32)
@@ -841,7 +856,44 @@ def test_zoo_score_kernels_match_plain(cuda, name, b, d):
     fs.reset_launch_counts()
     v_k = score_fn(x, *params)
     assert fs.launch_counts()[f"{name}_score"] == 1
-    v_p = getattr(fs, f"{name}_score_reference")(x, *params)
-    tol = 1e-4 if name == "student_t" else 1e-5
-    assert float((v_k - v_p).abs().max()) <= tol * max(
-        1.0, float(v_p.abs().max()))
+    v_p, tol = _score_tol(getattr(fs, f"{name}_score_reference"), x, params,
+                          1e-4 if name == "student_t" else 1e-5)
+    assert float((v_k - v_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", ["padded K=8", "K=1024", "N=1", "N=4096",
+                                  "saturated"])
+def test_k11b_kernels_at_their_edges(cuda, case):
+    """The mixture on the JAX target's padded K=8 (five -1e30 rows) and at
+    K=1024, logreg at N=1, N=4096 and on rows with |z| > 100: finite and
+    equal to the plain version; K=1025 raises."""
+    from gsmvi_tpu_torch import models
+
+    rng = np.random.default_rng(1)
+    d = 10 if case in ("K=1024", "N=4096") else 256
+    x = torch.from_numpy(rng.standard_normal((5, d)).astype(np.float32))
+    x = x.to(cuda)
+    if case == "padded K=8":
+        means = models.gaussian_mixture(0, d, device="cpu").fused_score[1][0]
+        pad = torch.cat([means, means[:1].expand(5, d)]).to(cuda)
+        mask = torch.tensor([[0.0] * 3 + [-1e30] * 5], device=cuda)
+        fn, params = fs.mixture_score, (pad, mask)
+    elif case == "K=1024":
+        fn, params = models.gaussian_mixture(
+            0, d, n_components=1024, device=cuda).fused_score
+    else:
+        n = {"N=1": 1, "N=4096": 4096, "saturated": 200}[case]
+        fn, params = models.logistic_regression(0, d, n_data=n,
+                                                device=cuda).fused_score
+        if case == "saturated":
+            x = 400.0 * x
+            assert bool(((x @ params[0].T).abs() > 100).any())
+    v_k = fn(x, *params)
+    v_p, tol = _score_tol(getattr(fs, f"{fn.__name__}_reference"), x, params,
+                          1e-5)
+    assert bool(torch.isfinite(v_k).all())
+    assert float((v_k - v_p).abs().max()) <= tol
+    if case == "K=1024":
+        means = torch.zeros((1025, d), device=cuda)
+        with pytest.raises(ValueError, match="K in"):
+            fs.mixture_score(x, means, torch.zeros((1, 1025), device=cuda))

@@ -99,6 +99,27 @@ def test_eps_core_triangular_solves_match_jax(down_scale, pd):
     _close(s2_t, s2_j, 1e-9)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eps_core_rejects_a_gram_it_cannot_factor(dtype):
+    """An update row and its downdate row nearly parallel (as c_b and eps_b
+    become near a fit's end) with a jitter below G's smallest eigenvalue:
+    G's Cholesky fails at its last pivot while K = I + Lg^T J Lg of the
+    partial factor would pass.  JAX's NaN factor rejects the step; so must
+    the port, never passing the partial factor's S2 as good."""
+    rng = np.random.default_rng(1)
+    b, d, jitter = 4, 16, -1e-4
+    zt = rng.standard_normal((2 * b, d)) / np.sqrt(d)
+    zt[-1] = zt[b - 1] + 1e-2 * rng.standard_normal(d) / np.sqrt(d)
+    zt = zt.astype(dtype)
+    g = zt.astype(np.float64) @ zt.T.astype(np.float64)
+    g += jitter * (np.trace(g) / (2 * b) + 1.0) * np.eye(2 * b)
+    info = torch.linalg.cholesky_ex(torch.from_numpy(g))[1]
+    assert int(info) == 2 * b          # only the last pivot fails
+    _, g_t = teps.eps_core(torch.from_numpy(zt), b, jitter)
+    _, g_j = jeps.eps_core(jnp.asarray(zt), b, jitter)
+    assert bool(g_t) == bool(g_j) is False
+
+
 def test_factor_to_cov_and_safe_cholesky_match_jax():
     rng = np.random.default_rng(1)
     f = rng.standard_normal((7, 7))

@@ -22,10 +22,18 @@ same numpy recipe as the port's (``gsmvi_tpu_torch.models``):
   df=6)`` arrays, ``FactorGSM`` at B=32, niter=3000; the errors are
   against the analytic moments (banana: mean 0, cov diag(s^2,
   1 + 2 b^2 s^4, 1, ...); Student-t: loc and df/(df-2) sigma).
+- gmm, logreg: the port's ``gaussian_mixture(0, 256)`` (K=3, separation
+  3) and ``logistic_regression(0, 256)`` (N=200, ps=2) arrays, ``FactorGSM``
+  at B=32, niter=3000 (keys 0..3 and 0..7).  gmm's errors are against the
+  component nearest the fit, N(m_k*, I) (GSM's fixed point there), logreg's
+  against the Laplace approximation (Newton MAP and inverse Hessian in
+  float64), both as ``chip_smoke.py`` computes them
+  (``nearest_component_errs``, ``laplace_moments``).
 
 It prints one JSON line per fit (errors as ``bench.py:207-211`` defines
 them) and one per configuration with the worst of each.  This script runs
-the JAX reference only; it imports nothing of the port.
+the JAX reference only; it imports nothing of the port (from
+``chip_smoke.py`` only its numpy reference moments).
 """
 
 from __future__ import annotations
@@ -50,6 +58,22 @@ def dense_arrays(seed: int, d: int):
     return mean.astype(np.float32), cov.astype(np.float32)
 
 
+def gmm_means(seed: int, d: int, k: int = 3, separation: float = 3.0):
+    """The port's ``gaussian_mixture`` means (K, D), float32."""
+    rng = np.random.default_rng(seed)
+    return (separation * rng.standard_normal((k, d))).astype(np.float32)
+
+
+def logreg_arrays(seed: int, d: int, n: int = 200):
+    """The port's ``logistic_regression`` data X (N, D) and y (N,)."""
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal(d)
+    x = rng.standard_normal((n, d)) / np.sqrt(d)
+    p = 1.0 / (1.0 + np.exp(-(x @ w_true)))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    return x.astype(np.float32), y
+
+
 def student_t_arrays(seed: int, d: int, df: float):
     """loc, sigma (float64), prec (float32): the port's ``student_t``."""
     rng = np.random.default_rng(seed)
@@ -68,30 +92,65 @@ CONFIGS = {
     "gsm_b128": ("dense:0:256", ("FactorGSM",), 128, 3000, range(4)),
     "banana": ("banana:256", ("FactorGSM",), 32, 3000, range(4)),
     "student_t": ("student_t:0:256:6", ("FactorGSM",), 32, 3000, range(4)),
+    "gmm": ("gmm:0:256", ("FactorGSM",), 32, 3000, range(4)),
+    "logreg": ("logreg:0:256", ("FactorGSM",), 32, 3000, range(8)),
 }
 
 
 def build_target(spec: str):
-    """(lp, lp_g, true mean, true cov) as numpy/JAX objects."""
+    """(lp, lp_g, D, errs) with ``errs(mean, cov) -> (mean_err, cov_err)``
+    on numpy arrays."""
+    import jax
     import jax.numpy as jnp
-    from jax.scipy.special import gammaln
+    from jax.scipy.special import gammaln, logsumexp
 
+    from chip_smoke import (laplace_moments, moment_errs,
+                            nearest_component_errs)
     from gsmvi_tpu.models import banana
     from gsmvi_tpu.models.base import make_target
     from gsmvi_tpu.models.gaussian import _gaussian_target
+
+    def analytic(mean, cov):
+        return lambda m, c: moment_errs(m, c, mean, cov)
 
     kind, *args = spec.split(":")
     if kind == "dense":
         mean, cov = dense_arrays(int(args[0]), int(args[1]))
         t = _gaussian_target(jnp.asarray(mean), jnp.asarray(cov), "dense")
-        return t.lp, t.lp_g, mean, cov
+        return t.lp, t.lp_g, mean.shape[0], analytic(mean, cov)
     if kind == "banana":
         d = int(args[0])
         t = banana(d)
         var = np.ones(d, np.float32)
         var[0] = 2.0 ** 2
         var[1] = 1.0 + 2.0 * 0.5 ** 2 * 2.0 ** 4
-        return t.lp, t.lp_g, np.zeros(d, np.float32), np.diag(var)
+        return t.lp, t.lp_g, d, analytic(np.zeros(d, np.float32),
+                                          np.diag(var))
+    if kind == "gmm":
+        means = gmm_means(int(args[0]), int(args[1]))
+        k, d = means.shape
+        means_j = jnp.asarray(means)
+
+        def log_prob(x):
+            diff = x[..., None, :] - means_j
+            return (logsumexp(-0.5 * jnp.sum(diff * diff, axis=-1), axis=-1)
+                    - 0.5 * d * math.log(2.0 * math.pi) - math.log(k))
+
+        t = make_target(log_prob, d, name="gmm")
+        return t.lp, t.lp_g, d, lambda m, c: nearest_component_errs(
+            m, c, means.astype(np.float64))
+    if kind == "logreg":
+        x, y = logreg_arrays(int(args[0]), int(args[1]))
+        ps = 2.0
+        x_j, y_j = jnp.asarray(x), jnp.asarray(y)
+
+        def log_prob(w):
+            z = w @ x_j.T
+            return (jnp.sum(y_j * z - jax.nn.softplus(z), axis=-1)
+                    - 0.5 * jnp.sum((w / ps) ** 2, axis=-1))
+
+        t = make_target(log_prob, x.shape[1], name="logreg")
+        return t.lp, t.lp_g, x.shape[1], analytic(*laplace_moments(x, y, ps))
     seed, d, df = int(args[0]), int(args[1]), float(args[2])
     loc, sigma, prec = student_t_arrays(seed, d, df)
     logdet = float(np.linalg.slogdet(sigma)[1])
@@ -105,7 +164,8 @@ def build_target(spec: str):
         return const - 0.5 * (df + d) * jnp.log1p(maha / df)
 
     t = make_target(log_prob, d, name="student_t")
-    return t.lp, t.lp_g, loc, (df / (df - 2.0) * sigma).astype(np.float32)
+    return t.lp, t.lp_g, d, analytic(
+        loc, (df / (df - 2.0) * sigma).astype(np.float32))
 
 
 def fit_once(fitter: str, lp, lp_g, d: int, key, batch: int, niter: int):
@@ -136,17 +196,15 @@ def main() -> int:
 
     for name in args.only or list(CONFIGS):
         spec, fitters, batch, niter, keys = CONFIGS[name]
-        lp, lp_g, mean, cov = build_target(spec)
-        d = mean.shape[0]
-        scale = max(1.0, float(np.abs(cov).max()))
+        lp, lp_g, d, target_errs = build_target(spec)
         worst = [0.0, 0.0]
         for fitter in fitters:
             for k in keys:
                 t0 = time.perf_counter()
                 m, c = fit_once(fitter, lp, lp_g, d, jax.random.PRNGKey(k),
                                 batch, niter)
-                em = float(np.abs(np.asarray(m) - mean).max())
-                ec = float(np.abs(np.asarray(c) - cov).max()) / scale
+                em, ec = target_errs(np.asarray(m, np.float64),
+                                     np.asarray(c, np.float64))
                 worst = [max(worst[0], em), max(worst[1], ec)]
                 print(json.dumps({"config": name, "fitter": fitter, "key": k,
                                   "D": d, "B": batch, "niter": niter,

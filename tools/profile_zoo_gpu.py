@@ -10,8 +10,9 @@ wall per step profiled and unprofiled, device busy per step, the device's
 idle share, launches per step and device time by kernel name):
 
 - the zoo path, ``FactorGSM(..., fused_score=t.fused_score)`` (K2 with the
-  K11a score inside, spc=8) at D=256, B=32 on ``funnel(256)``,
-  ``banana(256)`` and ``student_t(0, 256, df=6)``;
+  K11a or K11b score inside, spc=8) at D=256, B=32 on ``funnel(256)``,
+  ``banana(256)``, ``student_t(0, 256, df=6)``, ``gaussian_mixture(0,
+  256)`` and ``logistic_regression(0, 256)``;
 - ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
   where K2 runs the global-memory small space (``eps_smallspace_large``);
 - single K1 calls (``gsm_eps_update_fused``) at B=128 and B=512, D=256,
@@ -53,6 +54,7 @@ def main() -> int:
         return 1
     from gsmvi_tpu_torch import FactorGSM
     from gsmvi_tpu_torch.models import (banana, dense_gaussian, funnel,
+                                        gaussian_mixture, logistic_regression,
                                         student_t)
     from gsmvi_tpu_torch.ops import fused_step as fs
 
@@ -60,8 +62,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     for t in (funnel(256, device="cuda"), banana(256, device="cuda"),
-              student_t(0, 256, df=6.0, device="cuda")):
-        profile_fit(f"FactorGSM fused_score on {t.name} (K2+K11a, spc=8)",
+              student_t(0, 256, df=6.0, device="cuda"),
+              gaussian_mixture(0, 256, device="cuda"),
+              logistic_regression(0, 256, device="cuda")):
+        profile_fit(f"FactorGSM fused_score on {t.name} (K2+K11, spc=8)",
                     FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
                               device="cuda"), args.steps, torch)
     t = dense_gaussian(0, 256, device="cuda")
