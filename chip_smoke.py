@@ -13,7 +13,10 @@ the script exits non-zero):
    (spc=8, and nmax < spc) and K3 ``gaussian_score`` against their plain
    torch versions on the same CUDA tensors, at the main path's shape
    (B=32, D=256) and a ragged one (B=8, D=200), plus an input whose update
-   the residual gates reject.
+   the residual gates reject; and K1's two kernels alone, the cluster small
+   space ``eps_smallspace`` against ``eps_smallspace_stacks_reference`` and
+   the split-k ``thin_product`` (both transposes, with x = mu + out)
+   against the plain products.
 2. main path: ``GSM(D=256, ..., device="cuda").fit(seed, batch_size=32,
    niter=N)`` on the dense-Gaussian target; K1's launch count must rise by
    exactly N + 1 and the converged moment errors must be under the bound.
@@ -129,8 +132,13 @@ kernel of the ``kernels`` line must have launched on those paths.
 Then the card's name and power limit, the kernel table (each kernel's
 bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
 its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
-and the time of one PyTorch call computing the same function where there
-is one), and as the last line ``{"ok": true, "device": {...}}`` with
+the time of one PyTorch call computing the same function where there is
+one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
+device time per call under ``torch.profiler`` for K1, its small space and
+thin product, K2, K3, K4 and K6 at D=256, B=32 (K6 at K=8), null
+elsewhere; the profiler's kernel names must show K1 on the cluster small
+space and the thin product and K3 on the thin product), and as the last
+line ``{"ok": true, "device": {...}}`` with
 ``count`` 1: everything runs on device 0.  Without a CUDA device it exits 1
 before printing any result.  Nothing here imports JAX.
 """
@@ -228,13 +236,19 @@ HBM_BYTES_PER_S = 3.35e12
 
 SOURCES = {
     "gsm_eps_update_fused": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:461"),
+    "eps_smallspace": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_cluster.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:231"),
+    "thin_product": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/thin_gemm.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:622"),
     "make_fused_eps_multistep": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:685"),
     "gaussian_score": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/thin_gemm.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:778"),
     "bam_eps_update_fused": (
         "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
@@ -252,7 +266,7 @@ SOURCES = {
         "gsmvi_tpu_torch/ops/cuda/csrc/gsm_step.cu",
         "gsmvi_tpu/ops/pallas/gsm_step.py:76"),
     "make_fused_eps_batch_multistep": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/gemm.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/batch_fused.py:54"),
     "make_fused_eps_step": (
         "gsmvi_tpu_torch/ops/cuda/csrc/eps_chol.cu",
@@ -331,6 +345,28 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, calls: int = 50, warmup: int = 5) -> tuple:
+    """(device milliseconds per call, names of the kernels it ran):
+    ``torch.profiler``'s kernel intervals over ``calls`` back-to-back calls,
+    summed (one stream: the sum is the device's busy time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(kernels), "the profiler saw no device time")
+    us = sum(k.time_range.end - k.time_range.start for k in kernels)
+    return 1e-3 * us / calls, sorted({k.name for k in kernels})
 
 
 def _tensors(obj):
@@ -458,6 +494,46 @@ def phase_kernels(fs, dense_gaussian, torch, np):
                       f"K1 disagrees with its plain version: {rec}")
                 worst["gsm_eps_update_fused"] = max(
                     worst["gsm_eps_update_fused"], em, ef_)
+
+            # K1's two kernels alone: the cluster small space (its stacked
+            # rows held through F + su^T sw) and the thin product.
+            vf, ef = v_t @ f_t, e @ f_t.T
+            vft = vf @ f_t.T
+            m_k, su_k, sw_k, g_k = fs.eps_smallspace(e, v_t, vf, vft, ef,
+                                                     mu_t)
+            m_p, su_p, sw_p, g_p = fs.eps_smallspace_stacks_reference(
+                e, v_t, vf, vft, ef, mu_t[None], batch=b)
+            torch.cuda.synchronize()
+            em = float((m_k - torch.where(g_p, m_p[0], mu_t)).abs().max())
+            ef_ = float(((f_t + su_k.T @ sw_k) - (f_t + su_p.T @ sw_p))
+                        .abs().max()) if bool(g_p) else 0.0
+            rec = {"kernel": "eps_smallspace", "case": case, "B": b, "D": d,
+                   "good": [bool(g_k), bool(g_p)], "mean_err": em,
+                   "f_err": ef_, "f_tol": F_TOL * fmax, "mean_tol": MEAN_TOL}
+            emit({"phase": "kernels", **rec})
+            check(bool(g_k) == bool(g_p) == (case == "update"),
+                  f"small space accept flag {rec}")
+            check(em <= MEAN_TOL and ef_ <= F_TOL * fmax,
+                  f"the small space disagrees with its plain version: {rec}")
+            worst["eps_smallspace"] = max(worst["eps_smallspace"], em, ef_)
+            for trans in (False, True):
+                got = fs.thin_product(e, f_t, trans=trans, mu=mu_t if trans
+                                      else None)
+                want = e @ (f_t.T if trans else f_t)
+                got, x_k = got if trans else (got, None)
+                torch.cuda.synchronize()
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got - want).abs().max())
+                if trans:
+                    err = max(err, float((x_k - (mu_t + got)).abs().max()))
+                rec = {"kernel": "thin_product", "case": case, "B": b,
+                       "D": d, "trans": trans, "err": err,
+                       "tol": SCORE_TOL * scale}
+                emit({"phase": "kernels", **rec})
+                check(err <= SCORE_TOL * scale,
+                      f"the thin product disagrees with its plain version: "
+                      f"{rec}")
+                worst["thin_product"] = max(worst["thin_product"], err)
 
         t = dense_gaussian(TARGET_SEED, d, device=dev)
         score_fn, params = t.fused_score
@@ -661,11 +737,21 @@ def phase_times(fs, dense_gaussian, torch, np):
     block = torch.randn((spc * B, D), generator=gen, device=dev)
     step = fs.make_fused_eps_multistep(score_fn, len(params), B, D, spc)
     x = mean + ef
+    vf = v @ f
+    vft = vf @ f.T
+    small = lambda: fs.eps_smallspace(eps, v, vf, vft, ef, mean)
+    small_plain = lambda: fs.eps_smallspace_stacks_reference(
+        eps, v, vf, vft, ef, mean[None], batch=B)
+    thin = lambda: fs.thin_product(vf, f, trans=True)
+    thin_plain = lambda: vf @ f.T
     times = {
         "gsm_eps_update_fused": (
             cuda_ms(lambda: fs.gsm_eps_update_fused(eps, v, mean, f, ef=ef)),
             cuda_ms(lambda: fs.gsm_eps_update_ns_reference(eps, v, mean, f,
                                                            ef_t=ef))),
+        "eps_smallspace": (cuda_ms(small), cuda_ms(small_plain)),
+        "thin_product": (cuda_ms(thin, reps=200),
+                         cuda_ms(thin_plain, reps=200)),
         "make_fused_eps_multistep": (
             cuda_ms(lambda: step(spc, block, mean, f, *params), reps=20),
             cuda_ms(lambda: fs.eps_multistep_reference(
@@ -686,15 +772,48 @@ def phase_times(fs, dense_gaussian, torch, np):
                                                f, batch=B),
             (block, mean, f, *params)),
         "gaussian_score": (lambda: ref(x, *params), (x, *params)),
+        "eps_smallspace": (small_plain, (eps, v, vf, vft, ef, mean)),
+        "thin_product": (thin_plain, (vf, f)),
     }
-    # K3's one-call yardstick: addmm with the row mu_t @ prec formed ahead.
+    # K3's one-call yardstick: addmm with the row mu_t @ prec formed ahead;
+    # the thin product's: mm.
     mp = params[0] @ params[1]
-    library = {"gaussian_score": cuda_ms(
-        lambda: torch.addmm(mp, x, params[1], alpha=-1.0), reps=200)}
+    lib_fns = {"gaussian_score": lambda: torch.addmm(mp, x, params[1],
+                                                     alpha=-1.0),
+               "thin_product": lambda: torch.mm(vf, f.T)}
+    library = {k: cuda_ms(fn, reps=200) for k, fn in lib_fns.items()}
+    # Device time (torch.profiler) of K1, its two kernels, K2 and K3, and of
+    # the library calls; the kernels each ran, by name.
+    dev_fns = {
+        "gsm_eps_update_fused": lambda: fs.gsm_eps_update_fused(
+            eps, v, mean, f, ef=ef),
+        "eps_smallspace": small, "thin_product": thin,
+        "make_fused_eps_multistep": lambda: step(spc, block, mean, f,
+                                                 *params),
+        "gaussian_score": lambda: fs.gaussian_score(x, *params)}
+    device = {k: device_ms(fn, calls=20 if k.startswith("make") else 50)
+              for k, fn in dev_fns.items()}
+    library_device = {k: device_ms(fn)[0] for k, fn in lib_fns.items()}
+    names = {k: n for k, (_, n) in device.items()}
     emit({"phase": "times", "B": B, "D": D, "ms_per_call": {
-        k: {"kernel": a, "plain": b, "library": library.get(k)}
-        for k, (a, b) in times.items()}})
-    return times, work, library
+        k: {"kernel": a, "plain": b, "library": library.get(k),
+            "device": device[k][0] if k in device else None,
+            "library_device": library_device.get(k)}
+        for k, (a, b) in times.items()}, "device_kernels": names})
+    # The main path's K1 runs the cluster small space and the thin product,
+    # and the 32x32 tile template only for the fat apply (TA, EPI_SELECT_ADD);
+    # K3 runs the thin product alone.
+    k1 = " ".join(names["gsm_eps_update_fused"])
+    check("eps_cluster_kernel" in k1 and "thin_kernel" in k1
+          and "eps_smallspace_kernel" not in k1
+          and all("gemm_kernel<true, false, 0, 2>" in n
+                  for n in names["gsm_eps_update_fused"] if "gemm_kernel" in n),
+          f"K1 runs other kernels: {names['gsm_eps_update_fused']}")
+    k3 = " ".join(names["gaussian_score"])
+    check("thin_kernel" in k3 and "gemm_kernel" not in k3,
+          f"K3 runs other kernels: {names['gaussian_score']}")
+    return times, work, library, {k: ms for k, (ms, _) in device.items()}, \
+        library_device
 
 
 def phase_bam_paths(BaM, FactorBaM, Regularizers, bf, fs, t, torch):
@@ -1430,17 +1549,19 @@ def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
     plain = lambda: bfm.eps_batch_multistep_reference(
         fs.gaussian_score_reference, params, spc, blocks, means, factors,
         batch=B)
+    k6 = lambda: step(spc, blocks, means, factors, *params)
     times["make_fused_eps_batch_multistep"] = (
-        cuda_ms(lambda: step(spc, blocks, means, factors, *params), reps=10),
-        cuda_ms(plain, reps=3, warmup=1))
+        cuda_ms(k6, reps=10), cuda_ms(plain, reps=3, warmup=1))
     work["make_fused_eps_batch_multistep"] = (
         plain, (blocks, means, factors, *params))
+    device = {"make_fused_eps_batch_multistep": device_ms(k6, calls=10)[0]}
     emit({"phase": "dense_batch_times", "D": D, "K": k, "spc": spc,
-          "ms_per_call": {n: {"kernel": a, "plain": p}
+          "ms_per_call": {n: {"kernel": a, "plain": p,
+                              "device": device.get(n)}
                           for n, (a, p) in times.items()}})
     times["gsm_update_fused"] = times[f"gsm_update_fused_B{B}"]
     work["gsm_update_fused"] = work[f"gsm_update_fused_B{B}"]
-    return times, work
+    return times, work, device
 
 
 def _cov(f):
@@ -1753,8 +1874,11 @@ def phase_eps_step_times(fs, t, torch):
             cuda_ms(lambda: fs.philox_normal_reference(7, B, D, dev),
                     reps=20)),
     }
+    device = {"make_fused_eps_step": device_ms(
+        lambda: ns(e, mean, f, *params))[0]}
     emit({"phase": "eps_step_times", "B": B, "D": D,
-          "ms_per_call": {k: {"kernel": a, "plain": p}
+          "ms_per_call": {k: {"kernel": a, "plain": p,
+                              "device": device.get(k)}
                           for k, (a, p) in times.items()}})
     work = {
         "make_fused_eps_step": (
@@ -1770,7 +1894,7 @@ def phase_eps_step_times(fs, t, torch):
         "philox_normal": (
             lambda: fs.philox_normal_reference(7, B, D, dev), ()),
     }
-    return times, work
+    return times, work, device
 
 # Phase 17: the kernels' shape ranges.  K1 and K2 at the reference
 # examples' small shapes and at the bench's large batches (bench.py:551-590,
@@ -2392,7 +2516,8 @@ def main() -> int:
     zoo_counts = phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers,
                                  fs, models, card, torch, np)
 
-    times, work, library = phase_times(fs, dense_gaussian, torch, np)
+    times, work, library, device, library_device = phase_times(
+        fs, dense_gaussian, torch, np)
     for more in (phase_bam_times(bf, fs, fb, t, st6, torch),
                  phase_advi_times(af, fs, torch, np),
                  phase_dense_batch_times(gs, bfm, fs, t, torch, np),
@@ -2400,6 +2525,7 @@ def main() -> int:
                  (zoo_times, zoo_work)):
         times.update(more[0])
         work.update(more[1])
+        device.update(more[2] if len(more) > 2 else {})
     library.update(zoo_library)
     bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
     emit({"phase": "bounds", **bounds})
@@ -2417,7 +2543,9 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name]["bound_ms"],
          "bound_by": bounds[name]["bound_by"],
-         "library_ms": library.get(name)}
+         "library_ms": library.get(name),
+         "device_ms": device.get(name),
+         "library_device_ms": library_device.get(name)}
         for name, (src, rep) in SOURCES.items()]})
     # Every phase ran on device 0, the one card this script drives.
     emit({"ok": True, "device": {"platform": "gpu",

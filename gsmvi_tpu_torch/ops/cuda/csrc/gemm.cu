@@ -1,13 +1,13 @@
 // C entry points of the f32 GEMM template (gemm.cuh) at the products of the
-// eps-NS GSM step and of the dense-Gaussian score.
+// eps GSM step and of BaM.
 //
 // Replaces, in gsmvi_tpu/ops/pallas/fused_step.py:
-//   gsmvi_rows           `ef = e F^T` (+ `x = mu + ef`) at :622/:727,
-//                        `t = vf F^T` in `_eps_smallspace_ns` at :286 and
-//                        `vf = v F` at :450/:732
+//   gsmvi_rows           `t = vf F^T` (:286) and `vf = v F` (:450) of the
+//                        Cholesky variant K4a (`_eps_update_core` :350); the
+//                        NS route's row products and K3 run on the split-k
+//                        thin product (thin_gemm.cu)
 //   gsmvi_factor_apply   `F + t_mm(stack_u, stack_w)` at :346 together with
 //                        the accept/revert select at :454-455/:738-739
-//   gsmvi_gaussian_score `gaussian_score_kernel` at :778 (K3)
 // the same products over K replicas (gsmvi_rows, gsmvi_factor_apply with
 // k > 1: the batched K1 and K6 of gsmvi_tpu/ops/pallas/batch_fused.py :118),
 // and, in gsmvi_tpu/ops/pallas/bam_fused.py (K7/K8):
@@ -21,16 +21,6 @@
 using namespace gsmvi;
 
 extern "C" {
-
-// v = (mu_t - x) @ prec: x (M, D), mu_t (D,), prec (D, D); M is any row
-// count (K replicas' B rows stacked, the params shared).
-int gsmvi_gaussian_score(const float* x, const float* mu_t, const float* prec,
-                         float* v, int b, int d, void* stream) {
-    GemmArgs p{};
-    p.a = x; p.b = prec; p.c = v; p.pro_vec = mu_t;
-    p.m = b; p.n = d; p.k = d; p.lda = d; p.ldb = d; p.ldc = d;
-    return launch_gemm<false, false, PRO_VEC_MINUS_A, EPI_STORE>(p, static_cast<cudaStream_t>(stream));
-}
 
 // f_out = f_in + su^T @ sw if *good else f_in: su, sw (R, D) with R = 2B,
 // f (D, D), for each of `reps` replicas stored one after another (su, sw

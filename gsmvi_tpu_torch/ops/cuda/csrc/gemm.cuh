@@ -1,12 +1,13 @@
-// Tiled f32 GEMM template for the O(B D^2) products of the eps-NS GSM step.
+// Tiled f32 GEMM template for the O(B D^2) products of the eps GSM step.
 //
 // Replaces the Precision.HIGHEST `jnp.dot` / `dot_general` contractions that
 // the Pallas kernels run in their own bodies
-// (gsmvi_tpu/ops/pallas/fused_step.py: `ef = e F^T` at :622/:727, `vf = v F`
-// at :450/:732, `t = vf F^T` at :286, the fat apply `F + stack_u^T stack_w`
-// at :346, and `gaussian_score_kernel` at :778; the Student-t and
-// logistic-regression scores' products at :842 and :878-882, zoo_score.cu and
-// zoo_score_b.cu).
+// (gsmvi_tpu/ops/pallas/fused_step.py: the fat apply `F + stack_u^T
+// stack_w` at :346, the Cholesky variant's `vf = v F` at :450 and `t = vf
+// F^T` at :286; the Student-t and logistic-regression scores' products at
+// :842 and :878-882, zoo_score.cu and zoo_score_b.cu).  The NS route's row
+// products and `gaussian_score_kernel` (:778) run on the split-k thin
+// product (thin_gemm.cu).
 //
 // The BaM step (bam_smallspace.cu) uses the same template for its products
 // (gsmvi_tpu/ops/pallas/bam_fused.py: `ef` at :467, `q_t`/`qf`/`fom_t` at
@@ -46,7 +47,7 @@ constexpr int GEMM_BN = 32;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
-enum Prologue { PRO_NONE = 0, PRO_VEC_MINUS_A = 1, PRO_A_MINUS_VEC = 2 };
+enum Prologue { PRO_NONE = 0, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
                 EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8,
@@ -74,7 +75,6 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
 // A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
-//   PRO_VEC_MINUS_A: A'(m, k) = pro_vec[k] - A'(m, k).
 //   PRO_A_MINUS_VEC: A'(m, k) = A'(m, k) - pro_vec[k].
 // B'(k, n) = TB ? b[n * ldb + k] : b[k * ldb + n].
 // Epilogues:
@@ -155,7 +155,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             float v = 0.f;
             if (gm < p.m && gk < p.k) {
                 v = TA ? pa[(size_t)gk * p.lda + gm] : pa[(size_t)gm * p.lda + gk];
-                if (PRO == PRO_VEC_MINUS_A) v = pro_vec[gk] - v;
                 if (PRO == PRO_A_MINUS_VEC) v = v - pro_vec[gk];
             }
             As[r][kk] = v;

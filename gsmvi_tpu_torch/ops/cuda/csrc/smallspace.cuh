@@ -1,6 +1,6 @@
 // Device functions shared by the one-block small-space kernels
-// (eps_smallspace.cu for the eps-NS GSM update, bam_smallspace.cu for the
-// BaM NS update, eps_chol.cu for the exact eps update): block reductions,
+// (bam_smallspace.cu for the BaM NS update, eps_chol.cu for the exact eps
+// update) and the global-memory ones (smallspace_global.cu): block reductions,
 // (n, n) products and symmetrisation in shared memory, the matmul-only
 // Newton-Schulz square root (with its inverse-root iterate) and
 // Newton-Hotelling inverse, the slab-staged products between (n, n) shared
@@ -205,8 +205,8 @@ __device__ void gram_rows(const float* X, const float* Y, float* G, int m, int l
 // Row scalars of the eps-coordinate step (fused_step.py:285-296 and
 // :379-389): for each of the n rows, 1/(1 + rho), w/den and gamma, from the
 // (n, D) rows v, t = vf F^T and ef = e F^T, a warp per row; the three
-// (n,) results land in shared memory.  Shared by the NS small space
-// (eps_smallspace.cu) and the Cholesky one (eps_chol.cu).
+// (n,) results land in shared memory.  Used by the Cholesky small space
+// (eps_chol.cu); the cluster NS one forms them over its blocks' columns.
 __device__ void eps_row_scalars(const float* v, const float* t, const float* ef, int n, int d,
                                 float* s_inv1r, float* s_wden, float* s_gamma) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

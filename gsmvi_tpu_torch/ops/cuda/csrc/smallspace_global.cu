@@ -3,7 +3,7 @@
 // global memory.
 //
 // Replace, for the batches the one-block shared-memory kernels cannot hold
-// (eps_smallspace.cu: ten (B, B) matrices, B <= 64; bam_smallspace.cu:
+// (eps_smallspace_cluster.cu: twelve (B, B), B <= 64; bam_smallspace.cu:
 // twelve (kpad, kpad), kpad = B + 8 <= 64), the same two TPU kernel bodies:
 //   gsmvi_eps_smallspace_large  gsmvi_tpu/ops/pallas/fused_step.py
 //       `_eps_smallspace_ns` (:231) from the row work at :287 to the stacked
@@ -425,7 +425,7 @@ long long gsmvi_eps_large_ws(int b) {
 }
 
 // K1's small space for 64 < B <= 512 (any B >= 1 works): the arguments of
-// gsmvi_eps_smallspace plus `ws`, gsmvi_eps_large_ws(b) floats per replica.
+// gsmvi_eps_smallspace_cluster but the cluster's shape, plus `ws`, gsmvi_eps_large_ws(b) floats per replica.
 int gsmvi_eps_smallspace_large(const float* e, const float* v, const float* vf, const float* t,
                                const float* ef, const float* mean_in, float* mean_out,
                                int* good, int* nacc, float* su, float* sw, float* c,

@@ -43,19 +43,23 @@ wrapper counts its calls on the card in a plain integer attribute
 ``launches`` (one per wrapper call, however many CUDA launches it makes).
 
 On the card a K1 call is four launches on the current stream: ``vf = v F``
-and ``t = vf F^T`` on the GEMM template, the one-block small-space kernel
-(which writes ``good`` and the new mean), and the fat apply, whose epilogue
-reads ``good`` and writes F or F' (the select).  Above
-``SHARED_SMALLSPACE_MAX_B`` the small space is ``eps_smallspace_large``, a
-chain of grid launches with its (B, B) matrices in global memory
-(``smallspace_global.cu``; ~140 launches at the long NS profile).  A K4a
-call is six: the same two row products, a one-block row kernel (Z^T and
-(F Z)^T rows), the Gram Z^T Z on the GEMM template, the one-block Cholesky
-small space (``ops/cuda/csrc/eps_chol.cu``) and the fat apply.  A whole step
-(``_launch_step``) is the ``ef = e F^T`` / ``x = mu + ef`` GEMM, the score,
-then one update's launches: a K4 call is one whole step, a K2 call loops
-its sub-steps on the host on a working copy of (mean, F), with the accepted
-count accumulated on the device.  No launch waits for the host.
+and ``t = vf F^T`` on the split-k thin product (``thin_product``,
+``thin_gemm.cu``: one cluster of ``thin_split(D)`` blocks per output tile),
+the small space on a thread-block cluster (``eps_smallspace``,
+``eps_smallspace_cluster.cu``: ``cluster_columns(D)`` blocks per replica,
+which writes ``good`` and the new mean), and the fat apply on the GEMM
+template, whose epilogue reads ``good`` and writes F or F' (the select).
+Above ``SHARED_SMALLSPACE_MAX_B`` the small space is
+``eps_smallspace_large``, a chain of grid launches with its (B, B) matrices
+in global memory (``smallspace_global.cu``; ~140 launches at the long NS
+profile).  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
+one-block row kernel (Z^T and (F Z)^T rows), the Gram Z^T Z on the GEMM
+template, the one-block Cholesky small space (``ops/cuda/csrc/eps_chol.cu``)
+and the fat apply.  A whole step (``_launch_step``) is the ``ef = e F^T`` /
+``x = mu + ef`` thin product, the score, then one update's launches: a K4
+call is one whole step, a K2 call loops its sub-steps on the host on a
+working copy of (mean, F), with the accepted count accumulated on the
+device.  No launch waits for the host.
 """
 
 from __future__ import annotations
@@ -87,9 +91,10 @@ PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 PHILOX_KEY1 = 0xA4093822
 _M32 = 0xFFFFFFFF
 
-# Shapes the CUDA kernels take.  The NS small space runs one block with its
-# ten (B, B) matrices in shared memory up to SHARED_SMALLSPACE_MAX_B
-# (``eps_smallspace.cu``) and, above, a chain of grid launches with them in
+# Shapes the CUDA kernels take.  The NS small space runs one cluster per
+# replica, each block with its twelve (B, B) matrices in shared memory, up to
+# SHARED_SMALLSPACE_MAX_B (``eps_smallspace_cluster.cu``) and, above, a chain
+# of grid launches with them in
 # global memory (``smallspace_global.cu``) up to 512, the JAX package's
 # largest fused batch (its B sweep's top, ``bench.py:551-590``).  The
 # Cholesky variant (K4a) keeps three (2B, 2B) matrices in one block's shared
@@ -102,6 +107,30 @@ CHOL_BATCH_RANGE = (1, 64)
 # The mixture score keeps each of its block's 8 rows' K logits (and the K
 # half squared norms) in shared memory: 36 KiB at K = 1024.
 MIXTURE_COMPONENT_RANGE = (1, 1024)
+# Thread-block clusters of the small space and the thin product: at most 8
+# blocks (the portable cluster size), each over a share of D in whole
+# 32-column slabs.
+CLUSTER_MAX_BLOCKS = 8
+SLAB = 32
+
+
+def cluster_columns(d: int) -> tuple:
+    """(C, cols): the small space's cluster for dimension ``d``, C =
+    min(8, ceil(d/32)) blocks, block r owning columns [r cols, (r+1) cols)
+    with cols = ceil(d/C), so that no block is empty.  A function of D
+    alone: a K-replica launch runs each replica as a launch on it alone."""
+    c = min(CLUSTER_MAX_BLOCKS, -(-d // SLAB))
+    return c, -(-d // c)
+
+
+def thin_split(d: int) -> tuple:
+    """(S, k_per): the thin product's split of the k range [0, d) over a
+    cluster of S <= 8 blocks, block r taking [r k_per, (r+1) k_per) in
+    whole slabs, none empty.  A function of D alone, so an output row's sum
+    does not depend on the row count M or the replica count K."""
+    slabs = -(-d // SLAB)
+    per = -(-slabs // CLUSTER_MAX_BLOCKS)
+    return -(-slabs // per), per * SLAB
 
 
 def ns_iters_for_batch(b: int, override=None) -> tuple:
@@ -170,11 +199,21 @@ def eps_smallspace_ns_reference(e, v, vf, mu, f, *, batch: int,
         cv = -(I + S2)^{-1},                          S2 = sqrt(I - Gv)
     and F' = F + stack_u^T stack_w in one (D, 2B) @ (2B, D) product.
     """
+    ef = e @ f.T if ef_t is None else ef_t
+    mu_new, stack_u, stack_w, good = eps_smallspace_stacks_reference(
+        e, v, vf, vf @ f.T, ef, mu, batch=batch, tol=tol, iters=iters)
+    return mu_new, f + stack_u.T @ stack_w, good
+
+
+def eps_smallspace_stacks_reference(e, v, vf, t, ef, mu, *, batch: int,
+                                    tol: float = NS_TOL, iters=None):
+    """The small space alone (the plain version of ``eps_smallspace``): from
+    the rows e, v, vf = v F, t = vf F^T and ef = e F^T (B, D) and mu (1, D),
+    the proposed mean (1, D), stack_u and stack_w (2B, D) of the fat apply
+    F' = F + stack_u^T stack_w, and ``good``."""
     b = batch
     iters = ns_iters_for_batch(b, iters)
-    ef = e @ f.T if ef_t is None else ef_t
     a = -ef                                                # rows mu - x
-    t = vf @ f.T
     vsv = torch.sum(v * t, dim=1, keepdim=True)
     mv = torch.sum(a * v, dim=1, keepdim=True)
     rho = 0.5 * (torch.sqrt(1.0 + 4.0 * (vsv + mv * mv)) - 1.0)
@@ -223,7 +262,7 @@ def eps_smallspace_ns_reference(e, v, vf, mu, f, *, batch: int,
     w2row = cv @ xim_t
     stack_u = torch.cat([u1row, fw1xi_t], dim=0)           # (2B, D)
     stack_w = torch.cat([w1row, w2row], dim=0)             # (2B, D)
-    return mu + dmu, f + stack_u.T @ stack_w, good
+    return mu + dmu, stack_u, stack_w, good
 
 
 def gsm_eps_update_ns_reference(eps, vs, mean, f, iters=None, ef_t=None):
@@ -571,6 +610,18 @@ def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
              _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride, stream)
 
 
+def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None,
+          x_out=None) -> None:
+    """``_rows`` on the split-k thin product (``thin_gemm.cu``), counted
+    in ``thin_product.launches``."""
+    k, stride = _replicas(rows)
+    m, d = rows.shape[-2:]
+    thin_product.launches += 1
+    lib.call("gsmvi_thin_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
+             _ptr(x_out), _ptr(None), m, d, int(trans), k, stride,
+             *thin_split(d), stream)
+
+
 class _UpdateBuffers:
     """Scratch of one update on the card (of K replicas: a leading axis K,
     ns only), allocated once per call.  ``su``/``sw`` are the fat apply's
@@ -595,24 +646,39 @@ class _UpdateBuffers:
                                 device=device)
 
 
-def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
-                   buf: _UpdateBuffers, iters, nacc=None) -> None:
-    """K1's launches: vf, t, small space (mean + good), fat apply (F).
-    With a leading replica axis every launch covers the K replicas; eps may
-    be a view whose replicas lie apart, the other operands are packed."""
+def _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out,
+                       buf: _UpdateBuffers, iters, nacc=None) -> None:
+    """The small space of one update (of K replicas), from ``buf.vf`` and
+    ``buf.t``: the new mean, ``good`` (and ``nacc``), and the stacked rows
+    ``buf.su``/``buf.sw``.  Up to ``SHARED_SMALLSPACE_MAX_B`` on a cluster
+    per replica (counted in ``eps_smallspace.launches``), above on the
+    global-memory chain (``eps_smallspace_large``)."""
     k, e_stride = _replicas(eps)
     b, d = eps.shape[-2:]
-    _rows(lib, stream, vs, f_in, buf.vf, trans=False)
-    _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
     args = (_ptr(eps), _ptr(vs), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
             _ptr(mean_in), _ptr(mean_out), _ptr(buf.good), _ptr(nacc),
             _ptr(buf.su), _ptr(buf.sw), _ptr(buf.c), _ptr(buf.xim))
     if buf.ws is None:
-        lib.call("gsmvi_eps_smallspace", *args, b, d, *iters, NS_TOL, k,
-                 e_stride, stream)
+        eps_smallspace.launches += 1
+        lib.call("gsmvi_eps_smallspace_cluster", *args, b, d, *iters, NS_TOL,
+                 k, e_stride, *cluster_columns(d), stream)
     else:
         eps_smallspace_large(lib, stream, args, buf.ws, b, d, iters, k,
                              e_stride)
+
+
+def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
+                   buf: _UpdateBuffers, iters, nacc=None) -> None:
+    """K1's launches: vf and t (thin product), small space (mean + good),
+    fat apply (F).  With a leading replica axis every launch covers the K
+    replicas; eps may be a view whose replicas lie apart, the other operands
+    are packed."""
+    k, _ = _replicas(eps)
+    b, d = eps.shape[-2:]
+    _thin(lib, stream, vs, f_in, buf.vf, trans=False)
+    _thin(lib, stream, buf.vf, f_in, buf.t, trans=True)
+    _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out, buf,
+                       iters, nacc=nacc)
     lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
              _ptr(f_out), _ptr(buf.good), 2 * b, d, k, stream)
 
@@ -638,12 +704,12 @@ def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
                  f_out, ef, x, buf: _UpdateBuffers, iters,
                  jitter: float = CHOL_JITTER, nacc=None) -> None:
     """One whole step on the card: ``ef = e F^T`` and ``x = mu + ef`` (one
-    GEMM), the score on x's rows, then one update's launches (``buf.method``)
+    thin product), the score on x's rows, then one update's launches (``buf.method``)
     from (mean_in, f_in) into (mean_out, f_out), which may be the same
     tensors.  K4 makes one such step per call, K2 and K6 one per sub-step;
     a leading replica axis (K6) stacks the K replicas' rows for the score."""
     d = e.shape[-1]
-    _rows(lib, stream, e, f_in, ef, trans=True, mu=mean_in, x_out=x)
+    _thin(lib, stream, e, f_in, ef, trans=True, mu=mean_in, x_out=x)
     rows = x.reshape(-1, d)
     v = score_fn(rows, *params)
     _require("score", v, tuple(rows.shape))
@@ -660,7 +726,7 @@ def eps_smallspace_large(lib, stream, args, ws, b: int, d: int, iters, k: int,
                          e_stride: int) -> None:
     """Launch the global-memory NS small space (``smallspace_global.cu``)
     that K1, K2, K4 and K6 run above ``SHARED_SMALLSPACE_MAX_B``: ``args``
-    are ``gsmvi_eps_smallspace``'s pointers, ``ws`` its workspace.  Its
+    are ``gsmvi_eps_smallspace_cluster``'s pointers, ``ws`` its workspace.  Its
     ``launches`` counts the updates that took it, beside the wrappers'
     counts, so a run shows which small space ran."""
     eps_smallspace_large.launches += 1
@@ -739,7 +805,7 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
     gsm_eps_update_fused.launches += 1
     if ef is None:
         ef = torch.empty_like(eps)
-        _rows(lib, stream, eps, f, ef, trans=True)
+        _thin(lib, stream, eps, f, ef, trans=True)
     else:
         _require("ef", ef, lead + (b, d))
     buf = _UpdateBuffers(b, d, eps.device, *lead, method=method)
@@ -900,8 +966,10 @@ make_fused_eps_multistep.launches = 0
 
 def gaussian_score(x, mu_t, prec):
     """K3: dense-Gaussian score v = (mu_t - x) @ prec; x (M, D), mu_t (1, D),
-    prec (D, D) symmetric.  A GEMM: any row count M >= 1 (the K replicas'
-    B rows of a batched step, stacked), D in ``KERNEL_DIM_RANGE``."""
+    prec (D, D) symmetric.  The split-k thin product (``thin_gemm.cu``, the
+    prologue forms mu_t - x): any row count M >= 1 (the K replicas' B rows
+    of a batched step, stacked), D in ``KERNEL_DIM_RANGE``; a row's score
+    does not depend on M."""
     if _on_cpu(x, mu_t, prec):
         return gaussian_score_reference(x, mu_t, prec)
     b, d = x.shape
@@ -911,12 +979,87 @@ def gaussian_score(x, mu_t, prec):
         _require(name, t, shape)
     v = torch.empty_like(x)
     gaussian_score.launches += 1
-    _library().call("gsmvi_gaussian_score", _ptr(x), _ptr(mu_t), _ptr(prec),
-                    _ptr(v), b, d, _stream(x.device))
+    _library().call("gsmvi_thin_score", _ptr(x), _ptr(mu_t), _ptr(prec),
+                    _ptr(v), b, d, *thin_split(d), _stream(x.device))
     return v
 
 
 gaussian_score.launches = 0
+
+
+def thin_product(rows, f, *, trans: bool, mu=None):
+    """The row products of K1, K2, K4 and K6: rows @ F^T (``trans``) or
+    rows @ F, rows (M, D) or (K, M, D), F (D, D) or (K, D, D); with ``mu``
+    ((D,) or (K, D); ``trans`` only) it returns (out, x = mu + out).  On the
+    card the split-k thin product (``thin_gemm.cu``), one launch for all
+    replicas; on the CPU the plain products."""
+    if mu is not None and not trans:
+        raise ValueError("thin_product: mu (x = mu + out) needs trans=True")
+    if _on_cpu(rows, f, *([] if mu is None else [mu])):
+        out = rows @ (f.transpose(-1, -2) if trans else f)
+        return out if mu is None else (out, mu.unsqueeze(-2) + out)
+    m, d = rows.shape[-2:]
+    lead = tuple(rows.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"rows: (M, D) or (K, M, D) required, got "
+                         f"{tuple(rows.shape)}")
+    _require_dim_supported(d)
+    _require("rows", rows, lead + (m, d))
+    _require("f", f, lead + (d, d))
+    out = torch.empty_like(rows)
+    x = None
+    if mu is not None:
+        _require("mu", mu, lead + (d,))
+        x = torch.empty_like(rows)
+    _thin(_library(), _stream(rows.device), rows, f, out, trans=trans, mu=mu,
+          x_out=x)
+    return out if mu is None else (out, x)
+
+
+thin_product.launches = 0
+
+
+def eps_smallspace(e, v, vf, t, ef, mean, iters=None):
+    """K1's small space alone: from the rows e, v, vf = v F, t = vf F^T and
+    ef = e F^T ((B, D), or (K, B, D) for K replicas) and the mean ((D,) or
+    (K, D)), returns (mean_out, stack_u, stack_w, good): the mean with its
+    select, the fat apply's (2B, D) operands and the gates' verdict.  On the
+    card the cluster kernel (``eps_smallspace_cluster.cu``) for B <=
+    ``SHARED_SMALLSPACE_MAX_B``, the global-memory chain above; on the CPU
+    ``eps_smallspace_stacks_reference``."""
+    b, d = e.shape[-2:]
+    lead = tuple(e.shape[:-2])
+    iters = ns_iters_for_batch(b, iters)
+    if _on_cpu(e, v, vf, t, ef, mean):
+        one = lambda e_, v_, vf_, t_, ef_, m_: _select_stacks(
+            *eps_smallspace_stacks_reference(e_, v_, vf_, t_, ef_,
+                                             m_.reshape(1, d), batch=b,
+                                             iters=iters), m_)
+        if not lead:
+            return one(e, v, vf, t, ef, mean)
+        return over_replicas(one, e, v, vf, t, ef, mean)
+    if len(lead) > 1:
+        raise ValueError(f"e: (B, D) or (K, B, D) required, got "
+                         f"{tuple(e.shape)}")
+    _require_shape_supported(b, d)
+    for name, x in (("e", e), ("v", v), ("vf", vf), ("t", t), ("ef", ef)):
+        _require(name, x, lead + (b, d))
+    _require("mean", mean, lead + (d,))
+    buf = _UpdateBuffers(b, d, e.device, *lead)
+    buf.vf, buf.t = vf, t
+    mean_out = torch.empty_like(mean)
+    _launch_smallspace(_library(), _stream(e.device), e, v, ef, mean,
+                       mean_out, buf, iters)
+    good = buf.good != 0
+    return mean_out, buf.su, buf.sw, good if lead else good[0]
+
+
+eps_smallspace.launches = 0
+
+
+def _select_stacks(mu_new, stack_u, stack_w, good, mean):
+    """``eps_smallspace``'s plain outputs: the mean selected by ``good``."""
+    return torch.where(good, mu_new[0], mean), stack_u, stack_w, good
 
 
 def _zoo_operands(x, params, shape=(1, 2)) -> tuple:
@@ -1058,6 +1201,8 @@ KERNEL_WRAPPERS = {
     "philox_normal": philox_normal,
     "philox4x32": philox4x32,
     "eps_smallspace_large": eps_smallspace_large,
+    "eps_smallspace": eps_smallspace,
+    "thin_product": thin_product,
     "funnel_score": funnel_score,
     "banana_score": banana_score,
     "student_t_score": student_t_score,

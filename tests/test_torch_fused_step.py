@@ -205,7 +205,7 @@ def test_cpu_calls_launch_nothing_and_build_is_lazy(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()
     assert {p.name for p in _build._sources()} >= {
-        "gemm.cuh", "gemm.cu", "eps_smallspace.cu"}
+        "gemm.cuh", "gemm.cu", "eps_smallspace_cluster.cu", "thin_gemm.cu"}
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

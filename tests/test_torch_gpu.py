@@ -77,14 +77,20 @@ def test_multistep_kernel_matches_plain(cuda, b, d):
     block = torch.randn((spc * b, d), generator=gen, device=cuda)
     step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
     mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    # Eight chained steps from (0, I) amplify rounding: at (8, 200) the
+    # plain version in float32 sits farther from itself in float64 than the
+    # kernel does, so the kernel is held to 1e-4 of the plain version run in
+    # float64.
+    p64 = tuple(x.double() for x in params)
     for nmax in (spc, 3):
         m_k, f_k, n_k = step(nmax, block, mean0, f0, *params)
         m_p, f_p, n_p = fs.eps_multistep_reference(
-            fs.gaussian_score_reference, params, nmax, block, mean0, f0,
-            batch=b)
+            fs.gaussian_score_reference, p64, nmax, block.double(),
+            mean0.double(), f0.double(), batch=b)
         assert int(n_k) == int(n_p) == nmax
-        assert float((m_k - m_p).abs().max()) <= 1e-4
-        assert float((f_k - f_p).abs().max()) <= 1e-4 * float(f_p.abs().max())
+        assert float((m_k.double() - m_p).abs().max()) <= 1e-4
+        assert float((f_k.double() - f_p).abs().max()) <= 1e-4 * float(
+            f_p.abs().max())
 
 
 def test_gaussian_score_kernel_matches_plain(cuda):
@@ -897,3 +903,142 @@ def test_k11b_kernels_at_their_edges(cuda, case):
         means = torch.zeros((1025, d), device=cuda)
         with pytest.raises(ValueError, match="K in"):
             fs.mixture_score(x, means, torch.zeros((1, 1025), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# K1's cluster small space (eps_smallspace_cluster.cu) and the split-k thin
+# product (thin_gemm.cu) over B 1-64, M 1-512 and D 1-8192: against their
+# plain versions (1e-5 on the mean and 1e-5 * max|F| on F + su^T sw; the
+# product within 1e-5 * max(1, |out|)), replica z of a K-replica launch and a
+# second launch equal to the first bit for bit.
+# ---------------------------------------------------------------------------
+
+CLUSTER_B = [1, 2, 3, 31, 32, 33, 63, 64]
+CLUSTER_D = [1, 10, 31, 32, 33, 256, 257, 1024, 8192]
+THIN_M = [1, 2, 32, 33, 256, 512]
+
+
+def _smallspace_inputs(dev, b, d, seed, decades=0.0, k=None):
+    """Draws, scores and a well-conditioned factor made on the card, and the
+    rows the small space reads: (e, v, vf, t, ef, mean, f)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if k is None else (k,)
+    rnd = lambda *s: torch.randn((*lead, *s), generator=gen, device=dev)
+    f = torch.eye(d, device=dev) + 0.3 * rnd(d, d) / d ** 0.5
+    ladder = torch.logspace(0.0, decades, b, device=dev)[:, None]
+    e = ladder * rnd(b, d)
+    v = 0.3 * rnd(b, d)
+    mean = rnd(d)
+    vf = v @ f
+    return e, v, vf, vf @ f.transpose(-1, -2), e @ f.transpose(-1, -2), \
+        mean, f
+
+
+@pytest.mark.parametrize("d", CLUSTER_D)
+@pytest.mark.parametrize("b", CLUSTER_B)
+def test_cluster_smallspace_matches_plain(cuda, b, d):
+    """Benign draws, then draw rows over three decades (phase 1's
+    update_reject ladder).  Where B * D is too small for the ladder to break
+    the chains (D = 1, B = 2-3 at D <= 32) the update is accepted on
+    near-singular Grams: there the kernel is held to the larger of 1e-5 and 8x
+    the plain float32 version's own distance from the plain version in
+    float64 (the rule of chip_smoke.py's mixture and chol checks)."""
+    for case, decades in (("update", 0.0), ("update_reject", 3.0)):
+        e, v, vf, t, ef, mean, f = _smallspace_inputs(cuda, b, d, b * d,
+                                                      decades)
+        fs.reset_launch_counts()
+        m_k, su_k, sw_k, g_k = fs.eps_smallspace(e, v, vf, t, ef, mean)
+        assert fs.launch_counts()["eps_smallspace"] == 1
+        m_p, su_p, sw_p, g_p = fs.eps_smallspace_stacks_reference(
+            e, v, vf, t, ef, mean[None], batch=b)
+        assert bool(g_k) == bool(g_p), case
+        if not bool(g_p):
+            assert torch.equal(m_k, mean), case
+            continue
+        f_k, f_p = f + su_k.T @ sw_k, f + su_p.T @ sw_p
+        mean_tol, f_tol = 1e-5, 1e-5 * float(f.abs().max())
+        if case == "update_reject":
+            m_d, su_d, sw_d, _ = fs.eps_smallspace_stacks_reference(
+                *(x.double() for x in (e, v, vf, t, ef, mean[None])),
+                batch=b)
+            f_d = f.double() + su_d.T @ sw_d
+            mean_tol = max(mean_tol, 8 * float((m_p - m_d).abs().max()))
+            f_tol = max(f_tol, 8 * float((f_p - f_d).abs().max()))
+        assert float((m_k - m_p[0]).abs().max()) <= mean_tol, case
+        assert float((f_k - f_p).abs().max()) <= f_tol, case
+
+
+@pytest.mark.parametrize("b,d", [(32, 256), (8, 200), (64, 1024)])
+def test_cluster_smallspace_rejects_the_ladder(cuda, b, d):
+    """Draw rows over three decades: the gates reject (as chip_smoke.py's
+    update_reject), and K1 returns the old state exactly."""
+    e, v, _, _, _, mean, f = _smallspace_inputs(cuda, b, d, 3, 3.0)
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(e, v, mean, f)
+    _, _, g_p = fs.gsm_eps_update_ns_reference(e, v, mean, f)
+    assert not bool(g_k) and not bool(g_p)
+    assert torch.equal(m_k, mean) and torch.equal(f_k, f)
+
+
+@pytest.mark.parametrize("d", CLUSTER_D)
+@pytest.mark.parametrize("m", THIN_M)
+def test_thin_product_matches_plain(cuda, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    rows = torch.randn((m, d), generator=gen, device=cuda)
+    f = torch.randn((d, d), generator=gen, device=cuda) / d ** 0.5
+    mu = torch.randn(d, generator=gen, device=cuda)
+    close = lambda got, want: float((got - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    assert close(fs.thin_product(rows, f, trans=False), rows @ f)
+    out, x = fs.thin_product(rows, f, trans=True, mu=mu)
+    assert close(out, rows @ f.T) and torch.equal(x, mu + out)
+    assert close(fs.gaussian_score(rows, mu[None], f),
+                 fs.gaussian_score_reference(rows, mu[None], f))
+    # A replica axis: three (m, d) row blocks with their own factors.
+    if m * d <= 512 * 1024:
+        rows3 = torch.randn((3, m, d), generator=gen, device=cuda)
+        f3 = torch.randn((3, d, d), generator=gen, device=cuda) / d ** 0.5
+        out3 = fs.thin_product(rows3, f3, trans=True)
+        assert close(out3, rows3 @ f3.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_cluster_kernels_replicas_equal_single_launches(cuda, k):
+    """Replica z of a K-replica launch equals a launch on replica z alone,
+    bit for bit: the small space (K clusters), the thin product (blockIdx.z)
+    and K3 on the K*B stacked rows."""
+    b, d = 32, 256
+    e, v, vf, t, ef, mean, f = _smallspace_inputs(cuda, b, d, 11, k=k)
+    e[1] *= torch.logspace(0.0, 3.0, b, device=cuda)[:, None]   # rejected
+    stacked = fs.eps_smallspace(e, v, vf, t, ef, mean)
+    assert not bool(stacked[3][1]) and bool(stacked[3][0])
+    rows_k = fs.thin_product(v, f, trans=False)
+    x_k = fs.thin_product(e, f, trans=True, mu=mean)
+    prec = f[0] @ f[0].T
+    score_k = fs.gaussian_score(e.reshape(k * b, d), mean[:1], prec)
+    for z in range(k):
+        one = fs.eps_smallspace(e[z], v[z], vf[z], t[z], ef[z], mean[z])
+        for got, want in zip(stacked, one):
+            assert torch.equal(got[z].nan_to_num(), want.nan_to_num())
+        assert torch.equal(rows_k[z], fs.thin_product(v[z], f[z],
+                                                      trans=False))
+        ox, xx = fs.thin_product(e[z], f[z], trans=True, mu=mean[z])
+        assert torch.equal(x_k[0][z], ox) and torch.equal(x_k[1][z], xx)
+        assert torch.equal(score_k[z * b:(z + 1) * b],
+                           fs.gaussian_score(e[z], mean[:1], prec))
+
+
+def test_cluster_kernels_repeat_bit_for_bit(cuda):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    for b, d in ((32, 256), (64, 8192), (3, 257)):
+        e, v, vf, t, ef, mean, f = _smallspace_inputs(cuda, b, d, 5)
+        a1 = fs.eps_smallspace(e, v, vf, t, ef, mean)
+        a2 = fs.eps_smallspace(e, v, vf, t, ef, mean)
+        for x, y in zip(a1, a2):
+            assert torch.equal(x, y)
+        k1 = fs.gsm_eps_update_fused(e, v, mean, f)
+        k2 = fs.gsm_eps_update_fused(e, v, mean, f)
+        assert torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])
+        assert torch.equal(fs.thin_product(v, f, trans=True),
+                           fs.thin_product(v, f, trans=True))
+        assert torch.equal(fs.gaussian_score(e, mean[None], f),
+                           fs.gaussian_score(e, mean[None], f))
