@@ -29,7 +29,10 @@ the script exits non-zero):
    without ``ef``; K8 ``make_fused_bam_multistep`` against
    ``bam_multistep_reference`` at spc=8: full block, nmax < spc, a stiff
    stop, a rejected sub-step with and without ``stop_on_reject``.  Flags
-   and counts must be equal.
+   and counts must be equal.  Then the cluster small space alone,
+   ``bam_smallspace`` against ``bam_smallspace_stacks_reference``, on the
+   K7 cases at (32, 256), (12, 200), (2, 10) and (56, 257): flags equal,
+   stacked rows, ``vec`` and trace sums where the update is good.
 5. BaM main path: ``BaM(D=256, ..., device="cuda").fit(seed,
    regf=Regularizers().linear(100.0), batch_size=32, niter=N_BAM,
    retries=0)`` (the factor route in update mode); K7 launches exactly once
@@ -135,10 +138,13 @@ its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
 the time of one PyTorch call computing the same function where there is
 one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
 device time per call under ``torch.profiler`` for K1, its small space and
-thin product, K2, K3, K4 and K6 at D=256, B=32 (K6 at K=8), null
-elsewhere; the profiler's kernel names must show K1 on the cluster small
-space and the thin product and K3 on the thin product), and as the last
-line ``{"ok": true, "device": {...}}`` with
+thin product, K2, K3, K4, K6, K7, K8 (spc=8) and the BaM small space at
+D=256, B=32 (K6 at K=8; the BaM kernels at tier 0, with ``ms_tier3`` and
+``device_ms_tier3`` at the most benign tier beside), null elsewhere; the
+profiler's kernel names must show K1 on the cluster small space and the
+thin product, K3 on the thin product, and K7, K8 and the BaM small space on
+the BaM cluster kernel, with every BaM row product on the thin product),
+and as the last line ``{"ok": true, "device": {...}}`` with
 ``count`` 1: everything runs on device 0.  Without a CUDA device it exits 1
 before printing any result.  Nothing here imports JAX.
 """
@@ -251,10 +257,13 @@ SOURCES = {
         "gsmvi_tpu_torch/ops/cuda/csrc/thin_gemm.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:778"),
     "bam_eps_update_fused": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/bam_fused.py:380"),
+    "bam_smallspace": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:195"),
     "make_fused_bam_multistep": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/bam_fused.py:425"),
     "make_fused_advi_multistep": (
         "gsmvi_tpu_torch/ops/cuda/csrc/advi.cu",
@@ -721,6 +730,47 @@ def phase_bam_kernels(bf, fs, torch, np, shapes=None, designed=True,
     return worst
 
 
+BAM_SMALL_SHAPES = ((B, D), BAM_RAGGED, (2, 10), (56, 257))
+
+
+def phase_bam_smallspace(bf, torch, np):
+    """The BaM cluster small space alone (``bam_smallspace``) against
+    ``bam_smallspace_stacks_reference`` on the K7 cases at
+    BAM_SMALL_SHAPES: the flags (res_ok, stiff) equal, the gate statistics
+    within BAM_STATS_RTOL, and where the plain update is good and not stiff
+    the stacked rows, ``vec`` and the trace sums within BAM_TOL of
+    max(1, scale)."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    worst = 0.0
+    for name, b, d, arrays, reg, gates, _ in bam_k7_cases(np,
+                                                          BAM_SMALL_SHAPES):
+        e, v, mu, f = (cu(x) for x in arrays)
+        vf = v @ f
+        rows = (e, v, vf, vf @ f.T, e @ f.T)
+        k = bf.bam_smallspace(*rows, mu, reg, **gates)
+        p = bf.bam_smallspace_stacks_reference(*rows, mu, reg, batch=b,
+                                               **gates)
+        torch.cuda.synchronize()
+        flags = [k[3][2:4].tolist(), p[3][2:4].tolist()]
+        rec = {"kernel": "bam_smallspace", "case": name, "B": b, "D": d,
+               "res_ok_stiff": flags, "ss": [k[3].tolist(), p[3].tolist()]}
+        check(flags[0] == flags[1], f"BaM small space flags {rec}")
+        check(np.allclose(k[3][:2].tolist(), p[3][:2].tolist(),
+                          rtol=BAM_STATS_RTOL, atol=0),
+              f"BaM small space stats {rec}")
+        if flags[1] == [1.0, 0.0]:
+            errs_tols = [_bam_close(x, y, BAM_TOL) for x, y in
+                         zip((k[0], k[1], k[2], k[3][4:]),
+                             (p[0], p[1], p[2], p[3][4:]))]
+            rec["errs_tols"] = errs_tols
+            check(all(err <= tol for err, tol in errs_tols),
+                  f"BaM small space disagrees with its plain version: {rec}")
+            worst = max([worst] + [err for err, _ in errs_tols])
+        emit({"phase": "bam_smallspace", **rec})
+    return {"bam_smallspace": worst}
+
+
 def phase_times(fs, dense_gaussian, torch, np):
     """Per-call times at the main path's shapes, kernel vs plain version
     (CUDA events; launches here are not counted toward the main path)."""
@@ -931,28 +981,57 @@ def phase_bam_times(bf, fs, fb, t, st, torch):
     block = torch.randn((spc * B, D), generator=gen, device=dev)
     reg = BAM_REGF0 / (N_BAM + 1.0)
     regs = [reg] * spc
-    out = {}
+    vf = v @ st.factor
+    rows = (eps, v, vf, vf @ st.factor.T, ef)
+    out, dev_ms, names = {}, {}, {}
     for label, (it, gg, lm) in (("tier0", bf.BAM_NS_TIERS[0]),
                                 ("tier3", bf.BAM_NS_TIERS[-1])):
         kw = dict(iters=it, lmax_gate=lm, gu_gate=gg)
         multi = bf.make_fused_bam_multistep(score_fn, len(params), B, D, spc,
                                             **kw)
+        fns = {
+            "bam_eps_update_fused": lambda: bf.bam_eps_update_fused(
+                eps, v, st.mean, st.factor, reg, ef=ef, **kw),
+            "make_fused_bam_multistep": lambda: multi(
+                regs, spc, 0, block, st.mean, st.factor, *params),
+            "bam_smallspace": lambda: bf.bam_smallspace(*rows, st.mean, reg,
+                                                        **kw)}
         out[label] = {
             "bam_eps_update_fused": (
-                cuda_ms(lambda: bf.bam_eps_update_fused(
-                    eps, v, st.mean, st.factor, reg, ef=ef, **kw), reps=20),
+                cuda_ms(fns["bam_eps_update_fused"], reps=20),
                 cuda_ms(lambda: bf.bam_eps_update_ns_reference(
                     eps, v, st.mean, st.factor, reg, ef=ef, **kw), reps=20)),
             "make_fused_bam_multistep": (
-                cuda_ms(lambda: multi(regs, spc, 0, block, st.mean,
-                                      st.factor, *params), reps=10),
+                cuda_ms(fns["make_fused_bam_multistep"], reps=10),
                 cuda_ms(lambda: bf.bam_multistep_reference(
                     fs.gaussian_score_reference, params, regs, spc, 0, block,
                     st.mean, st.factor, batch=B, **kw), reps=10)),
+            "bam_smallspace": (
+                cuda_ms(fns["bam_smallspace"], reps=50),
+                cuda_ms(lambda: bf.bam_smallspace_stacks_reference(
+                    *rows, st.mean, reg, batch=B, **kw), reps=20)),
         }
+        # Device time per call (torch.profiler) and the kernels each ran.
+        for k, fn in fns.items():
+            ms, kn = device_ms(fn, calls=10 if k.startswith("make") else 30)
+            dev_ms[(k, label)], names[(k, label)] = ms, kn
     emit({"phase": "bam_times", "B": B, "D": D, "spc": spc, "ms_per_call": {
-        label: {k: {"kernel": a, "plain": b} for k, (a, b) in tt.items()}
-        for label, tt in out.items()}})
+        label: {k: {"kernel": a, "plain": b, "device": dev_ms[(k, label)]}
+                for k, (a, b) in tt.items()}
+        for label, tt in out.items()},
+        "device_kernels": {f"{k} {label}": n for (k, label), n in
+                           names.items()}})
+    # K7 and K8 at B <= 56 run the cluster small space and every row
+    # product on the thin product: the 32x32 template only for the fat
+    # apply (one instantiation), never a one-block small space.
+    for (k, label), kn in names.items():
+        joined = " ".join(kn)
+        gemm = {n for n in kn if "gemm_kernel" in n}
+        check("bam_cluster_kernel" in joined
+              and "bam_smallspace_kernel" not in joined
+              and (k == "bam_smallspace"
+                   or ("thin_kernel" in joined and len(gemm) == 1)),
+              f"{k} ({label}) runs other kernels: {kn}")
     it, gg, lm = bf.BAM_NS_TIERS[0]
     kw = dict(iters=it, lmax_gate=lm, gu_gate=gg)
     work = {
@@ -965,8 +1044,14 @@ def phase_bam_times(bf, fs, fb, t, st, torch):
                 fs.gaussian_score_reference, params, regs, spc, 0, block,
                 st.mean, st.factor, batch=B, **kw),
             (block, st.mean, st.factor, *params)),
+        "bam_smallspace": (
+            lambda: bf.bam_smallspace_stacks_reference(
+                *rows, st.mean, reg, batch=B, **kw), (*rows, st.mean)),
     }
-    return out["tier0"], work
+    device = {k: dev_ms[(k, "tier0")] for k in out["tier0"]}
+    tier3 = {k: {"device_ms_tier3": dev_ms[(k, "tier3")],
+                 "ms_tier3": out["tier3"][k][0]} for k in out["tier3"]}
+    return out["tier0"], work, device, tier3
 
 
 def _advi_problem(np, b, d, spc, seed):
@@ -2485,6 +2570,7 @@ def main() -> int:
           "plain_iters_per_s": [rates[1], rates[2]]})
 
     worst.update(phase_bam_kernels(bf, fs, torch, np))
+    worst.update(phase_bam_smallspace(bf, torch, np))
     bam_counts, st6, fb = phase_bam_paths(BaM, FactorBaM, Regularizers, bf,
                                           fs, t, torch)
 
@@ -2518,7 +2604,9 @@ def main() -> int:
 
     times, work, library, device, library_device = phase_times(
         fs, dense_gaussian, torch, np)
-    for more in (phase_bam_times(bf, fs, fb, t, st6, torch),
+    bam_more = phase_bam_times(bf, fs, fb, t, st6, torch)
+    extra = bam_more[3]
+    for more in (bam_more[:3],
                  phase_advi_times(af, fs, torch, np),
                  phase_dense_batch_times(gs, bfm, fs, t, torch, np),
                  phase_eps_step_times(fs, t, torch), (range_times, range_work),
@@ -2545,7 +2633,8 @@ def main() -> int:
          "bound_by": bounds[name]["bound_by"],
          "library_ms": library.get(name),
          "device_ms": device.get(name),
-         "library_device_ms": library_device.get(name)}
+         "library_device_ms": library_device.get(name),
+         **extra.get(name, {})}
         for name, (src, rep) in SOURCES.items()]})
     # Every phase ran on device 0, the one card this script drives.
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,24 +18,28 @@ ported here:
   the trace gate, both stiffness gates, keep = good & ~stiff, the select,
   and the (gu_ub, lmax_ub) export.  Plain version:
   ``bam_eps_update_ns_reference`` over ``bam_smallspace_ns_reference``
-  (a line-by-line twin of ``_bam_smallspace_ns``).
+  (a line-by-line twin of ``_bam_smallspace_ns``).  Its small space alone
+  is ``bam_smallspace``, plain version ``bam_smallspace_stacks_reference``.
 - K8 ``make_fused_bam_multistep``: up to ``steps_per_call`` whole BaM steps
   per call with an external eps block and per-step regularizers, stopping
   at the first stiff (or, with ``stop_on_reject``, rejected) sub-step.
   Plain version: ``bam_multistep_reference``.
 
-On the card a K7 call is eight launches (``ops/cuda/csrc/bam_smallspace.cu``
-and the GEMM template): ``vf = v F``, ``t = vf F^T``, the one-block small
-space (above ``BAM_SHARED_MAX_B`` the global-memory chain
-``bam_smallspace_large`` of ``smallspace_global.cu`` in its place), the fat
-apply into a second buffer with per-tile sums of squares, the two mean
-matvecs on F', a one-block finalize (trace gate, keep, mean,
-report) and a grid select of F or F'.  A K8 call loops its sub-steps on the
-host with the ``ef``/``x`` GEMM and the score before those; each launch
-reads the report's ``stopped`` word and does nothing once the block has
-stopped.  Both return a float32 report of ``REP_SIZE`` values on the device
-(``REP_*`` indices), so a caller reads every flag and statistic of a call in
-ONE device-to-host transfer (``_bam_update_packed``, ``step.packed``).
+On the card a K7 call is eight launches: ``vf = v F`` and ``t = vf F^T``
+on the split-k thin product (``thin_gemm.cu``), the small space on a
+thread-block cluster of ``cluster_columns(D)`` blocks
+(``ops/cuda/csrc/bam_smallspace_cluster.cu``; above ``BAM_SHARED_MAX_B``
+the global-memory chain ``bam_smallspace_large`` of
+``smallspace_global.cu`` in its place), the fat apply on the GEMM template
+into a second buffer with per-tile sums of squares, the two mean matvecs on
+F' (thin product), a one-block finalize (trace gate, keep, mean, report;
+``bam_smallspace.cu``) and a grid select of F or F'.  A K8 call loops its
+sub-steps on the host with the ``ef``/``x`` thin product and the score
+before those; each launch reads the report's ``stopped`` word and does
+nothing once the block has stopped.  Both return a float32 report of
+``REP_SIZE`` values on the device (``REP_*`` indices), so a caller reads
+every flag and statistic of a call in ONE device-to-host transfer
+(``_bam_update_packed``, ``step.packed``).
 Wrappers run the plain version on CPU tensors, launch on CUDA tensors, and
 raise on what the kernels do not take; they never fall back.
 """
@@ -50,7 +54,8 @@ import torch
 from ..state import NS_STATS_INIT
 from .fused_step import (KERNEL_DIM_RANGE, KERNEL_WRAPPERS, _library,
                          _newton_inv, _ns_sqrt, _on_cpu, _ptr, _require,
-                         _rows, _spd_norm_ub, _stream, ns_sqrt_both)
+                         _spd_norm_ub, _stream, _thin, cluster_columns,
+                         ns_sqrt_both)
 
 # Newton-Schulz sweep counts (u_sqrt, cu_inv, s1_sqrt, p_invsqrt, w_inv),
 # sized by the JAX package for the gated envelope (bam_fused.py:65-76).
@@ -76,31 +81,49 @@ BAM_NS_TIERS = (
 FEEDBACK_CADENCE = 64
 FEEDBACK_MARGIN = 0.7
 
-# Report layout (float32), shared with bam_smallspace.cu.
+# Report layout (float32), shared with bam_smallspace.cu.  The small space
+# hands the finalize SS_SIZE results (gu_ub, lmax_ub, res_ok, stiff, and the
+# trace screen's two small-Gram sums).
 REP_KEEP, REP_STIFF, REP_GU, REP_LMAX = 0, 1, 2, 3
 REP_NDONE, REP_NACC, REP_STOPPED, REP_APPLY = 4, 5, 6, 7
 REP_SIZE = 8
+SS_SIZE = 6
 
 # Shapes the CUDA kernels take.  The small space is padded to kpad = B + 8
-# (the TPU kernel's padding, which the gates depend on).  The one-block
-# kernel (``bam_smallspace.cu``) keeps twelve (kpad, kpad) float32 matrices
-# and two (64, 33) row slabs in shared memory, and its Gram routine gives
-# each of 1024 threads four entries, so kpad <= 64: B <= 56
-# (BAM_SHARED_MAX_B) at 213,632 of the 232,448 bytes a block may use on
-# Hopper.  Above, up to B = 128 (the JAX kernel's own top,
-# ``gsmvi_tpu/ops/pallas/bam_fused.py:345-352``), the small space is a chain
-# of grid launches with its matrices in global memory
+# (the TPU kernel's padding, which the gates depend on).  The cluster kernel
+# (``bam_smallspace_cluster.cu``) keeps, in each block's shared memory,
+# twelve (kpad, kpad) float32 matrices at a padded leading dimension, three
+# (kpad, 36) row slabs and the column sums' (3, 8, 32) partials; its chain
+# products give each of 256 threads a T x T tile of a 16T x 16T grid, T <= 4,
+# so kpad <= 64: B <= 56 (BAM_SHARED_MAX_B) at 227,456 of the 232,448 bytes
+# a block may use on Hopper.  Above, up to B = 128 (the JAX kernel's own
+# top, ``gsmvi_tpu/ops/pallas/bam_fused.py:345-352``), the small space is a
+# chain of grid launches with its matrices in global memory
 # (``smallspace_global.cu``).  The D range is that of the GSM kernels
 # (``fused_step.KERNEL_DIM_RANGE``); D is masked at the tile edges.
 SMEM_LIMIT_BYTES = 232448
-_KPAD_MAX, _NMAT, _SLAB_LD = 64, 12, 33
+_KPAD_MAX, _NMAT, _SLAB_LD, _COL_PARTS = 64, 12, 36, 3 * 8 * 32
 _GEMM_TILE = 32                      # gemm.cuh's output tile
 
 
+def bam_cluster_tile(b: int) -> int:
+    """The chain tile T of the BaM cluster small space at batch ``b``: the
+    smallest T in 1-4 with kpad = b + 8 <= 16 T."""
+    return -(-(b + 8) // 16)
+
+
+def _cluster_ld(kpad: int, tile: int) -> int:
+    """The (kpad, kpad) matrices' leading dimension: a multiple of 4, of 12
+    at T = 3 (``bam_cluster_ld`` in ``bam_smallspace_cluster.cuh``)."""
+    step = 12 if tile == 3 else 4
+    return -(-kpad // step) * step
+
+
 def bam_smallspace_smem_bytes(b: int) -> int:
-    """Dynamic shared memory of the BaM small-space kernel at batch ``b``."""
+    """Dynamic shared memory of the BaM cluster small space at batch ``b``."""
     kpad = b + 8
-    return 4 * (32 + 2 * _KPAD_MAX * _SLAB_LD + _NMAT * kpad * kpad)
+    ld = _cluster_ld(kpad, bam_cluster_tile(b))
+    return 4 * (_NMAT * ld * ld + 3 * ld * _SLAB_LD + _COL_PARTS + 32)
 
 
 BAM_SHARED_MAX_B = max(b for b in range(1, _KPAD_MAX - 7)
@@ -130,6 +153,60 @@ def ns_tier_from_stats(gu_ub, lmax_ub, tiers=BAM_NS_TIERS,
 # Plain torch versions (the CPU path and the kernels' oracles)
 # ---------------------------------------------------------------------------
 
+def _bam_smallspace_core(om_t, q_t, fom_t, qf, *, iters, lmax_gate: float,
+                         gu_gate: float, tol: float):
+    """The chains and stacked rows of ``_bam_smallspace_ns`` from its
+    (kpad, D) row objects om_t, q_t = fu_t F, fom_t = (F Om)^T and qf =
+    q_t F^T.  Returns (stack_u, stack_w, res_ok, stiff, gu_ub, lmax_ub, ta,
+    tb): the (2 kpad, D) rows of F' = F + stack_u^T stack_w, the three
+    residual gates' verdict, the stiffness flag, the two gate statistics and
+    the trace screen's sums, ||F W1||^2 = ||F||^2 + 2 ta + tb."""
+    kpad = om_t.shape[0]
+    eye_k = torch.eye(kpad, dtype=om_t.dtype, device=om_t.device)
+    gu = om_t @ om_t.T
+    gu = 0.5 * (gu + gu.T)
+    gu_ub = _spd_norm_ub(gu)
+    s_u = _ns_sqrt(eye_k + gu, iters[0])
+    s_u = 0.5 * (s_u + s_u.T)
+    res_u = torch.sum((s_u @ s_u - (eye_k + gu)) ** 2) \
+        / (torch.sum((eye_k + gu) ** 2) + 1e-30)
+    cu = _newton_inv(eye_k + s_u, iters[1])
+
+    omq = om_t @ q_t.T
+    y_t = q_t + (cu @ omq).T @ om_t
+
+    g = y_t @ y_t.T
+    g = 0.5 * (g + g.T)
+    lmax_ub = _spd_norm_ub(g)
+    stiff = (lmax_ub > lmax_gate) | (gu_ub > gu_gate)
+    a1 = eye_k + 4.0 * g
+    s1 = _ns_sqrt(a1, iters[2])
+    s1 = 0.5 * (s1 + s1.T)
+    res_1 = torch.sum((s1 @ s1 - a1) ** 2) / (torch.sum(a1 ** 2) + 1e-30)
+    ips = eye_k + s1
+    _, p = ns_sqrt_both(ips, iters[3])
+    p = 0.5 * (p + p.T)
+    res_p = torch.sum(((p @ p) @ ips - eye_k) ** 2) / kpad
+    winv = _newton_inv(eye_k + math.sqrt(2.0) * p, iters[4])
+    p2 = p @ p
+    tau = -4.0 * ((p2 @ p2) @ winv)
+    tau = 0.5 * (tau + tau.T)
+
+    w1row = cu @ om_t
+    cu_omq = cu @ omq
+    yf = qf + cu_omq.T @ fom_t
+    yw1 = y_t @ w1row.T
+    fyT = yf + yw1 @ fom_t
+    u2row = tau @ fyT
+    stack_u = torch.cat([fom_t, u2row])
+    stack_w = torch.cat([w1row, y_t])
+    w1f = cu @ fom_t
+    ta = torch.sum(w1f * fom_t)
+    tb = torch.sum((fom_t @ fom_t.T) * (w1row @ w1row.T))
+    res_ok = (res_u < tol) & (res_1 < tol) & (res_p < tol)
+    return stack_u, stack_w, res_ok, stiff, gu_ub, lmax_ub, ta, tb
+
+
 def bam_smallspace_ns_reference(e, v, mu, f, reg, *, batch: int,
                                 iters=BAM_NS_ITERS_DEFAULT,
                                 lmax_gate: float = LMAX_GATE_DEFAULT,
@@ -153,38 +230,7 @@ def bam_smallspace_ns_reference(e, v, mu, f, reg, *, batch: int,
     zeros_pad = torch.zeros((kpad - b - 1, d), dtype=dt, device=dev)
     om_t = torch.cat([sru * ed, -torch.sqrt(r1) * epsbar, zeros_pad])
     fu_t = torch.cat([sru * gd, torch.sqrt(r1) * gbar, zeros_pad])
-
-    eye_k = torch.eye(kpad, dtype=dt, device=dev)
-    gu = om_t @ om_t.T
-    gu = 0.5 * (gu + gu.T)
-    gu_ub = _spd_norm_ub(gu)
-    s_u = _ns_sqrt(eye_k + gu, iters[0])
-    s_u = 0.5 * (s_u + s_u.T)
-    res_u = torch.sum((s_u @ s_u - (eye_k + gu)) ** 2) \
-        / (torch.sum((eye_k + gu) ** 2) + 1e-30)
-    cu = _newton_inv(eye_k + s_u, iters[1])
-
     q_t = fu_t @ f
-    omq = om_t @ q_t.T
-    y_t = q_t + (cu @ omq).T @ om_t
-
-    g = y_t @ y_t.T
-    g = 0.5 * (g + g.T)
-    lmax_ub = _spd_norm_ub(g)
-    stiff = (lmax_ub > lmax_gate) | (gu_ub > gu_gate)
-    a1 = eye_k + 4.0 * g
-    s1 = _ns_sqrt(a1, iters[2])
-    s1 = 0.5 * (s1 + s1.T)
-    res_1 = torch.sum((s1 @ s1 - a1) ** 2) / (torch.sum(a1 ** 2) + 1e-30)
-    ips = eye_k + s1
-    _, p = ns_sqrt_both(ips, iters[3])
-    p = 0.5 * (p + p.T)
-    res_p = torch.sum(((p @ p) @ ips - eye_k) ** 2) / kpad
-    winv = _newton_inv(eye_k + math.sqrt(2.0) * p, iters[4])
-    p2 = p @ p
-    tau = -4.0 * ((p2 @ p2) @ winv)
-    tau = 0.5 * (tau + tau.T)
-
     if ef_t is None:
         fom_t = om_t @ f.T
         ef_bar = None
@@ -192,28 +238,64 @@ def bam_smallspace_ns_reference(e, v, mu, f, reg, *, batch: int,
         ef_bar = torch.mean(ef_t, dim=0, keepdim=True)
         fom_t = torch.cat([sru * (ef_t - ef_bar), -torch.sqrt(r1) * ef_bar,
                            zeros_pad])
-    w1row = cu @ om_t
-    cu_omq = cu @ omq
     qf = q_t @ f.T
-    yf = qf + cu_omq.T @ fom_t
-    yw1 = y_t @ w1row.T
-    fyT = yf + yw1 @ fom_t
-    u2row = tau @ fyT
-    stack_u = torch.cat([fom_t, u2row])
-    stack_w = torch.cat([w1row, y_t])
+    stack_u, stack_w, res_ok, stiff, gu_ub, lmax_ub, ta, tb = \
+        _bam_smallspace_core(om_t, q_t, fom_t, qf, iters=iters,
+                             lmax_gate=lmax_gate, gu_gate=gu_gate, tol=tol)
     f_new = f + stack_u.T @ stack_w
-    w1f = cu @ fom_t
-    tr_v = (torch.sum(f * f) + 2.0 * torch.sum(w1f * fom_t)
-            + torch.sum((fom_t @ fom_t.T) * (w1row @ w1row.T)))
+    tr_v = torch.sum(f * f) + 2.0 * ta + tb
     tr_new = torch.sum(f_new * f_new)
     good = (torch.isfinite(tr_new) & (tr_new <= 1.05 * tr_v + 1e-6)
-            & (res_u < tol) & (res_1 < tol) & (res_p < tol))
+            & res_ok)
 
     t1 = gbar @ f_new
     s_gbar = t1 @ f_new.T
     xbar = mu + (ef_bar if ef_bar is not None else epsbar @ f.T)
     mu_new = mu / (1.0 + reg) + r1 * (s_gbar + xbar)
     return mu_new, f_new, good, stiff, gu_ub, lmax_ub
+
+
+def bam_smallspace_stacks_reference(e, v, vf, t, ef, mean, reg, *,
+                                    batch: int, iters=BAM_NS_ITERS_DEFAULT,
+                                    lmax_gate: float = LMAX_GATE_DEFAULT,
+                                    gu_gate: float = GU_GATE_DEFAULT,
+                                    tol: float = NS_TOL):
+    """The small space alone (the plain version of ``bam_smallspace``), in
+    the kernel's formulation: om_t, q_t, qf and fom_t assembled from the
+    rows e, vf = v F, t = vf F^T and ef = e F^T (B, D) and their column
+    means, then ``bam_smallspace_ns_reference``'s chains line for line.
+    Returns (stack_u, stack_w, vec, ss): the fat apply's rows of
+    F' = F + stack_u^T stack_w ((2 (B+1), D) each, the kpad pad rows, which
+    are zero, left out), vec = [gbar; mean + efbar] (2, D) and ss, the
+    ``SS_SIZE`` results (gu_ub, lmax_ub, res_ok, stiff, ta, tb) that the
+    finalize reads."""
+    b = batch
+    d = e.shape[-1]
+    kpad = b + 8
+    reg = torch.as_tensor(reg, dtype=torch.float32)
+    r1 = reg / (1.0 + reg)
+    sru = torch.sqrt(reg / b)
+    sr1 = torch.sqrt(r1)
+    pad = torch.zeros((kpad - b - 1, d), dtype=e.dtype, device=e.device)
+
+    def centred(x, sign):
+        """[sru (x - xbar); sign sr1 xbar; 0] (kpad, D), and xbar."""
+        xbar = torch.mean(x, dim=0, keepdim=True)
+        return torch.cat([sru * (x - xbar), sign * (sr1 * xbar), pad]), xbar
+
+    om_t, _ = centred(e, -1.0)
+    q_t, _ = centred(vf, 1.0)
+    qf, _ = centred(t, 1.0)
+    fom_t, ef_bar = centred(ef, -1.0)
+    stack_u, stack_w, res_ok, stiff, gu_ub, lmax_ub, ta, tb = \
+        _bam_smallspace_core(om_t, q_t, fom_t, qf, iters=iters,
+                             lmax_gate=lmax_gate, gu_gate=gu_gate, tol=tol)
+    rows = torch.cat([torch.arange(b + 1), kpad + torch.arange(b + 1)])
+    vec = torch.cat([torch.mean(v, dim=0, keepdim=True),
+                     mean.reshape(1, d) + ef_bar])
+    ss = torch.stack([gu_ub, lmax_ub, res_ok.to(e.dtype), stiff.to(e.dtype),
+                      ta, tb]).to(e.dtype)
+    return stack_u[rows], stack_w[rows], vec, ss
 
 
 def bam_eps_update_ns_reference(eps, vs, mean, f, reg,
@@ -317,30 +399,44 @@ class _BamBuffers:
                    if b > BAM_SHARED_MAX_B else None)
 
 
+def _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf: _BamBuffers,
+                           reg, iters, lmax_gate, gu_gate, halt=None) -> None:
+    """The small space of one update, from ``buf.vf`` and ``buf.t``: the
+    stacked rows ``buf.su``/``buf.sw``, ``buf.vec`` and ``buf.ss``.  Up to
+    ``BAM_SHARED_MAX_B`` on a cluster of ``cluster_columns(D)`` blocks
+    (counted in ``bam_smallspace.launches``), above on the global-memory
+    chain (``bam_smallspace_large``)."""
+    b, d = e.shape
+    args = (_ptr(e), _ptr(v), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
+            _ptr(mean_in), _ptr(buf.rows), _ptr(buf.su), _ptr(buf.sw),
+            _ptr(buf.vec), _ptr(buf.ss), _ptr(halt))
+    scalars = (float(reg), *iters, float(lmax_gate), float(gu_gate), NS_TOL)
+    if buf.ws is None:
+        bam_smallspace.launches += 1
+        lib.call("gsmvi_bam_smallspace_cluster", *args, b, d, *scalars,
+                 *cluster_columns(d), bam_cluster_tile(b), stream)
+    else:
+        bam_smallspace_large(lib, stream, args, buf.ws, b, d, scalars)
+
+
 def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
                        f_prop, buf: _BamBuffers, reg, iters, lmax_gate,
                        gu_gate, rep, halt=None, multistep: int = 0,
                        stop_on_reject: int = 0) -> None:
-    """One update's launches: vf, t, small space, fat apply (F' into
-    ``f_prop``), the two mean matvecs on F', finalize (mean into
-    ``mean_out``, report into ``rep``) and the select of F' or ``f_in``
-    into ``f_dst``."""
+    """One update's launches: vf, t (thin product), small space, fat apply
+    (F' into ``f_prop``), the two mean matvecs on F' (thin product),
+    finalize (mean into ``mean_out``, report into ``rep``) and the select of
+    F' or ``f_in`` into ``f_dst``."""
     b, d = e.shape
-    h = _ptr(halt)
-    _rows(lib, stream, v, f_in, buf.vf, trans=False, halt=halt)
-    _rows(lib, stream, buf.vf, f_in, buf.t, trans=True, halt=halt)
-    args = (_ptr(e), _ptr(v), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
-            _ptr(mean_in), _ptr(buf.rows), _ptr(buf.su), _ptr(buf.sw),
-            _ptr(buf.vec), _ptr(buf.ss), h)
-    scalars = (float(reg), *iters, float(lmax_gate), float(gu_gate), NS_TOL)
-    if buf.ws is None:
-        lib.call("gsmvi_bam_smallspace", *args, b, d, *scalars, stream)
-    else:
-        bam_smallspace_large(lib, stream, args, buf.ws, b, d, scalars)
+    _thin(lib, stream, v, f_in, buf.vf, trans=False, halt=halt)
+    _thin(lib, stream, buf.vf, f_in, buf.t, trans=True, halt=halt)
+    _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf, reg, iters,
+                           lmax_gate, gu_gate, halt=halt)
     lib.call("gsmvi_bam_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_prop), _ptr(buf.partial), h, 2 * (b + 1), d, stream)
-    _rows(lib, stream, buf.vec[:1], f_prop, buf.t1, trans=False, halt=halt)
-    _rows(lib, stream, buf.t1, f_prop, buf.sg, trans=True, halt=halt)
+             _ptr(f_prop), _ptr(buf.partial), _ptr(halt), 2 * (b + 1), d,
+             stream)
+    _thin(lib, stream, buf.vec[:1], f_prop, buf.t1, trans=False, halt=halt)
+    _thin(lib, stream, buf.t1, f_prop, buf.sg, trans=True, halt=halt)
     lib.call("gsmvi_bam_finalize", _ptr(buf.partial), buf.nparts,
              _ptr(buf.ss), _ptr(buf.sg), _ptr(buf.vec), _ptr(mean_in),
              _ptr(mean_out), _ptr(rep), multistep, stop_on_reject,
@@ -353,9 +449,9 @@ def bam_smallspace_large(lib, stream, args, ws, b: int, d: int,
                          scalars) -> None:
     """Launch the global-memory BaM small space (``smallspace_global.cu``)
     that K7 and K8 run above ``BAM_SHARED_MAX_B``: ``args`` are
-    ``gsmvi_bam_smallspace``'s pointers, ``scalars`` (reg, iters, gates,
-    tol), ``ws`` its workspace.  ``launches`` counts the updates that took
-    it, so a run shows which small space ran."""
+    ``gsmvi_bam_smallspace_cluster``'s pointers, ``scalars`` (reg, iters,
+    gates, tol), ``ws`` its workspace.  ``launches`` counts the updates that
+    took it, so a run shows which small space ran."""
     bam_smallspace_large.launches += 1
     lib.call("gsmvi_bam_smallspace_large", *args, _ptr(ws), b, d, *scalars,
              stream)
@@ -391,7 +487,7 @@ def _bam_update_packed(eps, vs, mean, f, reg, iters=BAM_NS_ITERS_DEFAULT,
     bam_eps_update_fused.launches += 1
     if ef is None:
         ef = torch.empty_like(eps)
-        _rows(lib, stream, eps, f, ef, trans=True)
+        _thin(lib, stream, eps, f, ef, trans=True)
     else:
         _require("ef", ef, (b, d))
     buf = _BamBuffers(b, d, eps.device)
@@ -481,7 +577,7 @@ def make_fused_bam_multistep(score_fn, n_params: int, batch: int, d: int,
         halt = rep[REP_STOPPED:]
         for j in range(nmax):
             e = eps_block[j * batch:(j + 1) * batch]
-            _rows(lib, stream, e, f_w, ef, trans=True, mu=mean_w, x_out=x,
+            _thin(lib, stream, e, f_w, ef, trans=True, mu=mean_w, x_out=x,
                   halt=halt)
             v = score_fn(x, *params)
             _require("score", v, (batch, d))
@@ -504,10 +600,42 @@ def make_fused_bam_multistep(score_fn, n_params: int, batch: int, d: int,
 
 make_fused_bam_multistep.launches = 0
 
+
+def bam_smallspace(e, v, vf, t, ef, mean, reg, iters=BAM_NS_ITERS_DEFAULT,
+                   lmax_gate: float = LMAX_GATE_DEFAULT,
+                   gu_gate: float = GU_GATE_DEFAULT):
+    """K7/K8's small space alone: from the rows e, v, vf = v F, t = vf F^T
+    and ef = e F^T (B, D), the mean (D,) and ``reg``, returns (stack_u,
+    stack_w, vec, ss): the fat apply's (2 (B+1), D) rows, [gbar; mean +
+    efbar] (2, D) and the ``SS_SIZE`` results the finalize reads (gu_ub,
+    lmax_ub, res_ok, stiff, ta, tb).  On the card the cluster kernel
+    (``bam_smallspace_cluster.cu``) for B <= ``BAM_SHARED_MAX_B``, the
+    global-memory chain above; on the CPU
+    ``bam_smallspace_stacks_reference``."""
+    b, d = e.shape
+    iters = tuple(int(i) for i in iters)
+    if _on_cpu(e, v, vf, t, ef, mean):
+        return bam_smallspace_stacks_reference(
+            e, v, vf, t, ef, mean, reg, batch=b, iters=iters,
+            lmax_gate=lmax_gate, gu_gate=gu_gate)
+    _require_bam_shape(b, d)
+    for name, x in (("e", e), ("v", v), ("vf", vf), ("t", t), ("ef", ef)):
+        _require(name, x, (b, d))
+    _require("mean", mean, (d,))
+    buf = _BamBuffers(b, d, e.device)
+    buf.vf, buf.t = vf, t
+    _launch_bam_smallspace(_library(), _stream(e.device), e, v, ef, mean,
+                           buf, reg, iters, lmax_gate, gu_gate)
+    return buf.su, buf.sw, buf.vec, buf.ss[:SS_SIZE]
+
+
+bam_smallspace.launches = 0
+
 # Registered beside K1-K3, so ``fused_step.launch_counts()`` and
 # ``reset_launch_counts()`` cover every kernel of the package.
 KERNEL_WRAPPERS.update({
     "bam_eps_update_fused": bam_eps_update_fused,
     "make_fused_bam_multistep": make_fused_bam_multistep,
     "bam_smallspace_large": bam_smallspace_large,
+    "bam_smallspace": bam_smallspace,
 })

@@ -44,8 +44,8 @@ SIGNATURES = {
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 11 + [_I] * 3 + [_P],
     "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
-    "gsmvi_bam_smallspace": [_P] * 12 + [_I, _I, _F] + [_I] * 5
-    + [_F, _F, _F, _P],
+    "gsmvi_bam_smallspace_cluster": [_P] * 12 + [_I, _I, _F] + [_I] * 5
+    + [_F, _F, _F] + [_I] * 3 + [_P],
     "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _P],
     "gsmvi_bam_select": [_P] * 4 + [_I, _P],
     "gsmvi_advi_l_adam": [_P] * 5 + [_I, _I] + [_F] * 9 + [_P],

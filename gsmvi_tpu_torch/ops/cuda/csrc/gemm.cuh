@@ -9,14 +9,13 @@
 // products and `gaussian_score_kernel` (:778) run on the split-k thin
 // product (thin_gemm.cu).
 //
-// The BaM step (bam_smallspace.cu) uses the same template for its products
-// (gsmvi_tpu/ops/pallas/bam_fused.py: `ef` at :467, `q_t`/`qf`/`fom_t` at
-// :265/:312/:303 assembled from `vf`/`t`/`ef` rows, the fat apply at :319
-// and the mean matvecs at :329-330), with two additions: a device halt word
-// that makes a launch a no-op once a multistep block has stopped, and an
-// epilogue that also writes per-block sums of squares of F' and F (the
+// The BaM step runs its fat apply on the same template
+// (gsmvi_tpu/ops/pallas/bam_fused.py :319; gemm.cu `gsmvi_bam_apply`; its
+// row products run on the thin product), with two additions: a device halt
+// word that makes a launch a no-op once a multistep block has stopped, and
+// an epilogue that also writes per-block sums of squares of F' and F (the
 // trace screen), reduced in a fixed order so that the accept flag
-// reproduces from run to run.
+// reproduces from run to run.  ADVI's row products take the halt word too.
 //
 // Numerics: plain f32 FFMA, no TF32 and no mma/wgmma, which is what
 // Precision.HIGHEST means on the TPU.  What bounds it on an H100: at the main

@@ -2,9 +2,10 @@
 // BaM NS update for 56 < B <= 128, with the (B, B) / (kpad, kpad) matrices in
 // global memory.
 //
-// Replace, for the batches the one-block shared-memory kernels cannot hold
-// (eps_smallspace_cluster.cu: twelve (B, B), B <= 64; bam_smallspace.cu:
-// twelve (kpad, kpad), kpad = B + 8 <= 64), the same two TPU kernel bodies:
+// Replace, for the batches the shared-memory cluster kernels cannot hold
+// (eps_smallspace_cluster.cu: twelve (B, B), B <= 64;
+// bam_smallspace_cluster.cu: twelve (kpad, kpad), kpad = B + 8 <= 64), the
+// same two TPU kernel bodies:
 //   gsmvi_eps_smallspace_large  gsmvi_tpu/ops/pallas/fused_step.py
 //       `_eps_smallspace_ns` (:231) from the row work at :287 to the stacked
 //       rows at :345, both residual gates and the mean half of the select;
@@ -13,7 +14,7 @@
 //   gsmvi_bam_smallspace_large  gsmvi_tpu/ops/pallas/bam_fused.py
 //       `_bam_smallspace_ns` (:195) from the row factors at :242 to the trace
 //       screen at :321; the body of K7 (:380) and K8 (:425).
-// Each computes what its one-block twin computes, step for step: the same
+// Each computes what its shared-memory twin computes, step for step: the same
 // Newton-Schulz / Newton-Hotelling chains with the same row-sum norm seeds,
 // every symmetrisation, the same residual, stiffness and trace statistics,
 // and the same padding (kpad = B + 8 enters BaM's gates).  Only the storage
@@ -601,7 +602,8 @@ long long gsmvi_bam_large_ws(int b) {
 }
 
 // K7/K8's small space for 56 < B <= 128 (any B >= 1 works): the arguments
-// of gsmvi_bam_smallspace plus `ws`, gsmvi_bam_large_ws(b) floats.
+// of gsmvi_bam_smallspace_cluster but the cluster's shape, plus `ws`,
+// gsmvi_bam_large_ws(b) floats.
 int gsmvi_bam_smallspace_large(const float* e, const float* v, const float* vf, const float* t,
                                const float* ef, const float* mean_in, float* rows, float* su,
                                float* sw, float* vec, float* ss, const float* halt, float* ws,

@@ -1,22 +1,25 @@
-// Register-tiled (n, n) chain primitives for the cluster small space
-// (eps_smallspace_cluster.cu): products, symmetrisation, the row-sum norm
-// seed, the relative residual, the coupled Newton-Schulz square root and the
-// Newton-Hotelling inverse, as in smallspace.cuh, which the BaM, Cholesky
-// and global-memory small spaces keep using unchanged.
+// Register-tiled (n, n) chain primitives for the cluster small spaces
+// (eps_smallspace_cluster.cu, bam_smallspace_cluster.cu): products,
+// symmetrisation, the row-sum norm seed, the relative residual, the coupled
+// Newton-Schulz square root and inverse root, and the Newton-Hotelling
+// inverse.
 //
 // They replace the Pallas helpers `_spd_norm_ub` (:189), `_ns_sqrt` (:198)
-// and `_newton_inv` (:214) of gsmvi_tpu/ops/pallas/fused_step.py.
+// and `_newton_inv` (:214) of gsmvi_tpu/ops/pallas/fused_step.py and
+// `_ns_sqrt_both` (:176) of gsmvi_tpu/ops/pallas/bam_fused.py.
 //
 // Layout: an (n, n) matrix lives in shared memory with the padded leading
 // dimension ld = round_up(n, 4) and zeros outside the (n, n) corner, which
 // every function here keeps (it writes only i, j < n).  A product runs on a
 // 16 x 16 grid of SC_THREADS = 256 threads, each owning a T x T output tile
-// (T = 1, 2, 4 for n <= 16, 32, 64), reading rows of A as float4 along k and
-// rows of B as T-wide vectors: 2T loads for 4 T^2 FMA, where the one-output-
-// per-thread `smm` of smallspace.cuh makes two loads per FMA.  Each output's
-// k order is ascending, as in `smm` (the padded k add exact zeros), so a
-// product of the same operands gives the same value.  Every function is
-// called by all threads of the block and ends in a barrier.
+// (T = 1, 2, 4 for n <= 16, 32, 64; T = 3 for n <= 48 at an ld that is a
+// multiple of 12, so that a tile never reads past row ld), reading rows of A
+// as float4 along k and rows of B as T-wide vectors (scalars at T = 3): 2T
+// loads for 4 T^2 FMA, where a one-output-per-thread product makes two
+// loads per FMA.  Each output's k order is ascending (the padded k add
+// exact zeros), so a product of the same operands gives the same value at
+// every T.  Every function is called by all threads of the block and ends
+// in a barrier.
 #pragma once
 
 #include "smallspace.cuh"
@@ -32,6 +35,8 @@ __device__ __forceinline__ void load_vec(float (&r)[T], const float* ptr) {
     if constexpr (T == 4) {
         const float4 v = *reinterpret_cast<const float4*>(ptr);
         r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+    } else if constexpr (T == 3) {
+        r[0] = ptr[0]; r[1] = ptr[1]; r[2] = ptr[2];
     } else if constexpr (T == 2) {
         const float2 v = *reinterpret_cast<const float2*>(ptr);
         r[0] = v.x; r[1] = v.y;
@@ -221,6 +226,38 @@ __device__ void tns_sqrt(const float* A, float* out, int n, int ld, int iters, f
         tmp = Z; Z = Z2; Z2 = tmp;
     }
     each_entry<T>(n, ld, [=](int, int, int o) { out[o] = Y[o] * sq; });
+}
+
+// The coupled Newton-Schulz iteration's inverse root (`_ns_sqrt_both`'s
+// second output, the Z iterate of `tns_sqrt`): out = A^{-1/2} of SPD A;
+// w[0..4] scratch.  The last step forms only the Z
+// product, divided by sqrt(norm) straight into out.
+template <int T>
+__device__ void tns_inv_sqrt(const float* A, float* out, int n, int ld, int iters,
+                             float* const* w, float* red) {
+    const float nrm = tnorm_ub(A, n, ld, red);
+    const float sq = sqrtf(nrm);
+    float* Y = w[0];
+    float* Z = w[1];
+    float* Tm = w[2];
+    float* Y2 = w[3];
+    float* Z2 = w[4];
+    each_entry<T>(n, ld, [=](int i, int j, int o) {
+        Y[o] = A[o] / nrm;
+        Z[o] = (i == j) ? 1.f : 0.f;
+    });
+    for (int it = 0; it < iters; ++it) {
+        tmm<T>(Z, Y, Tm, n, ld,
+               [](int i, int j, float acc) { return 0.5f * ((i == j ? 3.f : 0.f) - acc); });
+        if (it + 1 == iters) {
+            tmm<T>(Tm, Z, out, n, ld, [=](int, int, float acc) { return acc / sq; });
+            return;
+        }
+        tmm_pair<T>(Y, Tm, Z, Y2, Z2, n, ld, [](float y) { return y; });
+        float* tmp = Y; Y = Y2; Y2 = tmp;
+        tmp = Z; Z = Z2; Z2 = tmp;
+    }
+    each_entry<T>(n, ld, [=](int, int, int o) { out[o] = Z[o] / sq; });
 }
 
 // Newton-Hotelling inverse of SPD A (`_newton_inv`) into out; w[0..2]

@@ -6,8 +6,10 @@
 // `ef = e F^T` with `x = mu + ef` (:622/:727), `vf = v F` (:450/:732) and
 // `t = vf F^T` (:286), which the TPU kernels ran as Precision.HIGHEST dots in
 // their own bodies.  K1, K2, K4, K6 and batched K1 (ops/fused_step.py) run
-// their row products here; BaM, ADVI, K4a and the zoo keep the 32x32 tile
-// template of gemm.cuh.
+// their row products here, and so do K7 and K8 (ops/bam_fused.py: vf, t,
+// ef with x = mu + ef, and the mean matvecs gbar F', (gbar F') F'^T of
+// gsmvi_tpu/ops/pallas/bam_fused.py :265/:312/:467/:329-330); ADVI, K4a and
+// the zoo keep the 32x32 tile template of gemm.cuh.
 //
 // What bounds it on an H100: at the main path's shape (M=32, D=256) the
 // product is 2 M FMA over a 256 KiB matrix, 0.000098 ms of bytes, so it is

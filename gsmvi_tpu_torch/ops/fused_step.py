@@ -610,15 +610,15 @@ def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
              _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride, stream)
 
 
-def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None,
-          x_out=None) -> None:
+def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
+          halt=None) -> None:
     """``_rows`` on the split-k thin product (``thin_gemm.cu``), counted
     in ``thin_product.launches``."""
     k, stride = _replicas(rows)
     m, d = rows.shape[-2:]
     thin_product.launches += 1
     lib.call("gsmvi_thin_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
-             _ptr(x_out), _ptr(None), m, d, int(trans), k, stride,
+             _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride,
              *thin_split(d), stream)
 
 

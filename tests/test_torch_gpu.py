@@ -1042,3 +1042,179 @@ def test_cluster_kernels_repeat_bit_for_bit(cuda):
                            fs.thin_product(v, f, trans=True))
         assert torch.equal(fs.gaussian_score(e, mean[None], f),
                            fs.gaussian_score(e, mean[None], f))
+
+
+# ---------------------------------------------------------------------------
+# BaM's cluster small space (bam_smallspace_cluster.cu) and thin row
+# products over B 1-56 and D 1-8192: the small space alone and K7 against
+# their plain versions on the four designed inputs (flags equal; stacks,
+# mean and factor within 1e-5 of max(1, scale), or within 8x the float32
+# rounding floor of the input where that is larger, the rule of
+# chip_smoke.py's mixture and chol checks); K8's counts
+# at B 2, 32 and 56; repeat launches equal bit for bit; a stopped K8 block's
+# later launches are no-ops.
+# ---------------------------------------------------------------------------
+
+BAM_CLUSTER_B = [1, 2, 3, 7, 31, 32, 33, 55, 56]
+
+
+def _bam_rows(e, v, f):
+    vf = v @ f
+    return e, v, vf, vf @ f.T, e @ f.T
+
+
+def _bam_stacks_update(bf, rows, mu, f, reg, **gates):
+    """(mean, F') of an update assembled from the small space's plain
+    version, as the fat apply and the finalize assemble them."""
+    su, sw, vec, _ = bf.bam_smallspace_stacks_reference(
+        *rows, mu, reg, batch=rows[0].shape[0], **gates)
+    f_new = f + su.T @ sw
+    r1 = reg / (1.0 + reg)
+    return mu / (1.0 + reg) + r1 * ((vec[0] @ f_new) @ f_new.T + vec[1]), \
+        f_new
+
+
+def _bam_floor(bf, e, v, mu, f, reg, p, **gates):
+    """The float32 rounding floor of an accepted update: the larger distance
+    from the plain version in float64 of the two plain float32 formulations,
+    K7's (q_t = fu_t F) and the kernel's (q_t, qf, fom_t from the rows vf, t
+    and ef), on the mean and on the factor.  The stiff_gu inputs at D <= 10
+    are accepted 1-3x under the gu gate, cond(I + Gu) ~ 1e4, where the two
+    formulations already part at the 1e-2 level of the mean."""
+    x64 = [x.double() for x in (e, v, mu, f)]
+    p64 = bf.bam_eps_update_ns_reference(*x64, reg, ef=x64[0] @ x64[3].T,
+                                         **gates)
+    s32 = _bam_stacks_update(bf, _bam_rows(e, v, f), mu, f, reg, **gates)
+    return tuple(max(float((a - c).abs().max()), float((b - c).abs().max()))
+                 for a, b, c in zip(p[:2], s32, p64[:2]))
+
+
+@pytest.mark.parametrize("d", CLUSTER_D)
+@pytest.mark.parametrize("b", BAM_CLUSTER_B)
+def test_bam_cluster_smallspace_and_k7_match_plain(cuda, b, d):
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    for case in sorted(BAM_K7_CASES):
+        kw, reg, gates, _ = BAM_K7_CASES[case]
+        e, v, mu, f = _bam_inputs(cuda, b, d, seed=b * 10000 + d, **kw)
+        rows = _bam_rows(e, v, f)
+        fs.reset_launch_counts()
+        su_k, sw_k, vec_k, ss_k = bf.bam_smallspace(*rows, mu, reg, **gates)
+        assert fs.launch_counts()["bam_smallspace"] == 1
+        su_p, sw_p, vec_p, ss_p = bf.bam_smallspace_stacks_reference(
+            *rows, mu, reg, batch=b, **gates)
+        assert ss_k[2:4].tolist() == ss_p[2:4].tolist(), case
+        assert np.allclose(ss_k[:2].tolist(), ss_p[:2].tolist(), rtol=1e-3,
+                           atol=0), case
+        k = bf.bam_eps_update_fused(e, v, mu, f, reg, ef=rows[4], **gates)
+        p = bf.bam_eps_update_ns_reference(e, v, mu, f, reg, ef=rows[4],
+                                           **gates)
+        assert (bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3])), case
+        assert np.allclose(k[4].tolist(), p[4].tolist(), rtol=1e-3, atol=0)
+        if not bool(p[2]):
+            assert torch.equal(k[0], mu) and torch.equal(k[1], f), case
+            continue
+        assert _within(vec_k, vec_p, 1e-5), case
+        floor = _bam_floor(bf, e, v, mu, f, reg, p, **gates)
+        mean_tol = max(1e-5 * max(1.0, float(p[0].abs().max())),
+                       8 * floor[0])
+        f_tol = max(1e-5 * max(1.0, float(p[1].abs().max())), 8 * floor[1])
+        assert float((k[0] - p[0]).abs().max()) <= mean_tol, case
+        assert float((k[1] - p[1]).abs().max()) <= f_tol, case
+        f_k, f_p = f + su_k.T @ sw_k, f + su_p.T @ sw_p
+        assert float((f_k - f_p).abs().max()) <= f_tol, case
+
+
+# K8's counts at B=2: the reg-2.0 sub-step of the two reject cases trips the
+# stiffness gate there (the plain version's counts), not the residual gates.
+BAM_K8_COUNTS_B2 = {"reject_consumed": (2, 2, 1), "stop_on_reject": (2, 2, 1)}
+
+
+@pytest.mark.parametrize("b", [2, 32, 56])
+@pytest.mark.parametrize("case", sorted(BAM_K8_CASES))
+def test_bam_multistep_counts_over_the_cluster_range(cuda, case, b):
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    changes, nmax, sor, iters, counts = BAM_K8_CASES[case]
+    if b == 2:
+        counts = BAM_K8_COUNTS_B2.get(case, counts)
+    d, spc = 256, 8
+    regs = [1e-4 if iters is not None else 0.05] * spc
+    for j, r in (changes or {}).items():
+        regs[j] = r
+    params = (torch.linspace(-1.0, 1.0, d, device=cuda).reshape(1, d),
+              torch.eye(d, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    block = torch.randn((spc * b, d), generator=gen, device=cuda)
+    mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    kw = {} if iters is None else {"iters": iters}
+    step = bf.make_fused_bam_multistep(fs.gaussian_score, 2, b, d, spc, **kw)
+    k = step(regs, nmax, sor, block, mean0, f0, *params)
+    p = bf.bam_multistep_reference(fs.gaussian_score_reference, params, regs,
+                                   nmax, sor, block, mean0, f0, batch=b, **kw)
+    assert tuple(int(x) for x in k[2:5]) == tuple(int(x) for x in p[2:5]) \
+        == counts
+    assert np.allclose(k[5].tolist(), p[5].tolist(), rtol=1e-3, atol=0)
+    assert _within(k[0], p[0], 1e-4) and _within(k[1], p[1], 1e-4)
+
+
+def test_bam_cluster_kernels_repeat_bit_for_bit(cuda):
+    """Two launches on the same inputs give the same bits (no atomics):
+    the small space, K7 and K8."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    for b, d in ((32, 256), (56, 8192), (3, 257)):
+        e, v, mu, f = _bam_inputs(cuda, b, d, seed=7, v_scale=0.05)
+        rows = _bam_rows(e, v, f)
+        for a, c in zip(bf.bam_smallspace(*rows, mu, 0.5),
+                        bf.bam_smallspace(*rows, mu, 0.5)):
+            assert torch.equal(a, c)
+        k1 = bf.bam_eps_update_fused(e, v, mu, f, 0.5)
+        k2 = bf.bam_eps_update_fused(e, v, mu, f, 0.5)
+        assert all(torch.equal(a, c) for a, c in zip(k1, k2))
+    d, b, spc = 256, 32, 8
+    params = (torch.zeros(1, d, device=cuda), torch.eye(d, device=cuda))
+    block = torch.randn((spc * b, d), device=cuda)
+    step = bf.make_fused_bam_multistep(fs.gaussian_score, 2, b, d, spc)
+    run = lambda: step.packed([0.05] * spc, spc, 0, block,
+                              torch.zeros(d, device=cuda),
+                              torch.eye(d, device=cuda), *params)
+    assert all(torch.equal(a, c) for a, c in zip(run(), run()))
+
+
+def test_bam_stopped_block_leaves_later_launches_no_ops(cuda):
+    """A halt word that is set makes the thin product and the cluster small
+    space write nothing; a K8 block that stops at sub-step 3 ends in the
+    bits of a block that ran sub-steps 0-2 only."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    b, d, spc = 32, 256, 8
+    e, v, mu, f = _bam_inputs(cuda, b, d, seed=3, v_scale=0.05)
+    halt = torch.ones(1, device=cuda)
+    lib, stream = fs._library(), fs._stream(cuda)
+    out = torch.full((b, d), 7.0, device=cuda)
+    fs._thin(lib, stream, e, f, out, trans=True, halt=halt)
+    fs._thin(lib, stream, e, f, out, trans=False, halt=halt)
+    buf = bf._BamBuffers(b, d, cuda)
+    for x in (buf.su, buf.sw, buf.vec, buf.ss, buf.rows):
+        x.fill_(7.0)
+    buf.vf, buf.t = _bam_rows(e, v, f)[2:4]
+    bf._launch_bam_smallspace(lib, stream, e, v, e @ f.T, mu, buf, 0.5,
+                              bf.BAM_NS_ITERS_DEFAULT, bf.LMAX_GATE_DEFAULT,
+                              bf.GU_GATE_DEFAULT, halt=halt)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert all(bool((x == 7.0).all())
+               for x in (buf.su, buf.sw, buf.vec, buf.ss, buf.rows))
+    params = (torch.linspace(-1.0, 1.0, d, device=cuda).reshape(1, d),
+              torch.eye(d, device=cuda))
+    block = torch.randn((spc * b, d), device=cuda)
+    regs = [0.05] * spc
+    regs[3] = 1e9
+    step = bf.make_fused_bam_multistep(fs.gaussian_score, 2, b, d, spc)
+    mean0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    stopped = step.packed(regs, spc, 0, block, mean0, f0, *params)
+    three = step.packed(regs, 3, 0, block, mean0, f0, *params)
+    assert stopped[2][bf.REP_STOPPED].item() == 1.0
+    assert torch.equal(stopped[0], three[0])
+    assert torch.equal(stopped[1], three[1])

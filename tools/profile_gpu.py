@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
-    python3 tools/profile_gpu.py [--steps 64]
+    python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001] [--only-bam]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -10,11 +10,16 @@ Profiles ``--steps`` steps of the GSM paths at the headline cell
 at ``steps_per_call=1`` (K4 with K3 inside, one call per step), the dense
 route ``GSM(..., use_factor=False)`` (K5 and the ``cholesky_ex``
 accept/revert per step) and ``fit_batch`` of K=8 replicas on its "fused"
-(K6) and "ns" (batched K1) routes.  For each it prints one JSON line: the
-host wall time per step (profiler on, so inflated), the device busy time
-per step (union of kernel intervals), the device's idle share of the
-profiled window, and device time per kernel name (per step of all the
-replicas together for ``fit_batch``).  Then the same device breakdown per
+(K6) and "ns" (batched K1) routes; then ``--bam-steps`` steps (a whole
+2001-step fit by default, so that the NS tiers mix as in a fit) of the BaM
+paths, ``BaM.fit`` (K7 per step) and ``FactorBaM(fused_score=...)`` (K8
+with K3 inside, spc=8), with ``Regularizers().linear(100.0)`` and
+retries=0, each with its steps per NS tier (``--only-bam``: these
+alone).  For each it prints one JSON line: the host wall time per step
+(profiler on, so inflated), the device busy time per step (union of
+kernel intervals), the device's idle share of the profiled window, and
+device time per kernel name (per step of all the replicas together for
+``fit_batch``).  Then the same device breakdown per
 call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
 (``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
 (0, I).  The profiler slows the host, so it
@@ -54,16 +59,18 @@ def busy_us(kernels) -> float:
     return total
 
 
-def profile_fit(name, fitter, steps, torch, replicas=None, **kw):
-    """Profile ``steps`` steps of ``fitter.fit`` (or of ``fit_batch`` over
-    ``replicas`` seeds, with ``kw``)."""
+def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
+                counts=None, **kw):
+    """Profile ``steps`` steps of ``fitter.fit(seed, *fit_args, **kw)`` (or
+    of ``fit_batch`` over ``replicas`` seeds, with ``kw``); ``counts()``,
+    when given, adds the fitter's counts of the profiled fit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def run(seed, niter):
         if replicas is None:
-            return fitter.fit(seed, batch_size=32, niter=niter,
-                              verbose=False)
+            return fitter.fit(seed, *fit_args, batch_size=32, niter=niter,
+                              verbose=False, **kw)
         return fitter.fit_batch(range(seed, seed + replicas), batch_size=32,
                                 niter=niter, **kw)
 
@@ -88,6 +95,7 @@ def profile_fit(name, fitter, steps, torch, replicas=None, **kw):
     busy = busy_us(kernels)
     print(json.dumps({
         "path": name, "steps": steps, "replicas": replicas or 1,
+        **({"fit_counts": counts()} if counts is not None else {}),
         "wall_us_per_step_profiled": wall_us / steps,
         "device_busy_us_per_step": busy / steps,
         "device_idle_share": (1.0 - busy / wall_us) if kernels else None,
@@ -149,39 +157,54 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=64)
+    parser.add_argument("--bam-steps", type=int, default=2001)
+    parser.add_argument("--only-bam", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_gpu: no CUDA device", file=sys.stderr)
         return 1
-    from gsmvi_tpu_torch import GSM, FactorGSM
+    from gsmvi_tpu_torch import BaM, FactorBaM, FactorGSM, GSM, Regularizers
     from gsmvi_tpu_torch.models import dense_gaussian
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     t = dense_gaussian(0, 256, device="cuda")
-    fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
-                      device="cuda")
-    draw_cost(fused, 8, torch, blocks=5)                        # warm up
-    print(json.dumps({"eps_draw_host_us_per_step": {
-        f"K={k}": [draw_cost(fused, k, torch) for _ in range(3)]
-        for k in (1, 8, 32)}}), flush=True)
-    profile_fit("GSM (K1 per step)", GSM(256, t.lp, t.lp_g, device="cuda"),
-                args.steps, torch)
-    profile_fit("FactorGSM fused_score (K2+K3, spc=8)", fused, args.steps,
-                torch)
-    profile_fit("FactorGSM fused_score spc=1 (K4+K3 per step)",
-                FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
-                          steps_per_call=1, device="cuda"), args.steps, torch)
-    profile_fit("GSM use_factor=False (K5 + cholesky_ex per step)",
-                GSM(256, t.lp, t.lp_g, device="cuda", use_factor=False),
-                args.steps, torch)
-    profile_fit("FactorGSM.fit_batch fused (K6+K3, spc=8), K=8", fused,
-                args.steps, torch, replicas=8, small_solver="fused")
-    profile_fit("FactorGSM.fit_batch ns (batched K1), K=8",
-                FactorGSM(256, t.lp, t.lp_g, device="cuda"), args.steps,
-                torch, replicas=8, small_solver="ns")
-
+    if not args.only_bam:
+        fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                          device="cuda")
+        draw_cost(fused, 8, torch, blocks=5)                    # warm up
+        print(json.dumps({"eps_draw_host_us_per_step": {
+            f"K={k}": [draw_cost(fused, k, torch) for _ in range(3)]
+            for k in (1, 8, 32)}}), flush=True)
+        profile_fit("GSM (K1 per step)",
+                    GSM(256, t.lp, t.lp_g, device="cuda"), args.steps, torch)
+        profile_fit("FactorGSM fused_score (K2+K3, spc=8)", fused,
+                    args.steps, torch)
+        profile_fit("FactorGSM fused_score spc=1 (K4+K3 per step)",
+                    FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                              steps_per_call=1, device="cuda"), args.steps,
+                    torch)
+        profile_fit("GSM use_factor=False (K5 + cholesky_ex per step)",
+                    GSM(256, t.lp, t.lp_g, device="cuda", use_factor=False),
+                    args.steps, torch)
+        profile_fit("FactorGSM.fit_batch fused (K6+K3, spc=8), K=8", fused,
+                    args.steps, torch, replicas=8, small_solver="fused")
+        profile_fit("FactorGSM.fit_batch ns (batched K1), K=8",
+                    FactorGSM(256, t.lp, t.lp_g, device="cuda"), args.steps,
+                    torch, replicas=8, small_solver="ns")
+    regf = Regularizers().linear(100.0)
+    bam = BaM(256, t.lp, t.lp_g, device="cuda")
+    profile_fit("BaM (K7 per step)", bam, args.bam_steps, torch,
+                fit_args=(regf,), retries=0,
+                counts=lambda: dict(bam._get_factor_fitter().fit_counts))
+    fbam = FactorBaM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                     device="cuda")
+    profile_fit("FactorBaM fused_score (K8+K3, spc=8)", fbam, args.bam_steps,
+                torch, fit_args=(regf,), retries=0,
+                counts=lambda: dict(fbam.fit_counts))
+    if args.only_bam:
+        return 0
     from gsmvi_tpu_torch.ops import fused_step as fs
 
     score_fn, params = t.fused_score

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the cluster small space goes, phase by phase, on one
+"""Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--shapes 32x256 8x200 64x1024]
+    python3 tools/smallspace_phases.py [--kernel eps|bam] [--shapes 32x256 ...]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
-eps_smallspace_cluster*.cu``) a second time with ``-DGSMVI_PHASE_STAMPS``,
-which makes thread 0 of every block of replica 0 write the global timer at
-each phase boundary, into ``gsmvi_tpu_torch/ops/cuda/_build/``.  For each
-(B, D) it launches that library 20 times as a warm-up and 200 times
-between CUDA events (one replica, from random rows and a well-conditioned
-factor made on the card), then prints one JSON line: the card, the mean
-microseconds per launch, and the last launch's microseconds per phase in
-rank 0 and in the last rank of the cluster.  The stamps cost a few global
-stores per phase; the kernel the port runs has none.
+eps_smallspace_cluster*.cu``, ``--kernel eps``) or BaM's
+(``bam_smallspace_cluster*.cu``, ``--kernel bam``, at the NS profile of
+tier 0) a second time with ``-DGSMVI_PHASE_STAMPS``, which makes thread 0
+of every block of replica 0 write the global timer at each phase boundary,
+into ``gsmvi_tpu_torch/ops/cuda/_build/``.  For each (B, D) it launches
+that library 20 times as a warm-up and 200 times between CUDA events (one
+replica, from random rows and a well-conditioned factor made on the card),
+then prints one JSON line: the card, the mean microseconds per launch, and
+the last launch's microseconds per phase in rank 0 and in the last rank of
+the cluster.  The stamps cost a few global stores per phase; the kernel the
+port runs has none.
 """
 
 from __future__ import annotations
@@ -34,15 +36,21 @@ PHASES = ("row sums + cluster sync", "row scalars", "pass 1 (c, Gram partials) +
           "e c^T sum + cuiec", "pass 2 (Xi~, w1row, Gram partials)", "partials + sync",
           "S2 = sqrt(I - Gv)", "S2's residual + cv = -(I + S2)^-1", "Q sum", "pass 3 (stacked rows, mean)",
           "flags + exit barrier")
+BAM_PHASES = ("pass 1 (row factors, Gram partials) + sync", "Gu sum + s_u = sqrt(I + Gu)",
+              "s_u's residual + cu = (I + s_u)^-1", "Om^T Q sum + cu Om^T Q",
+              "pass 2 (y, w1, four Gram partials) + sync", "four Gram sums",
+              "trace sums, lmax, I + 4G + cluster wait", "s1 = sqrt(I + 4G)",
+              "s1's residual", "p = (I + s1)^-1/2", "p p, res_p", "winv + tau",
+              "pass 3 (u2 rows)", "ss + exit")
 
 
-def build(build_mod) -> Path:
-    """The stamped library (built once per source hash)."""
-    srcs = sorted(build_mod.CSRC.glob("eps_smallspace_cluster*.cu"))
-    h = hashlib.sha256(b"GSMVI_PHASE_STAMPS")
+def build(build_mod, kernel: str) -> Path:
+    """The stamped library of ``kernel`` (built once per source hash)."""
+    srcs = sorted(build_mod.CSRC.glob(f"{kernel}_smallspace_cluster*.cu"))
+    h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
     for p in sorted(build_mod.CSRC.glob("*.cu*")):
         h.update(p.read_bytes())
-    so = build_mod.BUILD_DIR / f"phases_{h.hexdigest()[:16]}.so"
+    so = build_mod.BUILD_DIR / f"phases_{kernel}_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     build_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,23 +72,29 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--shapes", nargs="*", default=["32x256", "8x200", "64x1024"])
+    parser.add_argument("--kernel", choices=("eps", "bam"), default="eps")
+    parser.add_argument("--shapes", nargs="*", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("smallspace_phases: no CUDA device", file=sys.stderr)
         return 1
+    from gsmvi_tpu_torch.ops import bam_fused as bf
     from gsmvi_tpu_torch.ops import fused_step as fs
     from gsmvi_tpu_torch.ops.cuda import _build
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
-    lib = ctypes.CDLL(str(build(_build)))
-    fn = lib.gsmvi_eps_smallspace_cluster
-    fn.argtypes = _build.SIGNATURES["gsmvi_eps_smallspace_cluster"]
+    lib = ctypes.CDLL(str(build(_build, args.kernel)))
+    entry = f"gsmvi_{args.kernel}_smallspace_cluster"
+    fn = getattr(lib, entry)
+    fn.argtypes = _build.SIGNATURES[entry]
+    names = PHASES if args.kernel == "eps" else BAM_PHASES
+    shapes = args.shapes or (["32x256", "8x200", "64x1024"] if args.kernel == "eps"
+                             else ["32x256", "12x200", "56x1024"])
     dev = torch.device("cuda")
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
-    for shape in args.shapes:
+    for shape in shapes:
         b, d = map(int, shape.split("x"))
         gen = torch.Generator(device=dev).manual_seed(3)
         e = torch.randn((b, d), generator=gen, device=dev)
@@ -89,13 +103,26 @@ def main() -> int:
                                                          device=dev) / d ** 0.5
         mean = torch.randn(d, generator=gen, device=dev)
         vf = v @ f
-        buf = fs._UpdateBuffers(b, d, dev)
         ranks, cols = fs.cluster_columns(d)
-        ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean, torch.empty_like(mean),
-                                 buf.good, None, buf.su, buf.sw, buf.c, buf.xim)]
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        call = lambda: fn(*ptrs, b, d, *fs.ns_iters_for_batch(b), fs.NS_TOL, 1, e.numel(),
-                          ranks, cols, stream)
+        if args.kernel == "eps":
+            buf = fs._UpdateBuffers(b, d, dev)
+            ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean,
+                                     torch.empty_like(mean), buf.good, None, buf.su,
+                                     buf.sw, buf.c, buf.xim)]
+            call = lambda: fn(*ptrs, b, d, *fs.ns_iters_for_batch(b), fs.NS_TOL, 1,
+                              e.numel(), ranks, cols, stream)
+            tile = "b16" if b <= 16 else "b32" if b <= 32 else "b64"
+            verdict = lambda: {"good": int(buf.good[0])}
+        else:
+            buf = bf._BamBuffers(b, d, dev)
+            ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean, buf.rows, buf.su,
+                                     buf.sw, buf.vec, buf.ss, None)]
+            tile = f"t{bf.bam_cluster_tile(b)}"
+            call = lambda: fn(*ptrs, b, d, 0.5, *bf.BAM_NS_ITERS_DEFAULT,
+                              bf.LMAX_GATE_DEFAULT, bf.GU_GATE_DEFAULT, bf.NS_TOL, ranks,
+                              cols, bf.bam_cluster_tile(b), stream)
+            verdict = lambda: {"ss": buf.ss[:bf.SS_SIZE].tolist()}
         for _ in range(20):
             if call() != 0:
                 raise RuntimeError("the stamped small space failed to launch")
@@ -106,18 +133,17 @@ def main() -> int:
             call()
         stop.record()
         torch.cuda.synchronize()
-        tile = "b16" if b <= 16 else "b32" if b <= 32 else "b64"
-        stamps = (ctypes.c_longlong * (8 * (len(PHASES) + 1)))()
-        getattr(lib, f"gsmvi_eps_cluster_{tile}_phases")(stamps)
-        n = len(PHASES) + 1
+        stamps = (ctypes.c_longlong * (8 * 15))()
+        getattr(lib, f"gsmvi_{args.kernel}_cluster_{tile}_phases")(stamps)
+        n = 15
         per_rank = {}
         for rank in sorted({0, ranks - 1}):
             ts = stamps[rank * n:(rank + 1) * n]
             per_rank[f"rank {rank}"] = {
-                name: (ts[i + 1] - ts[i]) / 1e3 for i, name in enumerate(PHASES)}
-            per_rank[f"rank {rank}"]["total"] = (ts[-1] - ts[0]) / 1e3
-        print(json.dumps({"card": card, "B": b, "D": d, "cluster": [ranks, cols],
-                          "good": int(buf.good[0]),
+                name: (ts[i + 1] - ts[i]) / 1e3 for i, name in enumerate(names)}
+            per_rank[f"rank {rank}"]["total"] = (ts[len(names)] - ts[0]) / 1e3
+        print(json.dumps({"card": card, "kernel": args.kernel, "B": b, "D": d,
+                          "cluster": [ranks, cols], **verdict(),
                           "us_per_launch": start.elapsed_time(stop) * 1e3 / 200,
                           "us_per_phase": per_rank}), flush=True)
     return 0
