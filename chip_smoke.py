@@ -16,13 +16,22 @@ the script exits non-zero):
    the residual gates reject; and K1's two kernels alone, the cluster small
    space ``eps_smallspace`` against ``eps_smallspace_stacks_reference`` and
    the split-k ``thin_product`` (both transposes, with x = mu + out)
-   against the plain products.
+   against the plain products.  A full K2 block is held as a CUDA graph
+   (``graph_block``: the call that captures and the replay after it both
+   equal the eager block bit for bit); so are K6's in phase 12 and K2's
+   over phase 17's shapes, B=128 and B=512 included.
 2. main path: ``GSM(D=256, ..., device="cuda").fit(seed, batch_size=32,
    niter=N)`` on the dense-Gaussian target; K1's launch count must rise by
    exactly N + 1 and the converged moment errors must be under the bound.
 3. headline path: ``FactorGSM(..., fused_score=t.fused_score,
    device="cuda")`` (spc=8); K2 and K3 must launch, the moments converge,
    and its it/s is printed beside the plain version's on the same card.
+   Then the same fit on eager blocks (``cuda_graph=False``) must give the
+   same state bit for bit, and ``graph_report`` prints both it/s, the
+   captures' seconds and pool bytes, host and wall us per block, and the
+   runtime calls per block under ``torch.profiler``: one
+   ``cudaGraphLaunch``, and besides it at most the block's draws and
+   BLOCK_HOST_CALLS more (phases 13 and 20 the same for K6 and the zoo).
 4. BaM kernels: K7 ``bam_eps_update_fused`` against
    ``bam_eps_update_ns_reference`` at (B=32, D=256) and (B=12, D=200) on a
    benign, two stiff (lmax and gu gate) and a rejected input, with and
@@ -140,12 +149,14 @@ one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
 device time per call under ``torch.profiler`` for K1, its small space and
 thin product, K2, K3, K4, K6, K7, K8 (spc=8) and the BaM small space at
 D=256, B=32 (K6 at K=8; the BaM kernels at tier 0, with ``ms_tier3`` and
-``device_ms_tier3`` at the most benign tier beside), null elsewhere; the
+``device_ms_tier3`` at the most benign tier beside; K2 and K6 with
+``ms_eager`` and ``device_ms_eager``, their blocks enqueued eagerly, beside
+the graph's ``ms``), null elsewhere; the
 profiler's kernel names must show K1 on the cluster small space and the
 thin product, K3 on the thin product, and K7, K8 and the BaM small space on
 the BaM cluster kernel, with every BaM row product on the thin product),
 and as the last line ``{"ok": true, "device": {...}}`` with
-``count`` 1: everything runs on device 0.  Without a CUDA device it exits 1
+``count`` ``torch.cuda.device_count()``: everything runs on device 0.  Without a CUDA device it exits 1
 before printing any result.  Nothing here imports JAX.
 """
 
@@ -378,6 +389,97 @@ def device_ms(fn, calls: int = 50, warmup: int = 5) -> tuple:
     return 1e-3 * us / calls, sorted({k.name for k in kernels})
 
 
+def graph_block(step, nmax, block, mean, f, params, torch):
+    """A K2/K6 block (``FusedBlocks``) that, when full, is held to the
+    graph: the first call captures, the second replays, and both must
+    equal the same block enqueued eagerly (``graph=False``) bit for bit.
+    Returns the replayed (or, for nmax < spc, the eager) result."""
+    eager = step(nmax, block, mean, f, *params, graph=False)
+    if nmax < step.spc:
+        return eager
+    outs = [step(nmax, block, mean, f, *params) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for out in outs for x, y in zip(out, eager)),
+          f"a {type(step).__name__} graph block differs from the eager block "
+          f"(B={step.batch}, D={step.d}, K={step.k})")
+    check(len(step.captures) >= 1, "no CUDA graph was captured")
+    return outs[1]
+
+
+def host_block_us(runner, state, blocks, spc, torch) -> tuple:
+    """(host us per block, wall us per block) of ``blocks`` full blocks of
+    a fit's chunk runner: the host clock around the enqueue alone, then
+    around enqueue and ``synchronize``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        state = runner(state, spc)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return 1e6 * (t1 - t0) / blocks, 1e6 * (t2 - t0) / blocks
+
+
+def host_api_per_block(runner, state, blocks, spc, torch) -> dict:
+    """The CUDA runtime calls the host makes per full block of a fit's
+    chunk runner (``torch.profiler``'s host events), by name, and the
+    kernels the device ran per block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner(state, spc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(blocks):
+            state = runner(state, spc)
+        torch.cuda.synchronize()
+    api, kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels += 1
+        elif e.name.startswith("cuda") and e.name != "cudaDeviceSynchronize":
+            api[e.name] = api.get(e.name, 0) + 1
+    return {"api": {k: v / blocks for k, v in sorted(api.items())},
+            "kernel_nodes": kernels / blocks}
+
+
+# The host's calls per graph block besides its draws' launches: the copies
+# of (mean, F) in and of (mean, F, n_acc) out, and the runner's three count
+# updates (eight), with room for two more.
+BLOCK_HOST_CALLS = 10
+
+
+def graph_report(fitter, runner, state, spc, torch, blocks=16) -> dict:
+    """Phases 3, 13 and 20: a fit runner's captures (seconds, pool bytes),
+    host and wall us per full block on the graph and on eager blocks
+    (``cuda_graph`` off), and the runtime calls per graph block.  Fails
+    unless a full block is one graph launch and the host's other calls
+    per block are at most its draws (spc per replica) and
+    BLOCK_HOST_CALLS more."""
+    rec = {"captures": list(runner.blocks.captures)}
+    for graph in (True, False):
+        fitter.cuda_graph = graph
+        runner(state, spc)
+        host, wall = host_block_us(runner, state, blocks, spc, torch)
+        rec["graph" if graph else "eager"] = {"host_us_per_block": host,
+                                              "wall_us_per_block": wall}
+    fitter.cuda_graph = True
+    rec["per_graph_block"] = calls = host_api_per_block(runner, state,
+                                                        blocks, spc, torch)
+    api = calls["api"]
+    launches = sum(v for k, v in api.items() if k.startswith(
+        "cudaLaunchKernel"))
+    check(api.get("cudaGraphLaunch") == 1.0,
+          f"a full block must be one graph launch: {calls}")
+    draws = spc * (len(state.seed) if isinstance(state.seed, tuple) else 1)
+    check(launches + api.get("cudaMemcpyAsync", 0)
+          <= draws + BLOCK_HOST_CALLS,
+          f"the host issues more than the draws and a handful of calls per "
+          f"block: {calls}")
+    return rec
+
+
 def _tensors(obj):
     import torch
 
@@ -552,7 +654,11 @@ def phase_kernels(fs, dense_gaussian, torch, np):
         mean0 = torch.zeros(d, device=dev)
         f0 = torch.eye(d, device=dev)
         for nmax in (spc, 3):
-            m_k, f_k, n_k = step(nmax, block, mean0, f0, *params)
+            # A full block: the first call runs eagerly and captures its
+            # CUDA graph, the second replays it; both equal the eager
+            # block bit for bit.  nmax < spc runs eagerly.
+            m_k, f_k, n_k = graph_block(step, nmax, block, mean0, f0, params,
+                                        torch)
             m_p, f_p, n_p = fs.eps_multistep_reference(
                 fs.gaussian_score_reference, params, nmax, block, mean0, f0,
                 batch=b)
@@ -563,7 +669,9 @@ def phase_kernels(fs, dense_gaussian, torch, np):
             rec = {"kernel": "make_fused_eps_multistep", "B": b, "D": d,
                    "spc": spc, "nmax": nmax, "n_acc": [int(n_k), int(n_p)],
                    "mean_err": em, "f_err": ef_,
-                   "f_tol": MULTI_TOL * fscale, "mean_tol": MULTI_TOL}
+                   "f_tol": MULTI_TOL * fscale, "mean_tol": MULTI_TOL,
+                   "graphs_captured": len(step.captures),
+                   "graph_equals_eager": True}
             emit({"phase": "kernels", **rec})
             check(int(n_k) == int(n_p) == nmax, f"K2 accepted counts {rec}")
             check(em <= MULTI_TOL and ef_ <= MULTI_TOL * fscale,
@@ -845,11 +953,16 @@ def phase_times(fs, dense_gaussian, torch, np):
               for k, fn in dev_fns.items()}
     library_device = {k: device_ms(fn)[0] for k, fn in lib_fns.items()}
     names = {k: n for k, (_, n) in device.items()}
+    # K2 per call as one graph replay (``ms``) and on eager blocks.
+    eager = lambda: step(spc, block, mean, f, *params, graph=False)
+    k2_eager = {"ms_eager": cuda_ms(eager, reps=20),
+                "device_ms_eager": device_ms(eager, calls=20)[0]}
     emit({"phase": "times", "B": B, "D": D, "ms_per_call": {
         k: {"kernel": a, "plain": b, "library": library.get(k),
             "device": device[k][0] if k in device else None,
             "library_device": library_device.get(k)}
-        for k, (a, b) in times.items()}, "device_kernels": names})
+        for k, (a, b) in times.items()}, "device_kernels": names,
+        "make_fused_eps_multistep_eager": k2_eager})
     # The main path's K1 runs the cluster small space and the thin product,
     # and the 32x32 tile template only for the fat apply (TA, EPI_SELECT_ADD);
     # K3 runs the thin product alone.
@@ -863,7 +976,7 @@ def phase_times(fs, dense_gaussian, torch, np):
     check("thin_kernel" in k3 and "gemm_kernel" not in k3,
           f"K3 runs other kernels: {names['gaussian_score']}")
     return times, work, library, {k: ms for k, (ms, _) in device.items()}, \
-        library_device
+        library_device, {"make_fused_eps_multistep": k2_eager}
 
 
 def phase_bam_paths(BaM, FactorBaM, Regularizers, bf, fs, t, torch):
@@ -1425,6 +1538,26 @@ def _timed(fn, torch):
     return out, time.perf_counter() - t0
 
 
+def graph_vs_eager(fitter, run, st, wall, steps, runner, torch) -> dict:
+    """A fit ``run()`` on K2/K6 graph blocks (state ``st`` in ``wall``
+    seconds), run again on eager blocks (``cuda_graph=False``): the same
+    state bit for bit, both it/s, and ``graph_report`` of its runner."""
+    fitter.cuda_graph = False
+    try:
+        st_e, wall_e = _timed(run, torch)
+    finally:
+        fitter.cuda_graph = True
+    same = bool(torch.equal(st.mean, st_e.mean)
+                and torch.equal(st.factor, st_e.factor)
+                and torch.equal(st.n_accepted, st_e.n_accepted))
+    check(same, "the fit on graph blocks differs from the fit on eager "
+          "blocks")
+    return {"graph_iters_per_s": steps / wall,
+            "eager_iters_per_s": steps / wall_e,
+            "graph_equals_eager": same,
+            **graph_report(fitter, runner, st, fitter.steps_per_call, torch)}
+
+
 def phase_dense_paths(GSM, fs, t, torch):
     """Phase 11: the dense route on K5 at B=32 (use_factor=False) and at
     B=512 (the huge-batch guard)."""
@@ -1478,7 +1611,8 @@ def phase_batch_kernels(bfm, fs, t, torch):
             ("full", blocks, spc, [spc] * k),
             ("nmax_lt_spc", blocks, 3, [3] * k),
             ("one_rejected", rejected, spc, [spc, spc, spc - 1, spc])):
-        m_k, f_k, n_k = step(nmax, blk, means, factors, *params)
+        m_k, f_k, n_k = graph_block(step, nmax, blk, means, factors, params,
+                                    torch)
         m_p, f_p, n_p = bfm.eps_batch_multistep_reference(
             fs.gaussian_score_reference, params, nmax, blk, means, factors,
             batch=B)
@@ -1495,7 +1629,8 @@ def phase_batch_kernels(bfm, fs, t, torch):
                "K": k, "B": B, "D": D, "spc": spc, "nmax": nmax,
                "n_acc": [n_k.tolist(), n_p.tolist()], "mean_err": em,
                "f_err": ef_, "f_tol": MULTI_TOL * fscale,
-               "mean_tol": MULTI_TOL, "replicas_equal_single_k2": same}
+               "mean_tol": MULTI_TOL, "replicas_equal_single_k2": same,
+               "graphs_captured": len(step.captures)}
         emit({"phase": "batch_kernels", **rec})
         check(n_k.tolist() == n_p.tolist() == want, f"K6 counts {rec}")
         check(em <= MULTI_TOL and ef_ <= MULTI_TOL * fscale,
@@ -1526,13 +1661,13 @@ def phase_fit_batch_paths(GSM, FactorGSM, fs, t, st_single, torch):
          lambda: GSM(D, t.lp, t.lp_g, device="cuda", use_factor=False)
          .fit_batch(seeds, batch_size=B, niter=N_ITER, return_state=True),
          "gsm_update_fused"))
-    counts, states = [], {}
+    counts, states, walls = [], {}, {}
     for route, fitter, run, kernel in runs:
         fs.reset_launch_counts()
         st, wall = _timed(run, torch)
         c = fs.launch_counts()
         counts.append(c)
-        states[route] = st
+        states[route], walls[route] = st, wall
         e = _replica_errs(st.mean, st.cov, t)
         emit({"phase": "fit_batch_path", "route": route, "fitter": fitter,
               "K": FIT_BATCH_K, "D": D, "B": B, "niter": N_ITER,
@@ -1555,10 +1690,14 @@ def phase_fit_batch_paths(GSM, FactorGSM, fs, t, st_single, torch):
         for i, (em, ec) in enumerate(e):
             _errs_bounded(em, ec, (MEAN_ERR_BOUND, COV_ERR_BOUND),
                           f"fit_batch {route} replica {i}")
+    # The K6 fit on eager blocks: the same state, its it/s, the host's cost.
+    fused = states["fused"]
+    emit({"phase": "fit_batch_graph", "K": FIT_BATCH_K, **graph_vs_eager(
+        fg, runs[0][2], fused, walls["fused"], N_ITER + 1,
+        fg._get_runner(B, "step", FIT_BATCH_K), torch)})
     # Replicas 0 and 1 of the K6 fit against the single K2 fits.
     st1 = fg.fit(1, batch_size=B, niter=N_ITER, verbose=False,
                  return_state=True)
-    fused = states["fused"]
     same = [bool(torch.equal(fused.mean[i], s.mean)
                  and torch.equal(fused.factor[i], s.factor)
                  and int(fused.n_accepted[i]) == int(s.n_accepted))
@@ -1640,13 +1779,18 @@ def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
     work["make_fused_eps_batch_multistep"] = (
         plain, (blocks, means, factors, *params))
     device = {"make_fused_eps_batch_multistep": device_ms(k6, calls=10)[0]}
+    # K6 per call as one graph replay (``ms``) and on eager blocks.
+    eager = lambda: step(spc, blocks, means, factors, *params, graph=False)
+    k6_eager = {"ms_eager": cuda_ms(eager, reps=10),
+                "device_ms_eager": device_ms(eager, calls=10)[0]}
     emit({"phase": "dense_batch_times", "D": D, "K": k, "spc": spc,
           "ms_per_call": {n: {"kernel": a, "plain": p,
                               "device": device.get(n)}
-                          for n, (a, p) in times.items()}})
+                          for n, (a, p) in times.items()},
+          "make_fused_eps_batch_multistep_eager": k6_eager})
     times["gsm_update_fused"] = times[f"gsm_update_fused_B{B}"]
     work["gsm_update_fused"] = work[f"gsm_update_fused_B{B}"]
-    return times, work, device
+    return times, work, device, {"make_fused_eps_batch_multistep": k6_eager}
 
 
 def _cov(f):
@@ -2074,7 +2218,7 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
         block = torch.randn((spc * b, d), generator=gen, device=dev)
         step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
         m0, f0 = torch.zeros(d, device=dev), torch.eye(d, device=dev)
-        mk2, fk2, nk2 = step(spc, block, m0, f0, *params)
+        mk2, fk2, nk2 = graph_block(step, spc, block, m0, f0, params, torch)
         mp2, fp2, np2 = fs.eps_multistep_reference(
             fs.gaussian_score_reference, params, spc, block, m0, f0, batch=b)
         torch.cuda.synchronize()
@@ -2087,7 +2231,9 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
                "k1": {"good": [bool(g_k), bool(g_p)], "mean_err": em,
                       "f_err": ef_, "f_tol": F_TOL * fmax},
                "k2": {"n_acc": [int(nk2), int(np2)], "mean_err": em2,
-                      "f_err": ef2, "f_tol": MULTI_TOL * fscale}}
+                      "f_err": ef2, "f_tol": MULTI_TOL * fscale,
+                      "graph_equals_eager": True,
+                      "captures": step.captures}}
         emit({"phase": "ranges", "kernel": "K1/K2", **rec})
         check(large == (1 if b > fs.SHARED_SMALLSPACE_MAX_B else 0),
               f"small-space route at B={b}: {rec}")
@@ -2147,6 +2293,19 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
                                                           ef_t=ef),
                    (e, v, mu, f, ef))
         out[f"K1_B{b}_D{d}"] = {"kernel": tk, "plain": tp, **bd}
+        if b == B128:
+            t2 = dense_gaussian(TARGET_SEED, d, device=dev)
+            score_fn, params = t2.fused_score
+            step = fs.make_fused_eps_multistep(score_fn, len(params), b, d,
+                                               spc)
+            blk = torch.randn((spc * b, d), device=dev)
+            m0, f0 = torch.zeros(d, device=dev), torch.eye(d, device=dev)
+            out[f"K2_B{b}_D{d}"] = {
+                "graph": cuda_ms(lambda: step(spc, blk, m0, f0, *params),
+                                 reps=10, warmup=2),
+                "eager": cuda_ms(lambda: step(spc, blk, m0, f0, *params,
+                                              graph=False), reps=10,
+                                 warmup=2)}
         if (b, d) == (B128, D):
             times["eps_smallspace_large"] = (tk, tp)
             work["eps_smallspace_large"] = (
@@ -2419,6 +2578,10 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
             _errs_bounded(rec["mean_err"], rec["cov_err"],
                           (rec["mean_err_bound"], rec["cov_err_bound"]),
                           f"zoo path {name}")
+        emit({"phase": "zoo_graph", "target": t.name, **graph_vs_eager(
+            fg, lambda: fg.fit(FIT_SEED, batch_size=B, niter=N_ZOO,
+                               verbose=False, return_state=True),
+            st, wall, N_ZOO + 1, fg._get_runner(B, "step"), torch)})
 
         fb = FactorBaM(D, t.lp, t.lp_g, fused_score=t.fused_score,
                        device="cuda")
@@ -2541,6 +2704,11 @@ def main() -> int:
           "FactorGSM output not finite")
     check(em3 < MEAN_ERR_BOUND and ec3 < COV_ERR_BOUND,
           "FactorGSM(fused_score) did not converge under the bound")
+    emit({"phase": "headline_graph", "fitter": "FactorGSM(fused_score)",
+          **graph_vs_eager(fg, lambda: fg.fit(
+              FIT_SEED, batch_size=B, niter=N_ITER, verbose=False,
+              return_state=True), st, wall3, N_ITER + 1,
+              fg._get_runner(B, "step"), torch)})
 
     # it/s of the kernel path vs the plain version, same blocks, same card.
     score_fn, params = t.fused_score
@@ -2602,13 +2770,16 @@ def main() -> int:
     zoo_counts = phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers,
                                  fs, models, card, torch, np)
 
-    times, work, library, device, library_device = phase_times(
+    times, work, library, device, library_device, eager = phase_times(
         fs, dense_gaussian, torch, np)
     bam_more = phase_bam_times(bf, fs, fb, t, st6, torch)
     extra = bam_more[3]
+    k6_times = phase_dense_batch_times(gs, bfm, fs, t, torch, np)
+    for name, more in (*eager.items(), *k6_times[3].items()):
+        extra[name] = {**extra.get(name, {}), **more}
     for more in (bam_more[:3],
                  phase_advi_times(af, fs, torch, np),
-                 phase_dense_batch_times(gs, bfm, fs, t, torch, np),
+                 k6_times[:3],
                  phase_eps_step_times(fs, t, torch), (range_times, range_work),
                  (zoo_times, zoo_work)):
         times.update(more[0])
@@ -2639,7 +2810,7 @@ def main() -> int:
     # Every phase ran on device 0, the one card this script drives.
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -14,10 +14,12 @@ gradient taken analytically and Adam inside, ``ops/advi_fused.py``).
   ``optax.adam`` (the one optimizer the JAX package's callers pass), whose
   update is ``ops.advi_fused._adam_apply``.
 - ``fit_fused`` on a CUDA device runs K9 (analytic) or K10 (STL) at
-  float32 with B in 8-64 and D in 16-1024, and raises outside that
-  (``ValueError``, or ``NotImplementedError`` for another dtype); it never
-  turns into ``fit`` as the JAX package does off the TPU.  On the CPU it
-  runs the kernels' plain versions, in float32 as the kernels do.
+  float32 with B in ``ADVI_KERNEL_BATCH_RANGE`` and D in
+  ``ADVI_KERNEL_DIM_RANGE`` (``ops/advi_fused.py``: B 1-65536, D 1-8192),
+  and raises outside that (``ValueError``, or ``NotImplementedError`` for
+  another dtype); it never turns into ``fit`` as the JAX package does off
+  the TPU.  On the CPU it runs the kernels' plain versions, in float32 as
+  the kernels do.
 - K10 freezes a block at the first sub-step whose tracked-inverse residual
   or gradient fails its gate; that one step replays here in plain torch
   (exact clamped solve, the same draw and Adam) and the tracked inverse is

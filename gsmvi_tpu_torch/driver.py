@@ -12,7 +12,9 @@ Eps for absolute step ``s`` of a fit seeded with ``seed`` comes from a
 the pair), so every trajectory is invariant to chunking and steps-per-call
 and resumes exactly from a saved (seed, step).  A ``fit_batch`` replica
 seeded with ``seed_i`` draws from the same stream (``draw_replicas``), so
-it draws exactly what ``fit(seed_i)`` draws.
+it draws exactly what ``fit(seed_i)`` draws.  The whole-step blocks (K2,
+K6) take their draws in place into a persistent block (``draw_block``):
+the same numbers, with no block assembled per call.
 """
 
 from __future__ import annotations
@@ -62,6 +64,14 @@ class EpsStream:
         return torch.randn((batch, d), generator=self.generator, dtype=dtype,
                            device=self.generator.device)
 
+    def into(self, out: torch.Tensor, seed: int, step: int) -> torch.Tensor:
+        """Step ``step``'s draw written in place into ``out`` (a contiguous
+        (B, D) view on the stream's device): the numbers of ``self(seed,
+        step, B, D, out.dtype)``, since ``randn`` is ``empty`` followed by
+        ``normal_``."""
+        self.generator.manual_seed(step_seed(seed, step))
+        return out.normal_(generator=self.generator)
+
 
 def draw_replicas(draw: Callable, seeds, step: int, batch: int, d: int,
                   dtype=torch.float32) -> torch.Tensor:
@@ -71,6 +81,31 @@ def draw_replicas(draw: Callable, seeds, step: int, batch: int, d: int,
     ``EpsStream`` or a stand-in for it).  The host seeds one generator per
     replica and step: the cost that keeps each replica on its own stream."""
     return torch.stack([draw(s, step, batch, d, dtype) for s in seeds])
+
+
+def draw_block(draw, out: torch.Tensor, seeds, step: int, nmax: int,
+               batch: int) -> None:
+    """Write the draws of absolute steps ``step`` .. ``step + nmax - 1``
+    in place into a K2/K6 eps block ``out``: sub-step j's in rows [j*B,
+    (j+1)*B) of a (spc*B, D) block for one fit seeded with the int
+    ``seeds``, or of each replica's (spc*B, D) rows of a (K, spc*B, D)
+    block for the tuple ``seeds``, replica i drawing what the single fit
+    seeded with ``seeds[i]`` draws.  ``draw`` is a fitter's ``_eps``: an
+    ``EpsStream`` writes in place (``EpsStream.into``); a stand-in that
+    returns the draw, ``draw(seed, step, batch, d, dtype)``, is copied
+    in."""
+    into = getattr(draw, "into", None)
+    if into is None:
+        into = lambda rows, seed, s: rows.copy_(
+            draw(seed, s, rows.shape[0], rows.shape[1], rows.dtype))
+    replicas = seeds if isinstance(seeds, tuple) else None
+    for j in range(nmax):
+        rows = out[..., j * batch:(j + 1) * batch, :]
+        if replicas is None:
+            into(rows, seeds, step + j)
+        else:
+            for i, seed in enumerate(replicas):
+                into(rows[i], seed, step + j)
 
 
 def broadcast_replicas(x, default, k: int, shape, dtype, device):

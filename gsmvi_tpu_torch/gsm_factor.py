@@ -10,9 +10,11 @@ hand-written Hopper kernels (``ops/fused_step.py``):
   then K1 ``gsm_eps_update_fused`` (update, residual gates, select);
 - ``"step"`` mode (``fused_score=(score_fn, params)``, e.g.
   ``target.fused_score``): K2 ``make_fused_eps_multistep`` runs
-  ``steps_per_call`` whole steps per call with the score inside; at
-  ``steps_per_call=1`` each step is one call of K4 ``make_fused_eps_step``
-  (external draw, NS update), as the JAX package runs it there.
+  ``steps_per_call`` whole steps per call with the score inside, a full
+  block as one CUDA graph replay on persistent buffers with the draws
+  written in place; at ``steps_per_call=1`` each step is one call of K4
+  ``make_fused_eps_step`` (external draw, NS update), as the JAX package
+  runs it there.
 
 ``fit_batch`` runs K replica fits together on the same modes: batched K1
 (``small_solver`` "auto"/"ns") or K6 ``make_fused_eps_batch_multistep``
@@ -44,7 +46,8 @@ import torch
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, broadcast_replicas,
-                     draw_replicas, make_chunk_runner, on_gpu, run_fit_loop)
+                     draw_block, draw_replicas, make_chunk_runner, on_gpu,
+                     run_fit_loop)
 from .ops.batch_fused import make_fused_eps_batch_multistep
 from .ops.fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
                              gsm_eps_update_fused, kernel_supports,
@@ -66,7 +69,8 @@ class FactorGSM:
     def __init__(self, D, lp, lp_g, device=None, dtype=None,
                  method: str = "eps", use_fused: "bool | str" = "auto",
                  fused_score=None, steps_per_call=None,
-                 pallas_precision: str = "highest", ns_iters=None):
+                 pallas_precision: str = "highest", ns_iters=None,
+                 cuda_graph: bool = True):
         """``device`` defaults to the CUDA card (raises without one; pass
         ``device="cpu"`` for the CPU).  ``use_fused`` ("auto"/True/False):
         on a CUDA device the step runs on the CUDA kernels unless it is
@@ -80,6 +84,9 @@ class FactorGSM:
         inv2, sqrt2, inv3); the default is batch-aware
         (``ns_iters_for_batch``).  The residual gates catch catastrophic
         loss, not slow bias: validate convergence when changing it.
+        ``cuda_graph=False`` enqueues every K2/K6 block's launches from the
+        host instead of replaying its CUDA graph: the same numbers, the
+        comparison route for the graph's cost.
         """
         if method != "eps":
             raise NotImplementedError(
@@ -101,6 +108,7 @@ class FactorGSM:
                                else (16 if D <= 128 else 8))
         self.pallas_precision = pallas_precision
         self.ns_iters = tuple(ns_iters) if ns_iters is not None else None
+        self.cuda_graph = bool(cuda_graph)
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
         self.audit_log = []
@@ -231,9 +239,12 @@ class FactorGSM:
     def _make_fused_runner(self, batch_size: int, k=None):
         """Chunk runner of the "step" mode on K2 (one fit) or K6 (``k``
         replicas): blocks of ``steps_per_call`` sub-steps, a chunk
-        remainder as one call with ``nmax < spc``.  Each block's eps rows
-        are the per-absolute-step draws, so the trajectory does not depend
-        on spc."""
+        remainder as one call with ``nmax < spc``.  Each block's draws, the
+        per-absolute-step draws, are written in place into the blocks'
+        persistent eps block (``draw_block``), so the trajectory does not
+        depend on spc; on the card a full block is one CUDA graph replay
+        (``FusedBlocks``) unless ``cuda_graph`` is False.  The runner's
+        ``blocks`` attribute is its ``FusedBlocks`` (capture records)."""
         score_fn, params = self.fused_score
         spc = self.steps_per_call
         iters = self._iters(batch_size)
@@ -247,9 +258,11 @@ class FactorGSM:
                 iters=iters)
 
         def block(s: FactorVIState, nmax: int) -> FactorVIState:
-            eps_block = torch.cat([self._draw(s, batch_size, j)
-                                   for j in range(spc)], dim=-2)
-            mean, f, n_acc = multi(nmax, eps_block, s.mean, s.factor, *params)
+            eps_block = multi.eps_block(s.mean.device)
+            draw_block(self._eps, eps_block, s.seed, s.step, nmax,
+                       batch_size)
+            mean, f, n_acc = multi(nmax, eps_block, s.mean, s.factor,
+                                   *params, graph=self.cuda_graph)
             return FactorVIState(mean, f, s.seed, s.step + nmax,
                                  s.n_accepted + n_acc,
                                  s.n_rejected + (nmax - n_acc))
@@ -262,6 +275,7 @@ class FactorGSM:
                 state = block(state, rem)
             return state
 
+        run_chunk.blocks = multi
         return run_chunk
 
     def _make_audit_hook(self, batch_size: int, tol: float):

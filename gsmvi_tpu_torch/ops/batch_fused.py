@@ -8,13 +8,14 @@ small_solver="fused")``).
 
 On the TPU the replica axis was the Pallas grid, whose cells ran one after
 another on the chip's one core, so K6 bought bit-identity, not throughput.
-On the card every launch of K2's host loop gains the replica axis instead:
-the GEMM template's blockIdx.z, one small-space block per replica (side by
-side on the SMs), and one K3 score launch over the K·B stacked rows.  The
-host issues the same six launches per sub-step for any K, so the launches
-per replica-step fall as 1/K.  Each replica's tiles and accumulation order
-are those of a single K2 call, so replica i reproduces the single K2 fit
-with its seed bit for bit.
+On the card every launch of K2's sub-steps gains the replica axis instead:
+the GEMM template's blockIdx.z, one small-space cluster per replica (side
+by side on the SMs), and one K3 score launch over the K·B stacked rows.  A
+sub-step is the same six launches for any K, and a full block is one CUDA
+graph replay on persistent buffers, as K2's (``FusedBlocks``,
+``ops/fused_step.py``).  Each replica's tiles and accumulation order are
+those of a single K2 call, so replica i reproduces the single K2 fit with
+its seed bit for bit.
 
 The wrapper runs its plain version, ``eps_batch_multistep_reference``
 (``eps_multistep_reference`` one replica at a time, so each replica equals
@@ -24,12 +25,9 @@ CUDA tensors, raising on what they do not take; it never falls back.
 
 from __future__ import annotations
 
-import torch
-
-from .fused_step import (KERNEL_WRAPPERS, _launch_step, _library, _on_cpu,
-                         _require, _require_shape_supported, _stream,
-                         _UpdateBuffers, eps_multistep_reference,
-                         ns_iters_for_batch, over_replicas)
+from .fused_step import (KERNEL_WRAPPERS, FusedBlocks,
+                         eps_multistep_reference, ns_iters_for_batch,
+                         over_replicas)
 
 
 def eps_batch_multistep_reference(score_fn, params, nmax: int, eps_blocks,
@@ -48,52 +46,21 @@ def make_fused_eps_batch_multistep(score_fn, n_params: int, batch: int,
                                    iters=None):
     """K6: ``steps_per_call`` whole GSM steps of K replicas per call.
 
-    Returns ``step(nmax, eps_blocks, means, factors, *params) -> (means,
-    factors, n_acc)`` advancing every replica by the first ``nmax``
-    (<= spc) sub-steps of its block: ``eps_blocks`` (K, spc*B, D) holds
-    replica i's sub-step j draw in rows [j*B, (j+1)*B); means (K, D);
-    factors (K, D, D); ``n_acc`` (K,) int32 on the operands' device.  The
-    params are shared; ``score_fn(x, *params)`` maps (M, D) rows to (M, D)
-    scores row by row (e.g. the port's ``gaussian_score``).
+    Returns a ``FusedBlocks``, ``step(nmax, eps_blocks, means, factors,
+    *params) -> (means, factors, n_acc)``, advancing every replica by the
+    first ``nmax`` (<= spc) sub-steps of its block: ``eps_blocks`` (K,
+    spc*B, D) holds replica i's sub-step j draw in rows [j*B, (j+1)*B);
+    means (K, D); factors (K, D, D); ``n_acc`` (K,) int32 on the operands'
+    device.  The params are shared; ``score_fn(x, *params)`` maps (M, D)
+    rows to (M, D) scores row by row (e.g. the port's ``gaussian_score``)
+    and on the card must be capturable into a CUDA graph.
     """
-    spc = int(steps_per_call)
     iters = ns_iters_for_batch(batch, iters)
-
-    def step(nmax, eps_blocks, means, factors, *params):
-        nmax = int(nmax)
-        if not 0 <= nmax <= spc:
-            raise ValueError(f"nmax={nmax} outside [0, {spc}]")
-        if len(params) != n_params:
-            raise ValueError(f"expected {n_params} score params, got "
-                             f"{len(params)}")
-        eps_blocks = eps_blocks.reshape(k, spc * batch, d)
-        if _on_cpu(eps_blocks, means, factors):
-            return eps_batch_multistep_reference(
-                score_fn, params, nmax, eps_blocks, means, factors,
-                batch=batch, iters=iters)
-        _require_shape_supported(batch, d)
-        for name, t, shape in (("eps_blocks", eps_blocks, (k, spc * batch, d)),
-                               ("means", means, (k, d)),
-                               ("factors", factors, (k, d, d))):
-            _require(name, t, shape)
-        lib = _library()
-        dev = eps_blocks.device
-        stream = _stream(dev)
-        # Scratch once per call; the working (means, factors) are updated
-        # in place sub-step after sub-step.
-        means_w, f_w = means.clone(), factors.clone()
-        acc = torch.zeros(k, dtype=torch.int32, device=dev)
-        ef = torch.empty((k, batch, d), dtype=torch.float32, device=dev)
-        x = torch.empty_like(ef)
-        buf = _UpdateBuffers(batch, d, dev, k)
-        make_fused_eps_batch_multistep.launches += 1 if nmax else 0
-        for j in range(nmax):
-            _launch_step(lib, stream, eps_blocks[:, j * batch:(j + 1) * batch],
-                         score_fn, params, means_w, means_w, f_w, f_w, ef, x,
-                         buf, iters, nacc=acc)
-        return means_w, f_w, acc
-
-    return step
+    return FusedBlocks(
+        score_fn, n_params, batch, d, steps_per_call, iters, int(k),
+        make_fused_eps_batch_multistep,
+        lambda params, nmax, e, m, f: eps_batch_multistep_reference(
+            score_fn, params, nmax, e, m, f, batch=batch, iters=iters))
 
 
 make_fused_eps_batch_multistep.launches = 0

@@ -11,10 +11,11 @@
 // the same products over K replicas (gsmvi_rows, gsmvi_factor_apply with
 // k > 1: the batched K1 and K6 of gsmvi_tpu/ops/pallas/batch_fused.py :118),
 // and, in gsmvi_tpu/ops/pallas/bam_fused.py (K7/K8):
-//   gsmvi_rows           `ef` (+ `x`) at :467, the `vf`/`t` rows behind
-//                        `q_t`/`qf` (:265/:312) and the mean matvecs :329-330
 //   gsmvi_bam_apply      the fat apply `f + t_mm(stack_u, stack_w)` at :319
 //                        with the tile sums of squares of the trace screen
+// (BaM's `ef`, `vf`/`t` rows and mean matvecs run on the split-k thin
+// product, thin_gemm.cu).  ADVI's row products (K9/K10,
+// gsmvi_tpu_torch/ops/advi_fused.py) also take gsmvi_rows.
 // Bounds and design: see gemm.cuh.  Every entry returns cudaGetLastError().
 #include "gemm.cuh"
 

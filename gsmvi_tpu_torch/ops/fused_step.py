@@ -14,7 +14,8 @@ are ported here:
   check.  Plain version: ``gsm_eps_update_chol_reference`` over
   ``eps_update_core_reference`` (twin of ``_eps_update_core``).
 - K2 ``make_fused_eps_multistep``: up to ``steps_per_call`` whole steps
-  (sampling product, score, K1's math, select) per call.  Plain version:
+  (sampling product, score, K1's math, select) per call, a full block one
+  CUDA graph replay on the card (``FusedBlocks``).  Plain version:
   ``eps_multistep_reference``.
 - K3 ``gaussian_score``: v = (mu_t - x) @ prec.  Plain version:
   ``gaussian_score_reference``.
@@ -57,15 +58,17 @@ one-block row kernel (Z^T and (F Z)^T rows), the Gram Z^T Z on the GEMM
 template, the one-block Cholesky small space (``ops/cuda/csrc/eps_chol.cu``)
 and the fat apply.  A whole step (``_launch_step``) is the ``ef = e F^T`` /
 ``x = mu + ef`` thin product, the score, then one update's launches: a K4
-call is one whole step, a K2 call loops its sub-steps on the host on a
-working copy of (mean, F), with the accepted count accumulated on the
-device.  No launch waits for the host.
+call is one whole step; a K2 (K6) call runs its sub-steps on persistent
+buffers (``FusedBlocks``), in place on a working (mean, F), with the
+accepted count accumulated on the device, a full block as one CUDA graph
+replay.  No launch waits for the host.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import time
 
 import torch
 
@@ -915,50 +918,221 @@ def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
 make_fused_eps_step.launches = 0
 
 
+# K2 and K6 keep their buffers from block to block and replay a full block
+# (nmax == spc) as one CUDA graph, one graph per score configuration, at
+# most this many per ``FusedBlocks`` (least recently used goes first).
+GRAPH_CACHE_SIZE = 16
+
+
+def _param_key(p):
+    """A score param's part of a graph's key: where a tensor lies and its
+    layout (new contents at the same address need no new graph); any other
+    param by value."""
+    if torch.is_tensor(p):
+        return (p.data_ptr(), tuple(p.shape), tuple(p.stride()), p.dtype)
+    return ("value", p)
+
+
+def _score_name(score_fn) -> str:
+    return getattr(score_fn, "__qualname__", None) or repr(score_fn)
+
+
+class _BlockBuffers:
+    """A block's buffers on one device (the card), kept from call to call:
+    the eps block, the working (mean, F) that the sub-steps update in place,
+    the accepted count, the sampling rows ``ef``/``x`` and one update's
+    scratch; with a leading replica axis for K6."""
+
+    def __init__(self, eps, batch: int, d: int, k):
+        lead = () if k is None else (k,)
+        device = eps.device
+        empty = lambda *s: torch.empty((*lead, *s), dtype=torch.float32,
+                                       device=device)
+        self.eps = eps
+        self.mean, self.f = empty(d), empty(d, d)
+        self.acc = torch.zeros(lead or (1,), dtype=torch.int32, device=device)
+        self.ef, self.x = empty(batch, d), empty(batch, d)
+        self.buf = _UpdateBuffers(batch, d, device, k)
+
+
+def _capture_graph(body):
+    """(graph, seconds, pool bytes) of ``body()`` captured on a side stream
+    into a new CUDA graph with its own memory pool; nothing runs.  A body
+    that synchronises with the host, or any launch the toolkit will not
+    capture, raises."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        body()
+    return (graph, time.perf_counter() - t0,
+            torch.cuda.memory_reserved() - reserved)
+
+
+class FusedBlocks:
+    """K2 (``k=None``) and K6 (``k`` replicas): ``spc`` whole GSM steps of
+    one fit, or of K replica fits sharing the score params, per call.
+
+    ``step(nmax, eps_block, mean, f, *params, graph=True) -> (mean, f,
+    n_acc)`` advances the first ``nmax`` (<= spc) sub-steps of the eps
+    block ((spc*B, D), or (K, spc*B, D): sub-step j's draw in rows [j*B,
+    (j+1)*B)); mean (D,) or (K, D), f (D, D) or (K, D, D); ``n_acc`` int32,
+    () or (K,).  CPU tensors run the plain version (``reference``).
+
+    On the card the buffers (``_BlockBuffers``) persist from call to call.
+    A caller writes its draws straight into ``eps_block(device)`` (the fit
+    runner does; another block is copied in), and (mean, f) are copied into
+    the working pair before the block, on the stream.  A full block (nmax
+    == spc) replays one CUDA graph (``torch.cuda.CUDAGraph``) whose body is
+    ``acc.zero_()`` and the spc sub-steps' launches (``_launch_step``): the
+    card's counterpart of the TPU's one ``pallas_call`` per block.  A graph
+    is keyed on the params' addresses and layouts (the block's shape, spc,
+    K, iters and score are the object's own): the first full block of a
+    key runs eagerly, which warms up the library and the kernels' one-time
+    attributes and is that block's result, and then the graph is captured;
+    later blocks of the key replay it.  The launch counters run no Python
+    in a replay, so each capture records every counter's increase and each
+    replay adds it: the counts equal the eager path's.  A block with nmax
+    < spc (a chunk's end), and any block with ``graph=False``, runs the same
+    launches eagerly on the same buffers; the two routes give the same
+    numbers bit for bit.  The returned tensors are copies (two or three
+    asynchronous copies per block), so a later block never writes a tensor
+    a caller holds.  A score that cannot be captured (one that synchronises
+    with the host) raises, naming the score; it never runs eagerly instead.
+    """
+
+    def __init__(self, score_fn, n_params: int, batch: int, d: int,
+                 steps_per_call: int, iters, k, counter, reference):
+        self.score_fn, self.n_params = score_fn, n_params
+        self.batch, self.d, self.spc = batch, d, int(steps_per_call)
+        self.iters, self.k = tuple(iters), k
+        self._lead = () if k is None else (k,)
+        self._counter = counter
+        self._reference = reference
+        self._eps = {}
+        self._bufs = {}
+        self._graphs = {}
+        # One record per capture: {"seconds", "pool_bytes"}.
+        self.captures = []
+
+    def eps_block(self, device) -> torch.Tensor:
+        """The persistent float32 eps block on ``device``, for the caller
+        to write its draws into in place."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._eps:
+            self._eps[device] = torch.empty(
+                (*self._lead, self.spc * self.batch, self.d),
+                dtype=torch.float32, device=device)
+        return self._eps[device]
+
+    def _buffers(self, device) -> _BlockBuffers:
+        bufs = self._bufs.get(device)
+        if bufs is None:
+            bufs = _BlockBuffers(self.eps_block(device), self.batch, self.d,
+                                 self.k)
+            self._bufs[device] = bufs
+        return bufs
+
+    def __call__(self, nmax, eps_block, mean, f, *params, graph: bool = True):
+        nmax = int(nmax)
+        if not 0 <= nmax <= self.spc:
+            raise ValueError(f"nmax={nmax} outside [0, {self.spc}]")
+        if len(params) != self.n_params:
+            raise ValueError(f"expected {self.n_params} score params, got "
+                             f"{len(params)}")
+        b, d, lead = self.batch, self.d, self._lead
+        eps_block = eps_block.reshape(*lead, self.spc * b, d)
+        if _on_cpu(eps_block, mean, f):
+            return self._reference(params, nmax, eps_block, mean, f)
+        _require_shape_supported(b, d)
+        for name, t, shape in (("eps_block", eps_block, (self.spc * b, d)),
+                               ("mean", mean, (d,)), ("f", f, (d, d))):
+            _require(name, t, lead + shape)
+        bufs = self._buffers(eps_block.device)
+        if eps_block.data_ptr() != bufs.eps.data_ptr():
+            bufs.eps.copy_(eps_block)
+        bufs.mean.copy_(mean)
+        bufs.f.copy_(f)
+        self._counter.launches += 1 if nmax else 0
+        if graph and nmax == self.spc:
+            self._replay(bufs, params)
+        else:
+            self._body(bufs, nmax, params)
+        acc = bufs.acc.clone()
+        return bufs.mean.clone(), bufs.f.clone(), acc if lead else acc[0]
+
+    def _body(self, bufs: _BlockBuffers, nmax: int, params) -> None:
+        """The block's launches on the current stream: ``acc`` to 0, then
+        ``nmax`` sub-steps on the working (mean, F)."""
+        lib = _library()
+        stream = _stream(bufs.eps.device)
+        bufs.acc.zero_()
+        for j in range(nmax):
+            _launch_step(lib, stream,
+                         bufs.eps[..., j * self.batch:(j + 1) * self.batch, :],
+                         self.score_fn, params, bufs.mean, bufs.mean, bufs.f,
+                         bufs.f, bufs.ef, bufs.x, bufs.buf, self.iters,
+                         nacc=bufs.acc)
+
+    def _replay(self, bufs: _BlockBuffers, params) -> None:
+        key = (bufs.eps.device, tuple(_param_key(p) for p in params))
+        hit = self._graphs.pop(key, None)
+        if hit is None:
+            self._body(bufs, self.spc, params)
+            hit = self._capture(bufs, params)
+            if len(self._graphs) >= GRAPH_CACHE_SIZE:
+                self._graphs.pop(next(iter(self._graphs)))
+            self._graphs[key] = hit
+            return
+        self._graphs[key] = hit          # most recently used last
+        graph, deltas = hit
+        graph.replay()
+        for fn, n in deltas:
+            fn.launches += n
+
+    def _capture(self, bufs: _BlockBuffers, params) -> tuple:
+        """(graph, each counter's increase per block) of a full block."""
+        before = {fn: fn.launches for fn in KERNEL_WRAPPERS.values()}
+        try:
+            graph, seconds, pool = _capture_graph(
+                lambda: self._body(bufs, self.spc, params))
+        except Exception as err:
+            raise RuntimeError(
+                f"{self._counter.__name__}: the block with score "
+                f"{_score_name(self.score_fn)} could not be captured into a "
+                f"CUDA graph ({type(err).__name__}: {err}).  A fused score "
+                "must be capturable: no host synchronisation (.item(), "
+                "printing a CUDA tensor, torch.cuda.synchronize()).") from err
+        finally:
+            deltas = tuple((fn, fn.launches - n) for fn, n in before.items()
+                           if fn.launches != n)
+            for fn, n in before.items():
+                fn.launches = n
+        self.captures.append({"seconds": seconds, "pool_bytes": pool})
+        return graph, deltas
+
+
 def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
                              steps_per_call: int, iters=None):
     """K2: ``steps_per_call`` whole GSM steps per call.
 
-    Returns ``step(nmax, eps_block, mean, f, *params) -> (mean, f, n_acc)``
-    advancing the first ``nmax`` (<= spc) sub-steps of the ``(spc*B, D)``
-    eps block; ``n_acc`` is an int32 tensor on the operands' device.
-    ``score_fn(x, *params) -> (B, D)`` is the score, e.g. the port's
-    ``gaussian_score`` (the counterpart of tracing it into the TPU kernel).
+    Returns a ``FusedBlocks``, ``step(nmax, eps_block, mean, f, *params)
+    -> (mean, f, n_acc)``, advancing the first ``nmax`` (<= spc) sub-steps
+    of the ``(spc*B, D)`` eps block; ``n_acc`` is an int32 tensor on the
+    operands' device.  ``score_fn(x, *params) -> (B, D)`` is the score,
+    e.g. the port's ``gaussian_score`` (the counterpart of tracing it into
+    the TPU kernel); on the card it must be capturable into a CUDA graph.
     """
-    spc = int(steps_per_call)
     iters = ns_iters_for_batch(batch, iters)
-
-    def step(nmax, eps_block, mean, f, *params):
-        nmax = int(nmax)
-        if not 0 <= nmax <= spc:
-            raise ValueError(f"nmax={nmax} outside [0, {spc}]")
-        if len(params) != n_params:
-            raise ValueError(f"expected {n_params} score params, got "
-                             f"{len(params)}")
-        eps_block = eps_block.reshape(spc * batch, d)
-        if _on_cpu(eps_block, mean, f):
-            return eps_multistep_reference(score_fn, params, nmax, eps_block,
-                                           mean, f, batch=batch, iters=iters)
-        _require_shape_supported(batch, d)
-        for name, t, shape in (("eps_block", eps_block, (spc * batch, d)),
-                               ("mean", mean, (d,)), ("f", f, (d, d))):
-            _require(name, t, shape)
-        lib = _library()
-        dev = eps_block.device
-        stream = _stream(dev)
-        mean_w, f_w = mean.clone(), f.clone()
-        acc = torch.zeros(1, dtype=torch.int32, device=dev)
-        ef = torch.empty((batch, d), dtype=torch.float32, device=dev)
-        x = torch.empty_like(ef)
-        buf = _UpdateBuffers(batch, d, dev)
-        make_fused_eps_multistep.launches += 1 if nmax else 0
-        for j in range(nmax):
-            _launch_step(lib, stream, eps_block[j * batch:(j + 1) * batch],
-                         score_fn, params, mean_w, mean_w, f_w, f_w, ef, x,
-                         buf, iters, nacc=acc)
-        return mean_w, f_w, acc[0]
-
-    return step
+    return FusedBlocks(
+        score_fn, n_params, batch, d, steps_per_call, iters, None,
+        make_fused_eps_multistep,
+        lambda params, nmax, e, m, f: eps_multistep_reference(
+            score_fn, params, nmax, e, m, f, batch=batch, iters=iters))
 
 
 make_fused_eps_multistep.launches = 0

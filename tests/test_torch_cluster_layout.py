@@ -100,12 +100,12 @@ class _Recorder:
 
 @pytest.fixture
 def card(monkeypatch):
-    """The wrappers' card path on CPU tensors, launching into a recorder."""
+    """The wrappers' card path on CPU tensors, launching into a recorder
+    (K6 runs on ``fs.FusedBlocks``, so patching ``fs`` covers it)."""
     rec = _Recorder()
-    for mod in (fs, bfm):
-        monkeypatch.setattr(mod, "_on_cpu", lambda *t: False)
-        monkeypatch.setattr(mod, "_library", lambda: rec)
-        monkeypatch.setattr(mod, "_stream", lambda device: None)
+    monkeypatch.setattr(fs, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(fs, "_library", lambda: rec)
+    monkeypatch.setattr(fs, "_stream", lambda device: None)
     fs.reset_launch_counts()
     yield rec
     fs.reset_launch_counts()

@@ -1218,3 +1218,226 @@ def test_bam_stopped_block_leaves_later_launches_no_ops(cuda):
     assert stopped[2][bf.REP_STOPPED].item() == 1.0
     assert torch.equal(stopped[0], three[0])
     assert torch.equal(stopped[1], three[1])
+
+
+# ---------------------------------------------------------------------------
+# K2 and K6 blocks as CUDA graphs on persistent buffers (``FusedBlocks``)
+# ---------------------------------------------------------------------------
+
+def _block_problem(dev, b, d, spc, k=None, seed=0, reject_at=None):
+    """(params, score_fn, eps block, mean0, f0) from (0, I) on
+    ``dense_gaussian(0, d)``; with ``reject_at`` sub-step's rows (of
+    replica 0 when K is given) scaled over three decades so that the
+    residual gates reject it."""
+    t = dense_gaussian(0, d, device=dev)
+    score_fn, params = t.fused_score
+    lead = () if k is None else (k,)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block = torch.randn((*lead, spc * b, d), generator=gen, device=dev)
+    if reject_at is not None:
+        rows = block if k is None else block[0]
+        rows[reject_at * b:(reject_at + 1) * b] *= torch.logspace(
+            0.0, 3.0, b, device=dev)[:, None]
+    mean0 = torch.zeros((*lead, d), device=dev)
+    f0 = torch.eye(d, device=dev).expand(*lead, d, d).contiguous()
+    return score_fn, params, block, mean0, f0
+
+
+def _make_blocks(score_fn, params, b, d, spc, k=None):
+    from gsmvi_tpu_torch.ops import batch_fused as bfm
+
+    if k is None:
+        return fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    return bfm.make_fused_eps_batch_multistep(score_fn, len(params), b, d,
+                                              k, spc)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("b,d,k,reject_at", [
+    (32, 256, None, None), (8, 200, None, None), (1, 1, None, None),
+    (128, 256, None, None), (32, 256, 4, None), (32, 256, None, 4),
+    (32, 256, 4, 4)])
+def test_graph_block_equals_eager_block(cuda, b, d, k, reject_at):
+    """A full block replayed from its CUDA graph equals the same block
+    enqueued eagerly, bit for bit, at the main shape, a ragged one, the
+    smallest, on the global-memory small space (B=128) and for K6 at K=4;
+    also with a sub-step the gates reject.  The first full block runs
+    eagerly and captures; the second replays."""
+    spc = 8
+    score_fn, params, block, mean0, f0 = _block_problem(
+        cuda, b, d, spc, k, seed=b + d, reject_at=reject_at)
+    step = _make_blocks(score_fn, params, b, d, spc, k)
+    eager = step(spc, block, mean0, f0, *params, graph=False)
+    first = step(spc, block, mean0, f0, *params)
+    assert len(step.captures) == 1
+    replayed = step(spc, block, mean0, f0, *params)
+    assert len(step.captures) == 1
+    torch.cuda.synchronize()
+    assert _same(eager, first) and _same(eager, replayed)
+    want = spc if reject_at is None else spc - 1
+    n_acc = eager[2] if k is None else eager[2][0]
+    assert int(n_acc) == want
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_remainder_blocks_run_eagerly_and_equal_the_graph(cuda, k):
+    """nmax < spc runs eagerly on the same buffers and captures nothing;
+    a fit whose chunks end in remainder blocks equals the fit on eager
+    blocks (``cuda_graph=False``) and on spc=1 (K4), bit for bit."""
+    b, d, spc = 32, 256, 8
+    score_fn, params, block, mean0, f0 = _block_problem(cuda, b, d, spc, k)
+    step = _make_blocks(score_fn, params, b, d, spc, k)
+    for nmax in (1, 3, 7):
+        got = step(nmax, block, mean0, f0, *params)
+        want = step(nmax, block, mean0, f0, *params, graph=False)
+        assert _same(got, want)
+    assert step.captures == []
+    t = dense_gaussian(3, 64, scale=0.5, device=cuda)
+    fits = []
+    for spc_, graph in ((8, True), (8, False), (1, True)):
+        g = FactorGSM(64, t.lp, t.lp_g, fused_score=t.fused_score,
+                      steps_per_call=spc_, cuda_graph=graph, device="cuda")
+        # niter=44: one chunk of 45 = 5 x 8 + 5, a remainder of 5.
+        fits.append(g.fit(0, batch_size=16, niter=44, verbose=False,
+                          return_state=True))
+    for other in fits[1:]:
+        assert torch.equal(fits[0].mean, other.mean)
+        assert torch.equal(fits[0].factor, other.factor)
+        assert int(fits[0].n_accepted) == int(other.n_accepted)
+
+
+def test_new_params_recapture_and_new_contents_do_not(cuda):
+    """A graph is keyed on where the params lie: new params tensors
+    capture a new graph; new contents at the same address replay the old
+    one and read the new values."""
+    b, d, spc = 32, 256, 8
+    score_fn, params, block, mean0, f0 = _block_problem(cuda, b, d, spc)
+    step = _make_blocks(score_fn, params, b, d, spc)
+    step(spc, block, mean0, f0, *params)
+    other = tuple(p.clone() for p in params)
+    other[0].add_(0.25)
+    got = step(spc, block, mean0, f0, *other)
+    assert len(step.captures) == 2
+    got = step(spc, block, mean0, f0, *other)
+    assert _same(got, step(spc, block, mean0, f0, *other, graph=False))
+    params[0].add_(0.5)
+    got = step(spc, block, mean0, f0, *params)
+    assert len(step.captures) == 2
+    assert _same(got, step(spc, block, mean0, f0, *params, graph=False))
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_held_state_survives_the_next_replay(cuda, k):
+    """What a block returns is the caller's: the next replay (from other
+    inputs) writes the persistent buffers, never a returned tensor."""
+    b, d, spc = 32, 256, 8
+    score_fn, params, block, mean0, f0 = _block_problem(cuda, b, d, spc, k)
+    step = _make_blocks(score_fn, params, b, d, spc, k)
+    step(spc, block, mean0, f0, *params)
+    held = step(spc, block, mean0, f0, *params)
+    copies = tuple(x.clone() for x in held)
+    step(spc, block * 0.5, held[0], held[1], *params)
+    torch.cuda.synchronize()
+    assert _same(held, copies)
+    t = dense_gaussian(3, 64, scale=0.5, device=cuda)
+    g = FactorGSM(64, t.lp, t.lp_g, fused_score=t.fused_score,
+                  device="cuda")
+    st = g.fit(0, batch_size=16, niter=40, verbose=False, return_state=True)
+    mean, factor = st.mean.clone(), st.factor.clone()
+    g.fit(1, batch_size=16, niter=40, verbose=False, state=st)
+    assert torch.equal(st.mean, mean) and torch.equal(st.factor, factor)
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_graph_launch_counts_equal_the_eager_path(cuda, k):
+    """Each replay adds the counters' increases recorded at capture: three
+    graph blocks (one capture, two replays) count what three eager blocks
+    count, and a fit counts what the same fit on eager blocks counts."""
+    b, d, spc = 32, 256, 8
+    score_fn, params, block, mean0, f0 = _block_problem(cuda, b, d, spc, k)
+    counts = []
+    for graph in (True, False):
+        step = _make_blocks(score_fn, params, b, d, spc, k)
+        fs.reset_launch_counts()
+        for _ in range(3):
+            step(spc, block, mean0, f0, *params, graph=graph)
+        counts.append(fs.launch_counts())
+    assert counts[0] == counts[1]
+    name = "make_fused_eps_multistep" if k is None else \
+        "make_fused_eps_batch_multistep"
+    assert counts[0][name] == 3
+    assert counts[0]["gaussian_score"] == 3 * spc
+    assert counts[0]["thin_product"] == 3 * spc * 3
+    assert counts[0]["eps_smallspace"] == 3 * spc
+    t = dense_gaussian(3, 64, scale=0.5, device=cuda)
+    fit_counts = []
+    for graph in (True, False):
+        g = FactorGSM(64, t.lp, t.lp_g, fused_score=t.fused_score,
+                      cuda_graph=graph, device="cuda")
+        fs.reset_launch_counts()
+        g.fit(0, batch_size=16, niter=60, verbose=False)
+        fit_counts.append(fs.launch_counts())
+    assert fit_counts[0] == fit_counts[1]
+    assert fit_counts[0]["gaussian_score"] == 61
+
+
+def test_a_score_that_synchronises_raises(cuda):
+    """A fused score must be capturable: one that reads the device from the
+    host fails the capture, and the block raises naming the score."""
+    b, d, spc = 8, 64, 8
+    _, params, block, mean0, f0 = _block_problem(cuda, b, d, spc)
+
+    def syncing_score(x, mu_t, prec):
+        if float(x.abs().max()) > 1e30:
+            raise AssertionError("unreachable")
+        return fs.gaussian_score(x, mu_t, prec)
+
+    step = _make_blocks(syncing_score, params, b, d, spc)
+    with pytest.raises(RuntimeError, match="syncing_score.*could not be "
+                                           "captured"):
+        step(spc, block, mean0, f0, *params)
+    assert step.captures == []
+    # The card is usable afterwards, and a capturable score still captures.
+    step = _make_blocks(fs.gaussian_score, params, b, d, spc)
+    step(spc, block, mean0, f0, *params)
+    assert len(step.captures) == 1
+
+
+def _one_launch_capture(fn):
+    """fn() eagerly, then captured and replayed into the eager outputs'
+    twins: (eager outputs, replayed outputs)."""
+    eager = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    for x in captured:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured
+
+
+@pytest.mark.parametrize("b", [32, 128])
+def test_cluster_small_space_captures_in_one_launch(cuda, b):
+    """The small space's cluster launch (``cudaLaunchKernelEx`` with a
+    cluster dimension; at B=128 the global-memory chain) captures into a
+    CUDA graph and replays bit for bit."""
+    eps, v, mu, f = _inputs(cuda, b, 256, seed=b)
+    vf, ef = v @ f, eps @ f.T
+    t = vf @ f.T
+    eager, replayed = _one_launch_capture(
+        lambda: fs.eps_smallspace(eps, v, vf, t, ef, mu))
+    assert _same(eager, replayed)
+
+
+def test_thin_product_captures_in_one_launch(cuda):
+    """The split-k thin product's cluster launch captures and replays bit
+    for bit (rows @ F^T with x = mu + out)."""
+    eps, _, mu, f = _inputs(cuda, 32, 256, seed=3)
+    eager, replayed = _one_launch_capture(
+        lambda: fs.thin_product(eps, f, trans=True, mu=mu))
+    assert _same(eager, replayed)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """it/s of two checkouts of the port, alternated on one NVIDIA GPU.
 
-    python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6] [--family gsm|bam]
+    python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6] [--family gsm|bam|batch]
 
 For each pair, in turns (A then B, then B then A, ...), a fresh process per
 checkout times two fits of each fitter of the family at the headline cell
@@ -11,7 +11,10 @@ checkout times two fits of each fitter of the family at the headline cell
 spc=8), niter=3000.  Family ``bam``: ``BaM.fit`` (K7 per step) and
 ``FactorBaM(fused_score=...)`` (K8, spc=8), niter=2000 with
 ``Regularizers().linear(100.0)`` and retries=0, as ``chip_smoke.py``
-runs them.  The first
+runs them.  Family ``batch``: ``FactorGSM(fused_score=...).fit_batch(
+range(8), ..., small_solver="fused")`` (K6, K=8 replicas, spc=8),
+niter=3000; its rate is per replica (the aggregate is 8 times it).  The
+first
 use in each checkout builds its kernels, so build both before timing.
 Compare two versions only inside one call: a card's neighbours and power
 limit vary between calls.
@@ -38,6 +41,20 @@ def one(checkout: str, family: str) -> dict:
     from gsmvi_tpu_torch.models import dense_gaussian
 
     t = dense_gaussian(0, 256, device="cuda")
+    if family == "batch":
+        g = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
+                      device="cuda")
+        run = lambda n: g.fit_batch(range(8), batch_size=32, niter=n,
+                                    small_solver="fused")
+        run(200)
+        rates = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(3000)
+            torch.cuda.synchronize()
+            rates.append(3001 / (time.perf_counter() - t0))
+        return {"FactorGSM_fit_batch_k6_K8": rates}
     if family == "gsm":
         niter, args, kw = 3000, (), {}
         fitters = {
@@ -73,7 +90,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("checkouts", nargs="*")
     parser.add_argument("--pairs", type=int, default=6)
-    parser.add_argument("--family", choices=("gsm", "bam"), default="gsm")
+    parser.add_argument("--family", choices=("gsm", "bam", "batch"),
+                        default="gsm")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:

@@ -17,18 +17,20 @@ with K3 inside, spc=8), with ``Regularizers().linear(100.0)`` and
 retries=0, each with its steps per NS tier (``--only-bam``: these
 alone).  For each it prints one JSON line: the host wall time per step
 (profiler on, so inflated), the device busy time per step (union of
-kernel intervals), the device's idle share of the profiled window, and
+kernel intervals), the device's idle share of the profiled window,
 device time per kernel name (per step of all the replicas together for
-``fit_batch``).  Then the same device breakdown per
+``fit_batch``), and the device's kernels per step (a CUDA graph's nodes
+included) and the host's runtime calls per step (kernel launches, graph
+launches, copies) apart.  Then the same device breakdown per
 call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
 (``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
 (0, I).  The profiler slows the host, so it
 also times the same fit unprofiled and prints the idle share that the
 profiled device time leaves of that wall time.  First, before any
 profiler has run in the process, the host cost of the eps draws per step of
-K = 1, 8, 32 replicas (one generator reseed and one ``randn`` per replica
-and step, what keeps replica i on the stream of ``fit(seed_i)``), three
-readings each.
+K = 1, 8, 32 replicas (one generator reseed and one in-place ``normal_``
+per replica and step, what keeps replica i on the stream of
+``fit(seed_i)``), three readings each.
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ def busy_us(kernels) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+def runtime_calls(prof, DeviceType) -> dict:
+    """The CUDA runtime calls the host made in a profile, by name (kernel
+    launches, graph launches, copies; not the final synchronize).  With
+    CUDA graphs, ``kernel_launches_per_step`` counts the device's kernels
+    (a graph's nodes included) and these the host's calls."""
+    api = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA and e.name.startswith("cuda")
+                and e.name != "cudaDeviceSynchronize"):
+            api[e.name] = api.get(e.name, 0) + 1
+    return api
 
 
 def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
@@ -93,6 +108,7 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
         by_name[key] = by_name.get(key, 0.0) + (k.time_range.end
                                                 - k.time_range.start)
     busy = busy_us(kernels)
+    api = runtime_calls(prof, DeviceType)
     print(json.dumps({
         "path": name, "steps": steps, "replicas": replicas or 1,
         **({"fit_counts": counts()} if counts is not None else {}),
@@ -102,6 +118,12 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
         "wall_us_per_step_unprofiled": plain_wall_us / steps,
         "device_idle_share_unprofiled": 1.0 - busy / plain_wall_us,
         "kernel_launches_per_step": len(kernels) / steps,
+        "host_kernel_launches_per_step": sum(
+            v for k, v in api.items() if k.startswith("cudaLaunchKernel"))
+        / steps,
+        "graph_launches_per_step": api.get("cudaGraphLaunch", 0) / steps,
+        "host_runtime_calls_per_step": {k: v / steps
+                                        for k, v in sorted(api.items())},
         "device_us_per_step_by_kernel": {
             k: v / steps for k, v in sorted(by_name.items(),
                                             key=lambda kv: -kv[1])},
@@ -139,15 +161,18 @@ def profile_calls(name, fn, calls, torch):
 
 def draw_cost(fitter, k, torch, blocks=50, spc=8):
     """Host microseconds per step of a K6 block's eps draws for ``k``
-    replicas (K2's block for k=1), synchronized at the end."""
-    from gsmvi_tpu_torch.state import FactorVIState
+    replicas (K2's block for k=1), written in place into a block as the
+    fit runner writes them (``driver.draw_block``), synchronized at the
+    end."""
+    from gsmvi_tpu_torch.driver import draw_block
 
     seed = tuple(range(k)) if k > 1 else 0
-    state = FactorVIState(None, None, seed, 0, None, None)
+    lead = (k,) if k > 1 else ()
+    out = torch.empty((*lead, spc * 32, fitter.D), device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(blocks):
-        torch.cat([fitter._draw(state, 32, j) for j in range(spc)], dim=-2)
+    for i in range(blocks):
+        draw_block(fitter._eps, out, seed, i * spc, spc, 32)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e6 / (blocks * spc)
 
