@@ -108,20 +108,25 @@ the script exits non-zero):
     (four records, K7 four times, no warning on a valid record, the state
     equal to phase 6's bit for bit).
 17. ranges: K1 and K2 against their plain versions at (B, D) = (1, 1),
-    (2, 10), (3, 5), (7, 16) and (128, 256), (512, 256), (128, 1024),
-    (512, 1024), above B=64 on the global-memory small space
-    (``eps_smallspace_large``, checked to run exactly there); K7/K8 at
-    B=2 and B=128 (``bam_smallspace_large``) and K9/K10 at (1, 16) and
+    (2, 10), (3, 5), (7, 16), at B 65, 96, 127 (the row panels' ragged
+    edges) x D 1, 33, 256, and at (128, 256), (512, 256), (128, 1024),
+    (512, 1024): at B 65-128 on the row-panel small space
+    (``eps_smallspace_panel``), above on the global-memory one
+    (``eps_smallspace_large``), each checked to run exactly there; K6 at
+    K=4, B=128 equal to the single K2 fits bit for bit; K7/K8 at B=2 and
+    B=128 (``bam_smallspace_panel``, checked) and K9/K10 at (1, 16) and
     (512, 1024), flags and counts equal to the plain version's;
     ``GSM(2048, ...).fit`` at B=32 on K1 (finite moments); the large-B
-    small spaces' per-call times beside their bounds.
+    small spaces' per-call and device times beside their bounds.
 18. examples: the reference examples' configurations with the fitters'
     defaults, ``GSM(10)`` at B=2 (K1 exactly niter + 1 times),
     ``BaM(5, use_lowrank=True)`` at B=2 and ``GSM(16)`` at B=1, under
     1.5 x the worst JAX CPU fit of the same arrays
     (``tools/jax_example_bound.py``); ``FactorGSM(fused_score)`` at B=128
-    to convergence on the global-memory small space, bounded the same way;
-    a ``FactorBaM(fused_score)`` run at B=128.
+    to convergence on the row-panel small space, bounded the same way;
+    a ``FactorBaM(fused_score)`` run at B=128 on BaM's row-panel small
+    space; a short ``FactorGSM(fused_score)`` run at B=256 on the
+    global-memory small space.
 19. zoo kernels: ``funnel_score``, ``banana_score``, ``student_t_score``
     (K11a), ``mixture_score`` and ``logreg_score`` (K11b) against their
     plain versions at (32, 256), (3, 10) and (512, 1024); the mixture also
@@ -294,9 +299,12 @@ SOURCES = {
     "eps_smallspace_large": (
         "gsmvi_tpu_torch/ops/cuda/csrc/smallspace_global.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:461"),
-    "bam_smallspace_large": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/smallspace_global.cu",
-        "gsmvi_tpu/ops/pallas/bam_fused.py:380"),
+    "eps_smallspace_panel": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_panel.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:231"),
+    "bam_smallspace_panel": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_panel.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:195"),
     "funnel_score": (
         "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:788"),
@@ -2133,7 +2141,9 @@ def phase_eps_step_times(fs, t, torch):
 # bam_fused.py:345-352); ADVI at (1, 16) and the two-phase bulk's
 # (512, 1024) (bench.py:411-440); GSM at D=2048 (bench.py:489-494).
 RANGE_SMALL = ((1, 1), (2, 10), (3, 5), (7, 16))
-RANGE_LARGE = ((128, 256), (512, 256), (128, 1024), (512, 1024))
+RANGE_LARGE = ((65, 1), (65, 33), (65, 256), (96, 1), (96, 33), (96, 256),
+               (127, 1), (127, 33), (127, 256),
+               (128, 256), (512, 256), (128, 1024), (512, 1024))
 RANGE_COND = 10.0
 RANGE_BAM = ((2, 256), (128, 256))
 RANGE_ADVI = ((1, 16), (512, 1024))
@@ -2154,6 +2164,10 @@ EXAMPLES = {
 B128, N_B128 = 128, 3000
 B128_MEAN_REF, B128_COV_REF = 9.0187e-4, 2.3533e-4
 N_BAM128 = 200
+# A short fit above the panel range, on the global-memory small space.
+B256, N_B256 = 256, 64
+# K6 at K replicas and B=128 against the single K2 fits (phase 17).
+K6_B128 = (4, 64, 16)                # (K, D, niter)
 # Phases 19-20: the zoo's K11a and K11b kernels and the zoo path.  Kernel
 # vs plain version (float32 on the card, sums in other orders): funnel and
 # banana within 1e-5 * max(1, max|v|) (elementwise work and one row sum),
@@ -2194,23 +2208,25 @@ def _k1_inputs(np, torch, b, d, seed):
     return [torch.from_numpy(x).cuda() for x in (eps, v, mu, f)]
 
 
-def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
-                 torch, np):
+def phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
+                 ill_conditioned_gaussian, torch, np):
     """Phase 17: K1/K2 against their plain versions over RANGE_SMALL and
-    RANGE_LARGE (above B=64 on the global-memory small space), K7/K8 at
-    RANGE_BAM, K9/K10 at RANGE_ADVI; GSM.fit at D=2048 on K1; and the
-    large-B small spaces' per-call times beside their bounds.  Returns
-    (worst errors, the D=2048 path's counts, times, work)."""
+    RANGE_LARGE (B 65-128 on the row-panel small space, above on the
+    global-memory one), K6 replicas at B=128, K7/K8 at RANGE_BAM, K9/K10 at
+    RANGE_ADVI; GSM.fit at D=2048 on K1; and the large-B small spaces'
+    per-call and device times beside their bounds.  Returns (worst errors,
+    the D=2048 path's counts, times, work, device times)."""
     dev = torch.device("cuda")
     spc = 8
     worst = {"gsm_eps_update_fused": 0.0, "make_fused_eps_multistep": 0.0,
-             "eps_smallspace_large": 0.0}
+             "eps_smallspace_large": 0.0, "eps_smallspace_panel": 0.0}
     for b, d in RANGE_SMALL + RANGE_LARGE:
         e, v, mu, f = _k1_inputs(np, torch, b, d, 5000 + b + d)
         fmax = float(f.abs().max())
         fs.reset_launch_counts()
         m_k, f_k, g_k = fs.gsm_eps_update_fused(e, v, mu, f)
         large = fs.launch_counts()["eps_smallspace_large"]
+        panel = fs.launch_counts()["eps_smallspace_panel"]
         m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(e, v, mu, f)
         t = ill_conditioned_gaussian(TARGET_SEED, d, RANGE_COND, device=dev)
         score_fn, params = t.fused_score
@@ -2228,6 +2244,7 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
         ef2 = float((fk2 - fp2).abs().max())
         fscale = float(fp2.abs().max())
         rec = {"B": b, "D": d, "large_small_space": large,
+               "panel_small_space": panel,
                "k1": {"good": [bool(g_k), bool(g_p)], "mean_err": em,
                       "f_err": ef_, "f_tol": F_TOL * fmax},
                "k2": {"n_acc": [int(nk2), int(np2)], "mean_err": em2,
@@ -2235,7 +2252,9 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
                       "graph_equals_eager": True,
                       "captures": step.captures}}
         emit({"phase": "ranges", "kernel": "K1/K2", **rec})
-        check(large == (1 if b > fs.SHARED_SMALLSPACE_MAX_B else 0),
+        check(large == int(b > fs.PANEL_SMALLSPACE_MAX_B)
+              and panel == int(fs.SHARED_SMALLSPACE_MAX_B < b
+                               <= fs.PANEL_SMALLSPACE_MAX_B),
               f"small-space route at B={b}: {rec}")
         check(bool(g_k) == bool(g_p) and int(nk2) == int(np2), f"flags {rec}")
         check(em <= MEAN_TOL and ef_ <= F_TOL * fmax,
@@ -2245,15 +2264,47 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
         for key, err in (("gsm_eps_update_fused", max(em, ef_)),
                          ("make_fused_eps_multistep", max(em2, ef2))):
             worst[key] = max(worst[key], err)
-        if large:
-            worst["eps_smallspace_large"] = max(
-                worst["eps_smallspace_large"], em, ef_, em2, ef2)
+        for key, used in (("eps_smallspace_large", large),
+                          ("eps_smallspace_panel", panel)):
+            if used:
+                worst[key] = max(worst[key], em, ef_, em2, ef2)
 
+    # K6 at K replicas and B=128 on the panel small space's replica axis:
+    # each replica equals its single K2 fit, bit for bit.
+    k6, d6, n6 = K6_B128
+    t6 = dense_gaussian(TARGET_SEED, d6, device=dev)
+    g6 = FactorGSM(d6, t6.lp, t6.lp_g, fused_score=t6.fused_score,
+                   device="cuda")
+    fs.reset_launch_counts()
+    st6 = g6.fit_batch(range(k6), batch_size=B128, niter=n6,
+                       return_state=True, small_solver="fused")
+    c6 = fs.launch_counts()
+    singles = [g6.fit(i, batch_size=B128, niter=n6, verbose=False,
+                      return_state=True) for i in range(k6)]
+    same = [bool(torch.equal(st6.mean[i], s.mean)
+                 and torch.equal(st6.factor[i], s.factor))
+            for i, s in enumerate(singles)]
+    emit({"phase": "ranges", "check": "k6_replicas_b128", "K": k6, "D": d6,
+          "B": B128, "niter": n6, "replica_equals_single_fit": same,
+          "launches": {k: c6[k] for k in ("make_fused_eps_batch_multistep",
+                                          "eps_smallspace_panel")}})
+    check(all(same) and c6["eps_smallspace_panel"] > 0,
+          "K6 at B=128: a replica differs from its single fit")
+
+    fs.reset_launch_counts()
     small = phase_bam_kernels(bf, fs, torch, np, shapes=RANGE_BAM[:1],
                               designed=False, phase="ranges")
+    c_small = fs.launch_counts()
+    fs.reset_launch_counts()
     big = phase_bam_kernels(bf, fs, torch, np, shapes=RANGE_BAM[1:],
                             designed=False, phase="ranges")
-    worst["bam_smallspace_large"] = max(big.values())
+    c_big = fs.launch_counts()
+    check(c_small["bam_smallspace_panel"] == 0 and c_small["bam_smallspace"]
+          > 0 and c_big["bam_smallspace"] == 0
+          and c_big["bam_smallspace_panel"] > 0,
+          f"BaM small-space route: B={RANGE_BAM[0][0]} {c_small}, "
+          f"B={RANGE_BAM[1][0]} {c_big}")
+    worst["bam_smallspace_panel"] = max(big.values())
     for key in small:
         worst[key] = max(small[key], big[key])
     worst.update(phase_advi_kernels(af, fs, torch, np, shapes=RANGE_ADVI,
@@ -2278,8 +2329,9 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
           "GSM at D=2048: moments not finite")
 
     # Per-call times of the large-B small spaces (K1 and K7 calls on the
-    # global-memory route) beside the plain versions and the bounds.
-    times, work, out = {}, {}, {}
+    # row-panel route at B=128, on the global-memory one at B=512) beside
+    # the plain versions and the bounds; the small spaces' device times.
+    times, work, out, device = {}, {}, {}, {}
     for b, d in ((B128, D), (512, D), (512, 1024)):
         e, v, mu, f = _k1_inputs(np, torch, b, d, 6000 + b + d)
         ef = e @ f.T
@@ -2306,12 +2358,23 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
                 "eager": cuda_ms(lambda: step(spc, blk, m0, f0, *params,
                                               graph=False), reps=10,
                                  warmup=2)}
-        if (b, d) == (B128, D):
-            times["eps_smallspace_large"] = (tk, tp)
-            work["eps_smallspace_large"] = (
+        if d == D:
+            key = ("eps_smallspace_panel" if b == B128
+                   else "eps_smallspace_large")
+            times[key] = (tk, tp)
+            work[key] = (
                 lambda e=e, v=v, mu=mu, f=f, ef=ef:
                 fs.gsm_eps_update_ns_reference(e, v, mu, f, ef_t=ef),
                 (e, v, mu, f, ef))
+            vf = v @ f
+            rows = (e, v, vf, vf @ f.T, ef, mu)
+            ms, names = device_ms(lambda: fs.eps_smallspace(*rows),
+                                  calls=20 if b == B128 else 5, warmup=2)
+            device[key] = ms
+            out[f"small_space_B{b}_D{d}_device_ms"] = ms
+            want = "eps_panel_kernel" if b == B128 else "gemm_kernel"
+            check(any(want in n for n in names),
+                  f"the small space at B={b} ran {names}")
     cases = bam_k7_cases(np, ((B128, D),))
     _, b, d, arrays, reg, gates, _ = cases[0]
     e, v, mu, f = (torch.from_numpy(x).to(dev) for x in arrays)
@@ -2322,18 +2385,28 @@ def phase_ranges(GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian,
     plain7 = lambda: bf.bam_eps_update_ns_reference(e, v, mu, f, reg)
     out[f"K7_B{b}_D{d}"] = {"kernel": tk, "plain": tp,
                             **bound(plain7, (e, v, mu, f))}
-    times["bam_smallspace_large"] = (tk, tp)
-    work["bam_smallspace_large"] = (plain7, (e, v, mu, f))
+    times["bam_smallspace_panel"] = (tk, tp)
+    work["bam_smallspace_panel"] = (plain7, (e, v, mu, f))
+    vf = v @ f
+    rows = (e, v, vf, vf @ f.T, e @ f.T, mu)
+    ms, names = device_ms(lambda: bf.bam_smallspace(*rows, reg), calls=10,
+                          warmup=2)
+    check(any("bam_panel_kernel" in n for n in names),
+          f"BaM's small space at B={b} ran {names}")
+    device["bam_smallspace_panel"] = ms
+    out[f"bam_small_space_B{b}_D{d}_device_ms"] = ms
     emit({"phase": "range_times", "ms_per_call": out})
-    return worst, [wide_counts], times, work
+    return worst, [wide_counts], times, work, device
 
 
 def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
                    dense_gaussian, fs, t, torch):
     """Phase 18: the reference examples' configurations on the card with
     the fitters' defaults (K1 / K7 at B=1-2), then FactorGSM(fused_score)
-    at B=128 to convergence on the global-memory small space and a
-    FactorBaM(fused_score) run at B=128.  Returns each path's counts."""
+    at B=128 to convergence on the row-panel small space, a
+    FactorBaM(fused_score) run at B=128 on BaM's and a short
+    FactorGSM(fused_score) run at B=256 on the global-memory small space.
+    Returns each path's counts."""
     dev = torch.device("cuda")
     counts = []
     for name, (d, seed, b, niter, ref) in EXAMPLES.items():
@@ -2384,8 +2457,9 @@ def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
           "mean_err": em, "cov_err": ec, "mean_err_bound": bounds[0],
           "cov_err_bound": bounds[1], "iters_per_s": (N_B128 + 1) / wall})
     check(c["make_fused_eps_multistep"] > 0
-          and c["eps_smallspace_large"] == N_B128 + 1,
-          "B=128: K2 on the global-memory small space every step")
+          and c["eps_smallspace_panel"] == N_B128 + 1
+          and c["eps_smallspace_large"] == 0,
+          "B=128: K2 on the row-panel small space every step")
     _errs_bounded(em, ec, bounds, "FactorGSM(fused_score) at B=128")
 
     fb = FactorBaM(D, t.lp, t.lp_g, fused_score=t.fused_score, device="cuda")
@@ -2401,10 +2475,30 @@ def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
           "n_accepted": int(st.n_accepted), "errs": list(errs(st.mean, st.cov,
                                                                t)),
           "iters_per_s": (N_BAM128 + 1) / wall})
-    check(c["make_fused_bam_multistep"] > 0 and c["bam_smallspace_large"] > 0,
-          "BaM at B=128: K8 on the global-memory small space")
+    check(c["make_fused_bam_multistep"] > 0 and c["bam_smallspace_panel"] > 0
+          and c["bam_smallspace"] == 0,
+          "BaM at B=128: K8 on the row-panel small space")
     check(bool(torch.isfinite(st.mean).all() and torch.isfinite(st.cov).all()),
           "BaM at B=128: moments not finite")
+    check(bool(torch.linalg.eigvalsh(st.cov).min() > 0),
+          "BaM at B=128: covariance not PD")
+
+    fs.reset_launch_counts()
+    st, wall = _timed(lambda: fg.fit(FIT_SEED, batch_size=B256, niter=N_B256,
+                                     verbose=False, return_state=True),
+                      torch)
+    c = fs.launch_counts()
+    counts.append(c)
+    emit({"phase": "examples", "config": "gsm_fused_b256",
+          "fitter": "FactorGSM(fused_score)", "D": D, "B": B256,
+          "niter": N_B256, "launches": c, "n_accepted": int(st.n_accepted),
+          "errs": list(errs(st.mean, st.cov, t)),
+          "iters_per_s": (N_B256 + 1) / wall})
+    check(c["eps_smallspace_large"] == N_B256 + 1
+          and c["eps_smallspace_panel"] == 0,
+          "B=256: K2 on the global-memory small space every step")
+    check(bool(torch.isfinite(st.mean).all() and torch.isfinite(st.cov).all()),
+          "FactorGSM at B=256: moments not finite")
     return counts
 
 
@@ -2758,8 +2852,9 @@ def main() -> int:
     audit_counts = phase_audit_paths(FactorGSM, FactorBaM, Regularizers, fs,
                                      t, st, st6, torch)
 
-    range_worst, wide_counts, range_times, range_work = phase_ranges(
-        GSM, fs, bf, af, dense_gaussian, ill_conditioned_gaussian, torch, np)
+    range_worst, wide_counts, range_times, range_work, range_device = \
+        phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
+                     ill_conditioned_gaussian, torch, np)
     for key, err in range_worst.items():
         worst[key] = max(worst.get(key, 0.0), err)
     example_counts = phase_examples(GSM, BaM, FactorGSM, FactorBaM,
@@ -2780,7 +2875,8 @@ def main() -> int:
     for more in (bam_more[:3],
                  phase_advi_times(af, fs, torch, np),
                  k6_times[:3],
-                 phase_eps_step_times(fs, t, torch), (range_times, range_work),
+                 phase_eps_step_times(fs, t, torch),
+                 (range_times, range_work, range_device),
                  (zoo_times, zoo_work)):
         times.update(more[0])
         work.update(more[1])

@@ -29,8 +29,8 @@ On the card a K7 call is eight launches: ``vf = v F`` and ``t = vf F^T``
 on the split-k thin product (``thin_gemm.cu``), the small space on a
 thread-block cluster of ``cluster_columns(D)`` blocks
 (``ops/cuda/csrc/bam_smallspace_cluster.cu``; above ``BAM_SHARED_MAX_B``
-the global-memory chain ``bam_smallspace_large`` of
-``smallspace_global.cu`` in its place), the fat apply on the GEMM template
+``bam_smallspace_panel``, its (kpad, kpad) matrices in row panels over a
+cluster of ``PANEL_RANKS`` blocks, ``bam_smallspace_panel.cu``), the fat apply on the GEMM template
 into a second buffer with per-tile sums of squares, the two mean matvecs on
 F' (thin product), a one-block finalize (trace gate, keep, mean, report;
 ``bam_smallspace.cu``) and a grid select of F or F'.  A K8 call loops its
@@ -52,10 +52,11 @@ import numpy as np
 import torch
 
 from ..state import NS_STATS_INIT
-from .fused_step import (KERNEL_DIM_RANGE, KERNEL_WRAPPERS, _library,
-                         _newton_inv, _ns_sqrt, _on_cpu, _ptr, _require,
-                         _spd_norm_ub, _stream, _thin, cluster_columns,
-                         ns_sqrt_both)
+from .fused_step import (KERNEL_DIM_RANGE, KERNEL_WRAPPERS, SMEM_LIMIT_BYTES,
+                         _library, _newton_inv, _ns_sqrt, _on_cpu, _ptr,
+                         _require, _spd_norm_ub, _stream, _thin,
+                         cluster_columns, ns_sqrt_both, panel_clusters,
+                         panel_smem_bytes)
 
 # Newton-Schulz sweep counts (u_sqrt, cu_inv, s1_sqrt, p_invsqrt, w_inv),
 # sized by the JAX package for the gated envelope (bam_fused.py:65-76).
@@ -97,12 +98,13 @@ SS_SIZE = 6
 # products give each of 256 threads a T x T tile of a 16T x 16T grid, T <= 4,
 # so kpad <= 64: B <= 56 (BAM_SHARED_MAX_B) at 227,456 of the 232,448 bytes
 # a block may use on Hopper.  Above, up to B = 128 (the JAX kernel's own
-# top, ``gsmvi_tpu/ops/pallas/bam_fused.py:345-352``), the small space is a
-# chain of grid launches with its matrices in global memory
-# (``smallspace_global.cu``).  The D range is that of the GSM kernels
-# (``fused_step.KERNEL_DIM_RANGE``); D is masked at the tile edges.
-SMEM_LIMIT_BYTES = 232448
+# top, ``gsmvi_tpu/ops/pallas/bam_fused.py:345-352``), the small space keeps
+# fourteen (kpad, kpad) matrices in row panels over a cluster of PANEL_RANKS
+# blocks (``bam_smallspace_panel.cu``), at most 9 rows of each per block.
+# The D range is that of the GSM kernels (``fused_step.KERNEL_DIM_RANGE``);
+# D is masked at the tile edges.
 _KPAD_MAX, _NMAT, _SLAB_LD, _COL_PARTS = 64, 12, 36, 3 * 8 * 32
+_PANEL_NMAT, _PANEL_COL_PARTS = 14, 5 * 8 * 32
 _GEMM_TILE = 32                      # gemm.cuh's output tile
 
 
@@ -129,6 +131,19 @@ def bam_smallspace_smem_bytes(b: int) -> int:
 BAM_SHARED_MAX_B = max(b for b in range(1, _KPAD_MAX - 7)
                        if bam_smallspace_smem_bytes(b) <= SMEM_LIMIT_BYTES)
 BAM_KERNEL_BATCH_RANGE = (1, 128)
+
+
+def bam_panel_smem_bytes(b: int) -> int:
+    """Dynamic shared memory of the BaM panel small space at batch ``b``
+    (``pb_smem_bytes`` in ``bam_smallspace_panel.cuh``)."""
+    return panel_smem_bytes(b + 8, _PANEL_NMAT, _PANEL_COL_PARTS)
+
+
+def bam_panel_tile(b: int) -> tuple:
+    """(row groups of 8, column blocks of 128) of the BaM panel kernel's
+    thread tile at batch ``b``: (1, 1) while kpad = b + 8 <= 128 (8 rows
+    per block), else (2, 2) (``bam_smallspace_panel_t22.cu``)."""
+    return (1, 1) if b + 8 <= 128 else (2, 2)
 BAM_KERNEL_DIM_RANGE = KERNEL_DIM_RANGE
 
 
@@ -395,28 +410,30 @@ class _BamBuffers:
         self.nparts = (-(-d // _GEMM_TILE)) ** 2
         self.partial = empty(2 * self.nparts)
         self.f_prop = empty(d, d) if with_f_prop else None
-        self.ws = (empty(_library().size("gsmvi_bam_large_ws", b))
+        # The panel small space's mirrors of its panels.
+        self.ws = (empty(_library().size("gsmvi_bam_panel_ws", b))
                    if b > BAM_SHARED_MAX_B else None)
 
 
 def _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf: _BamBuffers,
                            reg, iters, lmax_gate, gu_gate, halt=None) -> None:
     """The small space of one update, from ``buf.vf`` and ``buf.t``: the
-    stacked rows ``buf.su``/``buf.sw``, ``buf.vec`` and ``buf.ss``.  Up to
-    ``BAM_SHARED_MAX_B`` on a cluster of ``cluster_columns(D)`` blocks
-    (counted in ``bam_smallspace.launches``), above on the global-memory
-    chain (``bam_smallspace_large``)."""
+    stacked rows ``buf.su``/``buf.sw``, ``buf.vec`` and ``buf.ss``.  By
+    batch alone: up to ``BAM_SHARED_MAX_B`` on a cluster of
+    ``cluster_columns(D)`` blocks (counted in ``bam_smallspace.launches``),
+    above on row panels over a cluster of ``PANEL_RANKS`` blocks
+    (``bam_smallspace_panel``)."""
     b, d = e.shape
     args = (_ptr(e), _ptr(v), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
             _ptr(mean_in), _ptr(buf.rows), _ptr(buf.su), _ptr(buf.sw),
             _ptr(buf.vec), _ptr(buf.ss), _ptr(halt))
     scalars = (float(reg), *iters, float(lmax_gate), float(gu_gate), NS_TOL)
-    if buf.ws is None:
+    if b <= BAM_SHARED_MAX_B:
         bam_smallspace.launches += 1
         lib.call("gsmvi_bam_smallspace_cluster", *args, b, d, *scalars,
                  *cluster_columns(d), bam_cluster_tile(b), stream)
     else:
-        bam_smallspace_large(lib, stream, args, buf.ws, b, d, scalars)
+        bam_smallspace_panel(lib, stream, args, buf.ws, b, d, scalars)
 
 
 def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
@@ -445,19 +462,22 @@ def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
              _ptr(f_dst), d * d, stream)
 
 
-def bam_smallspace_large(lib, stream, args, ws, b: int, d: int,
+def bam_smallspace_panel(lib, stream, args, ws, b: int, d: int,
                          scalars) -> None:
-    """Launch the global-memory BaM small space (``smallspace_global.cu``)
-    that K7 and K8 run above ``BAM_SHARED_MAX_B``: ``args`` are
-    ``gsmvi_bam_smallspace_cluster``'s pointers, ``scalars`` (reg, iters,
-    gates, tol), ``ws`` its workspace.  ``launches`` counts the updates that
+    """Launch the row-panel BaM small space (``bam_smallspace_panel.cu``)
+    that K7 and K8 run above ``BAM_SHARED_MAX_B``: one cluster of
+    ``PANEL_RANKS`` blocks, ``args`` ``gsmvi_bam_smallspace_cluster``'s
+    pointers, ``ws`` the mirrors of its panels in device memory,
+    ``scalars`` (reg, iters, gates, tol).  Its placement is
+    checked first (``panel_clusters``); ``launches`` counts the updates that
     took it, so a run shows which small space ran."""
-    bam_smallspace_large.launches += 1
-    lib.call("gsmvi_bam_smallspace_large", *args, _ptr(ws), b, d, *scalars,
+    panel_clusters(lib, "bam", b)
+    bam_smallspace_panel.launches += 1
+    lib.call("gsmvi_bam_smallspace_panel", *args, _ptr(ws), b, d, *scalars,
              stream)
 
 
-bam_smallspace_large.launches = 0
+bam_smallspace_panel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +630,7 @@ def bam_smallspace(e, v, vf, t, ef, mean, reg, iters=BAM_NS_ITERS_DEFAULT,
     efbar] (2, D) and the ``SS_SIZE`` results the finalize reads (gu_ub,
     lmax_ub, res_ok, stiff, ta, tb).  On the card the cluster kernel
     (``bam_smallspace_cluster.cu``) for B <= ``BAM_SHARED_MAX_B``, the
-    global-memory chain above; on the CPU
+    row-panel cluster kernel above; on the CPU
     ``bam_smallspace_stacks_reference``."""
     b, d = e.shape
     iters = tuple(int(i) for i in iters)
@@ -636,6 +656,6 @@ bam_smallspace.launches = 0
 KERNEL_WRAPPERS.update({
     "bam_eps_update_fused": bam_eps_update_fused,
     "make_fused_bam_multistep": make_fused_bam_multistep,
-    "bam_smallspace_large": bam_smallspace_large,
+    "bam_smallspace_panel": bam_smallspace_panel,
     "bam_smallspace": bam_smallspace,
 })

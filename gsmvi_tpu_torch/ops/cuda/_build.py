@@ -58,7 +58,8 @@ SIGNATURES = {
     "gsmvi_advi_stl_decide": [_P, _P],
     "gsmvi_advi_stl_apply": [_P] * 11 + [_I] + [_F] * 8 + [_P],
     "gsmvi_eps_smallspace_large": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
-    "gsmvi_bam_smallspace_large": [_P] * 13 + [_I, _I, _F] + [_I] * 5
+    "gsmvi_eps_smallspace_panel": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
+    "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F, _P],
     "gsmvi_funnel_score": [_P] * 3 + [_I, _I, _P],
     "gsmvi_banana_score": [_P] * 3 + [_I, _I, _P],
@@ -69,7 +70,10 @@ SIGNATURES = {
 # C entry points returning a size (long long): argument types.
 SIZES = {
     "gsmvi_eps_large_ws": [_I],
-    "gsmvi_bam_large_ws": [_I],
+    "gsmvi_eps_panel_ws": [_I],
+    "gsmvi_bam_panel_ws": [_I],
+    "gsmvi_eps_panel_clusters": [_I],
+    "gsmvi_bam_panel_clusters": [_I],
 }
 
 

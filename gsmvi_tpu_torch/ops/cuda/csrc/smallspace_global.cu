@@ -1,38 +1,33 @@
-// Large-batch small spaces: the eps-NS GSM update for 64 < B <= 512 and the
-// BaM NS update for 56 < B <= 128, with the (B, B) / (kpad, kpad) matrices in
-// global memory.
+// Large-batch eps-NS small space: the GSM update for 128 < B <= 512, with
+// the (B, B) matrices in global memory.
 //
-// Replace, for the batches the shared-memory cluster kernels cannot hold
-// (eps_smallspace_cluster.cu: twelve (B, B), B <= 64;
-// bam_smallspace_cluster.cu: twelve (kpad, kpad), kpad = B + 8 <= 64), the
-// same two TPU kernel bodies:
+// Replaces, for the batches whose matrices no cluster's shared memory holds
+// (eps_smallspace_cluster.cu: twelve (B, B) in every block, B <= 64;
+// eps_smallspace_panel.cu: row panels over a cluster, B 65-128), the TPU
+// kernel body
 //   gsmvi_eps_smallspace_large  gsmvi_tpu/ops/pallas/fused_step.py
 //       `_eps_smallspace_ns` (:231) from the row work at :287 to the stacked
 //       rows at :345, both residual gates and the mean half of the select;
 //       the body of K1 `gsm_eps_update_fused` (:461) and, through the same
 //       launches, of K2 (:685), K4 (:586) and K6 (batch_fused.py:54).
-//   gsmvi_bam_smallspace_large  gsmvi_tpu/ops/pallas/bam_fused.py
-//       `_bam_smallspace_ns` (:195) from the row factors at :242 to the trace
-//       screen at :321; the body of K7 (:380) and K8 (:425).
-// Each computes what its shared-memory twin computes, step for step: the same
+// It computes what its shared-memory twins compute, step for step: the same
 // Newton-Schulz / Newton-Hotelling chains with the same row-sum norm seeds,
-// every symmetrisation, the same residual, stiffness and trace statistics,
-// and the same padding (kpad = B + 8 enters BaM's gates).  Only the storage
-// and the schedule differ, so sums run in other orders.
+// every symmetrisation, the same residuals.  Only the storage and the
+// schedule differ, so sums run in other orders.  (It takes any B >= 1; the
+// wrappers send it B > 128 only.)
 //
-// What bounds it on an H100: the chains are ~100 (eps, long profile) and
-// ~180 (BaM, tier 0) dependent (n, n) products, 2 n^3 FLOP each: 27 GFLOP per
-// eps update at B=512 (0.40 ms at 67 TFLOP/s), 0.42 GFLOP at B=128, and
-// 0.86 GFLOP per BaM update at kpad=136.  At B=128 a product is 16 tiles of
-// 32 x 32, so launch latency and the dependency chain bound it; at B=512 it
-// is 256 tiles of 2 M FMA, and the FFMA rate of the tiled template bounds it.
+// What bounds it on an H100: the chains are ~100 dependent (n, n) products
+// at the long profile, 2 n^3 FLOP each: 27 GFLOP per update at B=512 (0.40
+// ms at 67 TFLOP/s).  At B=512 a product is 256 tiles of 2 M FMA, and the
+// FFMA rate of the tiled template bounds it; at B=128 a product was 16
+// tiles, bound by launch latency and the dependency chain (the reason for
+// eps_smallspace_panel.cu).
 // Design: every product is a launch of the f32 GEMM template (gemm.cuh, a
 // replica axis on blockIdx.z), every norm bound, residual and flag a small
 // one-block kernel writing into device memory, every elementwise step a grid
 // kernel; the host enqueues the whole chain on the stream and never waits.
-// Ten (B, B) matrices are 10 MiB at B=512 and 640 KiB at B=128, twelve
-// (kpad, kpad) 888 KiB at kpad=136: resident in the 50 MB L2.  A persistent
-// cooperative kernel (one grid barrier per product) is later work.
+// Ten (B, B) matrices are 10 MiB at B=512: resident in the 50 MB L2.  A
+// persistent cooperative kernel or a 16-block cluster is later work.
 #include "gemm.cuh"
 #include "smallspace.cuh"
 
@@ -44,9 +39,7 @@ namespace {
 constexpr int EW_THREADS = 256;
 constexpr int RED_THREADS = 1024;
 constexpr int GL_EPS_MAXB = 512;
-constexpr int GL_BAM_MAXK = 136;     // kpad = B + 8, B <= 128
 constexpr int GL_EPS_NMAT = 10;
-constexpr int GL_BAM_NMAT = 12;
 constexpr int GL_NSCAL = 16;         // norm, residual and flag slots
 
 #define GL_CHECK(expr)                                   \
@@ -54,10 +47,6 @@ constexpr int GL_NSCAL = 16;         // norm, residual and flag slots
         const cudaError_t err_ = (expr);                 \
         if (err_ != cudaSuccess) return err_;            \
     } while (0)
-
-__device__ __forceinline__ bool halted(const float* halt) {
-    return halt != nullptr && *halt != 0.f;
-}
 
 // Replica z's slice of a tensor whose replicas lie `stride` elements apart.
 template <class T>
@@ -69,8 +58,7 @@ __device__ __forceinline__ T* rep(T* p, long long stride) {
 // ty) on (n, n) matrices; X and Y may be null (then 0); out may alias X.
 __global__ void __launch_bounds__(EW_THREADS) gl_combine_kernel(
         float* out, const float* x, const float* y, int n, float diag, float bx,
-        float by, int ty, long long s, const float* halt) {
-    if (halted(halt)) return;
+        float by, int ty, long long s) {
     out = rep(out, s);
     x = rep(x, s);
     y = rep(y, s);
@@ -87,8 +75,7 @@ __global__ void __launch_bounds__(EW_THREADS) gl_combine_kernel(
 
 // M = 0.5 (M + M^T) in place: the thread of (i, j), i < j, writes both.
 __global__ void __launch_bounds__(EW_THREADS) gl_symmetrize_kernel(
-        float* m, int n, long long s, const float* halt) {
-    if (halted(halt)) return;
+        float* m, int n, long long s) {
     m = rep(m, s);
     const int nn = n * n;
     for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < nn;
@@ -106,9 +93,8 @@ __global__ void __launch_bounds__(EW_THREADS) gl_symmetrize_kernel(
 // column order), + 1e-30, into *out; one block per replica (blockIdx.x),
 // whose matrix and slot lie s elements after the previous replica's.
 __global__ void __launch_bounds__(RED_THREADS) gl_norm_ub_kernel(
-        const float* a, int n, float* out, long long s, const float* halt) {
+        const float* a, int n, float* out, long long s) {
     __shared__ float red[32];
-    if (halted(halt)) return;
     a += (long long)blockIdx.x * s;
     out += (long long)blockIdx.x * s;
     float mx = 0.f;
@@ -127,8 +113,7 @@ __global__ void __launch_bounds__(RED_THREADS) gl_norm_ub_kernel(
 //   mode 2 (inverse start): x = I * (1 / nrm)
 __global__ void __launch_bounds__(EW_THREADS) gl_norm_scale_kernel(
         int mode, const float* a, const float* b, float* x, float* y,
-        const float* nrm, int n, long long s, const float* halt) {
-    if (halted(halt)) return;
+        const float* nrm, int n, long long s) {
     a = rep(a, s);
     b = rep(b, s);
     x = rep(x, s);
@@ -151,28 +136,25 @@ __global__ void __launch_bounds__(EW_THREADS) gl_norm_scale_kernel(
     }
 }
 
-// Residuals into *out, one block per replica:
-//   mode 0: sum((W - A)^2) / (sum(A^2) + 1e-30)    (`rel_residual`)
-//   mode 1: sum((W - I)^2) / n                      (BaM's res_p)
+// sum((W - A)^2) / (sum(A^2) + 1e-30) into *out (`rel_residual`), one block
+// per replica.
 __global__ void __launch_bounds__(RED_THREADS) gl_residual_kernel(
-        int mode, const float* w, const float* a, int n, float* out, long long s,
-        const float* halt) {
+        const float* w, const float* a, int n, float* out, long long s) {
     __shared__ float red[32];
-    if (halted(halt)) return;
     w += (long long)blockIdx.x * s;
     if (a != nullptr) a += (long long)blockIdx.x * s;
     out += (long long)blockIdx.x * s;
     const int nn = n * n;
     float num = 0.f, den = 0.f;
     for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-        const float ref = mode == 0 ? a[idx] : (idx / n == idx % n ? 1.f : 0.f);
+        const float ref = a[idx];
         const float r = w[idx] - ref;
         num += r * r;
         den += ref * ref;
     }
     num = block_sum(num, red);
     den = block_sum(den, red);
-    if (threadIdx.x == 0) *out = mode == 0 ? num / (den + 1e-30f) : num / (float)n;
+    if (threadIdx.x == 0) *out = num / (den + 1e-30f);
 }
 
 // ---------------------------------------------------------------------------
@@ -183,7 +165,6 @@ struct Chain {
     cudaStream_t stream;
     int n, reps;
     long long s;          // elements between replicas' workspaces
-    const float* halt;
 
     dim3 ew_grid() const {
         int blocks = (n * n + EW_THREADS - 1) / EW_THREADS;
@@ -194,30 +175,29 @@ struct Chain {
     cudaError_t combine(float* out, const float* x, const float* y, float diag,
                         float bx, float by, int ty = 0) const {
         gl_combine_kernel<<<ew_grid(), EW_THREADS, 0, stream>>>(
-            out, x, y, n, diag, bx, by, ty, s, halt);
+            out, x, y, n, diag, bx, by, ty, s);
         return cudaGetLastError();
     }
 
     cudaError_t symmetrize(float* m) const {
-        gl_symmetrize_kernel<<<ew_grid(), EW_THREADS, 0, stream>>>(m, n, s, halt);
+        gl_symmetrize_kernel<<<ew_grid(), EW_THREADS, 0, stream>>>(m, n, s);
         return cudaGetLastError();
     }
 
     cudaError_t norm_ub(const float* a, float* out) const {
-        gl_norm_ub_kernel<<<reps, RED_THREADS, 0, stream>>>(a, n, out, s, halt);
+        gl_norm_ub_kernel<<<reps, RED_THREADS, 0, stream>>>(a, n, out, s);
         return cudaGetLastError();
     }
 
     cudaError_t norm_scale(int mode, const float* a, const float* b, float* x, float* y,
                            const float* nrm) const {
         gl_norm_scale_kernel<<<ew_grid(), EW_THREADS, 0, stream>>>(
-            mode, a, b, x, y, nrm, n, s, halt);
+            mode, a, b, x, y, nrm, n, s);
         return cudaGetLastError();
     }
 
-    cudaError_t residual(int mode, const float* w, const float* a, float* out) const {
-        gl_residual_kernel<<<reps, RED_THREADS, 0, stream>>>(mode, w, a, n, out, s,
-                                                             halt);
+    cudaError_t residual(const float* w, const float* a, float* out) const {
+        gl_residual_kernel<<<reps, RED_THREADS, 0, stream>>>(w, a, n, out, s);
         return cudaGetLastError();
     }
 
@@ -227,7 +207,7 @@ struct Chain {
     cudaError_t mm(const float* a, const float* b, float* c, float alpha = 1.f,
                    float beta = 0.f) const {
         GemmArgs p{};
-        p.a = a; p.b = b; p.c = c; p.halt = halt;
+        p.a = a; p.b = b; p.c = c;
         p.m = n; p.n = n; p.k = n; p.lda = n; p.ldb = n; p.ldc = n;
         p.batch = reps; p.sa = p.sb = p.sc = s;
         p.alpha = alpha; p.beta = beta;
@@ -274,7 +254,7 @@ struct Chain {
     // sum((S S - A)^2) / (sum(A^2) + 1e-30) into *out, W scratch.
     cudaError_t rel_residual(const float* sm, const float* a, float* w, float* out) const {
         GL_CHECK(mm<gsmvi::EPI_STORE>(sm, sm, w));
-        return residual(0, w, a, out);
+        return residual(w, a, out);
     }
 };
 
@@ -283,10 +263,9 @@ struct Chain {
 template <bool TA, bool TB, int EPI>
 cudaError_t rows_mm(cudaStream_t stream, int reps, const float* a, long long sa, int lda,
                     const float* b, long long sb, int ldb, float* c, long long sc, int ldc,
-                    int m, int n, int k, float alpha = 1.f, const float* c_in = nullptr,
-                    const float* halt = nullptr) {
+                    int m, int n, int k, float alpha = 1.f, const float* c_in = nullptr) {
     GemmArgs p{};
-    p.a = a; p.b = b; p.c = c; p.c_in = c_in; p.halt = halt;
+    p.a = a; p.b = b; p.c = c; p.c_in = c_in;
     p.m = m; p.n = n; p.k = k; p.lda = lda; p.ldb = ldb; p.ldc = ldc;
     p.batch = reps; p.sa = sa; p.sb = sb; p.sc = sc;
     p.alpha = alpha;
@@ -414,7 +393,7 @@ inline dim3 rows_grid(long long nd, int reps) {
 }
 
 // Scalar slots of a replica's workspace.
-constexpr int SL_NRM = 0, SL_RES1 = 1, SL_RES2 = 2, SL_RESU = 3, SL_RES_1 = 4, SL_RESP = 5;
+constexpr int SL_NRM = 0, SL_RES1 = 1, SL_RES2 = 2;
 
 }  // namespace
 
@@ -425,7 +404,7 @@ long long gsmvi_eps_large_ws(int b) {
     return (long long)GL_EPS_NMAT * b * b + 3LL * b + GL_NSCAL;
 }
 
-// K1's small space for 64 < B <= 512 (any B >= 1 works): the arguments of
+// K1's small space for 128 < B <= 512 (any B >= 1 works): the arguments of
 // gsmvi_eps_smallspace_cluster but the cluster's shape, plus `ws`, gsmvi_eps_large_ws(b) floats per replica.
 int gsmvi_eps_smallspace_large(const float* e, const float* v, const float* vf, const float* t,
                                const float* ef, const float* mean_in, float* mean_out,
@@ -448,7 +427,7 @@ int gsmvi_eps_smallspace_large(const float* e, const float* v, const float* vf, 
     float* s_wden = s_inv1r + n;
     float* s_gamma = s_wden + n;
     float* scal = s_gamma + n;
-    const Chain ch{st, n, reps, s_ws, nullptr};
+    const Chain ch{st, n, reps, s_ws};
     const float zc = 1.f / sqrtf((float)n);
     const float scale2 = 1.f / (float)n;
 
@@ -516,204 +495,6 @@ int gsmvi_eps_smallspace_large(const float* e, const float* v, const float* vf, 
     // Mean with its select.
     gl_eps_mean_kernel<<<dim3((d + EW_THREADS - 1) / EW_THREADS, 1, reps), EW_THREADS, 0, st>>>(
         t, ef, s_wden, s_inv1r, mean_in, mean_out, good, n, d, nd, s_ws);
-    return (int)cudaGetLastError();
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// BaM NS small space (K7/K8's body), one replica; every launch is a no-op
-// while *halt != 0.
-// ---------------------------------------------------------------------------
-
-namespace {
-
-// Report slots shared with bam_smallspace.cu (its SS_* indices).
-constexpr int SS_GU = 0, SS_LMAX = 1, SS_RESOK = 2, SS_STIFF = 3, SS_TRA = 4, SS_TRB = 5;
-
-// Row factors (bam_fused.py:242-251), a thread per column: om_t, q_t, qf,
-// fom_t (B+1 rows each) and gbar, xbar.
-__global__ void __launch_bounds__(EW_THREADS) gl_bam_rows_kernel(
-        const float* e, const float* v, const float* vf, const float* t, const float* ef,
-        const float* mean_in, float* om, float* q, float* qf, float* fom, float* vec,
-        int b, int d, float sru, float sr1, const float* halt) {
-    if (halted(halt)) return;
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    if (col >= d) return;
-    float se = 0.f, sv = 0.f, svf = 0.f, st = 0.f, sef = 0.f;
-    for (int r = 0; r < b; ++r) {
-        const size_t o = (size_t)r * d + col;
-        se += e[o];
-        sv += v[o];
-        svf += vf[o];
-        st += t[o];
-        sef += ef[o];
-    }
-    const float eb = se / (float)b, gb = sv / (float)b, vfb = svf / (float)b;
-    const float tb = st / (float)b, efb = sef / (float)b;
-    for (int r = 0; r < b; ++r) {
-        const size_t o = (size_t)r * d + col;
-        om[o] = sru * (e[o] - eb);
-        q[o] = sru * (vf[o] - vfb);
-        qf[o] = sru * (t[o] - tb);
-        fom[o] = sru * (ef[o] - efb);
-    }
-    const size_t o = (size_t)b * d + col;
-    om[o] = -sr1 * eb;
-    q[o] = sr1 * vfb;
-    qf[o] = sr1 * tb;
-    fom[o] = -sr1 * efb;
-    vec[col] = gb;
-    vec[d + col] = mean_in[col] + efb;
-}
-
-// The trace screen (sum(cu o Gram(fom)), sum(Gram(fom) o Gram(w1))), the
-// residual gate and the stiffness gates into ss (bam_fused.py:270-326).
-__global__ void __launch_bounds__(RED_THREADS) gl_bam_finish_kernel(
-        const float* cu, const float* gfom, const float* gw1, const float* scal, float* ss,
-        int n, float lmax_gate, float gu_gate, float tol, const float* halt) {
-    __shared__ float red[32];
-    if (halted(halt)) return;
-    float ta = 0.f, tb = 0.f;
-    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-        ta = fmaf(cu[idx], gfom[idx], ta);
-        tb = fmaf(gfom[idx], gw1[idx], tb);
-    }
-    ta = block_sum(ta, red);
-    tb = block_sum(tb, red);
-    if (threadIdx.x == 0) {
-        const bool stiff = (ss[SS_LMAX] > lmax_gate) || (ss[SS_GU] > gu_gate);
-        ss[SS_RESOK] = (scal[SL_RESU] < tol && scal[SL_RES_1] < tol && scal[SL_RESP] < tol)
-                       ? 1.f : 0.f;
-        ss[SS_STIFF] = stiff ? 1.f : 0.f;
-        ss[SS_TRA] = ta;
-        ss[SS_TRB] = tb;
-    }
-}
-
-}  // namespace
-
-extern "C" {
-
-// Workspace floats of gsmvi_bam_smallspace_large at batch b.
-long long gsmvi_bam_large_ws(int b) {
-    const long long n = b + 8;
-    return GL_BAM_NMAT * n * n + GL_NSCAL;
-}
-
-// K7/K8's small space for 56 < B <= 128 (any B >= 1 works): the arguments
-// of gsmvi_bam_smallspace_cluster but the cluster's shape, plus `ws`,
-// gsmvi_bam_large_ws(b) floats.
-int gsmvi_bam_smallspace_large(const float* e, const float* v, const float* vf, const float* t,
-                               const float* ef, const float* mean_in, float* rows, float* su,
-                               float* sw, float* vec, float* ss, const float* halt, float* ws,
-                               int b, int d, float reg, int it0, int it1, int it2, int it3,
-                               int it4, float lmax_gate, float gu_gate, float tol,
-                               void* stream) {
-    if (b < 1 || b + 8 > GL_BAM_MAXK || d < 1) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int m = b + 1, n = b + 8;
-    const long long nn = (long long)n * n, md = (long long)m * d;
-    float* W0 = ws;                  // chain input / Grams
-    float* w[5] = {W0 + nn, W0 + 2 * nn, W0 + 3 * nn, W0 + 4 * nn, W0 + 5 * nn};
-    float* GU = W0 + 6 * nn;         // gu, later g, later p p, later Gram(fom)
-    float* SU = GU + nn;             // s_u, later s1, later winv
-    float* CU = SU + nn;
-    float* CUOMQ = CU + nn;          // cu (Om^T Q)
-    float* P = CUOMQ + nn;           // (I + s1)^{-1/2}
-    float* TAU = P + nn;
-    float* scal = ws + GL_BAM_NMAT * nn;
-    float* om = rows;
-    float* q = om + md;
-    float* qf = q + md;
-    float* fy = qf + md;
-    float* fom = su;
-    float* u2 = su + md;
-    float* w1 = sw;
-    float* y = sw + md;
-    const Chain ch{st, n, 1, 0, halt};
-
-    const float r1 = reg / (1.f + reg);
-    gl_bam_rows_kernel<<<(d + EW_THREADS - 1) / EW_THREADS, EW_THREADS, 0, st>>>(
-        e, v, vf, t, ef, mean_in, om, q, qf, fom, vec, b, d, sqrtf(reg / (float)b), sqrtf(r1),
-        halt);
-    GL_CHECK(cudaGetLastError());
-
-    // Gram of two (m, D) row tensors into the top-left of a zeroed (n, n).
-    auto gram = [&](const float* x, const float* yy, float* g) -> cudaError_t {
-        const cudaError_t err = ch.combine(g, nullptr, nullptr, 0.f, 0.f, 0.f);
-        if (err != cudaSuccess) return err;
-        return rows_mm<false, true, gsmvi::EPI_STORE>(st, 1, x, 0, d, yy, 0, d, g, 0, n, m, m,
-                                                      d, 1.f, nullptr, halt);
-    };
-    // out (m, D) = epi(S' X) with S' = S or S^T (an (n, n) matrix) over its
-    // first m rows and columns, X (m, D).
-    auto left = [&](bool trans, int epi, const float* sm, const float* x, float* out,
-                    const float* c_in) -> cudaError_t {
-        if (trans)
-            return epi == gsmvi::EPI_ADD
-                ? rows_mm<true, false, gsmvi::EPI_ADD>(st, 1, sm, 0, n, x, 0, d, out, 0, d, m,
-                                                       d, m, 1.f, c_in, halt)
-                : rows_mm<true, false, gsmvi::EPI_STORE>(st, 1, sm, 0, n, x, 0, d, out, 0, d,
-                                                         m, d, m, 1.f, nullptr, halt);
-        return epi == gsmvi::EPI_ADD
-            ? rows_mm<false, false, gsmvi::EPI_ADD>(st, 1, sm, 0, n, x, 0, d, out, 0, d, m, d,
-                                                    m, 1.f, c_in, halt)
-            : rows_mm<false, false, gsmvi::EPI_STORE>(st, 1, sm, 0, n, x, 0, d, out, 0, d, m,
-                                                      d, m, 1.f, nullptr, halt);
-    };
-
-    // cu chain (:255-262): W1 = I + Om cu Om^T, cu = (I + sqrt(I + Gu))^{-1}.
-    GL_CHECK(gram(om, om, GU));
-    GL_CHECK(ch.symmetrize(GU));
-    GL_CHECK(ch.norm_ub(GU, ss + SS_GU));
-    GL_CHECK(ch.combine(W0, GU, nullptr, 1.f, 1.f, 0.f));
-    GL_CHECK(ch.ns_sqrt_both(W0, SU, nullptr, it0, w, scal + SL_NRM));
-    GL_CHECK(ch.symmetrize(SU));
-    GL_CHECK(ch.rel_residual(SU, W0, w[0], scal + SL_RESU));
-    GL_CHECK(ch.combine(W0, SU, nullptr, 1.f, 1.f, 0.f));
-    GL_CHECK(ch.newton_inv(W0, CU, it1, w, scal + SL_NRM));
-
-    // Y^T = q_t + (cu Om^T Q)^T om_t (:265-267), into stack_w's second half.
-    GL_CHECK(gram(om, q, W0));
-    GL_CHECK(ch.mm<gsmvi::EPI_STORE>(CU, W0, CUOMQ));
-    GL_CHECK(left(true, gsmvi::EPI_ADD, CUOMQ, om, y, q));
-
-    // Gated Gram and the stiffness statistic (:270-276).
-    GL_CHECK(gram(y, y, GU));
-    GL_CHECK(ch.symmetrize(GU));
-    GL_CHECK(ch.norm_ub(GU, ss + SS_LMAX));
-
-    // psi(G) chain (:277-288): s1 = sqrt(I + 4G), p = (I + s1)^{-1/2},
-    // winv = (I + sqrt(2) p)^{-1}, tau = -4 p^4 winv.
-    GL_CHECK(ch.combine(W0, GU, nullptr, 1.f, 4.f, 0.f));
-    GL_CHECK(ch.ns_sqrt_both(W0, SU, nullptr, it2, w, scal + SL_NRM));
-    GL_CHECK(ch.symmetrize(SU));
-    GL_CHECK(ch.rel_residual(SU, W0, w[0], scal + SL_RES_1));
-    GL_CHECK(ch.combine(W0, SU, nullptr, 1.f, 1.f, 0.f));
-    GL_CHECK(ch.ns_sqrt_both(W0, nullptr, P, it3, w, scal + SL_NRM));
-    GL_CHECK(ch.symmetrize(P));
-    GL_CHECK(ch.mm<gsmvi::EPI_STORE>(P, P, GU));               // p2 = p p
-    GL_CHECK(ch.mm<gsmvi::EPI_STORE>(GU, W0, w[0]));           // p2 (I + s1)
-    GL_CHECK(ch.residual(1, w[0], nullptr, scal + SL_RESP));
-    GL_CHECK(ch.combine(W0, P, nullptr, 1.f, sqrtf(2.f), 0.f));
-    GL_CHECK(ch.newton_inv(W0, SU, it4, w, scal + SL_NRM));    // winv
-    GL_CHECK(ch.mm<gsmvi::EPI_STORE>(GU, GU, w[3]));           // p2 p2
-    GL_CHECK(ch.mm<gsmvi::EPI_SCALE>(w[3], SU, TAU, -4.f));
-    GL_CHECK(ch.symmetrize(TAU));
-
-    // Stacked rows of F' = F + stack_u^T stack_w (:310-318).
-    GL_CHECK(left(false, gsmvi::EPI_STORE, CU, om, w1, nullptr));       // w1row
-    GL_CHECK(left(true, gsmvi::EPI_ADD, CUOMQ, fom, fy, qf));           // yf
-    GL_CHECK(gram(y, w1, W0));                                          // yw1
-    GL_CHECK(left(false, gsmvi::EPI_ADD, W0, fom, fy, fy));             // (Fw1 Y)^T
-    GL_CHECK(left(false, gsmvi::EPI_STORE, TAU, fy, u2, nullptr));      // u2row
-
-    // Trace screen from small Grams (:320-322), then the flags.
-    GL_CHECK(gram(fom, fom, GU));
-    GL_CHECK(gram(w1, w1, W0));
-    gl_bam_finish_kernel<<<1, RED_THREADS, 0, st>>>(CU, GU, W0, scal, ss, n, lmax_gate,
-                                                    gu_gate, tol, halt);
     return (int)cudaGetLastError();
 }
 

@@ -50,10 +50,12 @@ the small space on a thread-block cluster (``eps_smallspace``,
 ``eps_smallspace_cluster.cu``: ``cluster_columns(D)`` blocks per replica,
 which writes ``good`` and the new mean), and the fat apply on the GEMM
 template, whose epilogue reads ``good`` and writes F or F' (the select).
-Above ``SHARED_SMALLSPACE_MAX_B`` the small space is
-``eps_smallspace_large``, a chain of grid launches with its (B, B) matrices
-in global memory (``smallspace_global.cu``; ~140 launches at the long NS
-profile).  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
+Above ``SHARED_SMALLSPACE_MAX_B``, up to ``PANEL_SMALLSPACE_MAX_B``, the
+small space is ``eps_smallspace_panel``, one cluster of ``PANEL_RANKS``
+blocks per replica with the (B, B) matrices in row panels over the
+cluster's shared memory (``eps_smallspace_panel.cu``); above that,
+``eps_smallspace_large``, a chain of grid launches with them in global
+memory (``smallspace_global.cu``; ~146 launches at the long NS profile).  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
 one-block row kernel (Z^T and (F Z)^T rows), the Gram Z^T Z on the GEMM
 template, the one-block Cholesky small space (``ops/cuda/csrc/eps_chol.cu``)
 and the fat apply.  A whole step (``_launch_step``) is the ``ef = e F^T`` /
@@ -96,16 +98,28 @@ _M32 = 0xFFFFFFFF
 
 # Shapes the CUDA kernels take.  The NS small space runs one cluster per
 # replica, each block with its twelve (B, B) matrices in shared memory, up to
-# SHARED_SMALLSPACE_MAX_B (``eps_smallspace_cluster.cu``) and, above, a chain
-# of grid launches with them in
-# global memory (``smallspace_global.cu``) up to 512, the JAX package's
-# largest fused batch (its B sweep's top, ``bench.py:551-590``).  The
+# SHARED_SMALLSPACE_MAX_B (``eps_smallspace_cluster.cu``); one cluster of
+# PANEL_RANKS blocks per replica, block r holding rows [r R, (r+1) R) of every
+# (B, B) matrix (R = ceil(B / PANEL_RANKS) <= 8), up to
+# PANEL_SMALLSPACE_MAX_B (``eps_smallspace_panel.cu``); and above, a chain of
+# grid launches with them in global memory (``smallspace_global.cu``) up to
+# 512, the JAX package's largest fused batch (its B sweep's top,
+# ``bench.py:551-590``).  The
 # Cholesky variant (K4a) keeps three (2B, 2B) matrices in one block's shared
 # memory (192 KiB at B=64), so it stops at 64.  D is masked at the tile
 # edges and needs no alignment; its ceiling is K5's (``ops/gsm_step.py``).
 KERNEL_BATCH_RANGE = (1, 512)
 KERNEL_DIM_RANGE = (1, 8192)
 SHARED_SMALLSPACE_MAX_B = 64
+PANEL_SMALLSPACE_MAX_B = 128
+# The panel small spaces' cluster: 16 blocks (PN_RANKS in
+# ``smallspace_panel.cuh``, fixed at compile time), a non-portable size (at
+# 8, the portable one, both small spaces took a fifth to a third longer on
+# an H100; PERF.md).  Never a function of D or K, so a K-replica launch runs
+# each replica as a launch on it alone.
+PANEL_RANKS = 16
+PANEL_SLAB = 128
+SMEM_LIMIT_BYTES = 232448            # a block's shared memory on Hopper
 CHOL_BATCH_RANGE = (1, 64)
 # The mixture score keeps each of its block's 8 rows' K logits (and the K
 # half squared norms) in shared memory: 36 KiB at K = 1024.
@@ -134,6 +148,31 @@ def thin_split(d: int) -> tuple:
     slabs = -(-d // SLAB)
     per = -(-slabs // CLUSTER_MAX_BLOCKS)
     return -(-slabs // per), per * SLAB
+
+
+def panel_rows(n: int) -> int:
+    """Rows per block of an (n, n) matrix split into row panels over a
+    cluster of ``PANEL_RANKS`` blocks: block r owns [r R, min(n, (r+1) R))."""
+    return -(-n // PANEL_RANKS)
+
+
+def panel_smem_bytes(n: int, nmat: int, extra: int) -> int:
+    """Dynamic shared memory of a panel small space on (n, n) matrices
+    (``pn_smem_floats`` in ``smallspace_panel.cuh``): ``nmat`` (R, ld)
+    panels, the staging matrix, a Gram's A slab, ``extra`` floats of the
+    kernel's own, the exchange slots and the reduction scratch."""
+    r4 = lambda x: -(-x // 4) * 4
+    ld = r4(n) if r4(n) // 4 % 2 else r4(n) + 4    # pn_ld: ld / 4 odd
+    rows = panel_rows(n)
+    fb = ld * max(ld, PANEL_SLAB + 4)
+    return 4 * (nmat * rows * ld + fb + rows * (PANEL_SLAB + 4) + r4(extra)
+                + 8 + 32)
+
+
+def eps_panel_smem_bytes(b: int) -> int:
+    """``eps_smallspace_panel``'s shared memory at batch ``b``: eleven
+    panels, and three scalars of each own row plus two of every row."""
+    return panel_smem_bytes(b, 11, 3 * panel_rows(b) + 2 * b)
 
 
 def ns_iters_for_batch(b: int, override=None) -> tuple:
@@ -639,9 +678,11 @@ class _UpdateBuffers:
         self.su, self.sw = empty(2 * b, d), empty(2 * b, d)
         if method == "ns":
             self.c, self.xim = empty(b, d), empty(b, d)
-            # The global-memory small space's (B, B) matrices and scalars.
-            self.ws = (empty(_library().size("gsmvi_eps_large_ws", b))
-                       if b > SHARED_SMALLSPACE_MAX_B else None)
+            # The panel small space's mirrors of its panels, or the
+            # global-memory small space's (B, B) matrices and scalars.
+            ws = (None if b <= SHARED_SMALLSPACE_MAX_B else "gsmvi_eps_panel_ws"
+                  if b <= PANEL_SMALLSPACE_MAX_B else "gsmvi_eps_large_ws")
+            self.ws = None if ws is None else empty(_library().size(ws, b))
         else:
             self.zt, self.g = empty(2 * b, d), empty(2 * b, 2 * b)
             self.rs = empty(2 * b)
@@ -653,18 +694,23 @@ def _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out,
                        buf: _UpdateBuffers, iters, nacc=None) -> None:
     """The small space of one update (of K replicas), from ``buf.vf`` and
     ``buf.t``: the new mean, ``good`` (and ``nacc``), and the stacked rows
-    ``buf.su``/``buf.sw``.  Up to ``SHARED_SMALLSPACE_MAX_B`` on a cluster
-    per replica (counted in ``eps_smallspace.launches``), above on the
-    global-memory chain (``eps_smallspace_large``)."""
+    ``buf.su``/``buf.sw``.  By batch alone: up to ``SHARED_SMALLSPACE_MAX_B``
+    on a cluster per replica (counted in ``eps_smallspace.launches``), up to
+    ``PANEL_SMALLSPACE_MAX_B`` on row panels over a cluster per replica
+    (``eps_smallspace_panel``), above on the global-memory chain
+    (``eps_smallspace_large``)."""
     k, e_stride = _replicas(eps)
     b, d = eps.shape[-2:]
     args = (_ptr(eps), _ptr(vs), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
             _ptr(mean_in), _ptr(mean_out), _ptr(buf.good), _ptr(nacc),
             _ptr(buf.su), _ptr(buf.sw), _ptr(buf.c), _ptr(buf.xim))
-    if buf.ws is None:
+    if b <= SHARED_SMALLSPACE_MAX_B:
         eps_smallspace.launches += 1
         lib.call("gsmvi_eps_smallspace_cluster", *args, b, d, *iters, NS_TOL,
                  k, e_stride, *cluster_columns(d), stream)
+    elif b <= PANEL_SMALLSPACE_MAX_B:
+        eps_smallspace_panel(lib, stream, args, buf.ws, b, d, iters, k,
+                             e_stride)
     else:
         eps_smallspace_large(lib, stream, args, buf.ws, b, d, iters, k,
                              e_stride)
@@ -728,7 +774,7 @@ def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
 def eps_smallspace_large(lib, stream, args, ws, b: int, d: int, iters, k: int,
                          e_stride: int) -> None:
     """Launch the global-memory NS small space (``smallspace_global.cu``)
-    that K1, K2, K4 and K6 run above ``SHARED_SMALLSPACE_MAX_B``: ``args``
+    that K1, K2, K4 and K6 run above ``PANEL_SMALLSPACE_MAX_B``: ``args``
     are ``gsmvi_eps_smallspace_cluster``'s pointers, ``ws`` its workspace.  Its
     ``launches`` counts the updates that took it, beside the wrappers'
     counts, so a run shows which small space ran."""
@@ -738,6 +784,53 @@ def eps_smallspace_large(lib, stream, args, ws, b: int, d: int, iters, k: int,
 
 
 eps_smallspace_large.launches = 0
+
+# Clusters of each panel small space the card holds at once, per (kind, B)
+# (the shared bytes are a function of these), read at first use.
+_PLACEMENT = {}
+
+
+def panel_clusters(lib, kind: str, b: int) -> int:
+    """How many clusters of the panel small space ``kind`` ("eps" or
+    "bam") at batch ``b`` the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``), read once per shape.  Raises
+    ``RuntimeError``, naming the shape, when it is 0 (or the query fails):
+    a cluster launch that cannot be placed is refused, never waited on.
+    The query also sets the kernel's launch attributes, which a stream
+    capture does not allow, so a first launch inside one raises too."""
+    key = (kind, b)
+    if key not in _PLACEMENT:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the {kind} panel small space at B={b}: its first launch "
+                "(the placement query) is inside a CUDA graph capture")
+        n = lib.size(f"gsmvi_{kind}_panel_clusters", b)
+        if n <= 0:
+            why = (f"CUDA error {-n}" if n < 0 else
+                   "cudaOccupancyMaxActiveClusters reads 0")
+            raise RuntimeError(
+                f"the {kind} panel small space at B={b} on a cluster of "
+                f"{PANEL_RANKS} blocks cannot be placed on this card ({why})")
+        _PLACEMENT[key] = n
+    return _PLACEMENT[key]
+
+
+def eps_smallspace_panel(lib, stream, args, ws, b: int, d: int, iters,
+                         k: int, e_stride: int) -> None:
+    """Launch the row-panel NS small space (``eps_smallspace_panel.cu``)
+    that K1, K2, K4 and K6 run at ``SHARED_SMALLSPACE_MAX_B`` < B <=
+    ``PANEL_SMALLSPACE_MAX_B``: one cluster of ``PANEL_RANKS`` blocks per
+    replica, ``args`` ``gsmvi_eps_smallspace_cluster``'s pointers, ``ws``
+    the mirrors of its panels in device memory, through which the blocks
+    exchange them.  Its placement is checked first (``panel_clusters``);
+    ``launches`` counts the updates that took it."""
+    panel_clusters(lib, "eps", b)
+    eps_smallspace_panel.launches += 1
+    lib.call("gsmvi_eps_smallspace_panel", *args, _ptr(ws), b, d, *iters,
+             NS_TOL, k, e_stride, stream)
+
+
+eps_smallspace_panel.launches = 0
 
 
 def _check_method(method: str) -> None:
@@ -1199,7 +1292,8 @@ def eps_smallspace(e, v, vf, t, ef, mean, iters=None):
     (K, D)), returns (mean_out, stack_u, stack_w, good): the mean with its
     select, the fat apply's (2B, D) operands and the gates' verdict.  On the
     card the cluster kernel (``eps_smallspace_cluster.cu``) for B <=
-    ``SHARED_SMALLSPACE_MAX_B``, the global-memory chain above; on the CPU
+    ``SHARED_SMALLSPACE_MAX_B``, the row-panel cluster kernel up to
+    ``PANEL_SMALLSPACE_MAX_B``, the global-memory chain above; on the CPU
     ``eps_smallspace_stacks_reference``."""
     b, d = e.shape[-2:]
     lead = tuple(e.shape[:-2])
@@ -1375,6 +1469,7 @@ KERNEL_WRAPPERS = {
     "philox_normal": philox_normal,
     "philox4x32": philox4x32,
     "eps_smallspace_large": eps_smallspace_large,
+    "eps_smallspace_panel": eps_smallspace_panel,
     "eps_smallspace": eps_smallspace,
     "thin_product": thin_product,
     "funnel_score": funnel_score,

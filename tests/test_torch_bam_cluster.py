@@ -14,7 +14,7 @@
   kernel's sequential order.
 - The wrappers' launches, recorded from a stand-in library on CPU tensors:
   the small space on ``cluster_columns(D)`` blocks at the tile
-  ``bam_cluster_tile(B)`` (the global-memory chain above B = 56), every
+  ``bam_cluster_tile(B)`` (the row-panel kernel above B = 56), every
   row product (vf, t, ef, the mean matvecs) on ``gsmvi_thin_rows`` with
   ``thin_split(D)``, and in K8 the report's halt word forwarded to every
   launch after the score.
@@ -247,21 +247,26 @@ def test_k7_launch_shapes(card, b, d, with_ef):
     assert counts["bam_eps_update_fused"] == 1
     assert counts["bam_smallspace"] == 1
     assert counts["thin_product"] == len(thin)
-    assert counts["bam_smallspace_large"] == 0
+    assert counts["bam_smallspace_panel"] == 0
 
 
-@pytest.mark.parametrize("b", [57, 128])
+@pytest.mark.parametrize("b", [56, 57, 128])
 def test_k7_above_the_shared_batch_takes_the_global_small_space(card, b):
+    """The small space by batch alone: the cluster kernel up to
+    BAM_SHARED_MAX_B, the row-panel kernel above (the global-memory chain
+    that took B 57-128 is gone); one launch of one of them per update."""
     d = 64
     tbf.bam_eps_update_fused(_rows(b, d), _rows(b, d), _rows(d), _rows(d, d),
                              0.5)
+    panel = b > tbf.BAM_SHARED_MAX_B
     names = [n for n, _ in card.calls]
     assert names == ["gsmvi_thin_rows"] + [
-        "gsmvi_bam_smallspace_large" if n == "gsmvi_bam_smallspace_cluster"
-        else n for n in K7_LAUNCHES]
+        "gsmvi_bam_smallspace_panel" if panel
+        and n == "gsmvi_bam_smallspace_cluster" else n for n in K7_LAUNCHES]
     counts = tfs.launch_counts()
-    assert counts["bam_smallspace_large"] == 1
-    assert counts["bam_smallspace"] == 0 and counts["thin_product"] == 5
+    assert counts["bam_smallspace_panel"] == int(panel)
+    assert counts["bam_smallspace"] == int(not panel)
+    assert counts["thin_product"] == 5
 
 
 def test_tile_covers_kpad_over_the_range():

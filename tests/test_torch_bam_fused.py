@@ -234,8 +234,8 @@ def test_constants_and_kernel_range():
         assert getattr(tbf, name) == getattr(jbf, name), name
     assert np.isinf(tbf.NS_STATS_INIT).all()
     # B from 1 to the JAX kernel's 128 and D from 1 are inside the range;
-    # the one-block kernel ends where its shared memory (kpad = B + 8 <= 64)
-    # does, and the global-memory small space takes over above.
+    # the cluster kernel ends where its shared memory (kpad = B + 8 <= 64)
+    # does, and the row-panel small space takes over above.
     assert all(tbf.bam_kernel_supports(32, d) for d in (1, 16, 200, 1024))
     assert tbf.BAM_KERNEL_BATCH_RANGE == (1, 128)
     assert tbf.BAM_SHARED_MAX_B == 56

@@ -149,15 +149,26 @@ def test_k1_launch_shapes_do_not_depend_on_replicas(card, b, d):
     assert counts["thin_product"] == 9 and counts["eps_smallspace"] == 3
 
 
-def test_k1_above_the_shared_batch_takes_the_global_small_space(card):
-    fs.gsm_eps_update_fused(_rows(65, 64), _rows(65, 64), _rows(64),
+@pytest.mark.parametrize("b", [64, 65, 128, 129, 512])
+def test_k1_above_the_shared_batch_takes_the_global_small_space(card, b):
+    """The small space by batch alone: the cluster kernel up to
+    SHARED_SMALLSPACE_MAX_B, the row-panel kernel up to
+    PANEL_SMALLSPACE_MAX_B, the global-memory chain above; one launch of
+    exactly one of them per update."""
+    fs.gsm_eps_update_fused(_rows(b, 64), _rows(b, 64), _rows(64),
                             _rows(64, 64))
+    entry, counter = (
+        ("gsmvi_eps_smallspace_cluster", "eps_smallspace")
+        if b <= fs.SHARED_SMALLSPACE_MAX_B else
+        ("gsmvi_eps_smallspace_panel", "eps_smallspace_panel")
+        if b <= fs.PANEL_SMALLSPACE_MAX_B else
+        ("gsmvi_eps_smallspace_large", "eps_smallspace_large"))
     names = [n for n, _ in card.calls]
-    assert names == ["gsmvi_thin_rows"] * 3 + [
-        "gsmvi_eps_smallspace_large", "gsmvi_factor_apply"], names
+    assert names == ["gsmvi_thin_rows"] * 3 + [entry, "gsmvi_factor_apply"]
     counts = fs.launch_counts()
-    assert counts["eps_smallspace_large"] == 1
-    assert counts["eps_smallspace"] == 0
+    small = ("eps_smallspace", "eps_smallspace_panel", "eps_smallspace_large")
+    assert {k: counts[k] for k in small} == {k: int(k == counter)
+                                             for k in small}
 
 
 @pytest.mark.parametrize("d", [1, 200, 256, 8192])

@@ -739,7 +739,8 @@ def test_audited_fits_equal_unaudited(cuda):
 
 # ---------------------------------------------------------------------------
 # The kernels' shape ranges: B from 1 (the reference examples) to 512 on the
-# eps kernels (the global-memory small space above B=64) and 128 on BaM.
+# eps kernels (the row-panel small space at B 65-128, the global-memory one
+# above) and 128 on BaM (the row-panel small space above B=56).
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,d", [(1, 1), (2, 10), (3, 5), (7, 16),
@@ -750,7 +751,9 @@ def test_update_and_multistep_kernels_match_plain_over_the_range(cuda, b, d):
     eps, v, mu, f = _inputs(cuda, b, d, seed=b + d)
     fs.reset_launch_counts()
     m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
-    assert fs.launch_counts()["eps_smallspace_large"] == int(b > 64)
+    counts = fs.launch_counts()
+    assert counts["eps_smallspace_panel"] == int(64 < b <= 128)
+    assert counts["eps_smallspace_large"] == int(b > 128)
     m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
     assert bool(g_k) == bool(g_p)
     assert float((m_k - m_p).abs().max()) <= 1e-5
@@ -771,7 +774,7 @@ def test_update_and_multistep_kernels_match_plain_over_the_range(cuda, b, d):
 
 
 def test_large_batch_replicas_equal_single_calls(cuda):
-    """The global-memory small space takes K1's replica axis: batched K1 at
+    """The row-panel small space takes K1's replica axis: batched K1 at
     B=96 equals its single calls bit for bit, and fit_batch "fused" (K6)
     at B=96 equals the single K2 fits."""
     ins = [_inputs(cuda, 96, 128, seed=i) for i in range(2)]
@@ -801,7 +804,7 @@ def test_bam_update_kernel_matches_plain_over_the_range(cuda, b, d):
     e, v, mu, f = _bam_inputs(cuda, b, d, seed=b + d, v_scale=0.05)
     fs.reset_launch_counts()
     k = bf.bam_eps_update_fused(e, v, mu, f, 0.5)
-    assert fs.launch_counts()["bam_smallspace_large"] == int(b > 56)
+    assert fs.launch_counts()["bam_smallspace_panel"] == int(b > 56)
     p = bf.bam_eps_update_ns_reference(e, v, mu, f, 0.5)
     assert (bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3]))
     assert np.allclose(k[4].tolist(), p[4].tolist(), rtol=1e-3, atol=0)
@@ -1263,7 +1266,7 @@ def _same(a, b):
 def test_graph_block_equals_eager_block(cuda, b, d, k, reject_at):
     """A full block replayed from its CUDA graph equals the same block
     enqueued eagerly, bit for bit, at the main shape, a ragged one, the
-    smallest, on the global-memory small space (B=128) and for K6 at K=4;
+    smallest, on the row-panel small space (B=128) and for K6 at K=4;
     also with a sub-step the gates reject.  The first full block runs
     eagerly and captures; the second replays."""
     spc = 8
@@ -1424,8 +1427,8 @@ def _one_launch_capture(fn):
 @pytest.mark.parametrize("b", [32, 128])
 def test_cluster_small_space_captures_in_one_launch(cuda, b):
     """The small space's cluster launch (``cudaLaunchKernelEx`` with a
-    cluster dimension; at B=128 the global-memory chain) captures into a
-    CUDA graph and replays bit for bit."""
+    cluster dimension; at B=128 the row-panel kernel's 16-block cluster)
+    captures into a CUDA graph and replays bit for bit."""
     eps, v, mu, f = _inputs(cuda, b, 256, seed=b)
     vf, ef = v @ f, eps @ f.T
     t = vf @ f.T
@@ -1441,3 +1444,133 @@ def test_thin_product_captures_in_one_launch(cuda):
     eager, replayed = _one_launch_capture(
         lambda: fs.thin_product(eps, f, trans=True, mu=mu))
     assert _same(eager, replayed)
+
+
+# ---------------------------------------------------------------------------
+# The row-panel small spaces (eps B 65-128, BaM B 57-128)
+# ---------------------------------------------------------------------------
+
+PANEL_B = [65, 96, 127, 128]
+PANEL_D = [1, 33, 256]
+
+
+@pytest.mark.parametrize("d", PANEL_D)
+@pytest.mark.parametrize("b", PANEL_B)
+def test_panel_smallspace_matches_plain(cuda, b, d):
+    """K1 on the row-panel small space against its plain version, one
+    panel launch per update; the small space alone returns the plain
+    version's mean, stacked rows (through F') and gate."""
+    eps, v, mu, f = _inputs(cuda, b, d, seed=b * 7 + d)
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    counts = fs.launch_counts()
+    assert counts["eps_smallspace_panel"] == 1
+    assert counts["eps_smallspace"] == counts["eps_smallspace_large"] == 0
+    m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
+    assert bool(g_k) == bool(g_p)
+    assert float((m_k - m_p).abs().max()) <= 1e-5
+    assert float((f_k - f_p).abs().max()) <= 1e-5 * float(f.abs().max())
+    vf, ef = v @ f, eps @ f.T
+    t = vf @ f.T
+    ss_k = fs.eps_smallspace(eps, v, vf, t, ef, mu)
+    ss_p = fs.eps_smallspace(*(x.cpu() for x in (eps, v, vf, t, ef, mu)))
+    assert bool(ss_k[3]) == bool(ss_p[3])
+    assert float((ss_k[0].cpu() - ss_p[0]).abs().max()) <= 1e-5
+    fk = f.cpu() + ss_k[1].cpu().T @ ss_k[2].cpu()
+    fp = f.cpu() + ss_p[1].T @ ss_p[2]
+    assert float((fk - fp).abs().max()) <= 1e-5 * float(f.abs().max())
+
+
+@pytest.mark.parametrize("d", PANEL_D)
+@pytest.mark.parametrize("b", [57, 100, 121, 128])
+@pytest.mark.parametrize("case", sorted(BAM_K7_CASES))
+def test_bam_panel_smallspace_matches_plain(cuda, b, d, case):
+    """BaM's row-panel small space and K7 on it against their plain
+    versions on the four designed inputs: equal flags and reject verdicts,
+    statistics within 1e-3 relative; a rejected update leaves (mean, F) as
+    they were, bit for bit; an accepted one is held to 1e-5 of max(1,
+    scale), and stiff_gu's (accepted just under the gu gate at small D,
+    cond(I + Gu) ~ 1e4) to the larger of that and 8x the input's float32
+    floor (``_bam_floor``), as on the cluster range.  The readings:
+    ``tools/bam_panel_floor.py``."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    kw, reg, gates, _ = BAM_K7_CASES[case]
+    e, v, mu, f = _bam_inputs(cuda, b, d, seed=b + 3 * d, **kw)
+    rows = _bam_rows(e, v, f)
+    fs.reset_launch_counts()
+    su_k, sw_k, vec_k, ss_k = bf.bam_smallspace(*rows, mu, reg, **gates)
+    assert fs.launch_counts()["bam_smallspace_panel"] == 1
+    su_p, sw_p, vec_p, ss_p = bf.bam_smallspace_stacks_reference(
+        *rows, mu, reg, batch=b, **gates)
+    assert ss_k[2:4].tolist() == ss_p[2:4].tolist()
+    assert np.allclose(ss_k[:2].tolist(), ss_p[:2].tolist(), rtol=1e-3,
+                       atol=0)
+    fs.reset_launch_counts()
+    k = bf.bam_eps_update_fused(e, v, mu, f, reg, ef=rows[4], **gates)
+    assert fs.launch_counts()["bam_smallspace_panel"] == 1
+    p = bf.bam_eps_update_ns_reference(e, v, mu, f, reg, ef=rows[4], **gates)
+    assert (bool(k[2]), bool(k[3])) == (bool(p[2]), bool(p[3]))
+    assert np.allclose(k[4].tolist(), p[4].tolist(), rtol=1e-3, atol=0)
+    if not bool(p[2]):
+        assert torch.equal(k[0], mu) and torch.equal(k[1], f)
+        return
+    assert _within(vec_k, vec_p, 1e-5)
+    mean_tol = 1e-5 * max(1.0, float(p[0].abs().max()))
+    f_tol = 1e-5 * max(1.0, float(p[1].abs().max()))
+    if case == "stiff_gu":
+        floor = _bam_floor(bf, e, v, mu, f, reg, p, **gates)
+        mean_tol, f_tol = max(mean_tol, 8 * floor[0]), max(f_tol, 8 * floor[1])
+    assert float((k[0] - p[0]).abs().max()) <= mean_tol
+    assert float((k[1] - p[1]).abs().max()) <= f_tol
+    f_k, f_p = f + su_k.T @ sw_k, f + su_p.T @ sw_p
+    assert float((f_k - f_p).abs().max()) <= f_tol
+
+
+def test_panel_k6_replicas_equal_single_fits_at_b128(cuda):
+    """fit_batch "fused" (K6, K=4) at B=128 runs the row-panel small space
+    with a replica axis and equals the four single K2 fits bit for bit."""
+    d, b, niter, k = 64, 128, 16, 4
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=8, device="cuda")
+    fs.reset_launch_counts()
+    st = g.fit_batch(range(k), batch_size=b, niter=niter, return_state=True,
+                     small_solver="fused")
+    assert fs.launch_counts()["eps_smallspace_panel"] > 0
+    for i in range(k):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert torch.equal(st.mean[i], si.mean)
+        assert torch.equal(st.factor[i], si.factor)
+
+
+@pytest.mark.parametrize("kind", ["eps", "bam"])
+def test_panel_launch_raises_when_no_cluster_fits(cuda, kind, monkeypatch):
+    """The placement seam: when cudaOccupancyMaxActiveClusters reads 0 the
+    wrapper raises, naming the shape, and launches nothing."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    real = fs._library()
+
+    class NoRoom:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def size(self, name, *args):
+            if name.endswith("_panel_clusters"):
+                return 0
+            return real.size(name, *args)
+
+    monkeypatch.setattr(fs, "_library", lambda: NoRoom())
+    monkeypatch.setattr(bf, "_library", lambda: NoRoom())
+    monkeypatch.setattr(fs, "_PLACEMENT", {})
+    fs.reset_launch_counts()
+    b, d = 128, 64
+    with pytest.raises(RuntimeError, match="B=128 on a cluster of 16"):
+        if kind == "eps":
+            fs.gsm_eps_update_fused(*_inputs(cuda, b, d))
+        else:
+            bf.bam_eps_update_fused(*_bam_inputs(cuda, b, d, v_scale=0.05),
+                                    0.5)
+    assert fs.launch_counts()[f"{kind}_smallspace_panel"] == 0

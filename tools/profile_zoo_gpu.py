@@ -14,9 +14,10 @@ idle share, launches per step and device time by kernel name):
   ``banana(256)``, ``student_t(0, 256, df=6)``, ``gaussian_mixture(0,
   256)`` and ``logistic_regression(0, 256)``;
 - ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
-  where K2 runs the global-memory small space (``eps_smallspace_large``);
-- single K1 calls (``gsm_eps_update_fused``) at B=128 and B=512, D=256,
-  from (0, I), on the same small space.
+  where K2 runs the row-panel small space (``eps_smallspace_panel``);
+- single K1 calls (``gsm_eps_update_fused``) at B=128 (the row-panel small
+  space) and B=512 (the global-memory one, ``eps_smallspace_large``),
+  D=256, from (0, I).
 """
 
 from __future__ import annotations
@@ -71,14 +72,15 @@ def main() -> int:
     t = dense_gaussian(0, 256, device="cuda")
     fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
                       device="cuda")
-    profile_fit("FactorGSM fused_score B=128 (K2 on eps_smallspace_large "
+    profile_fit("FactorGSM fused_score B=128 (K2 on eps_smallspace_panel "
                 "+ K3, spc=8)", AtBatch(fused, 128), args.steps, torch)
     gen = torch.Generator(device="cuda").manual_seed(18)
     mean, f = torch.zeros(256, device="cuda"), torch.eye(256, device="cuda")
     for b in (128, 512):
         e = torch.randn((b, 256), generator=gen, device="cuda")
         v = t.lp_g(mean + e)
-        profile_calls(f"K1 gsm_eps_update_fused B={b} (eps_smallspace_large)",
+        small = "eps_smallspace_panel" if b <= 128 else "eps_smallspace_large"
+        profile_calls(f"K1 gsm_eps_update_fused B={b} ({small})",
                       lambda: fs.gsm_eps_update_fused(e, v, mean, f), 16,
                       torch)
     return 0

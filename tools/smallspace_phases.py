@@ -2,12 +2,14 @@
 """Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--kernel eps|bam] [--shapes 32x256 ...]
+    python3 tools/smallspace_phases.py [--kernel eps|bam|panel] [--shapes 32x256 ...]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
-eps_smallspace_cluster*.cu``, ``--kernel eps``) or BaM's
+eps_smallspace_cluster*.cu``, ``--kernel eps``), BaM's
 (``bam_smallspace_cluster*.cu``, ``--kernel bam``, at the NS profile of
-tier 0) a second time with ``-DGSMVI_PHASE_STAMPS``, which makes thread 0
+tier 0) or the eps row-panel small space of B 65-128
+(``eps_smallspace_panel.cu``, ``--kernel panel``) a second time with
+``-DGSMVI_PHASE_STAMPS``, which makes thread 0
 of every block of replica 0 write the global timer at each phase boundary,
 into ``gsmvi_tpu_torch/ops/cuda/_build/``.  For each (B, D) it launches
 that library 20 times as a warm-up and 200 times between CUDA events (one
@@ -36,6 +38,11 @@ PHASES = ("row sums + cluster sync", "row scalars", "pass 1 (c, Gram partials) +
           "e c^T sum + cuiec", "pass 2 (Xi~, w1row, Gram partials)", "partials + sync",
           "S2 = sqrt(I - Gv)", "S2's residual + cv = -(I + S2)^-1", "Q sum", "pass 3 (stacked rows, mean)",
           "flags + exit barrier")
+PANEL_PHASES = ("row scalars, c + sync", "Gu, e c^T Grams + Gu's symmetrisation",
+                "S1 = sqrt(I + Gu), its residual", "cu, cui inverses", "cuiec + its transpose",
+                "Xi~, w1row rows + sync", "Gv, Xi~ w1row^T Grams + I - Gv",
+                "S2 = sqrt(I - Gv), its residual", "cv inverse + Q", "stacked rows",
+                "mean + exit barrier")
 BAM_PHASES = ("pass 1 (row factors, Gram partials) + sync", "Gu sum + s_u = sqrt(I + Gu)",
               "s_u's residual + cu = (I + s_u)^-1", "Om^T Q sum + cu Om^T Q",
               "pass 2 (y, w1, four Gram partials) + sync", "four Gram sums",
@@ -46,7 +53,9 @@ BAM_PHASES = ("pass 1 (row factors, Gram partials) + sync", "Gu sum + s_u = sqrt
 
 def build(build_mod, kernel: str) -> Path:
     """The stamped library of ``kernel`` (built once per source hash)."""
-    srcs = sorted(build_mod.CSRC.glob(f"{kernel}_smallspace_cluster*.cu"))
+    pattern = ("eps_smallspace_panel*.cu" if kernel == "panel"
+               else f"{kernel}_smallspace_cluster*.cu")
+    srcs = sorted(build_mod.CSRC.glob(pattern))
     h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
     for p in sorted(build_mod.CSRC.glob("*.cu*")):
         h.update(p.read_bytes())
@@ -72,7 +81,7 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kernel", choices=("eps", "bam"), default="eps")
+    parser.add_argument("--kernel", choices=("eps", "bam", "panel"), default="eps")
     parser.add_argument("--shapes", nargs="*", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -86,12 +95,14 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     lib = ctypes.CDLL(str(build(_build, args.kernel)))
-    entry = f"gsmvi_{args.kernel}_smallspace_cluster"
+    panel = args.kernel == "panel"
+    entry = "gsmvi_eps_smallspace_panel" if panel else f"gsmvi_{args.kernel}_smallspace_cluster"
     fn = getattr(lib, entry)
     fn.argtypes = _build.SIGNATURES[entry]
-    names = PHASES if args.kernel == "eps" else BAM_PHASES
-    shapes = args.shapes or (["32x256", "8x200", "64x1024"] if args.kernel == "eps"
-                             else ["32x256", "12x200", "56x1024"])
+    names = {"eps": PHASES, "bam": BAM_PHASES, "panel": PANEL_PHASES}[args.kernel]
+    shapes = args.shapes or {"eps": ["32x256", "8x200", "64x1024"],
+                             "bam": ["32x256", "12x200", "56x1024"],
+                             "panel": ["128x256", "65x256", "128x1024"]}[args.kernel]
     dev = torch.device("cuda")
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     for shape in shapes:
@@ -105,7 +116,18 @@ def main() -> int:
         vf = v @ f
         ranks, cols = fs.cluster_columns(d)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if args.kernel == "eps":
+        n_stamps, phases_entry = 15, None
+        if panel:
+            ranks, cols, n_stamps = fs.PANEL_RANKS, None, 12
+            phases_entry = "gsmvi_eps_panel_phases"
+            buf = fs._UpdateBuffers(b, d, dev)
+            ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean,
+                                     torch.empty_like(mean), buf.good, None, buf.su,
+                                     buf.sw, buf.c, buf.xim, buf.ws)]
+            call = lambda: fn(*ptrs, b, d, *fs.ns_iters_for_batch(b), fs.NS_TOL, 1,
+                              e.numel(), stream)
+            verdict = lambda: {"good": int(buf.good[0])}
+        elif args.kernel == "eps":
             buf = fs._UpdateBuffers(b, d, dev)
             ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean,
                                      torch.empty_like(mean), buf.good, None, buf.su,
@@ -133,9 +155,9 @@ def main() -> int:
             call()
         stop.record()
         torch.cuda.synchronize()
-        stamps = (ctypes.c_longlong * (8 * 15))()
-        getattr(lib, f"gsmvi_{args.kernel}_cluster_{tile}_phases")(stamps)
-        n = 15
+        stamps = (ctypes.c_longlong * (16 * n_stamps))()
+        getattr(lib, phases_entry or f"gsmvi_{args.kernel}_cluster_{tile}_phases")(stamps)
+        n = n_stamps
         per_rank = {}
         for rank in sorted({0, ranks - 1}):
             ts = stamps[rank * n:(rank + 1) * n]
