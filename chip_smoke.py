@@ -68,14 +68,19 @@ the script exits non-zero):
    moments must be under their bounds.
 
 10. dense kernels: K5 ``gsm_update_fused`` against ``gsm_update`` at
-    (B=32, D=256), (B=512, D=256), (B=8, D=200) and batched at K=4: the
-    max-abs error, and S symmetric bit for bit.
+    (B=32, D=256), (B=512, D=256), (B=8, D=200), B 1, 129 and 2048 at
+    D=256, and batched at K=4: the max-abs error, S symmetric bit for bit,
+    and the batched call equal to its single calls bit for bit.
 11. dense paths: ``GSM(D=256, ..., use_factor=False, device="cuda")
     .fit(seed, batch_size=32, niter=N_ITER)`` (K5 exactly N_ITER + 1
     times, moments under the GSM bound), and ``GSM(D=256, ...,
     device="cuda").fit(seed, batch_size=512, niter=N_HUGE)``, which the
     huge-batch guard sends to the dense route (K5 N_HUGE + 1 times, moments
-    under the huge-batch bound).
+    under the huge-batch bound); each with its it/s and wall time per
+    step, and the device busy and host wall time per step of one
+    DENSE_WINDOW-step profiled fit with the idle share of that window
+    (1 - busy / wall; the profiler slows the host, so it reads above the
+    unprofiled share).
 12. batch kernels: K6 ``make_fused_eps_batch_multistep`` against
     ``eps_batch_multistep_reference`` at K=4, B=32, D=256, spc=8: a full
     block, nmax < spc, and one replica whose sub-step the gates reject;
@@ -247,7 +252,11 @@ HUGE_COV_ERR_BOUND = 1.5 * HUGE_COV_REF
 # K5 vs gsm_update (float32 on the card, sums in other orders): the JAX
 # package's kernel-vs-XLA bound, 1e-5 * max(1, |x|) on mu and S.
 DENSE_TOL = 1e-5
-DENSE_SHAPES = ((B, D), (HUGE_B, D), (8, 200))
+DENSE_SHAPES = ((B, D), (HUGE_B, D), (8, 200), (1, D), (129, D), (2048, D))
+# K5 on the card: two launches (the thin product with the rows' dot
+# products, then the Gram) and two allocations (mu and S) per call.
+K5_KERNELS = ("thin_kernel", "gram_kernel")
+DENSE_WINDOW = 64
 # fit_batch: K=8 replicas on the main path; the rate cells of bench.py:514.
 FIT_BATCH_K = 8
 RATE_CELLS = ((64, 8), (64, 32), (256, 8), (256, 32))
@@ -397,6 +406,28 @@ def device_ms(fn, calls: int = 50, warmup: int = 5) -> tuple:
     return 1e-3 * us / calls, sorted({k.name for k in kernels})
 
 
+def busy_per_step(run, steps: int) -> tuple:
+    """(busy, wall): device busy and host wall microseconds per step of
+    ``run()`` (a fit of ``steps`` steps) in one profiled window, busy the
+    union of its kernels' intervals under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_gpu import busy_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(kernels), "the profiler saw no device time")
+    return busy_us(kernels) / steps, wall / steps
+
+
 def graph_block(step, nmax, block, mean, f, params, torch):
     """A K2/K6 block (``FusedBlocks``) that, when full, is held to the
     graph: the first call captures, the second replays, and both must
@@ -498,17 +529,19 @@ def _tensors(obj):
             yield from _tensors(o)
 
 
-def bound(plain, inputs) -> dict:
+def bound(plain, inputs, flops=None) -> dict:
     """The least time the card could take for the work of ``plain()``:
     the larger of its bytes (each tensor of ``inputs`` read once, each
     output written once) over HBM_BYTES_PER_S and its matrix-product FLOPs
-    (torch's FlopCounterMode, counted on this run's inputs, so a block
-    that stops early counts what it did) over F32_FLOPS_PER_S."""
+    over F32_FLOPS_PER_S: ``flops`` where the function needs fewer than
+    its plain version forms, else torch's FlopCounterMode over ``plain()``
+    (counted on this run's inputs, so a block that stops early counts what
+    it did)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
         out = plain()
-    flops = counter.get_total_flops()
+    flops = counter.get_total_flops() if flops is None else flops
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*_tensors(inputs), *_tensors(out)))
     t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -1584,10 +1617,17 @@ def phase_dense_paths(GSM, fs, t, torch):
         c = fs.launch_counts()
         counts.append(c)
         em, ec = errs(mean, cov, t)
+        busy, wall_prof = busy_per_step(lambda: g.fit(
+            FIT_SEED, batch_size=b, niter=DENSE_WINDOW - 1, verbose=False),
+            DENSE_WINDOW)
         emit({"phase": "dense_path", "path": label, "fitter": "GSM",
               "D": D, "B": b, "niter": niter, "launches": c,
               "mean_err": em, "cov_err": ec, "mean_err_bound": bounds[0],
-              "cov_err_bound": bounds[1], "iters_per_s": (niter + 1) / wall})
+              "cov_err_bound": bounds[1], "iters_per_s": (niter + 1) / wall,
+              "wall_us_per_step": 1e6 * wall / (niter + 1),
+              "device_busy_us_per_step": busy,
+              "wall_us_per_step_profiled": wall_prof,
+              "device_idle_share_profiled": 1.0 - busy / wall_prof})
         check(c["gsm_update_fused"] == niter + 1,
               f"{label}: K5 launches {c['gsm_update_fused']} != niter+1")
         check(sum(c.values()) == niter + 1, f"{label}: other kernels ran")
@@ -1760,16 +1800,22 @@ def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
     bound inputs."""
     dev = torch.device("cuda")
     cu = lambda z: torch.from_numpy(z).to(dev)
-    times, work = {}, {}
-    for b in (B, HUGE_B):
-        x, v, mu, s0 = (cu(z) for z in _dense_inputs(np, b, D, 4100 + b))
-        times[f"gsm_update_fused_B{b}"] = (
-            cuda_ms(lambda: gs.gsm_update_fused(x, v, mu, s0), reps=50),
+    times, work, k5 = {}, {}, {}
+    for b, kk in ((B, None), (HUGE_B, None), (B, FIT_BATCH_K)):
+        name = f"gsm_update_fused_B{b}" + (f"_K{kk}" if kk else "")
+        x, v, mu, s0 = (cu(z) for z in
+                        _dense_inputs(np, b, D, 4100 + b, kk))
+        call = (lambda x=x, v=v, mu=mu, s0=s0:
+                gs.gsm_update_fused(x, v, mu, s0))
+        times[name] = (
+            cuda_ms(call, reps=50),
             cuda_ms(lambda: gs.gsm_update_replicas_reference(x, v, mu, s0),
                     reps=50))
-        work[f"gsm_update_fused_B{b}"] = (
+        work[name] = (
             lambda x=x, v=v, mu=mu, s0=s0:
-            gs.gsm_update_replicas_reference(x, v, mu, s0), (x, v, mu, s0))
+            gs.gsm_update_replicas_reference(x, v, mu, s0), (x, v, mu, s0),
+            k5_flops(kk or 1, b, D))
+        k5[name] = k5_per_call(call, torch)
     k, spc = FIT_BATCH_K, 8
     score_fn, params = t.fused_score
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -1791,14 +1837,60 @@ def phase_dense_batch_times(gs, bfm, fs, t, torch, np):
     eager = lambda: step(spc, blocks, means, factors, *params, graph=False)
     k6_eager = {"ms_eager": cuda_ms(eager, reps=10),
                 "device_ms_eager": device_ms(eager, calls=10)[0]}
+    device.update({n: r["device_ms"] for n, r in k5.items()})
     emit({"phase": "dense_batch_times", "D": D, "K": k, "spc": spc,
           "ms_per_call": {n: {"kernel": a, "plain": p,
                               "device": device.get(n)}
                           for n, (a, p) in times.items()},
+          "gsm_update_fused_per_call": k5,
           "make_fused_eps_batch_multistep_eager": k6_eager})
     times["gsm_update_fused"] = times[f"gsm_update_fused_B{B}"]
     work["gsm_update_fused"] = work[f"gsm_update_fused_B{B}"]
-    return times, work, device, {"make_fused_eps_batch_multistep": k6_eager}
+    device["gsm_update_fused"] = device[f"gsm_update_fused_B{B}"]
+    more = {"make_fused_eps_batch_multistep": k6_eager,
+            "gsm_update_fused": {
+                "device_ms_B512": device[f"gsm_update_fused_B{HUGE_B}"],
+                f"device_ms_K{FIT_BATCH_K}":
+                    device[f"gsm_update_fused_B{B}_K{FIT_BATCH_K}"],
+                **{key: k5[f"gsm_update_fused_B{B}"][key] for key in (
+                    "host_launches_per_call", "device_launches_per_call",
+                    "profiler_dropped", "allocations_per_call")}}}
+    return times, work, device, more
+
+
+def k5_flops(k: int, b: int, d: int) -> int:
+    """The products K5 needs: T = V S0 (2 B D^2 a replica) and the upper
+    triangle, diagonal included, of A^T A - Bm^T Bm (2 B D (D + 1)); its
+    plain version forms both whole Grams (6 B D^2 in all)."""
+    return k * (2 * b * d * d + 2 * b * d * (d + 1))
+
+
+def k5_per_call(call, torch, calls: int = 50) -> dict:
+    """K5 on the card, per call, from ``tools.profile_gpu.profile_calls``:
+    the host's kernel launches and the device allocations per call, the
+    profiler's device records of each kernel over ``calls`` calls (it may
+    drop one; ``profiler_dropped`` counts them) and the device
+    milliseconds (the sum of the kernels' means per launch, robust to a
+    drop).  Fails unless a call is K5's two kernels, launched once each,
+    and two allocations (mu, S)."""
+    from tools.profile_gpu import profile_calls
+
+    rec = profile_calls("K5", call, calls, torch, quiet=True)
+    per = rec["launches_by_kernel"]
+    out = {"device_ms":
+           1e-3 * sum(rec["device_us_per_launch_by_kernel"].values()),
+           "host_launches_per_call": rec["host_launches_per_call"],
+           "device_launches_per_call": rec["kernel_launches_per_call"],
+           "profiler_dropped": len(K5_KERNELS) * calls - sum(per.values()),
+           "allocations_per_call": rec["allocations_per_call"],
+           "kernels": per, "calls": calls}
+    check(rec["host_launches_per_call"] == len(K5_KERNELS)
+          and rec["allocations_per_call"] == 2 and len(per) == 2
+          and all(sum(k in n for n in per) == 1 for k in K5_KERNELS)
+          and all(0.9 * calls <= n <= calls for n in per.values()),
+          f"K5 must be two launches ({K5_KERNELS}) and two allocations a "
+          f"call: {out}")
+    return out
 
 
 def _cov(f):

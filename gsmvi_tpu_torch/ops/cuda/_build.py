@@ -42,7 +42,7 @@ SIGNATURES = {
     + [_F, _I, _L, _I, _I, _P],
     "gsmvi_eps_chol": [_P] * 14 + [_I, _I, _F, _P],
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
-    "gsmvi_gsm_update": [_P] * 11 + [_I] * 3 + [_P],
+    "gsmvi_gsm_update": [_P] * 8 + [_I] * 7 + [_P],
     "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
     "gsmvi_bam_smallspace_cluster": [_P] * 12 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F] + [_I] * 3 + [_P],

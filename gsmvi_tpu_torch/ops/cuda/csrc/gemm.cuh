@@ -30,10 +30,10 @@
 //
 // Replica axis: with `batch` = K > 1 the grid gains blockIdx.z = replica,
 // and every operand of replica z starts its own batch stride further on
-// (the K-replica launches of fit_batch, ops/batch_fused.py, and the batched
-// dense update, gsm_step.cu).  Only pointer offsets change: each replica's
-// tiles and per-element accumulation order are those of a single launch, so
-// replica z's result equals, bit for bit, a launch on replica z alone.
+// (the K-replica launches of fit_batch, ops/batch_fused.py).  Only pointer
+// offsets change: each replica's tiles and per-element accumulation order
+// are those of a single launch, so replica z's result equals, bit for bit,
+// a launch on replica z alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,7 +49,7 @@ constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one co
 enum Prologue { PRO_NONE = 0, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
-                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7, EPI_ADD_DIV = 8,
+                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7,
                 EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11,
                 EPI_LOGISTIC_RESID = 12, EPI_ACC_SUB_SCALE = 13 };
 
@@ -83,7 +83,6 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
 //   EPI_ADD:               c = c_in + acc (c distinct from c_in and the operands)
-//   EPI_ADD_DIV:           c = c_in + acc / div
 //   EPI_SCALE:             c = acc * alpha
 //   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
 //   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
@@ -120,7 +119,6 @@ struct GemmArgs {
     AdamArgs adam;
     int batch;
     long long sa, sb, sc, svec, sgood;
-    float div;
     float alpha, beta;
 };
 
@@ -246,8 +244,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             c2[o] = epi_vec[gn] + acc[r];
         } else if (EPI == EPI_ADD) {
             pc[o] = c_in[o] + acc[r];
-        } else if (EPI == EPI_ADD_DIV) {
-            pc[o] = c_in[o] + acc[r] / p.div;
         } else if (EPI == EPI_SCALE) {
             pc[o] = acc[r] * p.alpha;
         } else if (EPI == EPI_AFFINE_EYE) {

@@ -439,8 +439,12 @@ def _dense_inputs(dev, b, d, seed=0, k=None):
             for z in (x, v, mu, s0)]
 
 
-@pytest.mark.parametrize("b,d", [(2, 16), (8, 200), (32, 256), (512, 256),
-                                 (96, 1024)])
+DENSE_CASES = sorted({(b, d) for b in (1, 2, 31, 32, 33, 129, 512, 2048)
+                      for d in (1, 7, 33, 200, 256, 1024)}
+                     | {(2, 16), (8, 200), (96, 1024)})
+
+
+@pytest.mark.parametrize("b,d", DENSE_CASES)
 def test_dense_kernel_matches_plain(cuda, b, d):
     """K5 against gsm_update on the same tensors, within 1e-5 * max(1, |S|)
     (float32, sums in other orders), with S symmetric bit for bit."""
@@ -453,15 +457,79 @@ def test_dense_kernel_matches_plain(cuda, b, d):
     assert torch.equal(s_k, s_k.T)
 
 
-def test_dense_kernel_batched_equals_single_calls(cuda):
+@pytest.mark.parametrize("k,b,d", [(4, 32, 200), (1, 32, 256), (3, 32, 256),
+                                   (8, 32, 256), (1, 512, 256),
+                                   (3, 512, 256), (8, 512, 256), (3, 33, 7)])
+def test_dense_kernel_batched_equals_single_calls(cuda, k, b, d):
     from gsmvi_tpu_torch.ops import gsm_step
 
-    x, v, mu, s0 = _dense_inputs(cuda, 32, 200, seed=5, k=4)
+    x, v, mu, s0 = _dense_inputs(cuda, b, d, seed=5 + k, k=k)
     m_k, s_k = gsm_step.gsm_update_fused(x, v, mu, s0)
-    for i in range(4):
+    for i in range(k):
         m_i, s_i = gsm_step.gsm_update_fused(x[i], v[i], mu[i], s0[i])
         assert torch.equal(m_k[i], m_i) and torch.equal(s_k[i], s_i)
         assert torch.equal(s_k[i], s_k[i].T)
+
+
+@pytest.mark.parametrize("b,d", [(32, 256), (512, 256), (33, 7)])
+def test_dense_kernel_propagates_a_nonfinite_row(cuda, b, d):
+    """An inf in one row of v: K5's mu and S are non-finite exactly where
+    the plain version's are (nothing clamped), so accept_or_revert
+    reverts the step."""
+    from gsmvi_tpu_torch.ops import gsm_step
+    from gsmvi_tpu_torch.state import accept_or_revert, init_state
+
+    x, v, mu, s0 = _dense_inputs(cuda, b, d, seed=11)
+    v[b // 2, d // 3] = float("inf")
+    m_k, s_k = gsm_step.gsm_update_fused(x, v, mu, s0)
+    m_p, s_p = gsm_step.gsm_update_replicas_reference(x, v, mu, s0)
+    assert not bool(torch.isfinite(s_p).all())
+    assert torch.equal(torch.isfinite(m_k), torch.isfinite(m_p))
+    assert torch.equal(torch.isfinite(s_k), torch.isfinite(s_p))
+    st = init_state(0, d, mean=mu, cov=s0, device=cuda)
+    new = accept_or_revert(st, m_k, s_k)
+    assert int(new.n_rejected) == 1 and torch.equal(new.cov, st.cov)
+
+
+@pytest.mark.parametrize("b,k", [(32, None), (512, None), (32, 8)])
+def test_dense_kernel_is_two_launches_without_scratch(cuda, b, k):
+    """Per call on the card: two kernels (the thin product with the row
+    dot products, the Gram) and two allocations (the outputs mu and S)."""
+    from gsmvi_tpu_torch.ops import gsm_step
+    from tools.profile_gpu import profile_calls
+
+    x, v, mu, s0 = _dense_inputs(cuda, b, 256, seed=3, k=k)
+    rec = profile_calls("K5", lambda: gsm_step.gsm_update_fused(x, v, mu, s0),
+                        10, torch, quiet=True)
+    assert rec["allocations_per_call"] == 2
+    assert rec["host_launches_per_call"] == 2
+    # Two kernels a call; the profiler may drop a device record, never add
+    # one.
+    per = rec["launches_by_kernel"]
+    assert len(per) == 2
+    for kernel in ("thin_kernel", "gram_kernel"):
+        assert 9 <= sum(c for n, c in per.items() if kernel in n) <= 10
+
+
+def test_dense_fit_batch_replicas_equal_single_fits(cuda):
+    """The dense fit_batch at K=8 (batched K5): replica i against
+    fit(seed_i).  K5 gives each replica the bits of its single call; the
+    step's other operations (the draws' and the score's products, the
+    batched Cholesky of accept_or_revert) are the library's, which does
+    not promise a batch the bits of its single calls, so the moments are
+    held to 1e-4 * max(1, |x|) and the accept counts to equality."""
+    d, b, niter = 256, 32, 30
+    t = dense_gaussian(0, d, device=cuda)
+    g = GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False)
+    fs.reset_launch_counts()
+    st = g.fit_batch(range(8), batch_size=b, niter=niter, return_state=True)
+    assert fs.launch_counts()["gsm_update_fused"] == niter + 1
+    for i in range(8):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert _within(st.mean[i], si.mean, 1e-4)
+        assert _within(st.cov[i], si.cov, 1e-4)
+        assert int(st.n_accepted[i]) == int(si.n_accepted)
 
 
 def _batch_problem(dev, k, b, d, spc, seed=0):

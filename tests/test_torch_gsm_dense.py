@@ -89,7 +89,8 @@ def test_gsm_update_matches_jax_float64(b, d):
                                atol=1e-12 * scale)
 
 
-@pytest.mark.parametrize("b,d", [(8, 16), (32, 64)])
+@pytest.mark.parametrize("b,d", [(8, 16), (32, 64), (1, 8), (1, 33),
+                                 (129, 16)])
 def test_k5_plain_matches_jax_interpret_kernel(b, d):
     """K5's plain version against the JAX Pallas kernel in interpret mode,
     float32 on both sides; S symmetric bit for bit on both."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """it/s of two checkouts of the port, alternated on one NVIDIA GPU.
 
-    python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6] [--family gsm|bam|batch|b128]
+    python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6]
+                             [--family gsm|bam|batch|b128|dense]
 
 For each pair, in turns (A then B, then B then A, ...), a fresh process per
 checkout times two fits of each fitter of the family at the headline cell
@@ -17,7 +18,11 @@ niter=3000; its rate is per replica (the aggregate is 8 times it).
 Family ``b128``: the large-batch small spaces' fits at D=256, B=128,
 ``FactorGSM(fused_score=...)`` (K2, spc=8) with niter=3000 and
 ``FactorBaM(fused_score=...)`` (K8) with niter=200, as ``chip_smoke.py``
-runs them (after a 200- and a 50-step warm-up).  A last line gives, per
+runs them (after a 200- and a 50-step warm-up).  Family ``dense``: the
+dense route on K5, ``GSM(..., use_factor=False)`` at B=32, ``GSM.fit`` at
+B=512 (the huge-batch guard sends it dense) and ``GSM(...,
+use_factor=False).fit_batch(range(8), ...)`` at B=32 (batched K5; per
+replica), niter=1000 each after a 100-step warm-up.  A last line gives, per
 fit, the median and quartiles of each checkout's readings and the pairs
 in which the second checkout was faster.  The first use in each
 checkout builds its kernels, so build both before timing.
@@ -47,6 +52,29 @@ def one(checkout: str, family: str) -> dict:
     from gsmvi_tpu_torch.models import dense_gaussian
 
     t = dense_gaussian(0, 256, device="cuda")
+    if family == "dense":
+        dense = GSM(256, t.lp, t.lp_g, device="cuda", use_factor=False)
+        huge = GSM(256, t.lp, t.lp_g, device="cuda")
+        runs = {
+            "GSM_dense_b32": lambda s, n: dense.fit(
+                s, batch_size=32, niter=n, verbose=False),
+            "GSM_huge_b512": lambda s, n: huge.fit(
+                s, batch_size=512, niter=n, verbose=False),
+            "GSM_dense_fit_batch_K8": lambda s, n: dense.fit_batch(
+                range(s, s + 8), batch_size=32, niter=n),
+        }
+        out = {}
+        for name, run in runs.items():
+            run(1, 100)
+            rates = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(0, 1000)
+                torch.cuda.synchronize()
+                rates.append(1001 / (time.perf_counter() - t0))
+            out[name] = rates
+        return out
     if family == "batch":
         g = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
                       device="cuda")
@@ -108,7 +136,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("checkouts", nargs="*")
     parser.add_argument("--pairs", type=int, default=6)
-    parser.add_argument("--family", choices=("gsm", "bam", "batch", "b128"),
+    parser.add_argument("--family", choices=("gsm", "bam", "batch", "b128",
+                                             "dense"),
                         default="gsm")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
-    python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001] [--only-bam]
+    python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001]
+                                 [--only-bam | --only-dense]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -21,7 +22,12 @@ kernel intervals), the device's idle share of the profiled window,
 device time per kernel name (per step of all the replicas together for
 ``fit_batch``), and the device's kernels per step (a CUDA graph's nodes
 included) and the host's runtime calls per step (kernel launches, graph
-launches, copies) apart.  Then the same device breakdown per
+launches, copies) apart.  ``--only-dense``: the dense route's family
+alone, ``GSM(..., use_factor=False)`` at B=32, ``GSM.fit`` at B=512 (the
+huge-batch guard sends it dense) and ``GSM(..., use_factor=False)
+.fit_batch`` of K=8 replicas at B=32, then K5 (``gsm_update_fused``) alone
+per call at B=32, B=512 and K=8 x B=32, with its device allocations per
+call.  Then the same device breakdown per
 call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
 (``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
 (0, I).  The profiler slows the host, so it
@@ -75,19 +81,20 @@ def runtime_calls(prof, DeviceType) -> dict:
 
 
 def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
-                counts=None, **kw):
+                counts=None, batch=32, **kw):
     """Profile ``steps`` steps of ``fitter.fit(seed, *fit_args, **kw)`` (or
-    of ``fit_batch`` over ``replicas`` seeds, with ``kw``); ``counts()``,
-    when given, adds the fitter's counts of the profiled fit."""
+    of ``fit_batch`` over ``replicas`` seeds, with ``kw``) at batch
+    ``batch``; ``counts()``, when given, adds the fitter's counts of the
+    profiled fit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def run(seed, niter):
         if replicas is None:
-            return fitter.fit(seed, *fit_args, batch_size=32, niter=niter,
+            return fitter.fit(seed, *fit_args, batch_size=batch, niter=niter,
                               verbose=False, **kw)
-        return fitter.fit_batch(range(seed, seed + replicas), batch_size=32,
-                                niter=niter, **kw)
+        return fitter.fit_batch(range(seed, seed + replicas),
+                                batch_size=batch, niter=niter, **kw)
 
     run(1, 15)                                                  # warm up
     torch.cuda.synchronize()
@@ -110,7 +117,8 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
     busy = busy_us(kernels)
     api = runtime_calls(prof, DeviceType)
     print(json.dumps({
-        "path": name, "steps": steps, "replicas": replicas or 1,
+        "path": name, "steps": steps, "batch": batch,
+        "replicas": replicas or 1,
         **({"fit_counts": counts()} if counts is not None else {}),
         "wall_us_per_step_profiled": wall_us / steps,
         "device_busy_us_per_step": busy / steps,
@@ -130,13 +138,25 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
     }), flush=True)
 
 
-def profile_calls(name, fn, calls, torch):
-    """Device time per call, by kernel, of ``calls`` calls of ``fn``."""
+def profile_calls(name, fn, calls, torch, quiet=False) -> dict:
+    """Device time per call, by kernel, of ``calls`` calls of ``fn``, and
+    the device allocations it requests per call (the caching allocator's
+    count, outside the profiled window).  Returns the record and prints it
+    as a JSON line unless ``quiet``.  The profiler may drop a device
+    record of a launch, so each kernel's
+    records are counted (``launches_by_kernel``) beside the host's kernel
+    launches (``host_launches_per_call``), and its mean per launch is
+    given beside its total per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):                                          # warm up
         fn()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(calls):
+        fn()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -144,19 +164,29 @@ def profile_calls(name, fn, calls, torch):
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
+    spans = {}
     for k in kernels:
-        key = k.name[:90]
-        by_name[key] = by_name.get(key, 0.0) + (k.time_range.end
-                                                - k.time_range.start)
-    print(json.dumps({
+        spans.setdefault(k.name[:90], []).append(k.time_range.end
+                                                 - k.time_range.start)
+    api = runtime_calls(prof, DeviceType)
+    rec = {
         "call": name, "calls": calls,
         "device_busy_us_per_call": busy_us(kernels) / calls,
         "kernel_launches_per_call": len(kernels) / calls,
+        "host_launches_per_call": sum(
+            v for k, v in api.items() if k.startswith("cudaLaunchKernel"))
+        / calls,
+        "allocations_per_call": allocs / calls,
+        "launches_by_kernel": {k: len(v) for k, v in sorted(spans.items())},
+        "device_us_per_launch_by_kernel": {
+            k: sum(v) / len(v) for k, v in sorted(spans.items())},
         "device_us_per_call_by_kernel": {
-            k: v / calls for k, v in sorted(by_name.items(),
-                                            key=lambda kv: -kv[1])},
-    }), flush=True)
+            k: sum(v) / calls for k, v in sorted(
+                spans.items(), key=lambda kv: -sum(kv[1]))},
+    }
+    if not quiet:
+        print(json.dumps(rec), flush=True)
+    return rec
 
 
 def draw_cost(fitter, k, torch, blocks=50, spc=8):
@@ -177,13 +207,44 @@ def draw_cost(fitter, k, torch, blocks=50, spc=8):
     return (time.perf_counter() - t0) * 1e6 / (blocks * spc)
 
 
+def profile_dense(t, steps, torch):
+    """The dense route's family (``--only-dense``): its three fits, then
+    K5 alone per call."""
+    from gsmvi_tpu_torch import GSM
+    from gsmvi_tpu_torch.ops import gsm_step as gs
+
+    d = t.mean.shape[-1]
+    profile_fit("GSM use_factor=False (K5 + cholesky_ex per step), B=32",
+                GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False),
+                steps, torch)
+    profile_fit("GSM huge batch (K5 + cholesky_ex per step), B=512",
+                GSM(d, t.lp, t.lp_g, device="cuda"), steps, torch, batch=512)
+    profile_fit("GSM use_factor=False fit_batch (batched K5), K=8, B=32",
+                GSM(d, t.lp, t.lp_g, device="cuda", use_factor=False),
+                steps, torch, replicas=8)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for b, k in ((32, None), (512, None), (32, 8)):
+        lead = () if k is None else (k,)
+        a = torch.randn((*lead, d, d), generator=gen, device="cuda")
+        s0 = a @ a.mT / d + torch.eye(d, device="cuda")
+        s0 = 0.5 * (s0 + s0.mT)
+        mu = torch.randn((*lead, d), generator=gen, device="cuda")
+        x = mu[..., None, :] + torch.randn((*lead, b, d), generator=gen,
+                                           device="cuda")
+        v = torch.randn((*lead, b, d), generator=gen, device="cuda")
+        profile_calls(f"K5 gsm_update_fused B={b} K={k or 1}",
+                      lambda: gs.gsm_update_fused(x, v, mu, s0), 64, torch)
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=64)
     parser.add_argument("--bam-steps", type=int, default=2001)
-    parser.add_argument("--only-bam", action="store_true")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-bam", action="store_true")
+    only.add_argument("--only-dense", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_gpu: no CUDA device", file=sys.stderr)
@@ -195,6 +256,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     t = dense_gaussian(0, 256, device="cuda")
+    if args.only_dense:
+        profile_dense(t, args.steps, torch)
+        return 0
     if not args.only_bam:
         fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
                           device="cuda")

@@ -2,7 +2,7 @@
 """Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--kernel eps|bam|panel] [--shapes 32x256 ...]
+    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|k5] [--shapes 32x256 ...]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
 eps_smallspace_cluster*.cu``, ``--kernel eps``), BaM's
@@ -16,8 +16,12 @@ that library 20 times as a warm-up and 200 times between CUDA events (one
 replica, from random rows and a well-conditioned factor made on the card),
 then prints one JSON line: the card, the mean microseconds per launch, and
 the last launch's microseconds per phase in rank 0 and in the last rank of
-the cluster.  The stamps cost a few global stores per phase; the kernel the
-port runs has none.
+the cluster.  ``--kernel k5``: K5's Gram launch (``gsm_step.cu``,
+``gram_kernel``), where every block sums its phase times over its slabs;
+each line gives them for the first diagonal tile's rank 0 and last rank
+and the first off-diagonal tile's rank 0, beside the mean microseconds per
+K5 call (both launches).  The stamps cost a few global stores per phase;
+the kernel the port runs has none.
 """
 
 from __future__ import annotations
@@ -49,11 +53,15 @@ BAM_PHASES = ("pass 1 (row factors, Gram partials) + sync", "Gu sum + s_u = sqrt
               "trace sums, lmax, I + 4G + cluster wait", "s1 = sqrt(I + 4G)",
               "s1's residual", "p = (I + s1)^-1/2", "p p, res_p", "winv + tau",
               "pass 3 (u2 rows)", "ss + exit")
+K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait + barrier",
+             "A, dmu, Bm in place + barrier", "dmu column sums + FMA + barrier",
+             "partials + cluster sync", "rank-ordered sums", "stores, mean + exit sync")
 
 
 def build(build_mod, kernel: str) -> Path:
     """The stamped library of ``kernel`` (built once per source hash)."""
     pattern = ("eps_smallspace_panel*.cu" if kernel == "panel"
+               else "gsm_step.cu" if kernel == "k5"
                else f"{kernel}_smallspace_cluster*.cu")
     srcs = sorted(build_mod.CSRC.glob(pattern))
     h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
@@ -81,7 +89,7 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kernel", choices=("eps", "bam", "panel"), default="eps")
+    parser.add_argument("--kernel", choices=("eps", "bam", "panel", "k5"), default="eps")
     parser.add_argument("--shapes", nargs="*", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -95,6 +103,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     lib = ctypes.CDLL(str(build(_build, args.kernel)))
+    if args.kernel == "k5":
+        return k5_phases(lib, _build, card, args.shapes or ["32x256", "512x256"], torch)
     panel = args.kernel == "panel"
     entry = "gsmvi_eps_smallspace_panel" if panel else f"gsmvi_{args.kernel}_smallspace_cluster"
     fn = getattr(lib, entry)
@@ -168,6 +178,61 @@ def main() -> int:
                           "cluster": [ranks, cols], **verdict(),
                           "us_per_launch": start.elapsed_time(stop) * 1e3 / 200,
                           "us_per_phase": per_rank}), flush=True)
+    return 0
+
+
+def k5_phases(lib, build_mod, card, shapes, torch) -> int:
+    """``--kernel k5``: K5 at each (B, D), its Gram launch by phase."""
+    from gsmvi_tpu_torch.ops import gsm_step as gs
+
+    fn = lib.gsmvi_gsm_update
+    fn.argtypes = build_mod.SIGNATURES["gsmvi_gsm_update"]
+    dev = torch.device("cuda")
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    for shape in shapes:
+        b, d = map(int, shape.split("x"))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        a = torch.randn((d, d), generator=gen, device=dev)
+        s0 = a @ a.T / d + torch.eye(d, device=dev)
+        s0 = 0.5 * (s0 + s0.T)
+        mu = torch.randn(d, generator=gen, device=dev)
+        x = mu + torch.randn((b, d), generator=gen, device=dev)
+        v = -(x - torch.randn(d, generator=gen, device=dev))
+        t = torch.empty((b, d), device=dev)
+        dots = torch.empty((-(-d // 32), 3, b), device=dev)
+        mu_out, s_out = torch.empty_like(mu), torch.empty_like(s0)
+        plan = gs.k5_launch_plan(b, d)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = [ptr(z) for z in (x, v, mu, s0, t, dots, mu_out, s_out)]
+        call = lambda: fn(*ptrs, b, d, 1, *plan["thin"]["split"], *plan["gram"]["split"],
+                          stream)
+        for _ in range(20):
+            if call() != 0:
+                raise RuntimeError("the stamped K5 failed to launch")
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(200):
+            call()
+        stop.record()
+        torch.cuda.synchronize()
+        n = len(K5_PHASES)
+        stamps = (ctypes.c_longlong * (4096 * n))()
+        if lib.gsmvi_gram_phases(stamps) != 0:
+            raise RuntimeError("gsmvi_gram_phases failed")
+        split = plan["gram"]["split"][0]
+        blocks = {"diagonal tile, rank 0": 0, f"diagonal tile, rank {split - 1}": split - 1}
+        if d > 32:
+            blocks["off-diagonal tile, rank 0"] = split
+        per_block = {}
+        for label, blk in blocks.items():
+            ts = stamps[blk * n:(blk + 1) * n]
+            per_block[label] = {name: ts[i] / 1e3 for i, name in enumerate(K5_PHASES)}
+            per_block[label]["total"] = sum(ts) / 1e3
+        print(json.dumps({"card": card, "kernel": "k5", "B": b, "D": d,
+                          "gram_split": plan["gram"]["split"],
+                          "us_per_call": start.elapsed_time(stop) * 1e3 / 200,
+                          "gram_us_per_phase": per_block}), flush=True)
     return 0
 
 
