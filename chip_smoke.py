@@ -56,7 +56,10 @@ the script exits non-zero):
    spc=8: the first sub-step's gradient (through the first moments), a
    full block, nmax < spc, a varying learning rate, a K10 gate trip at
    sub-step 3 and a K10 nonfinite-gradient freeze.  ``n_done`` and
-   ``stiff`` must be equal.
+   ``stiff`` must be equal.  Every full block is held as a CUDA graph
+   (``advi_graph_block``: the call that captures and the replay after it
+   equal the eager block bit for bit, K10's report included); so are phase
+   17's K9/K10 blocks.
 8. ADVI main path: ``ADVI(D=256, ..., device="cuda").fit(seed,
    Adam(1e-2), batch_size=32, niter=N_ADVI)`` (autograd, plain torch, no
    kernel); ``N_ADVI + 1`` finite losses and moments under the ADVI bound.
@@ -65,7 +68,14 @@ the script exits non-zero):
    and K3 launch, K10 does not), then an STL polish leg of N_STL steps from
    its state at lr 3e-3 (K10 launches); replays and it/s are printed, the
    plain versions' it/s on the same blocks beside them, and both legs'
-   moments must be under their bounds.
+   moments must be under their bounds.  Each leg again on eager blocks
+   (``cuda_graph=False``) must give the same state bit for bit, and
+   ``advi_graph`` prints both it/s, the captures, host and wall us per
+   block, the runtime calls and device allocations per block
+   (``advi_graph_report``: one ``cudaGraphLaunch`` a full block, besides it
+   at most the draws, the scalar table's copy, K10's report read and the
+   chunk's state copies; no allocation in a K9 block), then the two-phase
+   recipe's rate (``advi_two_phase``).
 
 10. dense kernels: K5 ``gsm_update_fused`` against ``gsm_update`` at
     (B=32, D=256), (B=512, D=256), (B=8, D=200), B 1, 129 and 2048 at
@@ -145,7 +155,8 @@ the script exits non-zero):
     the mixture (against the component it lands in) and logreg (against
     the Laplace approximation) under 1.5 x the worst JAX CPU fit, funnel
     finite and PD), its it/s beside the card; one ``FactorBaM(fused_score)``
-    and one ``ADVI.fit_fused`` run per target.
+    and one ``ADVI.fit_fused`` run per target, equal bit for bit to the
+    same run on eager blocks, its K9 block with the zoo score captured.
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
@@ -159,9 +170,11 @@ one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
 device time per call under ``torch.profiler`` for K1, its small space and
 thin product, K2, K3, K4, K6, K7, K8 (spc=8) and the BaM small space at
 D=256, B=32 (K6 at K=8; the BaM kernels at tier 0, with ``ms_tier3`` and
-``device_ms_tier3`` at the most benign tier beside; K2 and K6 with
+``device_ms_tier3`` at the most benign tier beside; K2, K6, K9 and K10 with
 ``ms_eager`` and ``device_ms_eager``, their blocks enqueued eagerly, beside
-the graph's ``ms``), null elsewhere; the
+the graph's ``ms``; K9 and K10 per 8-step block chained through the
+working state as the fit runs them, bound on the FLOPs of lower-triangular
+L and A, ``advi_flops``), null elsewhere; the
 profiler's kernel names must show K1 on the cluster small space and the
 thin product, K3 on the thin product, and K7, K8 and the BaM small space on
 the BaM cluster kernel, with every BaM row product on the thin product),
@@ -1288,7 +1301,8 @@ def phase_advi_kernels(af, fs, torch, np, shapes=None, designed=True,
                 torch.arange(step0, step0 + spc, dtype=torch.int32)))
             if kern == "k9":
                 state = [cu(loc), cu(l), *moments]
-                got = k9(lrs, bc1s, bc2s, nmax, cu(blk), *state, *params)
+                got = advi_graph_block(k9, (lrs, bc1s, bc2s, nmax, cu(blk),
+                                            *state, *params), torch)
                 want = af.advi_multistep_reference(
                     fs.gaussian_score_reference, params, lrs, bc1s, bc2s,
                     nmax, cu(blk), *state, batch=b)
@@ -1296,8 +1310,10 @@ def phase_advi_kernels(af, fs, torch, np, shapes=None, designed=True,
                 flags = None
             else:
                 state = [cu(loc), cu(l), cu(ainv), *moments]
-                *got, nd_k, st_k = k10(lrs, bc1s, bc2s, nmax, cu(blk),
-                                       *state, *params)
+                *got, rep = advi_graph_block(k10, (lrs, bc1s, bc2s, nmax,
+                                                   cu(blk), *state, *params),
+                                             torch)
+                nd_k, st_k = rep[af.REP_NDONE], rep[af.REP_STIFF]
                 *want, nd_p, st_p = af.advi_stl_multistep_reference(
                     fs.gaussian_score_reference, params, lrs, bc1s, bc2s,
                     nmax, cu(blk), *state, batch=b)
@@ -1338,6 +1354,120 @@ def phase_advi_kernels(af, fs, torch, np, shapes=None, designed=True,
                                                 or flags[1] == counts),
                       f"{key} {name}: (n_done, stiff) {flags} != {counts}")
     return worst
+
+
+def advi_graph_block(step, args, torch):
+    """A K9/K10 block (``AdviBlocks``, ``step.packed(*args)``) that, when
+    full, is held to the graph: the call that captures and the replay after
+    it both equal the same block enqueued eagerly (``graph=False``) bit for
+    bit, K10's report included.  Returns the replayed (or, for nmax < spc,
+    the eager) result."""
+    eager = step.packed(*args, graph=False)
+    if args[3] < step.spc:
+        return eager
+    outs = [step.packed(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for out in outs for x, y in zip(out, eager)),
+          f"a K{10 if step.stl else 9} graph block differs from the eager "
+          f"block (B={step.batch}, D={step.d})")
+    check(len(step.captures) >= 1, "no CUDA graph was captured")
+    return outs[1]
+
+
+def advi_flops(b: int, d: int, nsub: int, stl: bool,
+               sweeps: int = 2) -> int:
+    """The FLOPs ``nsub`` K9 (K10) sub-steps need on a lower-triangular L
+    and A, with the dense Gaussian score (2 B D^2): x = loc + e L^T and
+    dL's lower triangle (B D (D + 1) each), for K10 also P = E A' and the
+    2 ``sweeps`` triangular (D, D, D) products (D (D + 1) (D + 2) / 3
+    each); not the full products' 2 B D^2 and 2 D^3 that the plain version
+    forms."""
+    per = 2 * b * d * (d + 1) + 2 * b * d * d
+    if stl:
+        per += b * d * (d + 1) + 2 * sweeps * d * (d + 1) * (d + 2) // 3
+    return nsub * per
+
+
+# Host calls a full ADVI block may make besides its one graph launch: its
+# spc draws' launches and the scalar table's copy (K10: and the report's
+# read); a chunk's two state copies, in and out, spread over its blocks.
+ADVI_CHUNK_BLOCKS = 64
+
+
+def advi_graph_report(gf, est, lr, state, torch) -> dict:
+    """Phase 9: the runner of ``fit_fused(estimator=est)`` from ``state``:
+    its captures, host and wall us per block on graph and eager blocks
+    (one chunk of ADVI_CHUNK_BLOCKS blocks), the runtime calls and device
+    kernels per block under ``torch.profiler``, and the device allocations
+    per block (two chunks, their difference over the extra blocks).  Fails
+    unless a full block is one graph launch (K9: every block), the host's
+    other calls are at most the draws, the table's copy, K10's report read
+    and the chunk's state copies, and a K9 block allocates nothing (K10:
+    none without a replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = gf._fused_runner(B, lr, 0.9, 0.999, 1e-8, est)
+    spc, nb = gf.steps_per_call, ADVI_CHUNK_BLOCKS
+    rec = {"captures": list(runner.blocks.captures), "chunk_blocks": nb}
+    for graph in (True, False):
+        gf.cuda_graph = graph
+        runner(state, 2 * spc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(state, nb * spc)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec["graph" if graph else "eager"] = {
+            "host_us_per_block": 1e6 * (t1 - t0) / nb,
+            "wall_us_per_block": 1e6 * (t2 - t0) / nb}
+    gf.cuda_graph = True
+    allocs = []
+    for n in (nb, 2 * nb):
+        gf._reset_counts()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        runner(state, n * spc)
+        torch.cuda.synchronize()
+        allocs.append(torch.cuda.memory_stats()["allocation.all.allocated"]
+                      - before)
+    replays = gf.fit_counts["replays"]
+    rec["allocations_per_block"] = (allocs[1] - allocs[0]) / nb
+    gf._reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner(state, nb * spc)
+        torch.cuda.synchronize()
+    api, kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels += 1
+        elif e.name.startswith("cuda") and e.name != "cudaDeviceSynchronize":
+            api[e.name] = api.get(e.name, 0) + 1
+    blocks = gf.fit_counts["kernel_calls"]
+    rec["per_block"] = {"api": {k: v / blocks for k, v in sorted(api.items())},
+                        "kernel_nodes": kernels / blocks, "blocks": blocks,
+                        "replays": gf.fit_counts["replays"]}
+    launches = sum(v for k, v in api.items()
+                   if k.startswith("cudaLaunchKernel"))
+    copies = api.get("cudaMemcpyAsync", 0)
+    graphs = api.get("cudaGraphLaunch", 0)
+    stl = est == "stl"
+    n_state = 7 if stl else 6
+    check(graphs <= blocks and (graphs == blocks if not stl
+                                else graphs >= blocks - 1
+                                - 2 * gf.fit_counts["replays"]),
+          f"ADVI {est}: a full block must be one graph launch: {rec}")
+    check(launches <= spc * blocks + (
+        0 if not stl else 16 * gf.fit_counts["replays"] + spc)
+        and copies <= (2 if stl else 1) * blocks + 2 * n_state + 2
+        + 8 * gf.fit_counts["replays"],
+          f"ADVI {est}: the host issues more than the draws, the scalar "
+          f"copy and the report read per block: {rec}")
+    check(rec["allocations_per_block"] == 0 or (stl and replays),
+          f"ADVI {est}: a block allocates on the device: {rec}")
+    return rec
 
 
 def _errs_bounded(em, ec, bounds, what):
@@ -1421,6 +1551,32 @@ def phase_advi_paths(ADVI, Adam, af, fs, t, torch):
             _errs_bounded(em, ec, (STL_MEAN_ERR_BOUND, STL_COV_ERR_BOUND),
                           "fit_fused STL leg")
 
+    # Each leg again on eager blocks: the same state bit for bit; then the
+    # runner's graph report from the leg's final state.
+    for leg, est, lr, n in (("analytic", "analytic", ADVI_LR, N_ADVI),
+                            ("stl", "stl", STL_LR, N_STL)):
+        gf.cuda_graph = False
+        try:
+            (st_e, _), wall_e = _timed(lambda: gf.fit_fused(
+                FIT_SEED, learning_rate=lr, batch_size=B, niter=n,
+                verbose=False, return_state=True, estimator=est,
+                state=legs["analytic"][0] if est == "stl" else None), torch)
+        finally:
+            gf.cuda_graph = True
+        st = legs[leg][0]
+        same = all(torch.equal(x, y) for x, y in zip(st[:-2], st_e[:-2]))
+        check(same and st.step == st_e.step, f"fit_fused {leg}: the fit on "
+              "graph blocks differs from the fit on eager blocks")
+        emit({"phase": "advi_graph", "leg": leg, "estimator": est,
+              "graph_iters_per_s": legs[leg][2],
+              "eager_iters_per_s": (n + 1) / wall_e,
+              "graph_equals_eager": same,
+              **advi_graph_report(gf, est, lr, st, torch)})
+    # The two-phase recipe (bench.py:378-461) as one rate.
+    two = (N_ADVI + 1 + N_STL + 1) / ((N_ADVI + 1) / legs["analytic"][2]
+                                      + (N_STL + 1) / legs["stl"][2])
+    emit({"phase": "advi_two_phase", "iters_per_s": two})
+
     # it/s of each kernel vs its plain version on the same blocks, from the
     # leg's final state at the leg's learning rate.
     score_fn, params = t.fused_score
@@ -1473,54 +1629,66 @@ def phase_advi_paths(ADVI, Adam, af, fs, t, torch):
 
 
 def phase_advi_times(af, fs, torch, np):
-    """Per-call times of K9 and K10 (spc=8) at D=256, B=32, kernel vs plain
-    version, on a full block (CUDA events)."""
+    """Per-block times of K9 and K10 (spc=8) at D=256, B=32 on a benign
+    state, kernel vs plain version, on full blocks chained through the
+    working state as the fit runner chains them (``load`` once, then
+    ``run`` on the persistent eps block): ``ms`` and ``device_ms`` on the
+    graph, ``ms_eager`` and ``device_ms_eager`` on eager blocks (CUDA
+    events; ``torch.profiler``).  Returns (times, work with each bound's
+    FLOPs counted on lower-triangular L and A, device ms, extra fields)."""
     dev = torch.device("cuda")
     cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     spc = 8
     (mean_t, prec), loc, l, ainv, block = _advi_problem(np, B, D, spc, 77)
     params = (cu(mean_t), cu(prec))
     z, zz = torch.zeros(D, device=dev), torch.zeros((D, D), device=dev)
-    lrs = [1e-3] * spc
+    # A small rate keeps K10's tracking residual far under its gate over
+    # the ~90 chained blocks timed.
+    lrs = [1e-4] * spc
     _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
         lambda s: 0.0, 0.9, 0.999, torch.arange(spc, dtype=torch.int32)))
     blk, loc, l, ainv = cu(block), cu(loc), cu(l), cu(ainv)
-    k9 = af.make_fused_advi_multistep(fs.gaussian_score, 2, B, D, spc)
-    k10 = af.make_fused_advi_stl_multistep(fs.gaussian_score, 2, B, D, spc)
-    n_done = int(k10(lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z, z, zz, zz,
-                     *params)[-2])
-    check(n_done == spc, f"K10 timing block stopped at {n_done}")
     ref = fs.gaussian_score_reference
-    times = {
-        "make_fused_advi_multistep": (
-            cuda_ms(lambda: k9(lrs, bc1s, bc2s, spc, blk, loc, l, z, z, zz,
-                               zz, *params), reps=20),
-            cuda_ms(lambda: af.advi_multistep_reference(
-                ref, params, lrs, bc1s, bc2s, spc, blk, loc, l, z, z, zz, zz,
-                batch=B), reps=20)),
-        "make_fused_advi_stl_multistep": (
-            cuda_ms(lambda: k10(lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z,
-                                z, zz, zz, *params), reps=20),
-            cuda_ms(lambda: af.advi_stl_multistep_reference(
-                ref, params, lrs, bc1s, bc2s, spc, blk, loc, l, ainv, z, z,
-                zz, zz, batch=B), reps=20)),
-    }
-    emit({"phase": "advi_times", "B": B, "D": D, "spc": spc,
-          "ms_per_call": {k: {"kernel": a, "plain": b}
-                          for k, (a, b) in times.items()}})
     k9_in = (blk, loc, l, z, z, zz, zz, *params)
     k10_in = (blk, loc, l, ainv, z, z, zz, zz, *params)
-    work = {
-        "make_fused_advi_multistep": (
-            lambda: af.advi_multistep_reference(
-                ref, params, lrs, bc1s, bc2s, spc, *k9_in[:-2], batch=B),
-            k9_in),
-        "make_fused_advi_stl_multistep": (
-            lambda: af.advi_stl_multistep_reference(
-                ref, params, lrs, bc1s, bc2s, spc, *k10_in[:-2], batch=B),
-            k10_in),
-    }
-    return times, work
+    times, device, extra, work = {}, {}, {}, {}
+    for name, make, inputs, plain, stl in (
+            ("make_fused_advi_multistep", af.make_fused_advi_multistep,
+             k9_in, af.advi_multistep_reference, False),
+            ("make_fused_advi_stl_multistep",
+             af.make_fused_advi_stl_multistep, k10_in,
+             af.advi_stl_multistep_reference, True)):
+        k = make(fs.gaussian_score, 2, B, D, spc)
+        state = inputs[1:-2]
+        k.load(*state)
+        k.eps_block(dev).copy_(blk)
+        run = lambda graph, k=k: k.run(lrs, bc1s, bc2s, spc, *params,
+                                       graph=graph)
+        run(True)
+        if stl:
+            n_done = int(k.report()[af.REP_NDONE])
+            check(n_done == spc, f"K10 timing block stopped at {n_done}")
+        ms = cuda_ms(lambda: run(True), reps=20)
+        ms_eager = cuda_ms(lambda: run(False), reps=20)
+        dev_ms = device_ms(lambda: run(True), calls=20)[0]
+        dev_eager = device_ms(lambda: run(False), calls=20)[0]
+        if stl:
+            n_done = int(k.report()[af.REP_NDONE])
+            check(n_done == spc, f"K10 timing block stopped at {n_done}")
+        plain_ms = cuda_ms(lambda: plain(
+            ref, params, lrs, bc1s, bc2s, spc, *inputs[:-2], batch=B),
+            reps=20)
+        times[name] = (ms, plain_ms)
+        device[name] = dev_ms
+        extra[name] = {"ms_eager": ms_eager, "device_ms_eager": dev_eager,
+                       "bound_flops": "lower-triangular L and A"}
+        work[name] = (lambda plain=plain, inputs=inputs: plain(
+            ref, params, lrs, bc1s, bc2s, spc, *inputs[:-2], batch=B),
+            inputs, advi_flops(B, D, spc, stl))
+    emit({"phase": "advi_times", "B": B, "D": D, "spc": spc,
+          "ms_per_block": {k: {"kernel": a, "plain": b, "device": device[k],
+                               **extra[k]} for k, (a, b) in times.items()}})
+    return times, work, device, extra
 
 
 def _dense_inputs(np, b, d, seed, k=None):
@@ -2785,6 +2953,17 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
             verbose=False, return_state=True), torch)
         ca = fs.launch_counts()
         counts.append(ca)
+        ga.cuda_graph = False
+        sa_e, _ = ga.fit_fused(FIT_SEED, learning_rate=ADVI_LR, batch_size=B,
+                               niter=N_ZOO_SIDE, verbose=False,
+                               return_state=True)
+        ga.cuda_graph = True
+        k9_blocks = ga._fused_runner(B, ADVI_LR, 0.9, 0.999, 1e-8,
+                                     "analytic").blocks
+        check(all(torch.equal(x, y) for x, y in zip(sa[:-2], sa_e[:-2])),
+              f"{name}: ADVI.fit_fused on graph blocks differs from eager")
+        check(len(k9_blocks.captures) >= 1,
+              f"{name}: the K9 block with {key} was not captured")
         emit({"phase": "zoo_path", "target": t.name, "side_fits": {
             "FactorBaM(fused_score)": {
                 "niter": N_ZOO_SIDE, "k8_launches":
@@ -2794,6 +2973,8 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
             "ADVI.fit_fused": {
                 "niter": N_ZOO_SIDE, "k9_launches":
                     ca["make_fused_advi_multistep"], "score_launches": ca[key],
+                "graph_equals_eager": True,
+                "captures": len(k9_blocks.captures),
                 "iters_per_s": (N_ZOO_SIDE + 1) / wall_a}}})
         check(cb["make_fused_bam_multistep"] > 0 and cb[key] > 0,
               f"{name}: FactorBaM must run K8 with {key}")
@@ -2964,8 +3145,11 @@ def main() -> int:
     k6_times = phase_dense_batch_times(gs, bfm, fs, t, torch, np)
     for name, more in (*eager.items(), *k6_times[3].items()):
         extra[name] = {**extra.get(name, {}), **more}
+    advi_more = phase_advi_times(af, fs, torch, np)
+    for name, more in advi_more[3].items():
+        extra[name] = {**extra.get(name, {}), **more}
     for more in (bam_more[:3],
-                 phase_advi_times(af, fs, torch, np),
+                 advi_more[:3],
                  k6_times[:3],
                  phase_eps_step_times(fs, t, torch),
                  (range_times, range_work, range_device),

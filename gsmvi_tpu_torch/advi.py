@@ -44,8 +44,8 @@ import torch
 
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
-                     run_fit_loop)
+from .driver import (EpsStream, RunnerCache, draw_block, make_chunk_runner,
+                     on_gpu, run_fit_loop)
 from .ops.advi_fused import (ADVI_KERNEL_BATCH_RANGE, ADVI_KERNEL_DIM_RANGE,
                              REP_NDONE, REP_STIFF, _adam_apply,
                              advi_kernel_supports, lr_bias_arrays,
@@ -182,14 +182,6 @@ def advi_state_from_numpy(loc, l, seed: int, step: int, *, moments=None,
                           int(step))
 
 
-def _as_lr_fn(learning_rate) -> Callable:
-    """A float-or-schedule learning rate as ``step -> lr``."""
-    if callable(learning_rate):
-        return learning_rate
-    lr_const = float(learning_rate)
-    return lambda s: lr_const
-
-
 def _fused_state(loc, l, seed: int, step: int) -> FusedADVIState:
     """A ``FusedADVIState`` at (loc, l) with zero Adam moments."""
     z_row, z_mat = torch.zeros_like(loc), torch.zeros_like(l)
@@ -208,13 +200,16 @@ class ADVI:
     """Fit a dense-covariance Gaussian by maximizing the ELBO."""
 
     def __init__(self, D, lp, device=None, dtype=None, fused_score=None,
-                 steps_per_call=None, mesh=None):
+                 steps_per_call=None, mesh=None, cuda_graph: bool = True):
         """``lp(x)``, x (B, D), returns the batch-summed log density and
         must be differentiable by torch autograd.  ``fused_score``: the
         ``(score_fn, params)`` pair (``target.fused_score``) that
         ``fit_fused`` runs inside its kernels; ``fit`` does not use it.
         ``device`` defaults to the CUDA card (raises without one; pass
-        ``device="cpu"`` for the CPU)."""
+        ``device="cpu"`` for the CPU).  ``cuda_graph=False`` enqueues every
+        K9/K10 block's launches from the host instead of replaying its CUDA
+        graph: the same numbers, the comparison route for the graph's
+        cost."""
         if mesh is not None:
             raise NotImplementedError("mesh=: the data-parallel ADVI batch "
                                       "is not ported")
@@ -225,6 +220,7 @@ class ADVI:
         self.fused_score = fused_score
         self.steps_per_call = (steps_per_call if steps_per_call is not None
                                else (16 if D <= 128 else 8))
+        self.cuda_graph = bool(cuda_graph)
         # What the last fit_fused did: kernel calls, report reads, replays.
         # Runners hold this dict, so fit_fused resets it in place.
         self.fit_counts = {}
@@ -399,61 +395,62 @@ class ADVI:
                 f"{list(ADVI_KERNEL_DIM_RANGE)}; use fit for the plain-torch "
                 "step on the card")
 
-    def _block_inputs(self, state, batch_size: int, nmax: int, lr_fn,
-                      b1: float, b2: float):
-        """Host floats (lrs, bc1s, bc2s) of the next ``steps_per_call``
-        absolute steps and the eps block: the draws of the first ``nmax``,
-        zeros after (rows the kernels never read)."""
-        spc = self.steps_per_call
-        steps = torch.arange(state.step, state.step + spc, dtype=torch.int32)
-        lrs, bc1s, bc2s = (a.tolist() for a in
-                           lr_bias_arrays(lr_fn, b1, b2, steps))
-        rows = [self._draw(state, batch_size, j) for j in range(nmax)]
-        if nmax < spc:
-            rows.append(torch.zeros(((spc - nmax) * batch_size, self.D),
-                                    device=self.device))
-        return lrs, bc1s, bc2s, torch.cat(rows)
+    def _block_scalars(self, step: int, learning_rate, b1: float,
+                       b2: float):
+        """(lrs, bc1s, bc2s) of the ``steps_per_call`` absolute steps from
+        ``step``: float32 CPU tensors (``lr_bias_arrays``; a float rate or
+        a ``step -> lr`` callable)."""
+        steps = torch.arange(step, step + self.steps_per_call,
+                             dtype=torch.int32)
+        return lr_bias_arrays(learning_rate, b1, b2, steps)
 
     def _make_fused_runner(self, batch_size: int, learning_rate, b1: float,
                            b2: float, eps_adam: float):
         """Chunk runner on K9: blocks of ``steps_per_call`` sub-steps, the
-        chunk remainder as one call with ``nmax < spc``; nothing is read
-        from the device."""
+        chunk remainder as one block with ``nmax < spc``; nothing is read
+        from the device.  The state is copied into K9's working state at
+        the chunk's start and out at its end; each block's draws go in
+        place into K9's eps block (``draw_block``), and on the card a full
+        block is one CUDA-graph replay unless ``cuda_graph`` is False.  The
+        runner's ``blocks`` attribute is its ``AdviBlocks``."""
         score_fn, params = self.fused_score
         spc = self.steps_per_call
         multi = make_fused_advi_multistep(score_fn, len(params), batch_size,
                                           self.D, spc, b1=b1, b2=b2,
                                           eps_adam=eps_adam)
-        lr_fn = _as_lr_fn(learning_rate)
         counts = self.fit_counts
 
         def run_chunk(state: FusedADVIState, k: int) -> FusedADVIState:
-            step0 = state.step
-            while state.step - step0 < k:
-                nmax = min(spc, k - (state.step - step0))
-                lrs, bc1s, bc2s, eps_block = self._block_inputs(
-                    state, batch_size, nmax, lr_fn, b1, b2)
-                out = multi(lrs, bc1s, bc2s, nmax, eps_block, state.loc,
-                            state.l, state.mloc, state.vloc, state.ml,
-                            state.vl, *params)
+            multi.load(*state[:6])
+            eps_block = multi.eps_block(state.loc.device)
+            step, end = state.step, state.step + k
+            while step < end:
+                nmax = min(spc, end - step)
+                draw_block(self._eps, eps_block, state.seed, step, nmax,
+                           batch_size)
+                multi.run(*self._block_scalars(step, learning_rate, b1, b2),
+                          nmax,
+                          *params, graph=self.cuda_graph)
                 counts["kernel_calls"] += 1
-                state = FusedADVIState(*out, state.seed, state.step + nmax)
-            return state
+                step += nmax
+            return FusedADVIState(*multi.state(), state.seed, step)
 
+        run_chunk.blocks = multi
         return run_chunk
 
     def _make_fused_stl_runner(self, batch_size: int, learning_rate,
                                b1: float, b2: float, eps_adam: float):
-        """Chunk runner on K10: per block one read of the report (n_done,
-        stiff); a stiff sub-step replays here with the exact clamped solve,
-        the block's own draw and Adam, and re-seeds the tracked inverse."""
+        """Chunk runner on K10, on K10's working state as the K9 runner
+        does: per block one read of the report (n_done, stiff); a stiff
+        sub-step replays here with the exact clamped solve, the block's own
+        draw and Adam, re-seeds the tracked inverse, and goes back into the
+        working state."""
         score_fn, params = self.fused_score
         spc = self.steps_per_call
         multi = make_fused_advi_stl_multistep(score_fn, len(params),
                                               batch_size, self.D, spc,
                                               b1=b1, b2=b2,
                                               eps_adam=eps_adam)
-        lr_fn = _as_lr_fn(learning_rate)
         counts = self.fit_counts
 
         def replay(s: FusedADVISTLState, e, lr, bc1, bc2):
@@ -478,29 +475,48 @@ class ADVI:
                 sel(vl_n, s.vl), s.seed, s.step + 1)
 
         def run_chunk(state: FusedADVISTLState, k: int) -> FusedADVISTLState:
-            step0 = state.step
-            while state.step - step0 < k:
-                nmax = min(spc, k - (state.step - step0))
-                lrs, bc1s, bc2s, eps_block = self._block_inputs(
-                    state, batch_size, nmax, lr_fn, b1, b2)
-                *out, rep = multi.packed(
-                    lrs, bc1s, bc2s, nmax, eps_block, state.loc, state.l,
-                    state.ainv, state.mloc, state.vloc, state.ml, state.vl,
-                    *params)
-                r = rep.tolist()                # the one read of the block
+            multi.load(*state[:7])
+            eps_block = multi.eps_block(state.loc.device)
+            step, end = state.step, state.step + k
+            while step < end:
+                nmax = min(spc, end - step)
+                draw_block(self._eps, eps_block, state.seed, step, nmax,
+                           batch_size)
+                lrs, bc1s, bc2s = self._block_scalars(step, learning_rate,
+                                                      b1, b2)
+                multi.run(lrs, bc1s, bc2s, nmax, *params,
+                          graph=self.cuda_graph)
+                r = multi.report().tolist()     # the one read of the block
                 n_done, stiff = int(r[REP_NDONE]), int(r[REP_STIFF])
                 counts["kernel_calls"] += 1
                 counts["report_reads"] += 1
-                state = FusedADVISTLState(*out, state.seed,
-                                          state.step + n_done)
+                step += n_done
                 if stiff:
-                    rows = slice(n_done * batch_size,
-                                 (n_done + 1) * batch_size)
-                    state = replay(state, eps_block[rows], lrs[n_done],
-                                   bc1s[n_done], bc2s[n_done])
-            return state
+                    rows = eps_block[n_done * batch_size:
+                                     (n_done + 1) * batch_size]
+                    s = replay(FusedADVISTLState(*multi.state(), state.seed,
+                                                 step), rows,
+                               float(lrs[n_done]), float(bc1s[n_done]),
+                               float(bc2s[n_done]))
+                    multi.load(*s[:7])
+                    step = s.step
+            return FusedADVISTLState(*multi.state(), state.seed, step)
 
+        run_chunk.blocks = multi
         return run_chunk
+
+    def _fused_runner(self, batch_size: int, learning_rate, b1: float,
+                      b2: float, eps: float, estimator: str):
+        """``fit_fused``'s chunk runner ``(state, k) -> state`` for this
+        configuration, cached with its blocks (and their graphs)."""
+        lr_objs = (learning_rate,) if callable(learning_rate) else ()
+        make = (self._make_fused_stl_runner if estimator == "stl"
+                else self._make_fused_runner)
+        return self._runners.get(
+            ("fused", estimator, batch_size, self.steps_per_call, b1, b2,
+             eps, None if callable(learning_rate) else float(learning_rate)),
+            (self.fused_score[0], *self.fused_score[1], *lr_objs),
+            lambda: make(batch_size, learning_rate, b1, b2, eps))
 
     def _lift(self, state, stl: bool):
         """``state`` (None for a fresh start, an ``ADVIState`` or either
@@ -547,13 +563,8 @@ class ADVI:
                                  int(seed), 0)
         state = self._lift(state, stl)
         self._reset_counts()
-        lr_objs = (learning_rate,) if callable(learning_rate) else ()
-        make = self._make_fused_stl_runner if stl else self._make_fused_runner
-        run_chunk = self._runners.get(
-            ("fused", estimator, batch_size, self.steps_per_call, b1, b2,
-             eps, None if callable(learning_rate) else float(learning_rate)),
-            (self.fused_score[0], *self.fused_score[1], *lr_objs),
-            lambda: make(batch_size, learning_rate, b1, b2, eps))
+        run_chunk = self._fused_runner(batch_size, learning_rate, b1, b2, eps,
+                                       estimator)
         state = run_fit_loop(
             state, niter, run_chunk, monitor=monitor,
             monitor_params=lambda s: [s.loc, self.scales_to_cov(s.l)],

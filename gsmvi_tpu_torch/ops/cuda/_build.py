@@ -48,15 +48,13 @@ SIGNATURES = {
     + [_F, _F, _F] + [_I] * 3 + [_P],
     "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _P],
     "gsmvi_bam_select": [_P] * 4 + [_I, _P],
-    "gsmvi_advi_l_adam": [_P] * 5 + [_I, _I] + [_F] * 9 + [_P],
-    "gsmvi_advi_loc_adam": [_P] * 4 + [_I, _I] + [_F] * 8 + [_P],
-    "gsmvi_advi_residual": [_P] * 5 + [_I, _P],
-    "gsmvi_advi_residual_finalize": [_P, _I, _P, _I, _F, _P],
+    "gsmvi_advi_rows": [_P] * 6 + [_I] * 3 + [_P],
+    "gsmvi_advi_update": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 2
+    + [_F] * 6 + [_P],
+    "gsmvi_advi_residual": [_P] * 6 + [_I, _F, _P],
     "gsmvi_advi_sweep": [_P] * 4 + [_I, _P],
-    "gsmvi_advi_stl_cols": [_P] * 5 + [_I, _I, _P],
-    "gsmvi_advi_grad_l": [_P] * 4 + [_I, _I, _P],
-    "gsmvi_advi_stl_decide": [_P, _P],
-    "gsmvi_advi_stl_apply": [_P] * 11 + [_I] + [_F] * 8 + [_P],
+    "gsmvi_advi_stl_grad": [_P] * 6 + [_I, _I, _P],
+    "gsmvi_advi_stl_apply": [_P] * 13 + [_I] * 3 + [_F] * 5 + [_P],
     "gsmvi_eps_smallspace_large": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
     "gsmvi_eps_smallspace_panel": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
     "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5

@@ -14,8 +14,7 @@
 //   gsmvi_bam_apply      the fat apply `f + t_mm(stack_u, stack_w)` at :319
 //                        with the tile sums of squares of the trace screen
 // (BaM's `ef`, `vf`/`t` rows and mean matvecs run on the split-k thin
-// product, thin_gemm.cu).  ADVI's row products (K9/K10,
-// gsmvi_tpu_torch/ops/advi_fused.py) also take gsmvi_rows.
+// product, thin_gemm.cu).
 // Bounds and design: see gemm.cuh.  Every entry returns cudaGetLastError().
 #include "gemm.cuh"
 

@@ -15,7 +15,7 @@
 // word that makes a launch a no-op once a multistep block has stopped, and
 // an epilogue that also writes per-block sums of squares of F' and F (the
 // trace screen), reduced in a fixed order so that the accept flag
-// reproduces from run to run.  ADVI's row products take the halt word too.
+// reproduces from run to run.
 //
 // Numerics: plain f32 FFMA, no TF32 and no mma/wgmma, which is what
 // Precision.HIGHEST means on the TPU.  What bounds it on an H100: at the main
@@ -48,29 +48,9 @@ constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one co
 
 enum Prologue { PRO_NONE = 0, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
-                EPI_ADD_SUMSQ = 3, EPI_ADD = 4, EPI_EYE_MINUS = 5,
-                EPI_ADVI_ADAM = 6, EPI_ADVI_GRAD = 7,
+                EPI_ADD_SUMSQ = 3,
                 EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11,
                 EPI_LOGISTIC_RESID = 12, EPI_ACC_SUB_SCALE = 13 };
-
-// optax.adam's update with precomputed bias corrections (the ADVI kernels,
-// advi.cu): omb1 = 1 - b1 and omb2 = 1 - b2 as float32.
-struct AdamArgs {
-    float lr, bc1, bc2, b1, omb1, b2, omb2, eps;
-};
-
-// m = b1 m + (1-b1) g; v = b2 v + (1-b2) g^2; p -= lr (m bc1) / (sqrt(v bc2) + eps),
-// every operation rounded on its own (no FMA contraction), as the plain torch
-// version (ops/advi_fused.py `_adam_apply`) evaluates it: the same gradient gives
-// the same bits.
-__device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g,
-                                           const AdamArgs& a) {
-    m = __fadd_rn(__fmul_rn(a.b1, m), __fmul_rn(a.omb1, g));
-    v = __fadd_rn(__fmul_rn(a.b2, v), __fmul_rn(a.omb2, __fmul_rn(g, g)));
-    const float step = __fdiv_rn(__fmul_rn(a.lr, __fmul_rn(m, a.bc1)),
-                                 __fadd_rn(__fsqrt_rn(__fmul_rn(v, a.bc2)), a.eps));
-    p = __fsub_rn(p, step);
-}
 
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
 // A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
@@ -82,24 +62,15 @@ __device__ __forceinline__ void adam_apply(float& p, float& m, float& v, float g
 //   EPI_SELECT_ADD:        c = c_in + acc if *good != 0 else c_in (c may be c_in)
 //   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
-//   EPI_ADD:               c = c_in + acc (c distinct from c_in and the operands)
 //   EPI_SCALE:             c = acc * alpha
 //   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
 //   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
 //   EPI_LOGISTIC_RESID:    c = epi_vec[n] - 1 / (1 + e^{-acc})
 //   EPI_ACC_SUB_SCALE:     c = acc - c_in * epi_vec[0] (a scale in device memory)
-//   EPI_EYE_MINUS:         c = I - acc, and with a non-null partial,
-//                          partial[row * gridDim.x + blockIdx.x] = sum |c| over the
-//                          tile's columns of that row (square C)
-//   EPI_ADVI_ADAM:         g = row >= col ? -acc - (row == col) B (1 / c) : 0, then
-//                          Adam on (c, m1, m2) in place with `adam` (square C; the
-//                          diagonal term reads only the element its thread owns)
-//   EPI_ADVI_GRAD:         c = row >= col ? -acc : 0, and *flag = 1 where that is
-//                          not finite (a plain store of one value: no atomics)
 // With a non-null halt, the launch does nothing while *halt != 0.
 // batch replicas (0 means 1) start sa, sb, sc, svec and sgood elements apart
-// in a, b, (c, c2, c_in), (pro_vec, epi_vec) and good; halt, partial, m1,
-// m2 and flag are not batched (their epilogues take one replica).
+// in a, b, (c, c2, c_in), (pro_vec, epi_vec) and good; halt and partial are
+// not batched (their epilogue takes one replica).
 struct GemmArgs {
     const float* a;
     const float* b;
@@ -112,11 +83,6 @@ struct GemmArgs {
     const int* good;
     const float* halt;
     float* partial;
-    float* m1;
-    float* m2;
-    float* flag;
-    float bf;
-    AdamArgs adam;
     int batch;
     long long sa, sb, sc, svec, sgood;
     float alpha, beta;
@@ -212,25 +178,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         }
         return;
     }
-    if (EPI == EPI_EYE_MINUS) {
-        // One warp holds 4 rows x the tile's 32 columns (lane = column): the
-        // row sums of |c| are warp reductions in a fixed order.
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int gm = m0 + ty * 4 + r;
-            float ab = 0.f;
-            if (gm < p.m && gn < p.n) {
-                const float val = (gm == gn ? 1.f : 0.f) - acc[r];
-                pc[(size_t)gm * p.ldc + gn] = val;
-                ab = fabsf(val);
-            }
-            if (p.partial != nullptr) {
-                for (int o = 16; o > 0; o >>= 1) ab += __shfl_xor_sync(0xffffffffu, ab, o);
-                if (tx == 0 && gm < p.m) p.partial[(size_t)gm * gridDim.x + blockIdx.x] = ab;
-            }
-        }
-        return;
-    }
     if (gn >= p.n) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -242,8 +189,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         } else if (EPI == EPI_STORE_AND_ADD_VEC) {
             pc[o] = acc[r];
             c2[o] = epi_vec[gn] + acc[r];
-        } else if (EPI == EPI_ADD) {
-            pc[o] = c_in[o] + acc[r];
         } else if (EPI == EPI_SCALE) {
             pc[o] = acc[r] * p.alpha;
         } else if (EPI == EPI_AFFINE_EYE) {
@@ -254,21 +199,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             pc[o] = epi_vec[gn] - 1.f / (1.f + expf(-acc[r]));
         } else if (EPI == EPI_ACC_SUB_SCALE) {
             pc[o] = acc[r] - __fmul_rn(c_in[o], epi_vec[0]);
-        } else if (EPI == EPI_ADVI_ADAM) {
-            float g = 0.f;
-            if (gm >= gn) {
-                g = -acc[r];
-                if (gm == gn) g = __fsub_rn(g, __fmul_rn(p.bf, __fdiv_rn(1.f, pc[o])));
-            }
-            float pv = pc[o], mv = p.m1[o], vv = p.m2[o];
-            adam_apply(pv, mv, vv, g, p.adam);
-            pc[o] = pv;
-            p.m1[o] = mv;
-            p.m2[o] = vv;
-        } else if (EPI == EPI_ADVI_GRAD) {
-            const float g = gm >= gn ? -acc[r] : 0.f;
-            pc[o] = g;
-            if (!isfinite(g)) *p.flag = 1.f;
         } else {
             const float base = c_in[o];
             pc[o] = (*good != 0) ? base + acc[r] : base;

@@ -10,9 +10,11 @@
 // ef with x = mu + ef, and the mean matvecs gbar F', (gbar F') F'^T of
 // gsmvi_tpu/ops/pallas/bam_fused.py :265/:312/:467/:329-330), and K5's
 // T = V S0 with the dense update's row dot products in its epilogue
-// (gsm_step.cu); ADVI, K4a and the zoo keep the 32x32 tile template of
-// gemm.cuh.  The kernel and its primitives live here; thin_gemm.cu holds
-// the ns route's and K3's entry points, gsm_step.cu K5's.
+// (gsm_step.cu), and K9's x = loc + e L^T (ops/advi_fused.py); advi.cu's
+// triangular products reuse its slab loads.  K4a and the zoo keep the
+// 32x32 tile template of gemm.cuh.  The kernel and its primitives live
+// here; thin_gemm.cu holds the row products' and K3's entry points,
+// gsm_step.cu K5's.
 //
 // What bounds it on an H100: at the main path's shape (M=32, D=256) the
 // product is 2 M FMA over a 256 KiB matrix, 0.000098 ms of bytes, so it is

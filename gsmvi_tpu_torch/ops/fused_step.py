@@ -69,6 +69,7 @@ replay.  No launch waits for the host.
 from __future__ import annotations
 
 import ctypes
+import gc
 import math
 import time
 
@@ -1052,14 +1053,24 @@ def _capture_graph(body):
     """(graph, seconds, pool bytes) of ``body()`` captured on a side stream
     into a new CUDA graph with its own memory pool; nothing runs.  A body
     that synchronises with the host, or any launch the toolkit will not
-    capture, raises."""
+    capture, raises.  Python's cycle collector is held off during the
+    capture: collecting an unreachable object that owns a CUDA graph or
+    event (a fitter and its runner hold each other) destroys it, which the
+    toolkit refuses while a capture is open, and the capture then fails
+    with "operation failed due to a previous error during capture"."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        body()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            body()
+    finally:
+        if enabled:
+            gc.enable()
     return (graph, time.perf_counter() - t0,
             torch.cuda.memory_reserved() - reserved)
 

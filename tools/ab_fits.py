@@ -2,7 +2,7 @@
 """it/s of two checkouts of the port, alternated on one NVIDIA GPU.
 
     python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6]
-                             [--family gsm|bam|batch|b128|dense]
+                             [--family gsm|bam|batch|b128|dense|advi]
 
 For each pair, in turns (A then B, then B then A, ...), a fresh process per
 checkout times two fits of each fitter of the family at the headline cell
@@ -22,7 +22,13 @@ runs them (after a 200- and a 50-step warm-up).  Family ``dense``: the
 dense route on K5, ``GSM(..., use_factor=False)`` at B=32, ``GSM.fit`` at
 B=512 (the huge-batch guard sends it dense) and ``GSM(...,
 use_factor=False).fit_batch(range(8), ...)`` at B=32 (batched K5; per
-replica), niter=1000 each after a 100-step warm-up.  A last line gives, per
+replica), niter=1000 each after a 100-step warm-up.  Family ``advi``:
+``ADVI(..., fused_score=...).fit_fused`` (spc=8) as ``chip_smoke.py``'s
+phase 9 runs it, the analytic estimator (K9) for 3000 steps at lr 1e-2,
+then the STL estimator (K10) for 2000 steps at lr 3e-3 from the analytic
+fit's state, and the two-phase recipe's rate over both (``bench.py``'s
+"analytic bulk, STL polish"), after a 200- and a 50-step warm-up.  A last
+line gives, per
 fit, the median and quartiles of each checkout's readings and the pairs
 in which the second checkout was faster.  The first use in each
 checkout builds its kernels, so build both before timing.
@@ -52,6 +58,30 @@ def one(checkout: str, family: str) -> dict:
     from gsmvi_tpu_torch.models import dense_gaussian
 
     t = dense_gaussian(0, 256, device="cuda")
+    if family == "advi":
+        from gsmvi_tpu_torch import ADVI
+
+        g = ADVI(256, t.lp, fused_score=t.fused_score, device="cuda")
+        fit = lambda n, **kw: g.fit_fused(0, batch_size=32, niter=n,
+                                          verbose=False, return_state=True,
+                                          **kw)[0]
+        warm = fit(200, learning_rate=1e-2)
+        fit(50, learning_rate=3e-3, estimator="stl", state=warm)
+        out = {"ADVI_fused_analytic": [], "ADVI_fused_stl": [],
+               "ADVI_two_phase": []}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bulk = fit(3000, learning_rate=1e-2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fit(2000, learning_rate=3e-3, estimator="stl", state=bulk)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out["ADVI_fused_analytic"].append(3001 / (t1 - t0))
+            out["ADVI_fused_stl"].append(2001 / (t2 - t1))
+            out["ADVI_two_phase"].append(5002 / (t2 - t0))
+        return out
     if family == "dense":
         dense = GSM(256, t.lp, t.lp_g, device="cuda", use_factor=False)
         huge = GSM(256, t.lp, t.lp_g, device="cuda")
@@ -137,7 +167,7 @@ def main() -> int:
     parser.add_argument("checkouts", nargs="*")
     parser.add_argument("--pairs", type=int, default=6)
     parser.add_argument("--family", choices=("gsm", "bam", "batch", "b128",
-                                             "dense"),
+                                             "dense", "advi"),
                         default="gsm")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()

@@ -2,7 +2,7 @@
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
     python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001]
-                                 [--only-bam | --only-dense]
+                                 [--only-bam | --only-dense | --only-advi]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -27,7 +27,13 @@ alone, ``GSM(..., use_factor=False)`` at B=32, ``GSM.fit`` at B=512 (the
 huge-batch guard sends it dense) and ``GSM(..., use_factor=False)
 .fit_batch`` of K=8 replicas at B=32, then K5 (``gsm_update_fused``) alone
 per call at B=32, B=512 and K=8 x B=32, with its device allocations per
-call.  Then the same device breakdown per
+call.  ``--only-advi``: ``ADVI.fit_fused`` alone, the analytic
+estimator (K9 with K3 inside, spc=8, lr 1e-2) from a fresh start, the STL
+estimator (K10, lr 3e-3) from the state of a 3,000-step analytic bulk (the
+two-phase recipe), and the zoo's funnel on K9 (K11a inside); then K9 and
+K10 alone per 8-step block on a benign state, with each fit's device
+allocations per block (two fits of ``--steps`` and 2 ``--steps`` steps,
+their difference over the extra blocks).  Then the same device breakdown per
 call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
 (``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
 (0, I).  The profiler slows the host, so it
@@ -81,18 +87,19 @@ def runtime_calls(prof, DeviceType) -> dict:
 
 
 def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
-                counts=None, batch=32, **kw):
+                counts=None, batch=32, method="fit", **kw):
     """Profile ``steps`` steps of ``fitter.fit(seed, *fit_args, **kw)`` (or
-    of ``fit_batch`` over ``replicas`` seeds, with ``kw``) at batch
-    ``batch``; ``counts()``, when given, adds the fitter's counts of the
-    profiled fit."""
+    of the fitter's ``method``, or of ``fit_batch`` over ``replicas``
+    seeds, with ``kw``) at batch ``batch``; ``counts()``, when given, adds
+    the fitter's counts of the profiled fit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def run(seed, niter):
         if replicas is None:
-            return fitter.fit(seed, *fit_args, batch_size=batch, niter=niter,
-                              verbose=False, **kw)
+            return getattr(fitter, method)(seed, *fit_args,
+                                           batch_size=batch, niter=niter,
+                                           verbose=False, **kw)
         return fitter.fit_batch(range(seed, seed + replicas),
                                 batch_size=batch, niter=niter, **kw)
 
@@ -236,6 +243,77 @@ def profile_dense(t, steps, torch):
                       lambda: gs.gsm_update_fused(x, v, mu, s0), 64, torch)
 
 
+def fit_allocations(fit, steps, torch, spc=8) -> float:
+    """Device allocations per block of a fit: ``fit(niter)`` run for
+    ``steps`` and for 2 ``steps`` steps, the difference over the extra
+    blocks (what a fit allocates once, at its start and end, cancels)."""
+    counts = []
+    for n in (steps, 2 * steps):
+        fit(n - 1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fit(n - 1)
+        torch.cuda.synchronize()
+        counts.append(torch.cuda.memory_stats()["allocation.all.allocated"]
+                      - before)
+    return (counts[1] - counts[0]) / (steps / spc)
+
+
+def profile_advi(t, steps, torch):
+    """``--only-advi``: ``ADVI.fit_fused`` analytic, STL after an analytic
+    bulk, and on the funnel; then K9 and K10 alone per block."""
+    from gsmvi_tpu_torch import ADVI
+    from gsmvi_tpu_torch.models import funnel
+    from gsmvi_tpu_torch.ops import advi_fused as af
+
+    d, b, spc = 256, 32, 8
+    g = ADVI(d, t.lp, fused_score=t.fused_score, device="cuda")
+    bulk = g.fit_fused(0, learning_rate=1e-2, batch_size=b, niter=3000,
+                       verbose=False, return_state=True)[0]
+    zoo = funnel(d, device="cuda")
+    gz = ADVI(d, zoo.lp, fused_score=zoo.fused_score, device="cuda")
+    runs = (
+        ("ADVI.fit_fused analytic (K9+K3, spc=8)", g,
+         {"learning_rate": 1e-2}),
+        ("ADVI.fit_fused STL after the analytic bulk (K10+K3, spc=8)", g,
+         {"learning_rate": 3e-3, "estimator": "stl", "state": bulk}),
+        ("ADVI.fit_fused funnel (K9+K11a, spc=8)", gz,
+         {"learning_rate": 1e-2}))
+    for name, fitter, kw in runs:
+        profile_fit(name, fitter, steps, torch, method="fit_fused",
+                    counts=lambda f=fitter: dict(f.fit_counts), **kw)
+        allocs = fit_allocations(
+            lambda n, f=fitter, kw=kw: f.fit_fused(
+                0, batch_size=b, niter=n, verbose=False, **kw), steps,
+            torch, spc)
+        print(json.dumps({"path": name, "allocations_per_block": allocs}),
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cu = lambda x: x.to("cuda").contiguous()
+    l = torch.tril(torch.eye(d) + 0.02 * torch.randn(
+        (d, d), generator=torch.Generator().manual_seed(23)))
+    l, ainv = cu(l), cu(torch.linalg.inv(l.double()).tril().float())
+    loc = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    block = torch.randn((spc * b, d), generator=gen, device="cuda")
+    z, zz = torch.zeros(d, device="cuda"), torch.zeros((d, d), device="cuda")
+    score_fn, params = t.fused_score
+    lrs = [1e-3] * spc
+    _, bc1s, bc2s = (a.tolist() for a in af.lr_bias_arrays(
+        lambda s: 0.0, 0.9, 0.999, torch.arange(spc, dtype=torch.int32)))
+    k9 = af.make_fused_advi_multistep(score_fn, len(params), b, d, spc)
+    k10 = af.make_fused_advi_stl_multistep(score_fn, len(params), b, d, spc)
+    n_done = int(k10(lrs, bc1s, bc2s, spc, block, loc, l, ainv, z, z, zz, zz,
+                     *params)[-2])
+    if n_done != spc:
+        raise RuntimeError(f"K10's profiled block stopped at {n_done}")
+    profile_calls("K9 make_fused_advi_multistep, one 8-step block",
+                  lambda: k9(lrs, bc1s, bc2s, spc, block, loc, l, z, z, zz,
+                             zz, *params), 64, torch)
+    profile_calls("K10 make_fused_advi_stl_multistep, one 8-step block",
+                  lambda: k10(lrs, bc1s, bc2s, spc, block, loc, l, ainv, z,
+                              z, zz, zz, *params), 64, torch)
+
+
 def main() -> int:
     import torch
 
@@ -245,6 +323,7 @@ def main() -> int:
     only = parser.add_mutually_exclusive_group()
     only.add_argument("--only-bam", action="store_true")
     only.add_argument("--only-dense", action="store_true")
+    only.add_argument("--only-advi", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_gpu: no CUDA device", file=sys.stderr)
@@ -258,6 +337,9 @@ def main() -> int:
     t = dense_gaussian(0, 256, device="cuda")
     if args.only_dense:
         profile_dense(t, args.steps, torch)
+        return 0
+    if args.only_advi:
+        profile_advi(t, args.steps, torch)
         return 0
     if not args.only_bam:
         fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
