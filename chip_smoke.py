@@ -147,7 +147,12 @@ the script exits non-zero):
     plain versions at (32, 256), (3, 10) and (512, 1024); the mixture also
     with the JAX target's padded K=8 (five -1e30 rows), at K=1024 and at
     separation 0.3 (blended responsibilities), logreg at N=1, N=4096 and on
-    rows with |z| > 100 (saturated, finite); per-call times at (32, 256).
+    rows with |z| > 100 (saturated, finite); per-call times at (32, 256),
+    by CUDA events and on the device (each score must run its one kernel
+    alone), beside its library yardsticks (``zoo_yardsticks``: ``addmm``
+    for the Student-t's product, ``mm`` for the mixture's first product and
+    for each of logreg's two, the second as ``library_second_ms`` and
+    ``library_second_device_ms``).
 20. zoo path: ``FactorGSM(fused_score=t.fused_score)`` on ``funnel(256)``,
     ``banana(256)``, ``student_t(0, 256, df=6)``, ``gaussian_mixture(0,
     256)`` and ``logistic_regression(0, 256)`` at B=32, niter=3000, spc=8
@@ -168,16 +173,17 @@ its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
 the time of one PyTorch call computing the same function where there is
 one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
 device time per call under ``torch.profiler`` for K1, its small space and
-thin product, K2, K3, K4, K6, K7, K8 (spc=8) and the BaM small space at
-D=256, B=32 (K6 at K=8; the BaM kernels at tier 0, with ``ms_tier3`` and
-``device_ms_tier3`` at the most benign tier beside; K2, K6, K9 and K10 with
-``ms_eager`` and ``device_ms_eager``, their blocks enqueued eagerly, beside
-the graph's ``ms``; K9 and K10 per 8-step block chained through the
+thin product, K2, K3, K4, K6, K7, K8 (spc=8), the BaM small space and the
+zoo scores at D=256, B=32 (K6 at K=8; the BaM kernels at tier 0, with
+``ms_tier3`` and ``device_ms_tier3`` at the most benign tier beside; K2,
+K6, K9 and K10 with ``ms_eager`` and ``device_ms_eager``, their blocks
+enqueued eagerly, beside the graph's ``ms``; K9 and K10 per 8-step block chained through the
 working state as the fit runs them, bound on the FLOPs of lower-triangular
 L and A, ``advi_flops``), null elsewhere; the
 profiler's kernel names must show K1 on the cluster small space and the
-thin product, K3 on the thin product, and K7, K8 and the BaM small space on
-the BaM cluster kernel, with every BaM row product on the thin product),
+thin product, K3 on the thin product, K7, K8 and the BaM small space on
+the BaM cluster kernel, with every BaM row product on the thin product,
+and each zoo score on its one kernel, ``ZOO_KERNELS``),
 and as the last line ``{"ok": true, "device": {...}}`` with
 ``count`` ``torch.cuda.device_count()``: everything runs on device 0.  Without a CUDA device it exits 1
 before printing any result.  Nothing here imports JAX.
@@ -334,13 +340,13 @@ SOURCES = {
         "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:810"),
     "student_t_score": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_student_t.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:831"),
     "mixture_score": (
         "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score_b.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:848"),
     "logreg_score": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_score_b.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/zoo_logreg.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:869"),
 }
 # K4: the shapes of phase 14.  A whole step carries the score's GEMM
@@ -402,19 +408,19 @@ def device_ms(fn, calls: int = 50, warmup: int = 5) -> tuple:
     ``torch.profiler``'s kernel intervals over ``calls`` back-to-back calls,
     summed (one stream: the sum is the device's busy time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_gpu import profile_window
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(kernels), "the profiler saw no device time")
+
+    _, kernels, _ = profile_window(window)
     us = sum(k.time_range.end - k.time_range.start for k in kernels)
     return 1e-3 * us / calls, sorted({k.name for k in kernels})
 
@@ -424,20 +430,18 @@ def busy_per_step(run, steps: int) -> tuple:
     ``run()`` (a fit of ``steps`` steps) in one profiled window, busy the
     union of its kernels' intervals under ``torch.profiler``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from tools.profile_gpu import busy_us
+    from tools.profile_gpu import busy_us, profile_window
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(kernels), "the profiler saw no device time")
+        return 1e6 * (time.perf_counter() - t0)
+
+    _, kernels, wall = profile_window(window)
     return busy_us(kernels) / steps, wall / steps
 
 
@@ -477,15 +481,18 @@ def host_api_per_block(runner, state, blocks, spc, torch) -> dict:
     chunk runner (``torch.profiler``'s host events), by name, and the
     kernels the device ran per block."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_gpu import profile_window
 
     runner(state, spc)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window(state=state):
         for _ in range(blocks):
             state = runner(state, spc)
         torch.cuda.synchronize()
+
+    prof = profile_window(window)[0]
     api, kernels = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1023,7 +1030,7 @@ def phase_times(fs, dense_gaussian, torch, np):
     k1 = " ".join(names["gsm_eps_update_fused"])
     check("eps_cluster_kernel" in k1 and "thin_kernel" in k1
           and "eps_smallspace_kernel" not in k1
-          and all("gemm_kernel<true, false, 0, 2>" in n
+          and all("gemm_kernel<true, false, 2>" in n
                   for n in names["gsm_eps_update_fused"] if "gemm_kernel" in n),
           f"K1 runs other kernels: {names['gsm_eps_update_fused']}")
     k3 = " ".join(names["gaussian_score"])
@@ -1405,7 +1412,8 @@ def advi_graph_report(gf, est, lr, state, torch) -> dict:
     and the chunk's state copies, and a K9 block allocates nothing (K10:
     none without a replay)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_gpu import profile_window
 
     runner = gf._fused_runner(B, lr, 0.9, 0.999, 1e-8, est)
     spc, nb = gf.steps_per_call, ADVI_CHUNK_BLOCKS
@@ -1434,11 +1442,13 @@ def advi_graph_report(gf, est, lr, state, torch) -> dict:
                       - before)
     replays = gf.fit_counts["replays"]
     rec["allocations_per_block"] = (allocs[1] - allocs[0]) / nb
-    gf._reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        gf._reset_counts()
         runner(state, nb * spc)
         torch.cuda.synchronize()
+
+    prof = profile_window(window)[0]
     api, kernels = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2807,13 +2817,44 @@ def _zoo_cases(name, models, dev, np):
     return cases
 
 
+# The kernels each zoo score runs on the card, by name (torch.profiler).
+ZOO_KERNELS = {"funnel_score": "funnel_score_kernel",
+               "banana_score": "banana_score_kernel",
+               "student_t_score": "student_t_kernel",
+               "mixture_score": "mixture_score_kernel",
+               "logreg_score": "logreg_kernel"}
+
+
+def zoo_yardsticks(name, x, params, torch) -> dict:
+    """The library yardsticks of a zoo score, one PyTorch call each for a
+    part of it: (x - loc) prec for the Student-t, x M^T for the mixture,
+    w X^T and then resid X (resid of shape (B, N)) for logreg."""
+    if name == "student_t":
+        loc, prec = params[0], params[1]
+        lp = loc @ prec
+        return {"first": lambda: torch.addmm(lp, x, prec, beta=-1.0)}
+    if name == "mixture":
+        mt = params[0].T
+        return {"first": lambda: torch.mm(x, mt)}
+    if name == "logreg":
+        xd = params[0]
+        resid = torch.rand((x.shape[0], xd.shape[0]), device=x.device)
+        return {"first": lambda: torch.mm(x, xd.T),
+                "second": lambda: torch.mm(resid, xd)}
+    return {}
+
+
 def phase_zoo_kernels(fs, models, torch, np):
     """Phase 19: each zoo kernel against its plain version at ZOO_SHAPES
     and the K11b kernels' own cases (``_zoo_cases``); then per-call times
-    at the path's shape.  Returns (worst, times, work, library)."""
+    at the path's shape, by CUDA events and on the device, beside the
+    library yardsticks' (``zoo_yardsticks``); each score must run its one
+    kernel alone.  Returns (worst, times, work, library, device,
+    library_device, extra)."""
     dev = torch.device("cuda")
     worst = {k: 0.0 for k in ZOO.values()}
-    times, work, library = {}, {}, {}
+    times, work, library, device, library_device, extra = {}, {}, {}, {}, \
+        {}, {}
     for name, key in ZOO.items():
         plain = getattr(fs, f"{key}_reference")
         for case, b, d, t, scale in _zoo_cases(name, models, dev, np):
@@ -2846,25 +2887,30 @@ def phase_zoo_kernels(fs, models, torch, np):
                   f"{key} disagrees with its plain version: {rec}")
             worst[key] = max(worst[key], err)
             if (case, b, d) == ("", B, D):
-                times[key] = (cuda_ms(lambda: score_fn(x, *params), reps=200),
+                run = lambda x=x, p=params, f=score_fn: f(x, *p)
+                times[key] = (cuda_ms(run, reps=200),
                               cuda_ms(lambda: plain(x, *params), reps=200))
                 work[key] = (lambda x=x, p=params, f=plain: f(x, *p),
                              (x, *params))
-                # Partial yardsticks, the first product alone: (x - loc)
-                # prec for the Student-t, x M^T for the mixture, w X^T for
-                # logreg.
-                if name == "student_t":
-                    loc, prec = params[0], params[1]
-                    lp = loc @ prec
-                    library[key] = cuda_ms(lambda: torch.addmm(
-                        lp, x, prec, beta=-1.0), reps=200)
-                elif name in ("mixture", "logreg"):
-                    mt = params[0].T
-                    library[key] = cuda_ms(lambda: torch.mm(x, mt), reps=200)
+                device[key], names = device_ms(run)
+                check(names and all(ZOO_KERNELS[key] in n for n in names),
+                      f"{key} runs other kernels: {names}")
+                sticks = zoo_yardsticks(name, x, params, torch)
+                if "first" in sticks:
+                    library[key] = cuda_ms(sticks["first"], reps=200)
+                    library_device[key] = device_ms(sticks["first"])[0]
+                if "second" in sticks:
+                    extra[key] = {
+                        "library_second_ms": cuda_ms(sticks["second"],
+                                                     reps=200),
+                        "library_second_device_ms": device_ms(
+                            sticks["second"])[0]}
     emit({"phase": "zoo_times", "B": B, "D": D, "ms_per_call": {
-        k: {"kernel": a, "plain": p, "library": library.get(k)}
+        k: {"kernel": a, "plain": p, "device": device.get(k),
+            "library": library.get(k),
+            "library_device": library_device.get(k), **extra.get(k, {})}
         for k, (a, p) in times.items()}})
-    return worst, times, work, library
+    return worst, times, work, library, device, library_device, extra
 
 
 def _zoo_errs(name, t, mean, cov, np) -> tuple:
@@ -3132,8 +3178,8 @@ def main() -> int:
         worst[key] = max(worst.get(key, 0.0), err)
     example_counts = phase_examples(GSM, BaM, FactorGSM, FactorBaM,
                                     Regularizers, dense_gaussian, fs, t, torch)
-    zoo_worst, zoo_times, zoo_work, zoo_library = phase_zoo_kernels(
-        fs, models, torch, np)
+    (zoo_worst, zoo_times, zoo_work, zoo_library, zoo_device,
+     zoo_library_device, zoo_extra) = phase_zoo_kernels(fs, models, torch, np)
     worst.update(zoo_worst)
     zoo_counts = phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers,
                                  fs, models, card, torch, np)
@@ -3153,11 +3199,14 @@ def main() -> int:
                  k6_times[:3],
                  phase_eps_step_times(fs, t, torch),
                  (range_times, range_work, range_device),
-                 (zoo_times, zoo_work)):
+                 (zoo_times, zoo_work, zoo_device)):
         times.update(more[0])
         work.update(more[1])
         device.update(more[2] if len(more) > 2 else {})
     library.update(zoo_library)
+    library_device.update(zoo_library_device)
+    for name, more in zoo_extra.items():
+        extra[name] = {**extra.get(name, {}), **more}
     bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
     emit({"phase": "bounds", **bounds})
     path_counts = ([main_counts, counts] + list(bam_counts)

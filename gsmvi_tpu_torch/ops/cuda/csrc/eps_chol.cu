@@ -238,7 +238,7 @@ extern "C" int gsmvi_eps_chol(const float* e, const float* v, const float* vf, c
     GemmArgs gp{};
     gp.a = zt; gp.b = zt; gp.c = g;
     gp.m = 2 * b; gp.n = 2 * b; gp.k = d; gp.lda = d; gp.ldb = d; gp.ldc = 2 * b;
-    err = launch_gemm<false, true, gsmvi::PRO_NONE, gsmvi::EPI_STORE>(gp, s);
+    err = launch_gemm<false, true, gsmvi::EPI_STORE>(gp, s);
     if (err != cudaSuccess) return (int)err;
     CholArgs p{g, zt, t, ef, rs, mean_in, mean_out, good, nacc, w, b, d, jitter};
     eps_chol_small_kernel<<<1, CH_THREADS, smem_bytes(b), s>>>(p);

@@ -33,7 +33,7 @@ int gsmvi_factor_apply(const float* su, const float* sw, const float* f_in,
     p.a = su; p.b = sw; p.c = f_out; p.c_in = f_in; p.good = good;
     p.m = d; p.n = d; p.k = k; p.lda = d; p.ldb = d; p.ldc = d;
     p.batch = reps; p.sa = p.sb = (long long)k * d; p.sc = (long long)d * d; p.sgood = 1;
-    return launch_gemm<true, false, PRO_NONE, EPI_SELECT_ADD>(p, static_cast<cudaStream_t>(stream));
+    return launch_gemm<true, false, EPI_SELECT_ADD>(p, static_cast<cudaStream_t>(stream));
 }
 
 // out = rows @ F (trans_f 0) or rows @ F^T (trans_f 1), rows (m, D),
@@ -53,13 +53,13 @@ int gsmvi_rows(const float* rows, const float* f, const float* mu, float* out, f
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!trans_f) {
         if (x_out != nullptr) return (int)cudaErrorInvalidValue;
-        return launch_gemm<false, false, PRO_NONE, EPI_STORE>(p, s);
+        return launch_gemm<false, false, EPI_STORE>(p, s);
     }
     if (x_out != nullptr) {
         p.epi_vec = mu; p.c2 = x_out;
-        return launch_gemm<false, true, PRO_NONE, EPI_STORE_AND_ADD_VEC>(p, s);
+        return launch_gemm<false, true, EPI_STORE_AND_ADD_VEC>(p, s);
     }
-    return launch_gemm<false, true, PRO_NONE, EPI_STORE>(p, s);
+    return launch_gemm<false, true, EPI_STORE>(p, s);
 }
 
 // BaM fat apply: f_out = f_in + su^T @ sw, su, sw (K, D), f (D, D), f_out
@@ -70,7 +70,7 @@ int gsmvi_bam_apply(const float* su, const float* sw, const float* f_in, float* 
     GemmArgs p{};
     p.a = su; p.b = sw; p.c = f_out; p.c_in = f_in; p.partial = partial; p.halt = halt;
     p.m = d; p.n = d; p.k = k; p.lda = d; p.ldb = d; p.ldc = d;
-    return launch_gemm<true, false, PRO_NONE, EPI_ADD_SUMSQ>(p, static_cast<cudaStream_t>(stream));
+    return launch_gemm<true, false, EPI_ADD_SUMSQ>(p, static_cast<cudaStream_t>(stream));
 }
 
 const char* gsmvi_error_string(int code) {

@@ -4,10 +4,10 @@
 // the Pallas kernels run in their own bodies
 // (gsmvi_tpu/ops/pallas/fused_step.py: the fat apply `F + stack_u^T
 // stack_w` at :346, the Cholesky variant's `vf = v F` at :450 and `t = vf
-// F^T` at :286; the Student-t and logistic-regression scores' products at
-// :842 and :878-882, zoo_score.cu and zoo_score_b.cu).  The NS route's row
-// products and `gaussian_score_kernel` (:778) run on the split-k thin
-// product (thin_gemm.cu).
+// F^T` at :286).  The NS route's row products, `gaussian_score_kernel`
+// (:778) and the Student-t score's product (:842) run on the split-k thin
+// product (thin_gemm.cu, zoo_student_t.cu), the logistic-regression score's
+// two (:878-882) on its primitives (zoo_logreg.cu).
 //
 // The BaM step runs its fat apply on the same template
 // (gsmvi_tpu/ops/pallas/bam_fused.py :319; gemm.cu `gsmvi_bam_apply`; its
@@ -46,15 +46,12 @@ constexpr int GEMM_BN = 32;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
-enum Prologue { PRO_NONE = 0, PRO_A_MINUS_VEC = 2 };
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
                 EPI_ADD_SUMSQ = 3,
-                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11,
-                EPI_LOGISTIC_RESID = 12, EPI_ACC_SUB_SCALE = 13 };
+                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11 };
 
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
-// A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k], then the prologue:
-//   PRO_A_MINUS_VEC: A'(m, k) = A'(m, k) - pro_vec[k].
+// A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k].
 // B'(k, n) = TB ? b[n * ldb + k] : b[k * ldb + n].
 // Epilogues:
 //   EPI_STORE:             c = acc
@@ -65,18 +62,15 @@ enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
 //   EPI_SCALE:             c = acc * alpha
 //   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
 //   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
-//   EPI_LOGISTIC_RESID:    c = epi_vec[n] - 1 / (1 + e^{-acc})
-//   EPI_ACC_SUB_SCALE:     c = acc - c_in * epi_vec[0] (a scale in device memory)
 // With a non-null halt, the launch does nothing while *halt != 0.
 // batch replicas (0 means 1) start sa, sb, sc, svec and sgood elements apart
-// in a, b, (c, c2, c_in), (pro_vec, epi_vec) and good; halt and partial are
+// in a, b, (c, c2, c_in), epi_vec and good; halt and partial are
 // not batched (their epilogue takes one replica).
 struct GemmArgs {
     const float* a;
     const float* b;
     float* c;
     int m, n, k, lda, ldb, ldc;
-    const float* pro_vec;
     const float* epi_vec;
     float* c2;
     const float* c_in;
@@ -88,7 +82,7 @@ struct GemmArgs {
     float alpha, beta;
 };
 
-template <bool TA, bool TB, int PRO, int EPI>
+template <bool TA, bool TB, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     __shared__ float As[GEMM_BM][GEMM_BK + 1];
     __shared__ float Bs[GEMM_BK][GEMM_BN + 1];
@@ -96,7 +90,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     const long long z = blockIdx.z;
     const float* pa = p.a + z * p.sa;
     const float* pb = p.b + z * p.sb;
-    const float* pro_vec = p.pro_vec + z * p.svec;
     const float* epi_vec = p.epi_vec + z * p.svec;
     const float* c_in = p.c_in + z * p.sc;
     float* pc = p.c + z * p.sc;
@@ -118,7 +111,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             float v = 0.f;
             if (gm < p.m && gk < p.k) {
                 v = TA ? pa[(size_t)gk * p.lda + gm] : pa[(size_t)gm * p.lda + gk];
-                if (PRO == PRO_A_MINUS_VEC) v = v - pro_vec[gk];
             }
             As[r][kk] = v;
         }
@@ -195,10 +187,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
             pc[o] = p.alpha * ((gm == gn ? p.beta : 0.f) - acc[r]);
         } else if (EPI == EPI_SUB_SCALE) {
             pc[o] = (c_in[o] - acc[r]) * p.alpha;
-        } else if (EPI == EPI_LOGISTIC_RESID) {
-            pc[o] = epi_vec[gn] - 1.f / (1.f + expf(-acc[r]));
-        } else if (EPI == EPI_ACC_SUB_SCALE) {
-            pc[o] = acc[r] - __fmul_rn(c_in[o], epi_vec[0]);
         } else {
             const float base = c_in[o];
             pc[o] = (*good != 0) ? base + acc[r] : base;
@@ -206,11 +194,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     }
 }
 
-template <bool TA, bool TB, int PRO, int EPI>
+template <bool TA, bool TB, int EPI>
 inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
     const dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.m + GEMM_BM - 1) / GEMM_BM,
                     p.batch > 0 ? p.batch : 1);
-    gemm_kernel<TA, TB, PRO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
+    gemm_kernel<TA, TB, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
     return cudaGetLastError();
 }
 

@@ -211,7 +211,7 @@ struct Chain {
         p.m = n; p.n = n; p.k = n; p.lda = n; p.ldb = n; p.ldc = n;
         p.batch = reps; p.sa = p.sb = p.sc = s;
         p.alpha = alpha; p.beta = beta;
-        return launch_gemm<false, false, gsmvi::PRO_NONE, EPI>(p, stream);
+        return launch_gemm<false, false, EPI>(p, stream);
     }
 
     // Coupled Newton-Schulz on SPD A (`_ns_sqrt_both`): yout = sqrt(A),
@@ -269,7 +269,7 @@ cudaError_t rows_mm(cudaStream_t stream, int reps, const float* a, long long sa,
     p.m = m; p.n = n; p.k = k; p.lda = lda; p.ldb = ldb; p.ldc = ldc;
     p.batch = reps; p.sa = sa; p.sb = sb; p.sc = sc;
     p.alpha = alpha;
-    return launch_gemm<TA, TB, gsmvi::PRO_NONE, EPI>(p, stream);
+    return launch_gemm<TA, TB, EPI>(p, stream);
 }
 
 // ---------------------------------------------------------------------------

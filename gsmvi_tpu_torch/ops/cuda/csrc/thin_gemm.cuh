@@ -11,9 +11,13 @@
 // gsmvi_tpu/ops/pallas/bam_fused.py :265/:312/:467/:329-330), and K5's
 // T = V S0 with the dense update's row dot products in its epilogue
 // (gsm_step.cu), and K9's x = loc + e L^T (ops/advi_fused.py); advi.cu's
-// triangular products reuse its slab loads.  K4a and the zoo keep the
-// 32x32 tile template of gemm.cuh.  The kernel and its primitives live
-// here; thin_gemm.cu holds the row products' and K3's entry points,
+// triangular products reuse its slab loads.  The zoo's product scores run
+// on it too: the Student-t's (x - loc) Prec on K3's partition with maha
+// and the row scale in its epilogue (zoo_student_t.cu), and logreg's two
+// products in one cluster launch on its slab loads, register tiles and
+// k walk (zoo_logreg.cu).  K4a keeps the 32x32 tile template of gemm.cuh.
+// The kernel and its primitives (stage_a, stage_b, slab_fma, walk_slabs)
+// live here; thin_gemm.cu holds the row products' and K3's entry points,
 // gsm_step.cu K5's.
 //
 // What bounds it on an H100: at the main path's shape (M=32, D=256) the
@@ -53,11 +57,12 @@ constexpr int TG_LD = TG_BK + 4;       // padded slab row (16-byte aligned rows)
 constexpr int TG_THREADS = 64;         // 8 x 8 threads, a 4 x 4 output tile each
 constexpr int TG_MAX_SPLIT = 8;        // the portable cluster size
 
-enum { PRO_NONE = 0, PRO_VEC_MINUS_A = 1 };
+enum { PRO_NONE = 0, PRO_VEC_MINUS_A = 1, PRO_A_MINUS_VEC = 2 };
 enum { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_STORE_AND_ROW_DOTS = 2 };
 
-// C(m, n) = epi(sum_k A'(m, k) B'(k, n)), A'(m, k) = a[m lda + k] (minus
-// from pro_vec[k] under PRO_VEC_MINUS_A), B'(k, n) = TB ? b[n ld + k] :
+// C(m, n) = epi(sum_k A'(m, k) B'(k, n)), A'(m, k) = a[m lda + k] (taken
+// from pro_vec[k] under PRO_VEC_MINUS_A, less pro_vec[k] under
+// PRO_A_MINUS_VEC), B'(k, n) = TB ? b[n ld + k] :
 // b[k ld + n]; lda = ld = ldc = d.  EPI_STORE_AND_ADD_VEC also writes
 // c2 = epi_vec[n] + C.  EPI_STORE_AND_ROW_DOTS (K5's T = V S0, with a = v,
 // rows2 = x laid out as a, epi_vec = mu0) also writes, per row m and
@@ -98,62 +103,191 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-struct Slab {
-    float a[TG_BM][TG_LD];             // rows m, k contiguous
+// A staged k-slab of a BM-row tile (32, or 16 for thinner row blocks).
+template <int BM>
+struct SlabT {
+    float a[BM][TG_LD];                // rows m, k contiguous
     float b[TG_BK][TG_LD];             // TB: rows n, k contiguous; else rows k, n contiguous
     float v[TG_BK];                    // pro_vec over the slab's k
 };
+using Slab = SlabT<TG_BM>;
 
-// Stage the k-slab at k0 (columns up to kend) of the tile (m0, n0).
-// Out-of-range elements are zero-filled.
-template <bool TB, int PRO, bool VEC>
-__device__ __forceinline__ void load_slab(Slab& s, const ThinArgs& p, const float* pa,
-                                          const float* pb, const float* pro_vec, int m0,
-                                          int n0, int k0, int kend) {
-    const int tid = threadIdx.x;
+// Stage A' over the k-slab at k0 (columns up to kend) of the row tile m0:
+// rows m < m_ext of a (row stride lda), and pro_vec over the slab's k; tid
+// is the thread's index among the NT that stage the slab.
+// Out-of-range elements are zero-filled.  VEC: 16-byte copies, which need
+// lda % 4 == 0 (a chunk of 4 is then wholly in or out of range).
+template <int PRO, bool VEC, int NT = TG_THREADS, int BM>
+__device__ __forceinline__ void stage_a(SlabT<BM>& s, int tid, const float* pa, int lda,
+                                        int m_ext, const float* pro_vec, int m0, int k0,
+                                        int kend) {
     if (VEC) {
-        // 32 rows x 8 chunks of 4 floats per operand; D % 4 == 0, so a chunk is
-        // wholly in or out of range.
 #pragma unroll
-        for (int i = 0; i < TG_BM * TG_BK / 4 / TG_THREADS; ++i) {
-            const int q = tid + i * TG_THREADS;
+        for (int i = 0; i < BM * TG_BK / 4 / NT; ++i) {
+            const int q = tid + i * NT;
             const int r = q >> 3, kc = (q & 7) * 4;
             const int gm = m0 + r, gk = k0 + kc;
-            const bool in = gm < p.m && gk < kend;
-            cp_async16(&s.a[r][kc], in ? pa + (size_t)gm * p.d + gk : pa, in);
-            if (TB) {
-                const int gn = n0 + r;
-                const bool inb = gn < p.d && gk < kend;
-                cp_async16(&s.b[r][kc], inb ? pb + (size_t)gn * p.d + gk : pb, inb);
-            } else {
-                const int gkb = k0 + r, gn = n0 + kc;
-                const bool inb = gkb < kend && gn < p.d;
-                cp_async16(&s.b[r][kc], inb ? pb + (size_t)gkb * p.d + gn : pb, inb);
-            }
+            const bool in = gm < m_ext && gk < kend;
+            cp_async16(&s.a[r][kc], in ? pa + (size_t)gm * lda + gk : pa, in);
         }
     } else {
 #pragma unroll 4
-        for (int i = 0; i < TG_BM * TG_BK / TG_THREADS; ++i) {
-            const int q = tid + i * TG_THREADS;
+        for (int i = 0; i < BM * TG_BK / NT; ++i) {
+            const int q = tid + i * NT;
             const int r = q >> 5, kc = q & 31;
             const int gm = m0 + r, gk = k0 + kc;
-            const bool in = gm < p.m && gk < kend;
-            cp_async4(&s.a[r][kc], in ? pa + (size_t)gm * p.d + gk : pa, in);
-            if (TB) {
-                const int gn = n0 + r;
-                const bool inb = gn < p.d && gk < kend;
-                cp_async4(&s.b[r][kc], inb ? pb + (size_t)gn * p.d + gk : pb, inb);
-            } else {
-                const int gkb = k0 + r, gn = n0 + kc;
-                const bool inb = gkb < kend && gn < p.d;
-                cp_async4(&s.b[r][kc], inb ? pb + (size_t)gkb * p.d + gn : pb, inb);
-            }
+            const bool in = gm < m_ext && gk < kend;
+            cp_async4(&s.a[r][kc], in ? pa + (size_t)gm * lda + gk : pa, in);
         }
     }
     if (PRO != PRO_NONE && tid < TG_BK) {
         const bool in = k0 + tid < kend;
         cp_async4(&s.v[tid], in ? pro_vec + k0 + tid : pro_vec, in);
     }
+}
+
+// Stage B' over the same slab for the column tile n0 into sb (a Slab's b):
+// B'(k, n) = TB ? b[n ldb + k] : b[k ldb + n] over columns n < n_ext.  VEC
+// needs ldb % 4 == 0.
+template <bool TB, bool VEC, int NT = TG_THREADS>
+__device__ __forceinline__ void stage_b(float (&sb)[TG_BK][TG_LD], int tid, const float* pb,
+                                        int ldb, int n_ext, int n0, int k0, int kend) {
+    if (VEC) {
+#pragma unroll
+        for (int i = 0; i < TG_BK * TG_BN / 4 / NT; ++i) {
+            const int q = tid + i * NT;
+            const int r = q >> 3, kc = (q & 7) * 4;
+            if (TB) {
+                const int gn = n0 + r, gk = k0 + kc;
+                const bool in = gn < n_ext && gk < kend;
+                cp_async16(&sb[r][kc], in ? pb + (size_t)gn * ldb + gk : pb, in);
+            } else {
+                const int gk = k0 + r, gn = n0 + kc;
+                const bool in = gk < kend && gn < n_ext;
+                cp_async16(&sb[r][kc], in ? pb + (size_t)gk * ldb + gn : pb, in);
+            }
+        }
+    } else {
+#pragma unroll 4
+        for (int i = 0; i < TG_BK * TG_BN / NT; ++i) {
+            const int q = tid + i * NT;
+            const int r = q >> 5, kc = q & 31;
+            if (TB) {
+                const int gn = n0 + r, gk = k0 + kc;
+                const bool in = gn < n_ext && gk < kend;
+                cp_async4(&sb[r][kc], in ? pb + (size_t)gn * ldb + gk : pb, in);
+            } else {
+                const int gk = k0 + r, gn = n0 + kc;
+                const bool in = gk < kend && gn < n_ext;
+                cp_async4(&sb[r][kc], in ? pb + (size_t)gk * ldb + gn : pb, in);
+            }
+        }
+    }
+}
+
+// Stage the k-slab at k0 (columns up to kend) of the tile (m0, n0) of the
+// square product of ThinArgs (lda = ldb = d).
+template <bool TB, int PRO, bool VEC>
+__device__ __forceinline__ void load_slab(Slab& s, const ThinArgs& p, const float* pa,
+                                          const float* pb, const float* pro_vec, int m0,
+                                          int n0, int k0, int kend) {
+    stage_a<PRO, VEC>(s, threadIdx.x, pa, p.d, p.m, pro_vec, m0, k0, kend);
+    stage_b<TB, VEC>(s.b, threadIdx.x, pb, p.d, p.d, n0, k0, kend);
+}
+
+// acc += A' B' over one staged slab: thread (ty, tx) holds rows ty*4 + i and
+// columns tx + 8 j (TB) or tx*4 + j, each output one fmaf chain over
+// ascending k (ty < BM / 4: 64 threads cover a 32-row tile, 32 a 16-row one).
+template <bool TB, int PRO, int BM>
+__device__ __forceinline__ void slab_fma(const SlabT<BM>& s, float (&acc)[4][4], int ty, int tx) {
+#pragma unroll
+    for (int kk = 0; kk < TG_BK; kk += 4) {
+        float a[4][4], bq[4][4];   // a[row][k], bq[k][col]
+        const float4 v = PRO != PRO_NONE ? *reinterpret_cast<const float4*>(&s.v[kk])
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float4 t = *reinterpret_cast<const float4*>(&s.a[ty * 4 + i][kk]);
+            a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
+            if (PRO == PRO_VEC_MINUS_A) {
+                a[i][0] = v.x - a[i][0]; a[i][1] = v.y - a[i][1];
+                a[i][2] = v.z - a[i][2]; a[i][3] = v.w - a[i][3];
+            } else if (PRO == PRO_A_MINUS_VEC) {
+                a[i][0] = a[i][0] - v.x; a[i][1] = a[i][1] - v.y;
+                a[i][2] = a[i][2] - v.z; a[i][3] = a[i][3] - v.w;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (TB) {   // column tx + 8 j: conflict-free rows
+                const float4 t = *reinterpret_cast<const float4*>(&s.b[tx + 8 * j][kk]);
+                bq[0][j] = t.x; bq[1][j] = t.y; bq[2][j] = t.z; bq[3][j] = t.w;
+            } else {    // columns 4 tx .. 4 tx + 3
+                const float4 t = *reinterpret_cast<const float4*>(&s.b[kk + j][tx * 4]);
+                bq[j][0] = t.x; bq[j][1] = t.y; bq[j][2] = t.z; bq[j][3] = t.w;
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i][q], bq[q][j], acc[i][j]);
+    }
+}
+
+// The output column of register tile entry j of thread tx.
+template <bool TB>
+__device__ __forceinline__ int tile_col(int tx, int j) { return TB ? tx + 8 * j : tx * 4 + j; }
+
+// The block's barrier, and a warp's (the walk of a one-warp group of a
+// block that runs several walks at once).
+struct BlockSync {
+    __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct WarpSync {
+    __device__ __forceinline__ void operator()() const { __syncwarp(); }
+};
+
+// acc = A' B' over the slabs at kbeg, kbeg + kstep, ... below kend, each
+// staged two deep: stage(slab, k0) issues the copies of the slab at k0; the
+// threads of the walk (thread tid among them) meet at sync.
+template <bool TB, int PRO, int BM, class Stage, class Sync>
+__device__ __forceinline__ void walk_slabs(SlabT<BM> (&slab)[2], Stage stage, int kbeg,
+                                           int kend, int kstep, Sync sync, int tid,
+                                           float (&acc)[4][4]) {
+    const int ty = tid >> 3, tx = tid & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    int buf = 0;
+    stage(slab[0], kbeg);
+    cp_async_commit();
+    for (int k0 = kbeg; k0 < kend; k0 += kstep) {
+        if (k0 + kstep < kend) stage(slab[buf ^ 1], k0 + kstep);
+        cp_async_commit();
+        cp_async_wait<1>();
+        sync();
+        slab_fma<TB, PRO>(slab[buf], acc, ty, tx);
+        sync();
+        buf ^= 1;
+    }
+    cp_async_wait<0>();
+}
+
+// One block's k walk of the tile (m0, n0) of the square product over
+// [kbeg, kend).
+template <bool TB, int PRO, bool VEC>
+__device__ __forceinline__ void thin_walk(Slab (&slab)[2], const ThinArgs& p, const float* pa,
+                                          const float* pb, const float* pro_vec, int m0, int n0,
+                                          int kbeg, int kend, float (&acc)[4][4]) {
+    walk_slabs<TB, PRO>(
+        slab,
+        [&](Slab& s, int k0) {
+            load_slab<TB, PRO, VEC>(s, p, pa, pb, pro_vec, m0, n0, k0, kend);
+        },
+        kbeg, kend, TG_BK, BlockSync(), threadIdx.x, acc);
 }
 
 template <bool TB, int PRO, int EPI, bool VEC>
@@ -175,65 +309,12 @@ __global__ void __launch_bounds__(TG_THREADS) thin_kernel(ThinArgs p) {
     const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
 
     float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    int buf = 0;
-    load_slab<TB, PRO, VEC>(slab[0], p, pa, pb, pro_vec, m0, n0, kbeg, kend);
-    cp_async_commit();
-    for (int k0 = kbeg; k0 < kend; k0 += TG_BK) {
-        if (k0 + TG_BK < kend)
-            load_slab<TB, PRO, VEC>(slab[buf ^ 1], p, pa, pb, pro_vec, m0, n0, k0 + TG_BK, kend);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const Slab& s = slab[buf];
-#pragma unroll
-        for (int kk = 0; kk < TG_BK; kk += 4) {
-            float a[4][4], bq[4][4];   // a[row][k], bq[k][col]
-            const float4 v = PRO == PRO_VEC_MINUS_A
-                                 ? *reinterpret_cast<const float4*>(&s.v[kk])
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float4 t = *reinterpret_cast<const float4*>(&s.a[ty * 4 + i][kk]);
-                a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
-                if (PRO == PRO_VEC_MINUS_A) {
-                    a[i][0] = v.x - a[i][0]; a[i][1] = v.y - a[i][1];
-                    a[i][2] = v.z - a[i][2]; a[i][3] = v.w - a[i][3];
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (TB) {   // column tx + 8 j: conflict-free rows
-                    const float4 t = *reinterpret_cast<const float4*>(&s.b[tx + 8 * j][kk]);
-                    bq[0][j] = t.x; bq[1][j] = t.y; bq[2][j] = t.z; bq[3][j] = t.w;
-                } else {    // columns 4 tx .. 4 tx + 3
-                    const float4 t = *reinterpret_cast<const float4*>(&s.b[kk + j][tx * 4]);
-                    bq[j][0] = t.x; bq[j][1] = t.y; bq[j][2] = t.z; bq[j][3] = t.w;
-                }
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i][q], bq[q][j], acc[i][j]);
-        }
-        __syncthreads();
-        buf ^= 1;
-    }
-    cp_async_wait<0>();
+    thin_walk<TB, PRO, VEC>(slab, p, pa, pb, pro_vec, m0, n0, kbeg, kend, acc);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = TB ? tx + 8 * j : tx * 4 + j;
-            part[(ty * 4 + i) * TG_BN + col] = acc[i][j];
-        }
+        for (int j = 0; j < 4; ++j) part[(ty * 4 + i) * TG_BN + tile_col<TB>(tx, j)] = acc[i][j];
     cluster.sync();
 
     // Rank r finishes rows r, r + S, ... of the tile: the S partials summed in

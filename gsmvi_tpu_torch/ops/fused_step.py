@@ -19,11 +19,13 @@ are ported here:
   ``eps_multistep_reference``.
 - K3 ``gaussian_score``: v = (mu_t - x) @ prec.  Plain version:
   ``gaussian_score_reference``.
-- K11a ``funnel_score``, ``banana_score``, ``student_t_score``: the zoo
-  targets' analytic scores (``zoo_score.cu``).  Plain versions:
-  ``*_score_reference``.
-- K11b ``mixture_score``, ``logreg_score``: the Gaussian-mixture and
-  logistic-regression scores (``zoo_score_b.cu``).  Plain versions:
+- K11a ``funnel_score``, ``banana_score`` (``zoo_score.cu``),
+  ``student_t_score`` (``zoo_student_t.cu``, one cluster launch on the
+  split-k thin product): the zoo targets' analytic scores.  Plain
+  versions: ``*_score_reference``.
+- K11b ``mixture_score`` (``zoo_score_b.cu``), ``logreg_score``
+  (``zoo_logreg.cu``, one cluster launch): the Gaussian-mixture and
+  logistic-regression scores.  Plain versions:
   ``mixture_score_reference``, ``logreg_score_reference``.
 - K4 ``make_fused_eps_step``: one whole step per call, on the ns or the
   chol update, its draw passed in (``external_eps=True``) or made on the
@@ -125,6 +127,17 @@ CHOL_BATCH_RANGE = (1, 64)
 # The mixture score keeps each of its block's 8 rows' K logits (and the K
 # half squared norms) in shared memory: 36 KiB at K = 1024.
 MIXTURE_COMPONENT_RANGE = (1, 1024)
+# The logreg score takes 16 rows of w a cluster; its blocks run
+# LOGREG_GROUPS k walks at once (walk g over the k slabs g mod 8) and keep
+# resid in their cluster's shared memory while a block's bytes fit in
+# LOGREG_SHARED_BYTES (``logreg_plan``: N up to 14,848), else in an L2
+# scratch.  The Student-t and logreg scores hold their scratch from call to
+# call up to ZOO_SCRATCH_MAX_BYTES together (``_held_scratch``).
+LOGREG_ROWS = 16
+LOGREG_GROUPS = 8
+LOGREG_SHARED_BYTES = SMEM_LIMIT_BYTES
+ZOO_SCRATCH_MAX_BYTES = 1 << 24
+_ZOO_SCRATCH = {}
 # Thread-block clusters of the small space and the thin product: at most 8
 # blocks (the portable cluster size), each over a share of D in whole
 # 32-column slabs.
@@ -1341,6 +1354,32 @@ def _select_stacks(mu_new, stack_u, stack_w, good, mean):
     return torch.where(good, mu_new[0], mean), stack_u, stack_w, good
 
 
+def _held_scratch(key, make) -> tuple:
+    """The device scratch of a zoo score call, ``key`` its score, device and
+    shape: the tensors of ``make()``, made at the key's first call outside
+    a CUDA graph capture and then held for the life of the process while
+    the held scratch fits in ``ZOO_SCRATCH_MAX_BYTES`` together.  A held
+    scratch is never freed, since a captured launch keeps its addresses;
+    the fit paths run a block eagerly before they capture it, so their
+    graphs find it held.  Made inside a capture, or past the cap, it is the
+    call's own (its ticket zeroed by the capture or the call).  Calls reuse
+    a held scratch in the order the device runs them: the port issues every
+    launch on the current stream, and two score calls of one key must not
+    run at once on two streams."""
+    buf = _ZOO_SCRATCH.get(key)
+    if buf is not None:
+        return buf
+    buf = make()
+    nbytes = sum(t.numel() * t.element_size() for t in buf)
+    held = sum(t.numel() * t.element_size()
+               for b in _ZOO_SCRATCH.values() for t in b)
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    if held + nbytes <= ZOO_SCRATCH_MAX_BYTES and not capturing:
+        _ZOO_SCRATCH[key] = buf
+    return buf
+
+
 def _zoo_operands(x, params, shape=(1, 2)) -> tuple:
     """(M, D) of the score rows x, after checking x and the scalar row of a
     zoo score's ``params`` (its last; (1, 2) unless ``shape`` says)."""
@@ -1396,18 +1435,31 @@ banana_score.launches = 0
 
 def student_t_score(x, loc, prec, df_d):
     """K11a: multivariate-t score of the rows x (M, D); loc (1, D), prec
-    (D, D) symmetric, df_d = [[df, D]]: the product (x - loc) prec on the
-    GEMM template, then a row kernel forming maha and scaling the row
-    (``ops/cuda/csrc/zoo_score.cu``, two launches)."""
+    (D, D) symmetric, df_d = [[df, D]].  One cluster launch
+    (``ops/cuda/csrc/zoo_student_t.cu``): the product (x - loc) prec on
+    K3's split-k partition, each tile's part of maha in its epilogue, and
+    the row scale in the last of the blocks that write those rows, found
+    by a ticket per (32-row block, rank); the scratch (maha's tile
+    partials and the tickets) is held (``_held_scratch``).  Any row count
+    M >= 1, D in ``KERNEL_DIM_RANGE``; a row's score does not depend on
+    M."""
     if _on_cpu(x, loc, prec, df_d):
         return student_t_score_reference(x, loc, prec, df_d)
     m, d = _zoo_operands(x, df_d)
     _require("loc", loc, (1, d))
     _require("prec", prec, (d, d))
+    split = thin_split(d)
+    partial, ticket = _held_scratch(
+        ("student_t", x.device, m, d),
+        lambda: (torch.empty((-(-d // SLAB), m), dtype=torch.float32,
+                             device=x.device),
+                 torch.zeros((-(-m // SLAB), split[0]), dtype=torch.int32,
+                             device=x.device)))
     v = torch.empty_like(x)
     student_t_score.launches += 1
     _library().call("gsmvi_student_t_score", _ptr(x), _ptr(loc), _ptr(prec),
-                    _ptr(df_d), _ptr(v), m, d, _stream(x.device))
+                    _ptr(df_d), _ptr(v), _ptr(partial), _ptr(ticket), m, d,
+                    *split, _stream(x.device))
     return v
 
 
@@ -1442,12 +1494,38 @@ def mixture_score(x, means, logmask):
 mixture_score.launches = 0
 
 
+def logreg_plan(n: int, d: int) -> tuple:
+    """(S, T, shared): the logreg launch's cluster of S = min(8,
+    max(ceil(N/32), ceil(D/32))) blocks per 16 rows of w, each rank holding
+    T = ceil(ceil(N/32)/S) of resid's 32-column tiles, in its shared memory
+    (``shared``, while a block's bytes fit in ``LOGREG_SHARED_BYTES``) or in
+    an L2 scratch.  No sum is split over the ranks (each output sums its
+    ``LOGREG_GROUPS`` chains, chain g over the k slabs g mod 8), so the
+    result depends on neither S nor the route."""
+    ntn, ntd = -(-n // SLAB), -(-d // SLAB)
+    s = min(CLUSTER_MAX_BLOCKS, max(ntn, ntd))
+    t = -(-ntn // s)
+    return s, t, logreg_smem_bytes(t) <= LOGREG_SHARED_BYTES
+
+
+def logreg_smem_bytes(t: int) -> int:
+    """A logreg block's shared memory with resid in it: each of its
+    ``LOGREG_GROUPS`` walks' two staged slabs (A 16 x 36 floats, B 32 x 36,
+    and 32 prologue floats) and its rank's T resid tiles, 16 rows of 32 T +
+    4 floats."""
+    slab = (LOGREG_ROWS + SLAB) * (SLAB + 4) + SLAB
+    return 4 * (LOGREG_GROUPS * 2 * slab + LOGREG_ROWS * (t * SLAB + 4))
+
+
 def logreg_score(w, xdata, y_row, inv_ps2):
     """K11b: the logistic-regression posterior's score of the weight rows w
     (M, D); xdata (N, D), y_row (1, N), inv_ps2 = [[1/ps^2]], all on the
-    device.  Two launches on the GEMM template: resid = y - sigmoid(w X^T)
-    in the first one's epilogue, then resid X - w/ps^2
-    (``ops/cuda/csrc/zoo_score_b.cu``)."""
+    device.  One cluster launch per call (``ops/cuda/csrc/zoo_logreg.cu``,
+    ``logreg_plan``): z = w X^T with resid = y - sigmoid(z) in its
+    epilogue, kept in the cluster's shared memory, then resid X - w/ps^2;
+    where resid does not fit there, in a held L2 scratch
+    (``_held_scratch``).  Any M >= 1 and N >= 1, D in
+    ``KERNEL_DIM_RANGE``; a row's score does not depend on M."""
     _two_matrices("logreg_score", w, xdata)
     (m, d), n = w.shape, xdata.shape[0]
     _require_shape("xdata", xdata, (n, d))
@@ -1461,11 +1539,16 @@ def logreg_score(w, xdata, y_row, inv_ps2):
     _zoo_operands(w, inv_ps2, inv_ps2.shape)
     _require("xdata", xdata, (n, d))
     _require("y_row", y_row, (1, n))
-    resid = torch.empty((m, n), dtype=torch.float32, device=w.device)
+    split, t, shared = logreg_plan(n, d)
+    rows = -(-m // LOGREG_ROWS) * LOGREG_ROWS
+    resid = None if shared else _held_scratch(
+        ("logreg", w.device, m, n),
+        lambda: (torch.empty((rows, -(-n // SLAB) * SLAB),
+                             dtype=torch.float32, device=w.device),))[0]
     v = torch.empty_like(w)
     logreg_score.launches += 1
     _library().call("gsmvi_logreg_score", _ptr(w), _ptr(xdata), _ptr(y_row),
-                    _ptr(inv_ps2), _ptr(resid), _ptr(v), m, d, n,
+                    _ptr(inv_ps2), _ptr(resid), _ptr(v), m, d, n, split, t,
                     _stream(w.device))
     return v
 

@@ -1118,6 +1118,140 @@ def test_k11b_kernels_at_their_edges(cuda, case):
 
 
 # ---------------------------------------------------------------------------
+# The product scores' one-launch kernels (zoo_student_t.cu, zoo_logreg.cu):
+# a row's score does not depend on the row count M, one kernel and one
+# allocation a call with the scratch held, logreg's two routes (resid in
+# shared memory or in L2) give the same bits, and a captured call replays
+# the eager bits.
+# ---------------------------------------------------------------------------
+
+def _product_score(name, d, dev, n_data=200):
+    from gsmvi_tpu_torch import models
+
+    if name == "student_t":
+        return models.student_t(0, d, df=6.0, device=dev).fused_score
+    return models.logistic_regression(0, d, n_data=n_data,
+                                      device=dev).fused_score
+
+
+@pytest.mark.parametrize("name", ["student_t", "logreg"])
+@pytest.mark.parametrize("k,b,d", [(4, 32, 256), (8, 3, 10), (3, 33, 257)])
+def test_product_scores_rows_do_not_depend_on_m(cuda, name, k, b, d):
+    """A (K B)-row call equals K separate B-row calls bit for bit, as K6's
+    stacked replicas need."""
+    fn, params = _product_score(name, d, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(k * b + d)
+    x = torch.randn((k * b, d), generator=gen, device=cuda)
+    whole = fn(x, *params)
+    parts = torch.cat([fn(x[i * b:(i + 1) * b], *params) for i in range(k)])
+    assert bool(torch.isfinite(whole).all()) and torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("name", ["student_t", "logreg"])
+def test_zoo_fit_batch_replicas_equal_single_fits(cuda, name):
+    """FactorGSM.fit_batch(small_solver="fused") on a product score: K6
+    calls the score on the K replicas' B rows stacked, and every replica is
+    the same-seed single fit, bit for bit."""
+    from gsmvi_tpu_torch import models
+
+    d, b, niter = 64, 16, 45
+    t = (models.student_t(0, d, df=6.0, device=cuda) if name == "student_t"
+         else models.logistic_regression(0, d, device=cuda))
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=8, device="cuda")
+    fs.reset_launch_counts()
+    st = g.fit_batch(range(3), batch_size=b, niter=niter, return_state=True,
+                     small_solver="fused")
+    assert fs.launch_counts()[f"{name}_score"] == niter + 1
+    for i in range(3):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert torch.equal(st.mean[i], si.mean)
+        assert torch.equal(st.factor[i], si.factor)
+        assert int(st.n_accepted[i]) == int(si.n_accepted)
+
+
+@pytest.mark.parametrize("name", ["student_t", "logreg"])
+def test_product_scores_are_one_kernel_and_hold_their_scratch(cuda, name):
+    """One kernel a call on the device, one allocation (v), the scratch
+    held from call to call and the Student-t tickets back to 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, params = _product_score(name, 256, cuda)
+    x = torch.randn((32, 256), device=cuda)
+    fn(x, *params)
+    torch.cuda.synchronize()
+    held = dict(fs._ZOO_SCRATCH)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(4):
+        fn(x, *params)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 4
+    assert fs._ZOO_SCRATCH == held
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fn(x, *params)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel = {"student_t": "student_t_kernel", "logreg": "logreg_kernel"}[name]
+    assert 1 <= len(names) <= 4 and all(kernel in n for n in names)
+    if name == "student_t":
+        _, ticket = fs._ZOO_SCRATCH[("student_t", x.device, 32, 256)]
+        assert int(ticket.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n,d", [(1, 256), (200, 256), (4096, 10)])
+def test_logreg_routes_give_the_same_bits(cuda, monkeypatch, n, d):
+    fn, params = _product_score("logreg", d, cuda, n_data=n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = 3.0 * torch.randn((37, d), generator=gen, device=cuda)
+    assert fs.logreg_plan(n, d)[2]
+    shared = fn(x, *params)
+    monkeypatch.setattr(fs, "LOGREG_SHARED_BYTES", 0)
+    assert not fs.logreg_plan(n, d)[2]
+    l2 = fn(x, *params)
+    assert ("logreg", x.device, 37, n) in fs._ZOO_SCRATCH
+    assert bool(torch.isfinite(shared).all()) and torch.equal(shared, l2)
+
+
+def test_logreg_beyond_the_shared_route_matches_plain(cuda):
+    """N=16384 at D=10: resid no longer fits the cluster's shared memory,
+    so it goes through the L2 scratch, in one launch."""
+    n, d = 16384, 10
+    assert not fs.logreg_plan(n, d)[2]
+    fn, params = _product_score("logreg", d, cuda, n_data=n)
+    x = torch.randn((5, d), generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    fs.reset_launch_counts()
+    v_k = fn(x, *params)
+    assert fs.launch_counts()["logreg_score"] == 1
+    v_p, tol = _score_tol(fs.logreg_score_reference, x, params, 1e-5)
+    assert bool(torch.isfinite(v_k).all())
+    assert float((v_k - v_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("name", ["student_t", "logreg"])
+@pytest.mark.parametrize("m", [64, 48])
+def test_product_scores_replay_in_a_graph(cuda, name, m):
+    """A captured call replays the eager bits, again and again: at M=64
+    after an eager call (the scratch held, as the fit paths capture), at
+    M=48 captured first (its scratch the capture's own)."""
+    fn, params = _product_score(name, 256, cuda)
+    x = torch.randn((m, 256), generator=torch.Generator(device=cuda)
+                    .manual_seed(m), device=cuda)
+    eager = fn(x, *params) if m == 64 else None
+    out = {}
+    graph, _, _ = fs._capture_graph(lambda: out.setdefault("v",
+                                                           fn(x, *params)))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if eager is None:
+            eager = fn(x, *params)
+        assert torch.equal(out["v"], eager)
+
+
+# ---------------------------------------------------------------------------
 # K1's cluster small space (eps_smallspace_cluster.cu) and the split-k thin
 # product (thin_gemm.cu) over B 1-64, M 1-512 and D 1-8192: against their
 # plain versions (1e-5 on the mean and 1e-5 * max|F| on F + su^T sw; the

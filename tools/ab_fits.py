@@ -2,7 +2,7 @@
 """it/s of two checkouts of the port, alternated on one NVIDIA GPU.
 
     python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6]
-                             [--family gsm|bam|batch|b128|dense|advi]
+                             [--family gsm|bam|batch|b128|dense|advi|zoo]
 
 For each pair, in turns (A then B, then B then A, ...), a fresh process per
 checkout times two fits of each fitter of the family at the headline cell
@@ -27,7 +27,11 @@ replica), niter=1000 each after a 100-step warm-up.  Family ``advi``:
 phase 9 runs it, the analytic estimator (K9) for 3000 steps at lr 1e-2,
 then the STL estimator (K10) for 2000 steps at lr 3e-3 from the analytic
 fit's state, and the two-phase recipe's rate over both (``bench.py``'s
-"analytic bulk, STL polish"), after a 200- and a 50-step warm-up.  A last
+"analytic bulk, STL polish"), after a 200- and a 50-step warm-up.
+Family ``zoo``: the zoo paths whose scores are products,
+``FactorGSM(fused_score=...)`` (K2 with K11a or K11b inside, spc=8) on
+``student_t(0, 256, df=6)`` and ``logistic_regression(0, 256)`` (N=200),
+niter=3000, as ``chip_smoke.py``'s phase 20 runs them.  A last
 line gives, per
 fit, the median and quartiles of each checkout's readings and the pairs
 in which the second checkout was faster.  The first use in each
@@ -127,6 +131,15 @@ def one(checkout: str, family: str) -> dict:
                                       fused_score=t.fused_score,
                                       device="cuda"),
         }
+    elif family == "zoo":
+        from gsmvi_tpu_torch.models import logistic_regression, student_t
+
+        niter, args, kw = 3000, (), {}
+        fitters = {
+            f"FactorGSM_k2_{z.name}": FactorGSM(
+                256, z.lp, z.lp_g, fused_score=z.fused_score, device="cuda")
+            for z in (student_t(0, 256, df=6.0, device="cuda"),
+                      logistic_regression(0, 256, device="cuda"))}
     else:
         niter, args, kw = 2000, (Regularizers().linear(100.0),), {
             "retries": 0}
@@ -167,7 +180,7 @@ def main() -> int:
     parser.add_argument("checkouts", nargs="*")
     parser.add_argument("--pairs", type=int, default=6)
     parser.add_argument("--family", choices=("gsm", "bam", "batch", "b128",
-                                             "dense", "advi"),
+                                             "dense", "advi", "zoo"),
                         default="gsm")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()

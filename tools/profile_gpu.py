@@ -73,6 +73,30 @@ def busy_us(kernels) -> float:
     return total
 
 
+def profile_window(window, tries: int = 3) -> tuple:
+    """(profile, its device kernel records, ``window()``'s value): one run
+    of ``window`` under ``torch.profiler`` (host and CUDA activity).  Now
+    and then the profiler hands back a window with no device record at
+    all, although the device ran; such a window is run again, up to
+    ``tries`` runs in all, each empty one reported on stderr.  Raises if
+    every run came back empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = window()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return prof, kernels, out
+        print(json.dumps({"profile_window": "no device records",
+                          "run": attempt, "of": tries}),
+              file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler saw no device time in {tries} runs")
+
+
 def runtime_calls(prof, DeviceType) -> dict:
     """The CUDA runtime calls the host made in a profile, by name (kernel
     launches, graph launches, copies; not the final synchronize).  With
@@ -93,7 +117,6 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
     seeds, with ``kw``) at batch ``batch``; ``counts()``, when given, adds
     the fitter's counts of the profiled fit."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def run(seed, niter):
         if replicas is None:
@@ -105,17 +128,18 @@ def profile_fit(name, fitter, steps, torch, replicas=None, fit_args=(),
 
     run(1, 15)                                                  # warm up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         t0 = time.perf_counter()
         run(0, steps - 1)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        return (time.perf_counter() - t0) * 1e6
+
+    prof, kernels, wall_us = profile_window(window)
     t0 = time.perf_counter()
     run(0, steps - 1)
     torch.cuda.synchronize()
     plain_wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = {}
     for k in kernels:
         key = k.name[:90]
@@ -155,7 +179,6 @@ def profile_calls(name, fn, calls, torch, quiet=False) -> dict:
     launches (``host_launches_per_call``), and its mean per launch is
     given beside its total per call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):                                          # warm up
         fn()
@@ -165,12 +188,13 @@ def profile_calls(name, fn, calls, torch, quiet=False) -> dict:
         fn()
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    prof, kernels, _ = profile_window(window)
     spans = {}
     for k in kernels:
         spans.setdefault(k.name[:90], []).append(k.time_range.end

@@ -2,7 +2,7 @@
 """Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|k5] [--shapes 32x256 ...]
+    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|k5|zoo] [--shapes 32x256 ...]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
 eps_smallspace_cluster*.cu``, ``--kernel eps``), BaM's
@@ -20,8 +20,13 @@ the cluster.  ``--kernel k5``: K5's Gram launch (``gsm_step.cu``,
 ``gram_kernel``), where every block sums its phase times over its slabs;
 each line gives them for the first diagonal tile's rank 0 and last rank
 and the first off-diagonal tile's rank 0, beside the mean microseconds per
-K5 call (both launches).  The stamps cost a few global stores per phase;
-the kernel the port runs has none.
+K5 call (both launches).  ``--kernel zoo``: the zoo's product scores
+(``zoo_student_t.cu``, ``zoo_logreg.cu``) on their targets' params (the
+Student-t at df=6, logreg at N=200): for the Student-t the phases of the
+block of row block 0 that ends last (a last rank-r block, which scales
+its rows) and the launch's span from the first block's start to the last
+block's end; for logreg rank 0's and the last rank's.  The stamps cost a few global stores per phase; the kernel the
+port runs has none.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ BAM_PHASES = ("pass 1 (row factors, Gram partials) + sync", "Gu sum + s_u = sqrt
               "trace sums, lmax, I + 4G + cluster wait", "s1 = sqrt(I + 4G)",
               "s1's residual", "p = (I + s1)^-1/2", "p p, res_p", "winv + tau",
               "pass 3 (u2 rows)", "ss + exit")
+ZT_PHASES = ("k walk", "cluster sync", "rank-ordered sums, P and maha partials",
+             "barrier arrive + ticket", "the last rank-r block: partials, maha, scale")
+ZL_PHASES = ("phase 1 walk (first tile)", "phase 1 group sums + resid (all tiles)",
+             "cluster sync", "phase 2 walk (first tile)", "phase 2 group sums + stores + exit sync")
 K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait + barrier",
              "A, dmu, Bm in place + barrier", "dmu column sums + FMA + barrier",
              "partials + cluster sync", "rank-ordered sums", "stores, mean + exit sync")
@@ -62,8 +71,10 @@ def build(build_mod, kernel: str) -> Path:
     """The stamped library of ``kernel`` (built once per source hash)."""
     pattern = ("eps_smallspace_panel*.cu" if kernel == "panel"
                else "gsm_step.cu" if kernel == "k5"
+               else "zoo_*.cu" if kernel == "zoo"
                else f"{kernel}_smallspace_cluster*.cu")
-    srcs = sorted(build_mod.CSRC.glob(pattern))
+    srcs = sorted(p for p in build_mod.CSRC.glob(pattern)
+                  if kernel != "zoo" or p.stem in ("zoo_student_t", "zoo_logreg"))
     h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
     for p in sorted(build_mod.CSRC.glob("*.cu*")):
         h.update(p.read_bytes())
@@ -89,7 +100,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kernel", choices=("eps", "bam", "panel", "k5"), default="eps")
+    parser.add_argument("--kernel", choices=("eps", "bam", "panel", "k5", "zoo"),
+                        default="eps")
     parser.add_argument("--shapes", nargs="*", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -105,6 +117,8 @@ def main() -> int:
     lib = ctypes.CDLL(str(build(_build, args.kernel)))
     if args.kernel == "k5":
         return k5_phases(lib, _build, card, args.shapes or ["32x256", "512x256"], torch)
+    if args.kernel == "zoo":
+        return zoo_phases(lib, _build, card, args.shapes or ["32x256", "512x1024"], torch)
     panel = args.kernel == "panel"
     entry = "gsmvi_eps_smallspace_panel" if panel else f"gsmvi_{args.kernel}_smallspace_cluster"
     fn = getattr(lib, entry)
@@ -178,6 +192,75 @@ def main() -> int:
                           "cluster": [ranks, cols], **verdict(),
                           "us_per_launch": start.elapsed_time(stop) * 1e3 / 200,
                           "us_per_phase": per_rank}), flush=True)
+    return 0
+
+
+def zoo_phases(lib, build_mod, card, shapes, torch) -> int:
+    """``--kernel zoo``: the Student-t and logreg scores at each (B, D),
+    each launch by phase."""
+    from gsmvi_tpu_torch.models import logistic_regression, student_t
+    from gsmvi_tpu_torch.ops import fused_step as fs
+
+    dev = torch.device("cuda")
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for name in ("gsmvi_student_t_score", "gsmvi_logreg_score"):
+        getattr(lib, name).argtypes = build_mod.SIGNATURES[name]
+    for shape in shapes:
+        b, d = map(int, shape.split("x"))
+        x = torch.randn((b, d), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+        loc, prec, dfd = student_t(0, d, df=6.0, device=dev).fused_score[1]
+        ntn = -(-d // fs.SLAB)
+        partial = torch.empty((ntn, b), device=dev)
+        ticket = torch.zeros((-(-b // fs.SLAB), fs.thin_split(d)[0]), dtype=torch.int32,
+                             device=dev)
+        v = torch.empty_like(x)
+        split = fs.thin_split(d)
+        t_call = lambda: lib.gsmvi_student_t_score(*map(ptr, (x, loc, prec, dfd, v, partial,
+                                                              ticket)), b, d, *split, stream)
+        xd, y, inv = logistic_regression(0, d, device=dev).fused_score[1]
+        n = xd.shape[0]
+        plan = fs.logreg_plan(n, d)
+        resid = None if plan[2] else torch.empty(
+            (-(-b // fs.LOGREG_ROWS) * fs.LOGREG_ROWS, -(-n // fs.SLAB) * fs.SLAB), device=dev)
+        l_call = lambda: lib.gsmvi_logreg_score(*map(ptr, (x, xd, y, inv, resid, v)), b, d, n,
+                                                plan[0], plan[1], stream)
+        for kernel, call, names, nblocks, entry in (
+                ("student_t", t_call, ZT_PHASES, ntn * split[0], "gsmvi_student_t_phases"),
+                ("logreg", l_call, ZL_PHASES, plan[0], "gsmvi_logreg_phases")):
+            for _ in range(20):
+                if call() != 0:
+                    raise RuntimeError(f"the stamped {kernel} score failed to launch")
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(200):
+                call()
+            stop.record()
+            torch.cuda.synchronize()
+            n_st = len(names) + 1
+            size = (256 * 8 if kernel == "student_t" else 8) * n_st
+            stamps = (ctypes.c_longlong * size)()
+            getattr(lib, entry)(stamps)
+            rows = [stamps[i * n_st:(i + 1) * n_st] for i in range(nblocks)]
+            # A phase a block did not reach in the last launch (a rank with
+            # no tile) keeps an older stamp: null.
+            phases = lambda ts: {nm: (ts[i + 1] - ts[i]) / 1e3
+                                 if ts[0] <= ts[i] <= ts[i + 1] <= ts[-1] else None
+                                 for i, nm in enumerate(names)}
+            rec = {"card": card, "kernel": kernel, "B": b, "D": d,
+                   "us_per_launch": start.elapsed_time(stop) * 1e3 / 200}
+            if kernel == "student_t":
+                first = min(r[0] for r in rows)
+                last = max(rows, key=lambda r: r[-1])   # the block that ends last
+                rec.update(us_span=(last[-1] - first) / 1e3,
+                           us_to_last_start=(last[0] - first) / 1e3,
+                           us_per_phase_last_block=phases(last))
+            else:
+                rec.update(N=n, plan=list(plan), us_per_phase={
+                    f"rank {r}": phases(rows[r]) for r in sorted({0, plan[0] - 1})})
+            print(json.dumps(rec), flush=True)
     return 0
 
 
