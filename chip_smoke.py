@@ -124,15 +124,17 @@ the script exits non-zero):
     equal to phase 6's bit for bit).
 17. ranges: K1 and K2 against their plain versions at (B, D) = (1, 1),
     (2, 10), (3, 5), (7, 16), at B 65, 96, 127 (the row panels' ragged
-    edges) x D 1, 33, 256, and at (128, 256), (512, 256), (128, 1024),
-    (512, 1024): at B 65-128 on the row-panel small space
-    (``eps_smallspace_panel``), above on the global-memory one
-    (``eps_smallspace_large``), each checked to run exactly there; K6 at
+    edges) x D 1, 33, 256, and at (128, 256), (129, 33), (200, 1), (256,
+    256), (512, 256), (128, 1024), (512, 1024): at B 65-128 on the
+    row-panel small space (``eps_smallspace_panel``), above on the grid one
+    (``eps_smallspace_large``, one cooperative launch, its 16 x 16 and
+    32 x 32 tiles), each checked to run exactly there; K6 at
     K=4, B=128 equal to the single K2 fits bit for bit; K7/K8 at B=2 and
     B=128 (``bam_smallspace_panel``, checked) and K9/K10 at (1, 16) and
     (512, 1024), flags and counts equal to the plain version's;
     ``GSM(2048, ...).fit`` at B=32 on K1 (finite moments); the large-B
-    small spaces' per-call and device times beside their bounds.
+    small spaces' per-call and device times beside their bounds (the grid
+    one at B=256 and 512, checked to run as its one kernel).
 18. examples: the reference examples' configurations with the fitters'
     defaults, ``GSM(10)`` at B=2 (K1 exactly niter + 1 times),
     ``BaM(5, use_lowrank=True)`` at B=2 and ``GSM(16)`` at B=1, under
@@ -140,8 +142,8 @@ the script exits non-zero):
     (``tools/jax_example_bound.py``); ``FactorGSM(fused_score)`` at B=128
     to convergence on the row-panel small space, bounded the same way;
     a ``FactorBaM(fused_score)`` run at B=128 on BaM's row-panel small
-    space; a short ``FactorGSM(fused_score)`` run at B=256 on the
-    global-memory small space.
+    space; a short ``FactorGSM(fused_score)`` run at B=256 on the grid
+    small space.
 19. zoo kernels: ``funnel_score``, ``banana_score``, ``student_t_score``
     (K11a), ``mixture_score`` and ``logreg_score`` (K11b) against their
     plain versions at (32, 256), (3, 10) and (512, 1024); the mixture also
@@ -325,7 +327,7 @@ SOURCES = {
         "gsmvi_tpu_torch/ops/cuda/csrc/eps_chol.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:586"),
     "eps_smallspace_large": (
-        "gsmvi_tpu_torch/ops/cuda/csrc/smallspace_global.cu",
+        "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_grid.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:461"),
     "eps_smallspace_panel": (
         "gsmvi_tpu_torch/ops/cuda/csrc/eps_smallspace_panel.cu",
@@ -2413,7 +2415,8 @@ def phase_eps_step_times(fs, t, torch):
 RANGE_SMALL = ((1, 1), (2, 10), (3, 5), (7, 16))
 RANGE_LARGE = ((65, 1), (65, 33), (65, 256), (96, 1), (96, 33), (96, 256),
                (127, 1), (127, 33), (127, 256),
-               (128, 256), (512, 256), (128, 1024), (512, 1024))
+               (128, 256), (129, 33), (200, 1), (256, 256), (512, 256),
+               (128, 1024), (512, 1024))
 RANGE_COND = 10.0
 RANGE_BAM = ((2, 256), (128, 256))
 RANGE_ADVI = ((1, 16), (512, 1024))
@@ -2434,7 +2437,7 @@ EXAMPLES = {
 B128, N_B128 = 128, 3000
 B128_MEAN_REF, B128_COV_REF = 9.0187e-4, 2.3533e-4
 N_BAM128 = 200
-# A short fit above the panel range, on the global-memory small space.
+# A short fit above the panel range, on the grid small space.
 B256, N_B256 = 256, 64
 # K6 at K replicas and B=128 against the single K2 fits (phase 17).
 K6_B128 = (4, 64, 16)                # (K, D, niter)
@@ -2481,11 +2484,12 @@ def _k1_inputs(np, torch, b, d, seed):
 def phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
                  ill_conditioned_gaussian, torch, np):
     """Phase 17: K1/K2 against their plain versions over RANGE_SMALL and
-    RANGE_LARGE (B 65-128 on the row-panel small space, above on the
-    global-memory one), K6 replicas at B=128, K7/K8 at RANGE_BAM, K9/K10 at
+    RANGE_LARGE (B 65-128 on the row-panel small space, above on the grid
+    one), K6 replicas at B=128, K7/K8 at RANGE_BAM, K9/K10 at
     RANGE_ADVI; GSM.fit at D=2048 on K1; and the large-B small spaces'
     per-call and device times beside their bounds.  Returns (worst errors,
-    the D=2048 path's counts, times, work, device times)."""
+    the D=2048 path's counts, times, work, device times, the grid small
+    space's B=256 and B=512 numbers for the kernels line)."""
     dev = torch.device("cuda")
     spc = 8
     worst = {"gsm_eps_update_fused": 0.0, "make_fused_eps_multistep": 0.0,
@@ -2599,10 +2603,11 @@ def phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
           "GSM at D=2048: moments not finite")
 
     # Per-call times of the large-B small spaces (K1 and K7 calls on the
-    # row-panel route at B=128, on the global-memory one at B=512) beside
-    # the plain versions and the bounds; the small spaces' device times.
-    times, work, out, device = {}, {}, {}, {}
-    for b, d in ((B128, D), (512, D), (512, 1024)):
+    # row-panel route at B=128, on the grid one at B=256 and 512) beside the
+    # plain versions and the bounds; the small spaces' device times, each
+    # checked to be its own kernel (the grid one: no GEMM template).
+    times, work, out, device, grid = {}, {}, {}, {}, {}
+    for b, d in ((B128, D), (256, D), (512, D), (512, 1024)):
         e, v, mu, f = _k1_inputs(np, torch, b, d, 6000 + b + d)
         ef = e @ f.T
         reps = 20 if b == B128 else 5
@@ -2631,20 +2636,29 @@ def phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
         if d == D:
             key = ("eps_smallspace_panel" if b == B128
                    else "eps_smallspace_large")
-            times[key] = (tk, tp)
-            work[key] = (
-                lambda e=e, v=v, mu=mu, f=f, ef=ef:
-                fs.gsm_eps_update_ns_reference(e, v, mu, f, ef_t=ef),
-                (e, v, mu, f, ef))
+            if b != 256:
+                times[key] = (tk, tp)
+                work[key] = (
+                    lambda e=e, v=v, mu=mu, f=f, ef=ef:
+                    fs.gsm_eps_update_ns_reference(e, v, mu, f, ef_t=ef),
+                    (e, v, mu, f, ef))
             vf = v @ f
             rows = (e, v, vf, vf @ f.T, ef, mu)
             ms, names = device_ms(lambda: fs.eps_smallspace(*rows),
-                                  calls=20 if b == B128 else 5, warmup=2)
-            device[key] = ms
+                                  calls=20 if b == B128 else 10, warmup=2)
+            if b != 256:
+                device[key] = ms
             out[f"small_space_B{b}_D{d}_device_ms"] = ms
-            want = "eps_panel_kernel" if b == B128 else "gemm_kernel"
-            check(any(want in n for n in names),
+            want = "eps_panel_kernel" if b == B128 else "eps_grid_kernel"
+            check(any(want in n for n in names)
+                  and not any("gemm_kernel" in n or "gl_" in n for n in names),
                   f"the small space at B={b} ran {names}")
+            if b > B128:
+                grid[f"b{b}"] = {"ms": tk, "plain_ms": tp,
+                                 "bound_ms": bd["bound_ms"],
+                                 "bound_by": bd["bound_by"],
+                                 "small_space_device_ms": ms,
+                                 "tile": fs.grid_tile(b)}
     cases = bam_k7_cases(np, ((B128, D),))
     _, b, d, arrays, reg, gates, _ = cases[0]
     e, v, mu, f = (torch.from_numpy(x).to(dev) for x in arrays)
@@ -2666,7 +2680,8 @@ def phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
     device["bam_smallspace_panel"] = ms
     out[f"bam_small_space_B{b}_D{d}_device_ms"] = ms
     emit({"phase": "range_times", "ms_per_call": out})
-    return worst, [wide_counts], times, work, device
+    return (worst, [wide_counts], times, work, device,
+            {"eps_smallspace_large": grid})
 
 
 def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
@@ -2675,7 +2690,7 @@ def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
     the fitters' defaults (K1 / K7 at B=1-2), then FactorGSM(fused_score)
     at B=128 to convergence on the row-panel small space, a
     FactorBaM(fused_score) run at B=128 on BaM's and a short
-    FactorGSM(fused_score) run at B=256 on the global-memory small space.
+    FactorGSM(fused_score) run at B=256 on the grid small space.
     Returns each path's counts."""
     dev = torch.device("cuda")
     counts = []
@@ -2766,7 +2781,7 @@ def phase_examples(GSM, BaM, FactorGSM, FactorBaM, Regularizers,
           "iters_per_s": (N_B256 + 1) / wall})
     check(c["eps_smallspace_large"] == N_B256 + 1
           and c["eps_smallspace_panel"] == 0,
-          "B=256: K2 on the global-memory small space every step")
+          "B=256: K2 on the grid small space every step")
     check(bool(torch.isfinite(st.mean).all() and torch.isfinite(st.cov).all()),
           "FactorGSM at B=256: moments not finite")
     return counts
@@ -3171,9 +3186,9 @@ def main() -> int:
     audit_counts = phase_audit_paths(FactorGSM, FactorBaM, Regularizers, fs,
                                      t, st, st6, torch)
 
-    range_worst, wide_counts, range_times, range_work, range_device = \
-        phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
-                     ill_conditioned_gaussian, torch, np)
+    (range_worst, wide_counts, range_times, range_work, range_device,
+     range_extra) = phase_ranges(GSM, FactorGSM, fs, bf, af, dense_gaussian,
+                                 ill_conditioned_gaussian, torch, np)
     for key, err in range_worst.items():
         worst[key] = max(worst.get(key, 0.0), err)
     example_counts = phase_examples(GSM, BaM, FactorGSM, FactorBaM,
@@ -3205,7 +3220,7 @@ def main() -> int:
         device.update(more[2] if len(more) > 2 else {})
     library.update(zoo_library)
     library_device.update(zoo_library_device)
-    for name, more in zoo_extra.items():
+    for name, more in (*zoo_extra.items(), *range_extra.items()):
         extra[name] = {**extra.get(name, {}), **more}
     bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
     emit({"phase": "bounds", **bounds})

@@ -55,7 +55,7 @@ SIGNATURES = {
     "gsmvi_advi_sweep": [_P] * 4 + [_I, _P],
     "gsmvi_advi_stl_grad": [_P] * 6 + [_I, _I, _P],
     "gsmvi_advi_stl_apply": [_P] * 13 + [_I] * 3 + [_F] * 5 + [_P],
-    "gsmvi_eps_smallspace_large": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
+    "gsmvi_eps_smallspace_large": [_P] * 16 + [_I] * 3 + [_F, _I, _L, _I, _I, _P],
     "gsmvi_eps_smallspace_panel": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
     "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F, _P],
@@ -68,6 +68,8 @@ SIGNATURES = {
 # C entry points returning a size (long long): argument types.
 SIZES = {
     "gsmvi_eps_large_ws": [_I],
+    "gsmvi_eps_large_sync": [_I],
+    "gsmvi_eps_grid_blocks": [_I],
     "gsmvi_eps_panel_ws": [_I],
     "gsmvi_bam_panel_ws": [_I],
     "gsmvi_eps_panel_clusters": [_I],

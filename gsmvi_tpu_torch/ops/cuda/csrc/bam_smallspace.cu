@@ -4,7 +4,7 @@
 // `_bam_smallspace_ns` (:323-326) and the select and exports of
 // `_update_kernel` (:361-374) and of the multistep body (:463-491).  The
 // small space before them is bam_smallspace_cluster.cu (B <= 56) or
-// smallspace_global.cu's `gsmvi_bam_smallspace_large` (B 57-128); the
+// bam_smallspace_panel.cu (B 57-128); the
 // O(B D^2) products around it run on the split-k thin product
 // (thin_gemm.cu), the fat apply on the GEMM template (gemm.cu:
 // `gsmvi_bam_apply`).
@@ -27,7 +27,7 @@ constexpr int SEL_THREADS = 256;
 constexpr int REP_KEEP = 0, REP_STIFF = 1, REP_GU = 2, REP_LMAX = 3, REP_NDONE = 4,
               REP_NACC = 5, REP_STOPPED = 6, REP_APPLY = 7;
 // Small-space results handed to the finalize (BC_SS_* of
-// bam_smallspace_cluster.cuh, the global-memory small space's alike).
+// bam_smallspace_cluster.cuh, the row-panel small space's alike).
 constexpr int SS_GU = 0, SS_LMAX = 1, SS_RESOK = 2, SS_STIFF = 3, SS_TRA = 4, SS_TRB = 5;
 
 struct FinArgs {

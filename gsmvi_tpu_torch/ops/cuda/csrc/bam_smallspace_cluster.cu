@@ -10,7 +10,7 @@ extern "C" int gsmvi_bam_cluster_t4(const void* args, int ranks, void* stream);
 
 GSMVI_BAM_CLUSTER_ENTRY(gsmvi_bam_cluster_t3, 3)
 
-// The arguments of the global-memory BaM small space (smallspace_global.cu)
+// The arguments of the row-panel BaM small space (bam_smallspace_panel.cu)
 // without its workspace, plus the cluster's shape: `ranks` blocks, `cols`
 // columns each ((ranks - 1) cols < d <= ranks cols, so no block is empty),
 // and the chain tile (kpad = b + 8 <= 16 tile).

@@ -8,15 +8,15 @@
 // (tol 3e-3) and the mean half of the select: the body of K1
 // `gsm_eps_update_fused` (:461) and, through the same launch, of K2 (:685),
 // K4 (:586) and K6 (batch_fused.py:54) at these batches.  It computes what
-// smallspace_global.cu's chain of ~146 launches computes (which stays for
-// B 129-512), step for step: the same chains, symmetrisations, norm seeds,
-// residuals and stacked rows.
+// the grid small space of B 129-512 computes (eps_smallspace_grid.cuh),
+// step for step: the same chains, symmetrisations, norm seeds, residuals
+// and stacked rows.
 //
 // What bounds it on an H100: 99 dependent (B, B) products at the long NS
 // profile (8, 6, 9, 10, 6), 2 B^3 FLOP each, 0.42 GFLOP at B=128 (6 us at 67
 // TFLOP/s over the whole card): the dependency chain and the cluster's
-// barriers, not FLOPs or bytes.  The global-memory chain spent ~8 us per
-// product, each a launch of 16 tiles on 16 SMs.
+// barriers, not FLOPs or bytes.  The chain of grid launches it replaced
+// spent ~8 us per product, each a launch of 16 tiles on 16 SMs.
 // Design: one cluster of P = PN_RANKS = 16 blocks per replica (blockIdx.y =
 // replica; P is fixed, so replica z of a K-replica launch equals a launch
 // on replica z, bit for bit), block r owning ceil(B/P) <= 8 rows of every

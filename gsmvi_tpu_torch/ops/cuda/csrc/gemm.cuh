@@ -47,8 +47,7 @@ constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
 enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
-                EPI_ADD_SUMSQ = 3,
-                EPI_SCALE = 9, EPI_AFFINE_EYE = 10, EPI_SUB_SCALE = 11 };
+                EPI_ADD_SUMSQ = 3 };
 
 // C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
 // A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k].
@@ -59,9 +58,6 @@ enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
 //   EPI_SELECT_ADD:        c = c_in + acc if *good != 0 else c_in (c may be c_in)
 //   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
-//   EPI_SCALE:             c = acc * alpha
-//   EPI_AFFINE_EYE:        c = alpha * ((row == col ? beta : 0) - acc)
-//   EPI_SUB_SCALE:         c = (c_in - acc) * alpha (c may be c_in)
 // With a non-null halt, the launch does nothing while *halt != 0.
 // batch replicas (0 means 1) start sa, sb, sc, svec and sgood elements apart
 // in a, b, (c, c2, c_in), epi_vec and good; halt and partial are
@@ -79,7 +75,6 @@ struct GemmArgs {
     float* partial;
     int batch;
     long long sa, sb, sc, svec, sgood;
-    float alpha, beta;
 };
 
 template <bool TA, bool TB, int EPI>
@@ -181,12 +176,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         } else if (EPI == EPI_STORE_AND_ADD_VEC) {
             pc[o] = acc[r];
             c2[o] = epi_vec[gn] + acc[r];
-        } else if (EPI == EPI_SCALE) {
-            pc[o] = acc[r] * p.alpha;
-        } else if (EPI == EPI_AFFINE_EYE) {
-            pc[o] = p.alpha * ((gm == gn ? p.beta : 0.f) - acc[r]);
-        } else if (EPI == EPI_SUB_SCALE) {
-            pc[o] = (c_in[o] - acc[r]) * p.alpha;
         } else {
             const float base = c_in[o];
             pc[o] = (*good != 0) ? base + acc[r] : base;

@@ -2,9 +2,9 @@
 // (every kernel), symmetrisation in shared memory and the slab-staged
 // product of an (n, n) shared matrix with (m, D) global row tensors
 // (eps_chol.cu), and the eps step's row scalars and mean select
-// (eps_chol.cu, smallspace_global.cu).  The chains' products run on
-// smallspace_tiled.cuh's register tiles in the cluster kernels and on the
-// GEMM template in the global-memory ones.  Every function is called by all
+// (eps_chol.cu).  The chains' products run on smallspace_tiled.cuh's
+// register tiles in the cluster kernels, on smallspace_panel.cuh's row
+// panels and in eps_smallspace_grid.cuh's workers.  Every function is called by all
 // threads of the block and ends in a barrier, so a caller may read its
 // result right away.
 #pragma once

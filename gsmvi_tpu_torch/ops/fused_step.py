@@ -56,8 +56,10 @@ Above ``SHARED_SMALLSPACE_MAX_B``, up to ``PANEL_SMALLSPACE_MAX_B``, the
 small space is ``eps_smallspace_panel``, one cluster of ``PANEL_RANKS``
 blocks per replica with the (B, B) matrices in row panels over the
 cluster's shared memory (``eps_smallspace_panel.cu``); above that,
-``eps_smallspace_large``, a chain of grid launches with them in global
-memory (``smallspace_global.cu``; ~146 launches at the long NS profile).  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
+``eps_smallspace_large``, one persistent cooperative launch over the card
+with them in device memory (``eps_smallspace_grid.cu``): the schedule of
+``grid_schedule.py``, 71 phases at the long NS profile, a grid barrier
+between two.  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
 one-block row kernel (Z^T and (F Z)^T rows), the Gram Z^T Z on the GEMM
 template, the one-block Cholesky small space (``ops/cuda/csrc/eps_chol.cu``)
 and the fat apply.  A whole step (``_launch_step``) is the ``ef = e F^T`` /
@@ -78,6 +80,7 @@ import time
 import torch
 
 from ..config import resolve_device
+from . import grid_schedule
 
 # Newton-Schulz sweep counts (sqrt1, inv1, inv2, sqrt2, inv3) of the small
 # space.  The short profile is the JAX package's validated frontier for
@@ -104,10 +107,10 @@ _M32 = 0xFFFFFFFF
 # SHARED_SMALLSPACE_MAX_B (``eps_smallspace_cluster.cu``); one cluster of
 # PANEL_RANKS blocks per replica, block r holding rows [r R, (r+1) R) of every
 # (B, B) matrix (R = ceil(B / PANEL_RANKS) <= 8), up to
-# PANEL_SMALLSPACE_MAX_B (``eps_smallspace_panel.cu``); and above, a chain of
-# grid launches with them in global memory (``smallspace_global.cu``) up to
-# 512, the JAX package's largest fused batch (its B sweep's top,
-# ``bench.py:551-590``).  The
+# PANEL_SMALLSPACE_MAX_B (``eps_smallspace_panel.cu``); and above, one
+# cooperative launch over the card with them in device memory
+# (``eps_smallspace_grid.cu``) up to 512, the JAX package's largest fused
+# batch (its B sweep's top, ``bench.py:551-590``).  The
 # Cholesky variant (K4a) keeps three (2B, 2B) matrices in one block's shared
 # memory (192 KiB at B=64), so it stops at 64.  D is masked at the tile
 # edges and needs no alignment; its ceiling is K5's (``ops/gsm_step.py``).
@@ -115,6 +118,9 @@ KERNEL_BATCH_RANGE = (1, 512)
 KERNEL_DIM_RANGE = (1, 8192)
 SHARED_SMALLSPACE_MAX_B = 64
 PANEL_SMALLSPACE_MAX_B = 128
+# The grid small space's 16 x 16 tiles up to this batch, 32 x 32 above
+# (``grid_tile``).
+GRID_TILE16_MAX_B = 256
 # The panel small spaces' cluster: 16 blocks (PN_RANKS in
 # ``smallspace_panel.cuh``, fixed at compile time), a non-portable size (at
 # 8, the portable one, both small spaces took a fifth to a third longer on
@@ -692,11 +698,15 @@ class _UpdateBuffers:
         self.su, self.sw = empty(2 * b, d), empty(2 * b, d)
         if method == "ns":
             self.c, self.xim = empty(b, d), empty(b, d)
-            # The panel small space's mirrors of its panels, or the
-            # global-memory small space's (B, B) matrices and scalars.
+            # The panel small space's mirrors of its panels, or the grid
+            # small space's (B, B) matrices and scalars and its sync words
+            # (0 before its first launch, and after every launch).
             ws = (None if b <= SHARED_SMALLSPACE_MAX_B else "gsmvi_eps_panel_ws"
                   if b <= PANEL_SMALLSPACE_MAX_B else "gsmvi_eps_large_ws")
             self.ws = None if ws is None else empty(_library().size(ws, b))
+            self.sync = None if b <= PANEL_SMALLSPACE_MAX_B else torch.zeros(
+                (*lead, _library().size("gsmvi_eps_large_sync", b)),
+                dtype=torch.int32, device=device)
         else:
             self.zt, self.g = empty(2 * b, d), empty(2 * b, 2 * b)
             self.rs = empty(2 * b)
@@ -711,8 +721,8 @@ def _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out,
     ``buf.su``/``buf.sw``.  By batch alone: up to ``SHARED_SMALLSPACE_MAX_B``
     on a cluster per replica (counted in ``eps_smallspace.launches``), up to
     ``PANEL_SMALLSPACE_MAX_B`` on row panels over a cluster per replica
-    (``eps_smallspace_panel``), above on the global-memory chain
-    (``eps_smallspace_large``)."""
+    (``eps_smallspace_panel``), above in one cooperative launch over the
+    card (``eps_smallspace_large``)."""
     k, e_stride = _replicas(eps)
     b, d = eps.shape[-2:]
     args = (_ptr(eps), _ptr(vs), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
@@ -726,7 +736,7 @@ def _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out,
         eps_smallspace_panel(lib, stream, args, buf.ws, b, d, iters, k,
                              e_stride)
     else:
-        eps_smallspace_large(lib, stream, args, buf.ws, b, d, iters, k,
+        eps_smallspace_large(lib, stream, args, buf, b, d, iters, k,
                              e_stride)
 
 
@@ -785,23 +795,86 @@ def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
                             f_out, buf, jitter, nacc=nacc)
 
 
-def eps_smallspace_large(lib, stream, args, ws, b: int, d: int, iters, k: int,
-                         e_stride: int) -> None:
-    """Launch the global-memory NS small space (``smallspace_global.cu``)
-    that K1, K2, K4 and K6 run above ``PANEL_SMALLSPACE_MAX_B``: ``args``
-    are ``gsmvi_eps_smallspace_cluster``'s pointers, ``ws`` its workspace.  Its
-    ``launches`` counts the updates that took it, beside the wrappers'
+def grid_tile(b: int) -> int:
+    """The output tile side of the grid small space at batch ``b``: 32
+    (4 x 4 outputs a thread) where a product has enough 32 x 32 tiles to
+    spread over the card, else 16.  A function of B alone, like every sum
+    order of the kernel."""
+    return 32 if b > GRID_TILE16_MAX_B else 16
+
+
+def grid_blocks(lib, b: int) -> int:
+    """Blocks of the grid small space at batch ``b`` that the card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs), its
+    cooperative launch's grid; read once per batch.  Raises
+    ``RuntimeError``, naming the shape, when it is 0 or the query fails,
+    and when the first read is inside a CUDA graph capture (the query sets
+    the kernel's shared-memory attribute, which a capture does not allow)."""
+    key = ("grid", b)
+    if key not in _PLACEMENT:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the grid small space at B={b}: its first launch (the "
+                "occupancy query) is inside a CUDA graph capture")
+        n = lib.size("gsmvi_eps_grid_blocks", grid_tile(b))
+        if n <= 0:
+            why = (f"CUDA error {-n}" if n < 0 else
+                   "cudaOccupancyMaxActiveBlocksPerMultiprocessor reads 0")
+            raise RuntimeError(
+                f"the grid small space at B={b} (tile {grid_tile(b)}) "
+                f"cannot be placed on this card ({why})")
+        _PLACEMENT[key] = n
+    return _PLACEMENT[key]
+
+
+def grid_table(b: int, iters, device) -> tuple:
+    """(the schedule table on ``device``, its phases) of the grid small
+    space at batch ``b`` and NS profile ``iters`` (``grid_schedule``),
+    made at first use and held; raises inside a CUDA graph capture, which
+    cannot take the table's copy to the card."""
+    key = (str(device), b, tuple(iters))
+    if key not in _GRID_TABLES:
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"the grid small space at B={b}: its first launch (the "
+                "schedule's copy to the card) is inside a CUDA graph capture")
+        phases = grid_schedule.grid_schedule(b, iters)
+        table = torch.tensor(grid_schedule.encode(phases), dtype=torch.int32)
+        _GRID_TABLES[key] = (table.to(device), len(phases))
+    return _GRID_TABLES[key]
+
+
+def eps_smallspace_large(lib, stream, args, buf, b: int, d: int, iters,
+                         k: int, e_stride: int) -> None:
+    """Launch the grid NS small space (``eps_smallspace_grid.cu``) that K1,
+    K2, K4 and K6 run above ``PANEL_SMALLSPACE_MAX_B``: one cooperative
+    launch of ``grid_blocks(b)`` persistent blocks per update (of all K
+    replicas), which runs the schedule ``grid_table(b, iters)``; ``args``
+    are ``gsmvi_eps_smallspace_cluster``'s pointers, ``buf`` holds its
+    workspace and sync words.  A refused launch raises, naming the shape.
+    Its ``launches`` counts the updates that took it, beside the wrappers'
     counts, so a run shows which small space ran."""
+    blocks = grid_blocks(lib, b)
+    table, nphases = grid_table(b, iters, buf.ws.device)
     eps_smallspace_large.launches += 1
-    lib.call("gsmvi_eps_smallspace_large", *args, _ptr(ws), b, d, *iters,
-             NS_TOL, k, e_stride, stream)
+    try:
+        lib.call("gsmvi_eps_smallspace_large", *args, _ptr(buf.ws),
+                 _ptr(buf.sync), _ptr(table), nphases, b, d, NS_TOL, k,
+                 e_stride, grid_tile(b), blocks, stream)
+    except RuntimeError as err:
+        raise RuntimeError(
+            f"the grid small space at B={b}, D={d}, K={k} ({blocks} blocks "
+            f"of tile {grid_tile(b)}): {err}") from err
 
 
 eps_smallspace_large.launches = 0
 
 # Clusters of each panel small space the card holds at once, per (kind, B)
-# (the shared bytes are a function of these), read at first use.
+# (the shared bytes are a function of these), and the grid small space's
+# blocks per B, read at first use; the grid small space's schedule tables.
 _PLACEMENT = {}
+_GRID_TABLES = {}
 
 
 def panel_clusters(lib, kind: str, b: int) -> int:
@@ -1317,8 +1390,8 @@ def eps_smallspace(e, v, vf, t, ef, mean, iters=None):
     select, the fat apply's (2B, D) operands and the gates' verdict.  On the
     card the cluster kernel (``eps_smallspace_cluster.cu``) for B <=
     ``SHARED_SMALLSPACE_MAX_B``, the row-panel cluster kernel up to
-    ``PANEL_SMALLSPACE_MAX_B``, the global-memory chain above; on the CPU
-    ``eps_smallspace_stacks_reference``."""
+    ``PANEL_SMALLSPACE_MAX_B``, the grid kernel above (one cooperative
+    launch); on the CPU ``eps_smallspace_stacks_reference``."""
     b, d = e.shape[-2:]
     lead = tuple(e.shape[:-2])
     iters = ns_iters_for_batch(b, iters)

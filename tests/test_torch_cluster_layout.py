@@ -153,7 +153,7 @@ def test_k1_launch_shapes_do_not_depend_on_replicas(card, b, d):
 def test_k1_above_the_shared_batch_takes_the_global_small_space(card, b):
     """The small space by batch alone: the cluster kernel up to
     SHARED_SMALLSPACE_MAX_B, the row-panel kernel up to
-    PANEL_SMALLSPACE_MAX_B, the global-memory chain above; one launch of
+    PANEL_SMALLSPACE_MAX_B, the grid kernel (one cooperative launch) above; one launch of
     exactly one of them per update."""
     fs.gsm_eps_update_fused(_rows(b, 64), _rows(b, 64), _rows(64),
                             _rows(64, 64))

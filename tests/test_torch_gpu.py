@@ -948,12 +948,13 @@ def test_audited_fits_equal_unaudited(cuda):
 
 # ---------------------------------------------------------------------------
 # The kernels' shape ranges: B from 1 (the reference examples) to 512 on the
-# eps kernels (the row-panel small space at B 65-128, the global-memory one
-# above) and 128 on BaM (the row-panel small space above B=56).
+# eps kernels (the row-panel small space at B 65-128, the grid one above)
+# and 128 on BaM (the row-panel small space above B=56).
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,d", [(1, 1), (2, 10), (3, 5), (7, 16),
-                                 (65, 64), (128, 256), (512, 256)])
+                                 (65, 64), (128, 256), (129, 33), (200, 1),
+                                 (256, 256), (512, 256), (512, 1024)])
 def test_update_and_multistep_kernels_match_plain_over_the_range(cuda, b, d):
     from gsmvi_tpu_torch.models import ill_conditioned_gaussian
 
@@ -1917,3 +1918,151 @@ def test_panel_launch_raises_when_no_cluster_fits(cuda, kind, monkeypatch):
             bf.bam_eps_update_fused(*_bam_inputs(cuda, b, d, v_scale=0.05),
                                     0.5)
     assert fs.launch_counts()[f"{kind}_smallspace_panel"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The grid small space of B 129-512 (eps_smallspace_grid.cu): one
+# cooperative launch per update.
+# ---------------------------------------------------------------------------
+
+GRID_B = [129, 200, 256, 512]
+GRID_D = [1, 33, 256, 1024]
+
+
+@pytest.mark.parametrize("d", GRID_D)
+@pytest.mark.parametrize("b", GRID_B)
+def test_grid_smallspace_matches_plain(cuda, b, d):
+    """K1 on the grid small space against its plain version, one grid
+    launch per update; the small space alone returns the plain version's
+    mean, stacked rows (through F') and gate."""
+    eps, v, mu, f = _inputs(cuda, b, d, seed=b * 3 + d)
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    counts = fs.launch_counts()
+    assert counts["eps_smallspace_large"] == 1
+    assert counts["eps_smallspace"] == counts["eps_smallspace_panel"] == 0
+    m_p, f_p, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
+    assert bool(g_k) == bool(g_p)
+    assert float((m_k - m_p).abs().max()) <= 1e-5
+    assert float((f_k - f_p).abs().max()) <= 1e-5 * float(f.abs().max())
+    vf, ef = v @ f, eps @ f.T
+    t = vf @ f.T
+    ss_k = fs.eps_smallspace(eps, v, vf, t, ef, mu)
+    ss_p = fs.eps_smallspace(*(x.cpu() for x in (eps, v, vf, t, ef, mu)))
+    assert bool(ss_k[3]) == bool(ss_p[3])
+    assert float((ss_k[0].cpu() - ss_p[0]).abs().max()) <= 1e-5
+    fk = f.cpu() + ss_k[1].cpu().T @ ss_k[2].cpu()
+    fp = f.cpu() + ss_p[1].T @ ss_p[2]
+    assert float((fk - fp).abs().max()) <= 1e-5 * float(f.abs().max())
+
+
+@pytest.mark.parametrize("b", [200, 512])
+def test_grid_smallspace_rejects_and_keeps_state(cuda, b):
+    eps, v, mu, f = _inputs(cuda, b, 64, decades=3.0)
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    _, _, g_p = fs.gsm_eps_update_ns_reference(eps, v, mu, f)
+    assert not bool(g_k) and not bool(g_p)
+    assert torch.equal(m_k, mu) and torch.equal(f_k, f)
+
+
+@pytest.mark.parametrize("b", [129, 256, 512])
+def test_grid_smallspace_gives_the_same_bits_twice(cuda, b):
+    eps, v, mu, f = _inputs(cuda, b, 256, seed=b)
+    one = fs.gsm_eps_update_fused(eps, v, mu, f)
+    two = fs.gsm_eps_update_fused(eps, v, mu, f)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def test_grid_k6_replicas_equal_single_calls_at_b256(cuda):
+    """Batched K1 at B=256, K=3 equals its single calls bit for bit, and
+    fit_batch "fused" (K6) at B=256 equals the single K2 fits."""
+    ins = [_inputs(cuda, 256, 128, seed=40 + i) for i in range(3)]
+    eps, v, mu, f = (torch.stack(z) for z in zip(*ins))
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f)
+    assert fs.launch_counts()["eps_smallspace_large"] == 1
+    for i in range(3):
+        m_i, f_i, g_i = fs.gsm_eps_update_fused(*ins[i])
+        assert torch.equal(m_k[i], m_i) and torch.equal(f_k[i], f_i)
+        assert bool(g_i) == bool(g_k[i])
+    d, b, niter = 64, 256, 20
+    t = dense_gaussian(3, d, scale=0.5, device=cuda)
+    g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                  steps_per_call=8, device="cuda")
+    st = g.fit_batch(range(3), batch_size=b, niter=niter, return_state=True,
+                     small_solver="fused")
+    for i in range(3):
+        si = g.fit(i, batch_size=b, niter=niter, verbose=False,
+                   return_state=True)
+        assert torch.equal(st.mean[i], si.mean)
+        assert torch.equal(st.factor[i], si.factor)
+
+
+def test_grid_k2_graph_block_equals_eager_block_at_b256(cuda):
+    """A K2 block at B=256 replays its captured cooperative launches with
+    the eager block's bits, replay after replay, the sync words back to 0."""
+    d, b, spc = 256, 256, 8
+    t = dense_gaussian(0, d, device=cuda)
+    score_fn, params = t.fused_score
+    step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    block = torch.randn((spc * b, d), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5))
+    m0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    eager = step(spc, block, m0, f0, *params, graph=False)
+    for _ in range(3):
+        got = step(spc, block, m0, f0, *params)
+        assert all(torch.equal(x, y) for x, y in zip(got, eager))
+    assert len(step.captures) == 1 and int(eager[2]) == spc
+    (bufs,) = step._bufs.values()
+    assert int(bufs.buf.sync.abs().sum()) == 0
+
+
+def test_grid_smallspace_is_one_kernel_a_call(cuda):
+    """Under the profiler the small space at B=512 is one device kernel a
+    call, and no GEMM-template or elementwise chain kernel runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, d = 512, 256
+    eps, v, mu, f = _inputs(cuda, b, d, seed=11)
+    vf, ef = v @ f, eps @ f.T
+    rows = (eps, v, vf, vf @ f.T, ef, mu)
+    fs.eps_smallspace(*rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fs.eps_smallspace(*rows)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    grid = [n for n in names if "eps_grid_kernel" in n]
+    assert 1 <= len(grid) <= 4
+    assert not any("gemm_kernel" in n or "gl_" in n for n in names)
+
+
+def test_grid_launch_raises_when_refused_or_unplaceable(cuda, monkeypatch):
+    """A cooperative launch of more blocks than the card holds is refused
+    and raises, naming the shape; so does an occupancy reading of 0."""
+    b, d = 256, 64
+    eps, v, mu, f = _inputs(cuda, b, d)
+    fs.gsm_eps_update_fused(eps, v, mu, f)
+    monkeypatch.setitem(fs._PLACEMENT, ("grid", b),
+                        8 * fs._PLACEMENT[("grid", b)])
+    with pytest.raises(RuntimeError, match=r"B=256, D=64, K=1 \("):
+        fs.gsm_eps_update_fused(eps, v, mu, f)
+    torch.cuda.synchronize()
+    real = fs._library()
+
+    class NoRoom:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def size(self, name, *args):
+            return 0 if name == "gsmvi_eps_grid_blocks" else real.size(name,
+                                                                       *args)
+
+    monkeypatch.setattr(fs, "_library", lambda: NoRoom())
+    monkeypatch.setattr(fs, "_PLACEMENT", {})
+    fs.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=r"B=256 \(tile 16\) cannot be "):
+        fs.gsm_eps_update_fused(eps, v, mu, f)
+    assert fs.launch_counts()["eps_smallspace_large"] == 0

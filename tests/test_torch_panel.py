@@ -17,8 +17,8 @@ checked on the CPU.
   stages the whole right operand, its panels in rank order, into one
   matrix, then one fused multiply-add chain per output, k ascending) and of the row-panel Grams
   (one chain per entry over D ascending) against float64 at B = 72 and 128
-  and at kpad = 136: bit for bit the order of the global-memory kernel's
-  32 x 32 GEMM template (k ascending in one chain per output), and within
+  and at kpad = 136: bit for bit the order of the 32 x 32 GEMM template
+  and of the grid small space (k ascending in one chain per output), and within
   1e-6 relative of float64, so the card's tolerances cover the new order.
 - The plain versions (``eps_smallspace``, ``bam_smallspace`` on CPU
   tensors) against the JAX package's ``_eps_smallspace_ns`` and
@@ -257,7 +257,7 @@ def _panel_product(a, b):
 
 
 def _gemm_template(a, b, tile=32):
-    """The global-memory kernel's GEMM template: 32 x 32 output tiles, k in
+    """The GEMM template's order (and the grid small space's): 32 x 32 output tiles, k in
     32-deep slabs, one chain per output across the slabs, k ascending."""
     n = a.shape[0]
     out = np.zeros((n, b.shape[1]), np.float32)

@@ -22,7 +22,7 @@ idle share, launches per step and device time by kernel name):
 - ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
   where K2 runs the row-panel small space (``eps_smallspace_panel``);
 - single K1 calls (``gsm_eps_update_fused``) at B=128 (the row-panel small
-  space) and B=512 (the global-memory one, ``eps_smallspace_large``),
+  space) and B=512 (the grid one, ``eps_smallspace_large``),
   D=256, from (0, I).
 
 ``--only-zoo``: the zoo fits and the scores alone, nothing at B=128 or

@@ -2,7 +2,8 @@
 """Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|k5|zoo] [--shapes 32x256 ...]
+    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|large|k5|zoo]
+                                       [--shapes 32x256 ...] [--tile 16|32]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
 eps_smallspace_cluster*.cu``, ``--kernel eps``), BaM's
@@ -25,8 +26,16 @@ K5 call (both launches).  ``--kernel zoo``: the zoo's product scores
 Student-t at df=6, logreg at N=200): for the Student-t the phases of the
 block of row block 0 that ends last (a last rank-r block, which scales
 its rows) and the launch's span from the first block's start to the last
-block's end; for logreg rank 0's and the last rank's.  The stamps cost a few global stores per phase; the kernel the
-port runs has none.
+block's end; for logreg rank 0's and the last rank's.  ``--kernel large``:
+the grid small space of B 129-512 (``eps_smallspace_grid*.cu``, one
+cooperative launch on the grid of the port's occupancy query, the tile of
+``fs.grid_tile(B)`` unless ``--tile`` names one): for each phase of its
+schedule (``grid_schedule.py``), the ops it runs, its work (block 0's
+start to the last block's end of work), the grid barrier after it (that
+end to the next phase's start) and the longest time a block spent in the
+norm and residual tickets' reductions, and the sums over the phases.  The
+stamps cost a few global stores per phase; the kernel the port runs has
+none.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait
 def build(build_mod, kernel: str) -> Path:
     """The stamped library of ``kernel`` (built once per source hash)."""
     pattern = ("eps_smallspace_panel*.cu" if kernel == "panel"
+               else "eps_smallspace_grid*.cu" if kernel == "large"
                else "gsm_step.cu" if kernel == "k5"
                else "zoo_*.cu" if kernel == "zoo"
                else f"{kernel}_smallspace_cluster*.cu")
@@ -100,9 +110,10 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kernel", choices=("eps", "bam", "panel", "k5", "zoo"),
-                        default="eps")
+    parser.add_argument("--kernel", choices=("eps", "bam", "panel", "large", "k5",
+                                             "zoo"), default="eps")
     parser.add_argument("--shapes", nargs="*", default=None)
+    parser.add_argument("--tile", type=int, choices=(16, 32), default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("smallspace_phases: no CUDA device", file=sys.stderr)
@@ -119,6 +130,9 @@ def main() -> int:
         return k5_phases(lib, _build, card, args.shapes or ["32x256", "512x256"], torch)
     if args.kernel == "zoo":
         return zoo_phases(lib, _build, card, args.shapes or ["32x256", "512x1024"], torch)
+    if args.kernel == "large":
+        return large_phases(lib, _build, card, args.shapes or ["256x256", "512x256"],
+                            args.tile, torch)
     panel = args.kernel == "panel"
     entry = "gsmvi_eps_smallspace_panel" if panel else f"gsmvi_{args.kernel}_smallspace_cluster"
     fn = getattr(lib, entry)
@@ -261,6 +275,78 @@ def zoo_phases(lib, build_mod, card, shapes, torch) -> int:
                 rec.update(N=n, plan=list(plan), us_per_phase={
                     f"rank {r}": phases(rows[r]) for r in sorted({0, plan[0] - 1})})
             print(json.dumps(rec), flush=True)
+    return 0
+
+
+def large_phases(lib, build_mod, card, shapes, tile, torch) -> int:
+    """``--kernel large``: the grid small space at each (B, D), phase by
+    phase."""
+    from gsmvi_tpu_torch.ops import fused_step as fs
+    from gsmvi_tpu_torch.ops import grid_schedule as gs
+
+    fn = lib.gsmvi_eps_smallspace_large
+    fn.argtypes = build_mod.SIGNATURES["gsmvi_eps_smallspace_large"]
+    blocks_of = lib.gsmvi_eps_grid_blocks
+    blocks_of.argtypes, blocks_of.restype = [ctypes.c_int], ctypes.c_longlong
+    dev = torch.device("cuda")
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    maxph, nblk = 256, 1056
+    for shape in shapes:
+        b, d = map(int, shape.split("x"))
+        t_side = tile or fs.grid_tile(b)
+        blocks = int(blocks_of(t_side))
+        if blocks <= 0:
+            raise RuntimeError(f"occupancy query at tile {t_side}: {blocks}")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        e = torch.randn((b, d), generator=gen, device=dev)
+        v = 0.3 * torch.randn((b, d), generator=gen, device=dev)
+        f = torch.eye(d, device=dev) + 0.3 * torch.randn((d, d), generator=gen,
+                                                         device=dev) / d ** 0.5
+        mean = torch.randn(d, generator=gen, device=dev)
+        vf = v @ f
+        buf = fs._UpdateBuffers(b, d, dev)
+        iters = fs.ns_iters_for_batch(b)
+        phases = gs.grid_schedule(b, iters)
+        table = torch.tensor(gs.encode(phases), dtype=torch.int32, device=dev)
+        ptrs = [ptr(x) for x in (e, v, vf, vf @ f.T, e @ f.T, mean, torch.empty_like(mean),
+                                 buf.good, None, buf.su, buf.sw, buf.c, buf.xim, buf.ws,
+                                 buf.sync, table)]
+        call = lambda: fn(*ptrs, len(phases), b, d, fs.NS_TOL, 1, e.numel(), t_side,
+                          blocks, stream)
+        for _ in range(20):
+            if call() != 0:
+                raise RuntimeError("the stamped grid small space failed to launch")
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(200):
+            call()
+        stop.record()
+        torch.cuda.synchronize()
+        st = (ctypes.c_longlong * (maxph + 1))()
+        en = (ctypes.c_longlong * (nblk * maxph))()
+        rd = (ctypes.c_ulonglong * (nblk * maxph))()
+        if getattr(lib, f"gsmvi_eps_grid_phases_t{t_side}")(st, en, rd) != 0:
+            raise RuntimeError("gsmvi_eps_grid_phases failed")
+        nph, nb = len(phases), min(blocks, nblk)
+        rows, tot = [], {"work": 0.0, "barrier": 0.0, "reduction": 0.0}
+        for p, ph in enumerate(phases):
+            last = max(en[g * maxph + p] for g in range(nb))
+            work = (last - st[p]) / 1e3
+            barrier = (st[p + 1] - last) / 1e3 if p + 1 < nph else 0.0
+            red = max(rd[g * maxph + p] for g in range(nb)) / 1e3
+            rows.append({"phase": p, "ops": [label for label, _ in ph], "work_us": work,
+                         "barrier_us": barrier, "reduction_us": red})
+            tot["work"] += work
+            tot["barrier"] += barrier
+            tot["reduction"] += red
+        print(json.dumps({"card": card, "kernel": "large", "B": b, "D": d, "tile": t_side,
+                          "blocks": blocks, "phases": nph, "good": int(buf.good[0]),
+                          "us_per_launch": start.elapsed_time(stop) * 1e3 / 200,
+                          "us_last_launch": (st[nph] - st[0]) / 1e3,
+                          "us_work": tot["work"], "us_barriers": tot["barrier"],
+                          "us_reductions": tot["reduction"], "by_phase": rows}), flush=True)
     return 0
 
 
