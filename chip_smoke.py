@@ -154,7 +154,9 @@ the script exits non-zero):
     alone), beside its library yardsticks (``zoo_yardsticks``: ``addmm``
     for the Student-t's product, ``mm`` for the mixture's first product and
     for each of logreg's two, the second as ``library_second_ms`` and
-    ``library_second_device_ms``).
+    ``library_second_device_ms``), and the launch floor: the device time of
+    a one-element ``fill_``, the smallest kernel PyTorch launches
+    (``launch_floor_device_ms`` in ``zoo_times``).
 20. zoo path: ``FactorGSM(fused_score=t.fused_score)`` on ``funnel(256)``,
     ``banana(256)``, ``student_t(0, 256, df=6)``, ``gaussian_mixture(0,
     256)`` and ``logistic_regression(0, 256)`` at B=32, niter=3000, spc=8
@@ -2920,11 +2922,15 @@ def phase_zoo_kernels(fs, models, torch, np):
                                                      reps=200),
                         "library_second_device_ms": device_ms(
                             sticks["second"])[0]}
-    emit({"phase": "zoo_times", "B": B, "D": D, "ms_per_call": {
-        k: {"kernel": a, "plain": p, "device": device.get(k),
-            "library": library.get(k),
-            "library_device": library_device.get(k), **extra.get(k, {})}
-        for k, (a, p) in times.items()}})
+    one = torch.empty(1, device=dev)
+    emit({"phase": "zoo_times", "B": B, "D": D,
+          "launch_floor_device_ms": device_ms(lambda: one.fill_(1.0))[0],
+          "ms_per_call": {
+              k: {"kernel": a, "plain": p, "device": device.get(k),
+                  "library": library.get(k),
+                  "library_device": library_device.get(k),
+                  **extra.get(k, {})}
+              for k, (a, p) in times.items()}})
     return worst, times, work, library, device, library_device, extra
 
 

@@ -59,10 +59,10 @@ SIGNATURES = {
     "gsmvi_eps_smallspace_panel": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
     "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F, _P],
-    "gsmvi_funnel_score": [_P] * 3 + [_I, _I, _P],
+    "gsmvi_funnel_score": [_P] * 3 + [_I] * 4 + [_P],
     "gsmvi_banana_score": [_P] * 3 + [_I, _I, _P],
     "gsmvi_student_t_score": [_P] * 7 + [_I] * 4 + [_P],
-    "gsmvi_mixture_score": [_P] * 4 + [_I] * 3 + [_P],
+    "gsmvi_mixture_score": [_P] * 4 + [_I] * 5 + [_P],
     "gsmvi_logreg_score": [_P] * 6 + [_I] * 5 + [_P],
 }
 # C entry points returning a size (long long): argument types.

@@ -17,30 +17,59 @@
 //
 // What bounds it on an H100: funnel and banana read x and write v once,
 // O(B D) bytes (256 KiB at B=32, D=1024: 0.08 us at 3.35 TB/s), so launch
-// latency bounds them; design: funnel one warp per row (the sum of rest^2 is
-// a shuffle reduction in a fixed order, then the row is written), banana one
-// thread per element (it reads its row's x0 and x1).
-#include <cuda_runtime.h>
+// latency bounds them.  Banana: one thread per element (it reads its row's
+// x0 and x1).  Funnel: before, one warp per row (4 blocks on 4 SMs at
+// B=32), each walking its row twice (the sum of rest^2, then the write):
+// 2.4 us on the device.  Now a row is spread over S = thin_split(D) warps
+// of one block, warp r over the columns [r k_per, (r+1) k_per) of the thin
+// product's partition, floor(8 / S) rows a block (one row a block at
+// D >= 225: 32 blocks at B=32).  Each warp reads its columns of x once,
+// writes -x e^{-x0} from registers and sums its part of rest^2 (a lane's
+// fmaf chain over its columns, then a butterfly in a fixed order); after a
+// block barrier the row's first warp adds the S parts in warp order and
+// writes g0.  No scratch and no atomics; a row's score depends on D alone.
+#include "thin_gemm.cuh"
 
 namespace {
 
-constexpr int ZOO_THREADS = 256;      // 8 warps: 8 rows per block
+constexpr int ZOO_THREADS = 256;      // 8 warps
+constexpr int ZOO_WARPS = ZOO_THREADS / 32;
 
 __global__ void __launch_bounds__(ZOO_THREADS) funnel_score_kernel(
-        const float* x, const float* sd, float* v, int m, int d) {
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * (ZOO_THREADS / 32) + (threadIdx.x >> 5);
-    if (row >= m) return;
-    const float* xr = x + (size_t)row * d;
-    float* vr = v + (size_t)row * d;
-    float rest2 = 0.f;
-    for (int col = 1 + lane; col < d; col += 32) rest2 += xr[col] * xr[col];
-    for (int o = 16; o > 0; o >>= 1) rest2 += __shfl_xor_sync(0xffffffffu, rest2, o);
-    const float sigma = sd[0], dd = sd[1];
-    const float x0 = xr[0];
+        const float* x, const float* sd, float* v, int m, int d, int split, int k_per) {
+    __shared__ float part[ZOO_WARPS];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rows = ZOO_WARPS / split;   // rows a block
+    const int g = warp / split, rank = warp - g * split;
+    const long long row = (long long)blockIdx.x * rows + g;
+    const bool live = g < rows && row < m;
+    const float* xr = x + row * d;
+    // x0 and [sigma, D] are read first, so that no load waits behind the
+    // block barrier.
+    const float x0 = live ? xr[0] : 0.f, sigma = sd[0], dd = sd[1];
     const float e = expf(-x0);
-    for (int col = 1 + lane; col < d; col += 32) vr[col] = -xr[col] * e;
-    if (lane == 0) vr[0] = -x0 / (sigma * sigma) + 0.5f * e * rest2 - 0.5f * (dd - 1.f);
+    if (live) {
+        float* vr = v + row * d;
+        const int c1 = min(d, (rank + 1) * k_per);
+        float s = 0.f;
+        for (int c = rank * k_per + lane; c < c1; c += 32) {
+            const float xc = xr[c];
+            if (c == 0) continue;   // g0 is the row's first warp's, below
+            s = fmaf(xc, xc, s);
+            vr[c] = -xc * e;
+        }
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) part[warp] = s;
+    }
+    __syncthreads();
+    if (live && rank == 0 && lane == 0) {
+        float rest2 = 0.f;
+        for (int r = 0; r < split; ++r) rest2 += part[warp + r];
+        // -x0/sigma^2 + (e/2) rest2 - (D-1)/2, each product rounded on its
+        // own as in the plain version (no contraction into a fma).
+        const float g0 = __fadd_rn(-x0 / (sigma * sigma), __fmul_rn(__fmul_rn(0.5f, e), rest2));
+        v[row * d] = g0 - __fmul_rn(0.5f, dd - 1.f);
+    }
 }
 
 __global__ void __launch_bounds__(ZOO_THREADS) banana_score_kernel(
@@ -62,17 +91,18 @@ __global__ void __launch_bounds__(ZOO_THREADS) banana_score_kernel(
     }
 }
 
-inline unsigned row_blocks(int m) { return (unsigned)((m + ZOO_THREADS / 32 - 1) / (ZOO_THREADS / 32)); }
-
 }  // namespace
 
 extern "C" {
 
-// Funnel score of the (M, D) rows x into v; sd = [sigma, D] (1, 2).
-int gsmvi_funnel_score(const float* x, const float* sd, float* v, int m, int d, void* stream) {
-    if (m < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    funnel_score_kernel<<<row_blocks(m), ZOO_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, sd, v, m, d);
+// Funnel score of the (M, D) rows x into v; sd = [sigma, D] (1, 2).  A row
+// over `split` warps of a block, (split, k_per) = thin_split(d).
+int gsmvi_funnel_score(const float* x, const float* sd, float* v, int m, int d, int split,
+                       int k_per, void* stream) {
+    if (m < 1 || !split_ok(d, split, k_per)) return (int)cudaErrorInvalidValue;
+    const int rows = ZOO_WARPS / split;
+    funnel_score_kernel<<<(unsigned)((m + rows - 1) / rows), ZOO_THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(x, sd, v, m, d, split, k_per);
     return (int)cudaGetLastError();
 }
 

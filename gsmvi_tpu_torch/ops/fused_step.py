@@ -130,8 +130,9 @@ PANEL_RANKS = 16
 PANEL_SLAB = 128
 SMEM_LIMIT_BYTES = 232448            # a block's shared memory on Hopper
 CHOL_BATCH_RANGE = (1, 64)
-# The mixture score keeps each of its block's 8 rows' K logits (and the K
-# half squared norms) in shared memory: 36 KiB at K = 1024.
+# The mixture score keeps each of its block's 8 warps' K partial logits
+# and norms, each row's K responsibilities and logmask in shared memory:
+# 100 KiB at K = 1024.
 MIXTURE_COMPONENT_RANGE = (1, 1024)
 # The logreg score takes 16 rows of w a cluster; its blocks run
 # LOGREG_GROUPS k walks at once (walk g over the k slabs g mod 8) and keep
@@ -1473,14 +1474,17 @@ def _two_matrices(name: str, x, a) -> None:
 
 def funnel_score(x, sigma_d):
     """K11a: Neal's funnel score of the rows x (M, D), sigma_d = [[sigma,
-    D]] (``ops/cuda/csrc/zoo_score.cu``, one warp per row)."""
+    D]].  One launch (``ops/cuda/csrc/zoo_score.cu``): a row over the S
+    warps of ``thin_split(D)`` in one block, warp r over its k_per columns,
+    the row's parts of rest^2 added in warp order.  Any M >= 1, D in
+    ``KERNEL_DIM_RANGE``; a row's score does not depend on M."""
     if _on_cpu(x, sigma_d):
         return funnel_score_reference(x, sigma_d)
     m, d = _zoo_operands(x, sigma_d)
     v = torch.empty_like(x)
     funnel_score.launches += 1
     _library().call("gsmvi_funnel_score", _ptr(x), _ptr(sigma_d), _ptr(v),
-                    m, d, _stream(x.device))
+                    m, d, *thin_split(d), _stream(x.device))
     return v
 
 
@@ -1543,8 +1547,11 @@ def mixture_score(x, means, logmask):
     """K11b: the equal-weight identity-covariance mixture's score of the
     rows x (M, D); means (K, D), logmask (1, K) 0 for a component and -1e30
     for padding (the JAX target's K padded to 8 is taken as it is).  One
-    launch, a warp per row (``ops/cuda/csrc/zoo_score_b.cu``); the kernel
-    takes K in ``MIXTURE_COMPONENT_RANGE``."""
+    launch (``ops/cuda/csrc/zoo_score_b.cu``): a row over the S warps of
+    ``thin_split(D)`` in one block, warp r reading its k_per columns of x
+    and M once, the partial logits and norms added in warp order.  Any M
+    >= 1, D in ``KERNEL_DIM_RANGE``, K in ``MIXTURE_COMPONENT_RANGE``; a
+    row's score does not depend on M."""
     _two_matrices("mixture_score", x, means)
     (m, d), k = x.shape, means.shape[0]
     _require_shape("means", means, (k, d))
@@ -1560,7 +1567,8 @@ def mixture_score(x, means, logmask):
     v = torch.empty_like(x)
     mixture_score.launches += 1
     _library().call("gsmvi_mixture_score", _ptr(x), _ptr(means),
-                    _ptr(logmask), _ptr(v), m, d, k, _stream(x.device))
+                    _ptr(logmask), _ptr(v), m, d, k, *thin_split(d),
+                    _stream(x.device))
     return v
 
 

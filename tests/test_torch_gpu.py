@@ -1120,7 +1120,8 @@ def test_k11b_kernels_at_their_edges(cuda, case):
 
 # ---------------------------------------------------------------------------
 # The product scores' one-launch kernels (zoo_student_t.cu, zoo_logreg.cu):
-# a row's score does not depend on the row count M, one kernel and one
+# a row's score does not depend on the row count M (also the funnel's and the
+# mixture's), K6's replicas equal the single fits, one kernel and one
 # allocation a call with the scratch held, logreg's two routes (resid in
 # shared memory or in L2) give the same bits, and a captured call replays
 # the eager bits.
@@ -1131,11 +1132,16 @@ def _product_score(name, d, dev, n_data=200):
 
     if name == "student_t":
         return models.student_t(0, d, df=6.0, device=dev).fused_score
+    if name == "funnel":
+        return models.funnel(d, device=dev).fused_score
+    if name == "mixture":
+        return models.gaussian_mixture(0, d, device=dev).fused_score
     return models.logistic_regression(0, d, n_data=n_data,
                                       device=dev).fused_score
 
 
-@pytest.mark.parametrize("name", ["student_t", "logreg"])
+@pytest.mark.parametrize("name", ["student_t", "logreg", "funnel",
+                                  "mixture"])
 @pytest.mark.parametrize("k,b,d", [(4, 32, 256), (8, 3, 10), (3, 33, 257)])
 def test_product_scores_rows_do_not_depend_on_m(cuda, name, k, b, d):
     """A (K B)-row call equals K separate B-row calls bit for bit, as K6's
@@ -1148,23 +1154,26 @@ def test_product_scores_rows_do_not_depend_on_m(cuda, name, k, b, d):
     assert bool(torch.isfinite(whole).all()) and torch.equal(whole, parts)
 
 
-@pytest.mark.parametrize("name", ["student_t", "logreg"])
-def test_zoo_fit_batch_replicas_equal_single_fits(cuda, name):
-    """FactorGSM.fit_batch(small_solver="fused") on a product score: K6
-    calls the score on the K replicas' B rows stacked, and every replica is
-    the same-seed single fit, bit for bit."""
+@pytest.mark.parametrize("name,k", [("student_t", 3), ("logreg", 3),
+                                    ("funnel", 8), ("mixture", 8)])
+def test_zoo_fit_batch_replicas_equal_single_fits(cuda, name, k):
+    """FactorGSM.fit_batch(small_solver="fused") on a zoo score: K6 calls
+    the score on the K replicas' B rows stacked, and every replica is the
+    same-seed single fit, bit for bit."""
     from gsmvi_tpu_torch import models
 
     d, b, niter = 64, 16, 45
-    t = (models.student_t(0, d, df=6.0, device=cuda) if name == "student_t"
-         else models.logistic_regression(0, d, device=cuda))
+    t = {"student_t": lambda: models.student_t(0, d, df=6.0, device=cuda),
+         "logreg": lambda: models.logistic_regression(0, d, device=cuda),
+         "funnel": lambda: models.funnel(d, device=cuda),
+         "mixture": lambda: models.gaussian_mixture(0, d, device=cuda)}[name]()
     g = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
                   steps_per_call=8, device="cuda")
     fs.reset_launch_counts()
-    st = g.fit_batch(range(3), batch_size=b, niter=niter, return_state=True,
+    st = g.fit_batch(range(k), batch_size=b, niter=niter, return_state=True,
                      small_solver="fused")
     assert fs.launch_counts()[f"{name}_score"] == niter + 1
-    for i in range(3):
+    for i in range(k):
         si = g.fit(i, batch_size=b, niter=niter, verbose=False,
                    return_state=True)
         assert torch.equal(st.mean[i], si.mean)
@@ -1250,6 +1259,123 @@ def test_product_scores_replay_in_a_graph(cuda, name, m):
         if eager is None:
             eager = fn(x, *params)
         assert torch.equal(out["v"], eager)
+
+
+# ---------------------------------------------------------------------------
+# The mixture's and funnel's one-launch kernels, spread over D
+# (zoo_score_b.cu, zoo_score.cu: a row over the thin_split(D) warps of a
+# block): against their plain versions
+# over D 1-8192 x M 1-512 (the mixture at K 1, 3, 8 padded with -1e30 and
+# 1024, the funnel also with x0 < -88), one kernel and one allocation a call
+# with no scratch, and a K2 graph block equal to the eager block replay after
+# replay.  Their rows' independence of M and K6's replicas: with the product
+# scores' tests above.
+# ---------------------------------------------------------------------------
+
+SPLIT_DIMS = [1, 10, 256, 1024, 8192]
+SPLIT_ROWS = [1, 3, 32, 512]
+SPLIT_CASES = ["funnel", "funnel x0<-88", "mixture K=1", "mixture K=3",
+               "mixture K=8 padded", "mixture K=1024"]
+SPLIT_KERNELS = {"funnel": "funnel_score_kernel",
+                 "mixture": "mixture_score_kernel"}
+
+
+def _split_score(case, d, dev):
+    """(score, params) of a funnel or mixture case at dimension ``d``."""
+    from gsmvi_tpu_torch import models
+
+    if case.startswith("funnel"):
+        return models.funnel(d, device=dev).fused_score
+    rng = np.random.default_rng(d)
+    k = {"mixture K=1": 1, "mixture K=1024": 1024}.get(case, 3)
+    means = (3.0 * rng.standard_normal((k, d))).astype(np.float32)
+    logmask = None
+    if case == "mixture K=8 padded":
+        means = np.concatenate([means, np.repeat(means[:1], 5, axis=0)])
+        logmask = np.array([[0.0] * 3 + [-1e30] * 5], np.float32)
+    return models.gaussian_mixture_from_arrays(means, logmask,
+                                               device=dev).fused_score
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("m", SPLIT_ROWS)
+@pytest.mark.parametrize("d", SPLIT_DIMS)
+def test_split_scores_match_plain(cuda, case, m, d):
+    """Finite entries within chip_smoke.py's tolerances (the mixture's at
+    least 8x the plain float32 version's distance from float64); with x0 <
+    -88 (every third row) the kernel's infinities and NaNs stand where the
+    plain version's do."""
+    fn, params = _split_score(case, d, cuda)
+    rng = np.random.default_rng(100 * d + m)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    x[:, 0] = rng.uniform(-3.0, 3.0, m)
+    if case == "funnel x0<-88":
+        x[::3, 0] = -90.0
+    x = torch.from_numpy(x).to(cuda)
+    fs.reset_launch_counts()
+    v_k = fn(x, *params)
+    assert sum(fs.launch_counts().values()) == 1
+    v_p = getattr(fs, f"{fn.__name__}_reference")(x, *params)
+    wild = ~torch.isfinite(v_p)
+    assert bool(wild.any()) == (case == "funnel x0<-88")
+    assert torch.equal(~torch.isfinite(v_k), wild)
+    assert torch.equal(v_k[wild].nan_to_num(), v_p[wild].nan_to_num())
+    ok = ~wild.any(1)
+    if bool(ok.any()):
+        plain = getattr(fs, f"{fn.__name__}_reference")
+        v_p, tol = _score_tol(plain, x[ok], params, 1e-5)
+        assert float((v_k[ok] - v_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("name", ["funnel", "mixture"])
+def test_split_scores_are_one_kernel_without_scratch(cuda, name):
+    """One kernel and one allocation (v) a call on the device; no scratch
+    held."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, params = _split_score(name if name == "funnel" else "mixture K=3",
+                              256, cuda)
+    x = torch.randn((32, 256), device=cuda)
+    fn(x, *params)
+    torch.cuda.synchronize()
+    held = dict(fs._ZOO_SCRATCH)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(4):
+        fn(x, *params)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 4
+    assert fs._ZOO_SCRATCH == held
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fn(x, *params)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 1 <= len(names) <= 4
+    assert all(SPLIT_KERNELS[name] in n for n in names)
+
+
+@pytest.mark.parametrize("name", ["funnel", "mixture"])
+def test_split_score_k2_graph_block_equals_eager_block(cuda, name):
+    """A K2 block on funnel(256) or gaussian_mixture(0, 256) replays its
+    captured score launches with the eager block's bits, replay after
+    replay."""
+    from gsmvi_tpu_torch import models
+
+    d, b, spc = 256, 32, 8
+    t = (models.funnel(d, device=cuda) if name == "funnel"
+         else models.gaussian_mixture(0, d, device=cuda))
+    score_fn, params = t.fused_score
+    step = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc)
+    block = torch.randn((spc * b, d), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+    m0, f0 = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    eager = step(spc, block, m0, f0, *params, graph=False)
+    for _ in range(3):
+        got = step(spc, block, m0, f0, *params)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, eager))
+    assert len(step.captures) == 1
+    assert bool(torch.isfinite(eager[0]).all())
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ idle share, launches per step and device time by kernel name):
   beside its library yardsticks, one PyTorch call each for a part of the
   score: ``addmm`` (x - loc) Prec for the Student-t, ``mm`` w X^T and
   ``mm`` resid X (resid of shape (B, N)) for logreg, ``mm`` x M^T for the
-  mixture;
+  mixture; the funnel and the mixture also at (B, D) = (512, 1024) and at
+  K6's (256, 256) (K=8 replicas of B=32, stacked), each with its
+  yardstick; and the launch floor, a one-element ``fill_``, the smallest
+  kernel PyTorch launches;
 - ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
   where K2 runs the row-panel small space (``eps_smallspace_panel``);
 - single K1 calls (``gsm_eps_update_fused``) at B=128 (the row-panel small
@@ -90,6 +93,27 @@ def profile_scores(torch, b: int = 32, d: int = 256) -> None:
                           fn, 64, torch)
 
 
+def profile_split_scores(torch) -> None:
+    """The funnel and the mixture at (512, 1024) and K6's (256, 256), the
+    mixture beside ``mm`` x M^T; then the launch floor."""
+    from gsmvi_tpu_torch.models import funnel, gaussian_mixture
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for b, d in ((512, 1024), (256, 256)):
+        x = torch.randn((b, d), generator=gen, device="cuda")
+        mixture = gaussian_mixture(0, d, device="cuda")
+        for t in (funnel(d, device="cuda"), mixture):
+            score, params = t.fused_score
+            profile_calls(f"{score.__name__} B={b} D={d} ({t.name})",
+                          lambda: score(x, *params), 64, torch)
+        means = mixture.fused_score[1][0]
+        profile_calls(f"library mm x M^T for mixture_score B={b} D={d}",
+                      lambda: torch.mm(x, means.T), 64, torch)
+    one = torch.empty(1, device="cuda")
+    profile_calls("launch floor: fill_ of one element",
+                  lambda: one.fill_(1.0), 64, torch)
+
+
 def main() -> int:
     import torch
 
@@ -117,6 +141,7 @@ def main() -> int:
                     FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
                               device="cuda"), args.steps, torch)
     profile_scores(torch)
+    profile_split_scores(torch)
     if args.only_zoo:
         return 0
     t = dense_gaussian(0, 256, device="cuda")

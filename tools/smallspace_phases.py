@@ -22,11 +22,13 @@ the cluster.  ``--kernel k5``: K5's Gram launch (``gsm_step.cu``,
 each line gives them for the first diagonal tile's rank 0 and last rank
 and the first off-diagonal tile's rank 0, beside the mean microseconds per
 K5 call (both launches).  ``--kernel zoo``: the zoo's product scores
-(``zoo_student_t.cu``, ``zoo_logreg.cu``) on their targets' params (the
-Student-t at df=6, logreg at N=200): for the Student-t the phases of the
+(``zoo_student_t.cu``, ``zoo_logreg.cu``) and the mixture's
+(``zoo_score_b.cu``) on their targets' params (the Student-t at df=6,
+logreg at N=200, the mixture at K=3): for the Student-t the phases of the
 block of row block 0 that ends last (a last rank-r block, which scales
 its rows) and the launch's span from the first block's start to the last
-block's end; for logreg rank 0's and the last rank's.  ``--kernel large``:
+block's end; for logreg rank 0's and the last rank's; for the mixture
+block 0's (thread 0, in the first warp of the first row).  ``--kernel large``:
 the grid small space of B 129-512 (``eps_smallspace_grid*.cu``, one
 cooperative launch on the grid of the port's occupancy query, the tile of
 ``fs.grid_tile(B)`` unless ``--tile`` names one): for each phase of its
@@ -71,6 +73,8 @@ ZT_PHASES = ("k walk", "cluster sync", "rank-ordered sums, P and maha partials",
              "barrier arrive + ticket", "the last rank-r block: partials, maha, scale")
 ZL_PHASES = ("phase 1 walk (first tile)", "phase 1 group sums + resid (all tiles)",
              "cluster sync", "phase 2 walk (first tile)", "phase 2 group sums + stores + exit sync")
+MX_PHASES = ("x, M and partial logits and norms", "barrier", "warp-ordered sums + softmax",
+             "v")
 K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait + barrier",
              "A, dmu, Bm in place + barrier", "dmu column sums + FMA + barrier",
              "partials + cluster sync", "rank-ordered sums", "stores, mean + exit sync")
@@ -84,7 +88,8 @@ def build(build_mod, kernel: str) -> Path:
                else "zoo_*.cu" if kernel == "zoo"
                else f"{kernel}_smallspace_cluster*.cu")
     srcs = sorted(p for p in build_mod.CSRC.glob(pattern)
-                  if kernel != "zoo" or p.stem in ("zoo_student_t", "zoo_logreg"))
+                  if kernel != "zoo" or p.stem in ("zoo_student_t", "zoo_logreg",
+                                                    "zoo_score_b"))
     h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
     for p in sorted(build_mod.CSRC.glob("*.cu*")):
         h.update(p.read_bytes())
@@ -210,15 +215,16 @@ def main() -> int:
 
 
 def zoo_phases(lib, build_mod, card, shapes, torch) -> int:
-    """``--kernel zoo``: the Student-t and logreg scores at each (B, D),
-    each launch by phase."""
-    from gsmvi_tpu_torch.models import logistic_regression, student_t
+    """``--kernel zoo``: the Student-t, logreg and mixture scores at each
+    (B, D), each launch by phase."""
+    from gsmvi_tpu_torch.models import (gaussian_mixture, logistic_regression,
+                                        student_t)
     from gsmvi_tpu_torch.ops import fused_step as fs
 
     dev = torch.device("cuda")
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    for name in ("gsmvi_student_t_score", "gsmvi_logreg_score"):
+    for name in ("gsmvi_student_t_score", "gsmvi_logreg_score", "gsmvi_mixture_score"):
         getattr(lib, name).argtypes = build_mod.SIGNATURES[name]
     for shape in shapes:
         b, d = map(int, shape.split("x"))
@@ -240,9 +246,13 @@ def zoo_phases(lib, build_mod, card, shapes, torch) -> int:
             (-(-b // fs.LOGREG_ROWS) * fs.LOGREG_ROWS, -(-n // fs.SLAB) * fs.SLAB), device=dev)
         l_call = lambda: lib.gsmvi_logreg_score(*map(ptr, (x, xd, y, inv, resid, v)), b, d, n,
                                                 plan[0], plan[1], stream)
+        means, logmask = gaussian_mixture(0, d, device=dev).fused_score[1]
+        m_call = lambda: lib.gsmvi_mixture_score(*map(ptr, (x, means, logmask, v)), b, d,
+                                                 means.shape[0], *split, stream)
         for kernel, call, names, nblocks, entry in (
                 ("student_t", t_call, ZT_PHASES, ntn * split[0], "gsmvi_student_t_phases"),
-                ("logreg", l_call, ZL_PHASES, plan[0], "gsmvi_logreg_phases")):
+                ("logreg", l_call, ZL_PHASES, plan[0], "gsmvi_logreg_phases"),
+                ("mixture", m_call, MX_PHASES, 1, "gsmvi_mixture_phases")):
             for _ in range(20):
                 if call() != 0:
                     raise RuntimeError(f"the stamped {kernel} score failed to launch")
@@ -271,9 +281,13 @@ def zoo_phases(lib, build_mod, card, shapes, torch) -> int:
                 rec.update(us_span=(last[-1] - first) / 1e3,
                            us_to_last_start=(last[0] - first) / 1e3,
                            us_per_phase_last_block=phases(last))
-            else:
+            elif kernel == "logreg":
                 rec.update(N=n, plan=list(plan), us_per_phase={
                     f"rank {r}": phases(rows[r]) for r in sorted({0, plan[0] - 1})})
+            else:
+                rec.update(K=int(means.shape[0]), split=list(split),
+                           us_span=(rows[0][-1] - rows[0][0]) / 1e3,
+                           us_per_phase=phases(rows[0]))
             print(json.dumps(rec), flush=True)
     return 0
 
