@@ -1029,12 +1029,12 @@ def phase_times(fs, dense_gaussian, torch, np):
         for k, (a, b) in times.items()}, "device_kernels": names,
         "make_fused_eps_multistep_eager": k2_eager})
     # The main path's K1 runs the cluster small space and the thin product,
-    # and the 32x32 tile template only for the fat apply (TA, EPI_SELECT_ADD);
+    # and the 32x32 tile template only for the fat apply (EPI_SELECT_ADD);
     # K3 runs the thin product alone.
     k1 = " ".join(names["gsm_eps_update_fused"])
     check("eps_cluster_kernel" in k1 and "thin_kernel" in k1
           and "eps_smallspace_kernel" not in k1
-          and all("gemm_kernel<true, false, 2>" in n
+          and all("gemm_kernel<2>" in n
                   for n in names["gsm_eps_update_fused"] if "gemm_kernel" in n),
           f"K1 runs other kernels: {names['gsm_eps_update_fused']}")
     k3 = " ".join(names["gaussian_score"])
@@ -2348,7 +2348,8 @@ def phase_audit_paths(FactorGSM, FactorBaM, Regularizers, fs, t, st_gsm,
 def phase_eps_step_times(fs, t, torch):
     """Per-call times of K4 (ns and chol, external draw; ns on the on-card
     draw), K4a and the Philox draw at D=256, B=32 from (0, I), kernel vs
-    plain version (CUDA events), and K4's bound inputs."""
+    plain version (CUDA events; K4, K4a and the draw also on the device),
+    and K4's bound inputs."""
     dev = torch.device("cuda")
     score_fn, params = t.fused_score
     ref = fs.gaussian_score_reference
@@ -2386,7 +2387,14 @@ def phase_eps_step_times(fs, t, torch):
                     reps=20)),
     }
     device = {"make_fused_eps_step": device_ms(
-        lambda: ns(e, mean, f, *params))[0]}
+        lambda: ns(e, mean, f, *params))[0],
+        "make_fused_eps_step_chol": device_ms(
+            lambda: chol(e, mean, f, *params), calls=20)[0],
+        "gsm_eps_update_fused_chol": device_ms(
+            lambda: fs.gsm_eps_update_fused(e, v, mean, f, method="chol"),
+            calls=20)[0],
+        "philox_normal": device_ms(
+            lambda: fs.philox_normal(7, B, D, device=dev))[0]}
     emit({"phase": "eps_step_times", "B": B, "D": D,
           "ms_per_call": {k: {"kernel": a, "plain": p,
                               "device": device.get(k)}

@@ -34,13 +34,12 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _U = ctypes.c_uint
 # C entry points: argument types (all return an int cudaError_t).
 SIGNATURES = {
-    "gsmvi_rows": [_P] * 6 + [_I] * 4 + [_L, _P],
     "gsmvi_factor_apply": [_P] * 5 + [_I] * 3 + [_P],
     "gsmvi_thin_rows": [_P] * 6 + [_I] * 4 + [_L, _I, _I, _P],
     "gsmvi_thin_score": [_P] * 4 + [_I] * 4 + [_P],
     "gsmvi_eps_smallspace_cluster": [_P] * 13 + [_I] * 7
     + [_F, _I, _L, _I, _I, _P],
-    "gsmvi_eps_chol": [_P] * 14 + [_I, _I, _F, _P],
+    "gsmvi_eps_chol": [_P] * 12 + [_I] * 4 + [_F, _P],
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 8 + [_I] * 7 + [_P],
     "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
@@ -60,7 +59,7 @@ SIGNATURES = {
     "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F, _P],
     "gsmvi_funnel_score": [_P] * 3 + [_I] * 4 + [_P],
-    "gsmvi_banana_score": [_P] * 3 + [_I, _I, _P],
+    "gsmvi_banana_score": [_P] * 3 + [_I] * 4 + [_P],
     "gsmvi_student_t_score": [_P] * 7 + [_I] * 4 + [_P],
     "gsmvi_mixture_score": [_P] * 4 + [_I] * 5 + [_P],
     "gsmvi_logreg_score": [_P] * 6 + [_I] * 5 + [_P],

@@ -1,31 +1,26 @@
-// Tiled f32 GEMM template for the O(B D^2) products of the eps GSM step.
+// Tiled f32 GEMM template for the fat applies of the eps GSM step and of
+// BaM: F' = F + A^T B with A, B (2B, D) row stacks.
 //
-// Replaces the Precision.HIGHEST `jnp.dot` / `dot_general` contractions that
-// the Pallas kernels run in their own bodies
-// (gsmvi_tpu/ops/pallas/fused_step.py: the fat apply `F + stack_u^T
-// stack_w` at :346, the Cholesky variant's `vf = v F` at :450 and `t = vf
-// F^T` at :286).  The NS route's row products, `gaussian_score_kernel`
-// (:778) and the Student-t score's product (:842) run on the split-k thin
-// product (thin_gemm.cu, zoo_student_t.cu), the logistic-regression score's
-// two (:878-882) on its primitives (zoo_logreg.cu).
+// Replaces the Precision.HIGHEST `dot_general` contraction that the Pallas
+// kernels run in their own bodies for the fat apply
+// (gsmvi_tpu/ops/pallas/fused_step.py `F + stack_u^T stack_w` at :346, the
+// chol route's at :417; gsmvi_tpu/ops/pallas/bam_fused.py :319).  Every row
+// product of both steps, K3 and the zoo's product scores run on the split-k
+// thin product (thin_gemm.cu) and its primitives.
 //
-// The BaM step runs its fat apply on the same template
-// (gsmvi_tpu/ops/pallas/bam_fused.py :319; gemm.cu `gsmvi_bam_apply`; its
-// row products run on the thin product), with two additions: a device halt
-// word that makes a launch a no-op once a multistep block has stopped, and
-// an epilogue that also writes per-block sums of squares of F' and F (the
-// trace screen), reduced in a fixed order so that the accept flag
-// reproduces from run to run.
+// Two epilogues: the eps step's select (F' where *good, else F, per
+// replica), and BaM's, which also writes per-block sums of squares of F'
+// and F (the trace screen), reduced in a fixed order so that the accept
+// flag reproduces from run to run, behind a device halt word that makes a
+// launch a no-op once a multistep block has stopped.
 //
 // Numerics: plain f32 FFMA, no TF32 and no mma/wgmma, which is what
 // Precision.HIGHEST means on the TPU.  What bounds it on an H100: at the main
-// path's shape (B=32, D=256) each product is 2 M FMA over a 256 KiB factor,
+// path's shape (B=32, D=256) the apply is 2 M FMA over a 256 KiB factor,
 // so it is latency- and L2-bound, not FLOP-bound; the factor stays in L2
 // between the launches of one step.  Design: a 32x32 output tile per block
-// of 256 threads, 32-deep k slabs staged in padded shared memory (conflict
-// free for both storage orders), 4 outputs per thread, ragged edges masked
-// on load and store.  Transposes are compile-time flags, so every product
-// reads its operands in the layout the step keeps them in.  Making it fast
+// of 256 threads, 32-deep k slabs staged in padded shared memory, 4 outputs
+// per thread, ragged edges masked on load and store.  Making it fast
 // (wgmma on 3xTF32 splits, persistent tiles) is later work.
 //
 // Replica axis: with `batch` = K > 1 the grid gains blockIdx.z = replica,
@@ -46,38 +41,31 @@ constexpr int GEMM_BN = 32;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;   // 32 x 8; each thread owns 4 rows of one column
 
-enum Epilogue { EPI_STORE = 0, EPI_STORE_AND_ADD_VEC = 1, EPI_SELECT_ADD = 2,
-                EPI_ADD_SUMSQ = 3 };
+enum Epilogue { EPI_SELECT_ADD = 2, EPI_ADD_SUMSQ = 3 };
 
-// C[m, n] = epi(sum_k A'(m, k) B'(k, n)).
-// A'(m, k) = TA ? a[k * lda + m] : a[m * lda + k].
-// B'(k, n) = TB ? b[n * ldb + k] : b[k * ldb + n].
+// C[m, n] = epi(sum_k a[k * lda + m] b[k * ldb + n]).
 // Epilogues:
-//   EPI_STORE:             c = acc
-//   EPI_STORE_AND_ADD_VEC: c = acc, c2 = epi_vec[n] + acc
 //   EPI_SELECT_ADD:        c = c_in + acc if *good != 0 else c_in (c may be c_in)
 //   EPI_ADD_SUMSQ:         c = c_in + acc, and partial[2 * block] = sum(c^2),
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
 // With a non-null halt, the launch does nothing while *halt != 0.
-// batch replicas (0 means 1) start sa, sb, sc, svec and sgood elements apart
-// in a, b, (c, c2, c_in), epi_vec and good; halt and partial are
-// not batched (their epilogue takes one replica).
+// batch replicas (0 means 1) start sa, sb, sc and sgood elements apart in
+// a, b, (c, c_in) and good; halt and partial are not batched (their
+// epilogue takes one replica).
 struct GemmArgs {
     const float* a;
     const float* b;
     float* c;
     int m, n, k, lda, ldb, ldc;
-    const float* epi_vec;
-    float* c2;
     const float* c_in;
     const int* good;
     const float* halt;
     float* partial;
     int batch;
-    long long sa, sb, sc, svec, sgood;
+    long long sa, sb, sc, sgood;
 };
 
-template <bool TA, bool TB, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     __shared__ float As[GEMM_BM][GEMM_BK + 1];
     __shared__ float Bs[GEMM_BK][GEMM_BN + 1];
@@ -85,10 +73,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     const long long z = blockIdx.z;
     const float* pa = p.a + z * p.sa;
     const float* pb = p.b + z * p.sb;
-    const float* epi_vec = p.epi_vec + z * p.svec;
     const float* c_in = p.c_in + z * p.sc;
     float* pc = p.c + z * p.sc;
-    float* c2 = p.c2 + z * p.sc;
     const int* good = p.good + z * p.sgood;
     const int tid = threadIdx.x;
     const int tx = tid % 32;
@@ -99,25 +85,14 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
     for (int k0 = 0; k0 < p.k; k0 += GEMM_BK) {
         for (int i = tid; i < GEMM_BM * GEMM_BK; i += GEMM_THREADS) {
-            int r, kk;
-            if (TA) { kk = i / GEMM_BM; r = i % GEMM_BM; }
-            else    { r = i / GEMM_BK;  kk = i % GEMM_BK; }
+            const int kk = i / GEMM_BM, r = i % GEMM_BM;
             const int gm = m0 + r, gk = k0 + kk;
-            float v = 0.f;
-            if (gm < p.m && gk < p.k) {
-                v = TA ? pa[(size_t)gk * p.lda + gm] : pa[(size_t)gm * p.lda + gk];
-            }
-            As[r][kk] = v;
+            As[r][kk] = (gm < p.m && gk < p.k) ? pa[(size_t)gk * p.lda + gm] : 0.f;
         }
         for (int i = tid; i < GEMM_BK * GEMM_BN; i += GEMM_THREADS) {
-            int kk, cn;
-            if (TB) { cn = i / GEMM_BK; kk = i % GEMM_BK; }
-            else    { kk = i / GEMM_BN; cn = i % GEMM_BN; }
+            const int kk = i / GEMM_BN, cn = i % GEMM_BN;
             const int gk = k0 + kk, gn = n0 + cn;
-            float v = 0.f;
-            if (gk < p.k && gn < p.n)
-                v = TB ? pb[(size_t)gn * p.ldb + gk] : pb[(size_t)gk * p.ldb + gn];
-            Bs[kk][cn] = v;
+            Bs[kk][cn] = (gk < p.k && gn < p.n) ? pb[(size_t)gk * p.ldb + gn] : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -171,23 +146,16 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         const int gm = m0 + ty * 4 + r;
         if (gm >= p.m) continue;
         const size_t o = (size_t)gm * p.ldc + gn;
-        if (EPI == EPI_STORE) {
-            pc[o] = acc[r];
-        } else if (EPI == EPI_STORE_AND_ADD_VEC) {
-            pc[o] = acc[r];
-            c2[o] = epi_vec[gn] + acc[r];
-        } else {
-            const float base = c_in[o];
-            pc[o] = (*good != 0) ? base + acc[r] : base;
-        }
+        const float base = c_in[o];
+        pc[o] = (*good != 0) ? base + acc[r] : base;
     }
 }
 
-template <bool TA, bool TB, int EPI>
+template <int EPI>
 inline cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
     const dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.m + GEMM_BM - 1) / GEMM_BM,
                     p.batch > 0 ? p.batch : 1);
-    gemm_kernel<TA, TB, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
+    gemm_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
     return cudaGetLastError();
 }
 

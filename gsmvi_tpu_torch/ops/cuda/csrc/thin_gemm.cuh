@@ -15,7 +15,8 @@
 // on it too: the Student-t's (x - loc) Prec on K3's partition with maha
 // and the row scale in its epilogue (zoo_student_t.cu), and logreg's two
 // products in one cluster launch on its slab loads, register tiles and
-// k walk (zoo_logreg.cu).  K4a keeps the 32x32 tile template of gemm.cuh.
+// k walk (zoo_logreg.cu).  K4a's vf and t (:450/:286 of its route) run here
+// as K1's do.
 // The kernel and its primitives (stage_a, stage_b, slab_fma, walk_slabs)
 // live here; thin_gemm.cu holds the row products' and K3's entry points,
 // gsm_step.cu K5's.

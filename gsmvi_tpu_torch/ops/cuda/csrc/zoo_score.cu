@@ -17,8 +17,11 @@
 //
 // What bounds it on an H100: funnel and banana read x and write v once,
 // O(B D) bytes (256 KiB at B=32, D=1024: 0.08 us at 3.35 TB/s), so launch
-// latency bounds them.  Banana: one thread per element (it reads its row's
-// x0 and x1).  Funnel: before, one warp per row (4 blocks on 4 SMs at
+// latency bounds them.  Banana: before, one thread per element, grid-strided
+// over at most 4096 blocks, each finding its row by a 64-bit division and
+// reading its row's x0 and x1 again; now one pass with the row mapping in
+// 32-bit shifts, a float4 of x per thread, x0 and x1 read once (below).
+// Funnel: before, one warp per row (4 blocks on 4 SMs at
 // B=32), each walking its row twice (the sum of rest^2, then the write):
 // 2.4 us on the device.  Now a row is spread over S = thin_split(D) warps
 // of one block, warp r over the columns [r k_per, (r+1) k_per) of the thin
@@ -72,22 +75,47 @@ __global__ void __launch_bounds__(ZOO_THREADS) funnel_score_kernel(
     }
 }
 
+// Banana: a block covers ZOO_THREADS >> shift rows, 2^shift threads a row;
+// a row's threads walk its 4-column chunks (chunk q = lane, lane + 2^shift,
+// ...), loaded and stored as float4 where VEC (D % 4 == 0, 16-byte aligned
+// rows), else as scalars masked at the ragged edge.  The thread of chunk 0
+// holds x0 and x1 among its own loads and writes g0 and g1; every other
+// element is -x.  g0's and h's operations are rounded one by one, in the
+// plain version's order.
+template <bool VEC>
 __global__ void __launch_bounds__(ZOO_THREADS) banana_score_kernel(
-        const float* x, const float* cs, float* v, int m, int d) {
-    const long long n = (long long)m * d;
-    const float curv = cs[0], s = cs[1];
-    for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < n;
-         q += (long long)gridDim.x * blockDim.x) {
-        const long long row = q / d;
-        const int col = (int)(q - row * d);
-        const float* xr = x + row * d;
-        if (col >= 2) {
-            v[q] = -xr[col];
-            continue;
+        const float* x, const float* cs, float* v, int m, int d, int shift) {
+    const int row = blockIdx.x * (ZOO_THREADS >> shift) + (int)(threadIdx.x >> shift);
+    if (row >= m) return;
+    const int tpr = 1 << shift, nc = (d + 3) >> 2;
+    const float* xr = x + (size_t)row * d;
+    float* vr = v + (size_t)row * d;
+    for (int q = threadIdx.x & (tpr - 1); q < nc; q += tpr) {
+        const int c = 4 * q;
+        float xv[4];
+        if (VEC) {
+            const float4 t = *reinterpret_cast<const float4*>(xr + c);
+            xv[0] = t.x; xv[1] = t.y; xv[2] = t.z; xv[3] = t.w;
+        } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) xv[u] = c + u < d ? xr[c + u] : 0.f;
         }
-        const float x0 = xr[0];
-        const float h = xr[1] - curv * (x0 * x0 - s * s);
-        v[q] = col == 0 ? -x0 / (s * s) + 2.f * curv * x0 * h : -h;
+        float out[4] = {-xv[0], -xv[1], -xv[2], -xv[3]};
+        if (q == 0) {
+            // h = x1 - b (x0^2 - s^2), g0 = -x0/s^2 + 2 b x0 h, g1 = -h.
+            const float curv = cs[0], s = cs[1], x0 = xv[0];
+            const float s2 = __fmul_rn(s, s);
+            const float h = __fsub_rn(xv[1], __fmul_rn(curv, __fsub_rn(__fmul_rn(x0, x0), s2)));
+            out[0] = __fadd_rn(__fdiv_rn(-x0, s2), __fmul_rn(__fmul_rn(__fmul_rn(2.f, curv), x0), h));
+            out[1] = -h;
+        }
+        if (VEC) {
+            *reinterpret_cast<float4*>(vr + c) = make_float4(out[0], out[1], out[2], out[3]);
+        } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (c + u < d) vr[c + u] = out[u];
+        }
     }
 }
 
@@ -107,12 +135,20 @@ int gsmvi_funnel_score(const float* x, const float* sd, float* v, int m, int d, 
 }
 
 // Banana score of the (M, D) rows x into v; cs = [curvature, scale] (1, 2).
-int gsmvi_banana_score(const float* x, const float* cs, float* v, int m, int d, void* stream) {
-    if (m < 1 || d < 2) return (int)cudaErrorInvalidValue;
-    long long blocks = ((long long)m * d + ZOO_THREADS - 1) / ZOO_THREADS;
-    if (blocks > 4096) blocks = 4096;
-    banana_score_kernel<<<(unsigned)blocks, ZOO_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, cs, v, m, d);
+// 2^shift threads a row (shift <= 8), ceil(M / (ZOO_THREADS >> shift))
+// blocks; vec: float4 loads and stores (D % 4 == 0, x and v 16-byte
+// aligned).
+int gsmvi_banana_score(const float* x, const float* cs, float* v, int m, int d, int shift,
+                       int vec, void* stream) {
+    if (m < 1 || d < 2 || shift < 0 || shift > 8 || (vec && d % 4 != 0))
+        return (int)cudaErrorInvalidValue;
+    const int rows = ZOO_THREADS >> shift;
+    const unsigned blocks = (unsigned)(((long long)m + rows - 1) / rows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (vec)
+        banana_score_kernel<true><<<blocks, ZOO_THREADS, 0, s>>>(x, cs, v, m, d, shift);
+    else
+        banana_score_kernel<false><<<blocks, ZOO_THREADS, 0, s>>>(x, cs, v, m, d, shift);
     return (int)cudaGetLastError();
 }
 

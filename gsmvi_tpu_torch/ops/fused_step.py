@@ -59,15 +59,17 @@ cluster's shared memory (``eps_smallspace_panel.cu``); above that,
 ``eps_smallspace_large``, one persistent cooperative launch over the card
 with them in device memory (``eps_smallspace_grid.cu``): the schedule of
 ``grid_schedule.py``, 71 phases at the long NS profile, a grid barrier
-between two.  A K4a call is six: ``vf`` and ``t`` on the GEMM template, a
-one-block row kernel (Z^T and (F Z)^T rows), the Gram Z^T Z on the GEMM
-template, the one-block Cholesky small space (``ops/cuda/csrc/eps_chol.cu``)
-and the fat apply.  A whole step (``_launch_step``) is the ``ef = e F^T`` /
-``x = mu + ef`` thin product, the score, then one update's launches: a K4
-call is one whole step; a K2 (K6) call runs its sub-steps on persistent
-buffers (``FusedBlocks``), in place on a working (mean, F), with the
-accepted count accumulated on the device, a full block as one CUDA graph
-replay.  No launch waits for the host.
+between two.  A K4a call is four: ``vf`` and ``t`` on the thin product,
+one cluster launch of ``thin_split(D)`` blocks (``ops/cuda/csrc/
+eps_chol.cu``: the row scalars, Z^T and (F Z)^T rows and the Gram over the
+blocks' columns, the Cholesky small space in block 0, then S2 Z^T and the
+mean over the columns again) and the fat apply.  A whole step
+(``_launch_step``) is the ``ef = e F^T`` / ``x = mu + ef`` thin product,
+the score, then one update's launches: a K4 call is one whole step; a K2
+(K6) call runs its sub-steps on persistent buffers (``FusedBlocks``), in
+place on a working (mean, F), with the accepted count accumulated on the
+device, a full block as one CUDA graph replay.  No launch waits for the
+host.
 """
 
 from __future__ import annotations
@@ -111,8 +113,8 @@ _M32 = 0xFFFFFFFF
 # cooperative launch over the card with them in device memory
 # (``eps_smallspace_grid.cu``) up to 512, the JAX package's largest fused
 # batch (its B sweep's top, ``bench.py:551-590``).  The
-# Cholesky variant (K4a) keeps three (2B, 2B) matrices in one block's shared
-# memory (192 KiB at B=64), so it stops at 64.  D is masked at the tile
+# Cholesky variant (K4a) keeps three (2B, 2B) matrices in the shared memory
+# of its cluster's first block (198 KiB at B=64), so it stops at 64.  D is masked at the tile
 # edges and needs no alignment; its ceiling is K5's (``ops/gsm_step.py``).
 KERNEL_BATCH_RANGE = (1, 512)
 KERNEL_DIM_RANGE = (1, 8192)
@@ -145,6 +147,8 @@ LOGREG_GROUPS = 8
 LOGREG_SHARED_BYTES = SMEM_LIMIT_BYTES
 ZOO_SCRATCH_MAX_BYTES = 1 << 24
 _ZOO_SCRATCH = {}
+# The banana score's block (ZOO_THREADS in ``zoo_score.cu``).
+BANANA_THREADS = 256
 # Thread-block clusters of the small space and the thin product: at most 8
 # blocks (the portable cluster size), each over a share of D in whole
 # 32-column slabs.
@@ -661,22 +665,13 @@ def _replicas(rows):
     return rows.shape[0], rows.stride(0)
 
 
-def _rows(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
-          halt=None) -> None:
-    """out = rows @ F^T (``trans``) or rows @ F on the GEMM template; with
-    ``x_out`` also x_out = mu + out; a no-op while ``*halt`` is non-zero.
-    A leading replica axis K on rows (any replica stride), f, mu, out and
-    x_out (packed) runs all K in one launch."""
-    k, stride = _replicas(rows)
-    m, d = rows.shape[-2:]
-    lib.call("gsmvi_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
-             _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride, stream)
-
-
 def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
           halt=None) -> None:
-    """``_rows`` on the split-k thin product (``thin_gemm.cu``), counted
-    in ``thin_product.launches``."""
+    """out = rows @ F^T (``trans``) or rows @ F on the split-k thin product
+    (``thin_gemm.cu``), counted in ``thin_product.launches``; with ``x_out``
+    also x_out = mu + out; a no-op while ``*halt`` is non-zero.  A leading
+    replica axis K on rows (any replica stride), f, mu, out and x_out
+    (packed) runs all K in one launch."""
     k, stride = _replicas(rows)
     m, d = rows.shape[-2:]
     thin_product.launches += 1
@@ -709,8 +704,7 @@ class _UpdateBuffers:
                 (*lead, _library().size("gsmvi_eps_large_sync", b)),
                 dtype=torch.int32, device=device)
         else:
-            self.zt, self.g = empty(2 * b, d), empty(2 * b, 2 * b)
-            self.rs = empty(2 * b)
+            self.zt = empty(2 * b, d)
         self.good = torch.zeros(lead or (1,), dtype=torch.int32,
                                 device=device)
 
@@ -760,16 +754,17 @@ def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
 def _launch_chol_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in,
                         f_out, buf: _UpdateBuffers, jitter: float,
                         nacc=None) -> None:
-    """K4a's launches: vf, t, then ``gsmvi_eps_chol`` (row kernel, Gram
-    GEMM, Cholesky small space: mean + good + S2 Z^T) and the fat apply."""
+    """K4a's launches: vf and t (thin product), then ``gsmvi_eps_chol``,
+    one cluster launch over ``thin_split(D)`` (row scalars, Z^T and (F Z)^T
+    rows, the Gram, the Cholesky small space, S2 Z^T, the mean and
+    ``good``), and the fat apply."""
     b, d = eps.shape
-    _rows(lib, stream, vs, f_in, buf.vf, trans=False)
-    _rows(lib, stream, buf.vf, f_in, buf.t, trans=True)
+    _thin(lib, stream, vs, f_in, buf.vf, trans=False)
+    _thin(lib, stream, buf.vf, f_in, buf.t, trans=True)
     lib.call("gsmvi_eps_chol", _ptr(eps), _ptr(vs), _ptr(buf.vf),
              _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
              _ptr(buf.good), _ptr(nacc), _ptr(buf.zt), _ptr(buf.su),
-             _ptr(buf.g), _ptr(buf.sw), _ptr(buf.rs), b, d, float(jitter),
-             stream)
+             _ptr(buf.sw), b, d, *thin_split(d), float(jitter), stream)
     lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
              _ptr(f_out), _ptr(buf.good), 2 * b, d, 1, stream)
 
@@ -1491,9 +1486,21 @@ def funnel_score(x, sigma_d):
 funnel_score.launches = 0
 
 
+def banana_plan(m: int, d: int) -> tuple:
+    """(shift, blocks) of the banana kernel on (M, D) rows: 2^shift threads
+    a row, the least power of two that covers the row's ceil(D/4) 4-column
+    chunks, at most ``BANANA_THREADS`` (then each thread walks every
+    2^shift-th chunk), and ``BANANA_THREADS >> shift`` rows a block."""
+    chunks = -(-d // 4)
+    shift = min(BANANA_THREADS.bit_length() - 1, (chunks - 1).bit_length())
+    return shift, -(-m // (BANANA_THREADS >> shift))
+
+
 def banana_score(x, cs):
     """K11a: banana score of the rows x (M, D), D >= 2, cs = [[curvature,
-    scale]] (``ops/cuda/csrc/zoo_score.cu``, one thread per element)."""
+    scale]].  One launch (``ops/cuda/csrc/zoo_score.cu``) on the rows of
+    ``banana_plan``: 4 columns a thread, float4 where D % 4 == 0, x0 and x1
+    read once by the thread of their chunk."""
     if x.dim() != 2 or x.shape[1] < 2:
         raise ValueError(f"banana_score: x (M, D) with D >= 2 required, got "
                          f"{tuple(x.shape)}")
@@ -1501,9 +1508,10 @@ def banana_score(x, cs):
         return banana_score_reference(x, cs)
     m, d = _zoo_operands(x, cs)
     v = torch.empty_like(x)
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
     banana_score.launches += 1
     _library().call("gsmvi_banana_score", _ptr(x), _ptr(cs), _ptr(v), m, d,
-                    _stream(x.device))
+                    banana_plan(m, d)[0], int(vec), _stream(x.device))
     return v
 
 

@@ -858,6 +858,24 @@ def test_chol_update_kernel_matches_plain(cuda, b, d):
     assert _chol_within((m_k, f_k), (m_p, f_p), p64)
 
 
+@pytest.mark.parametrize("b", [1, 8, 32, 33, 64])
+def test_chol_update_kernel_over_the_batch_range(cuda, b):
+    """K4a at each tile of its one cluster launch (T = 4 up to B = 32, 8
+    above) and its ends: one ``gsmvi_eps_chol`` after the three thin
+    products (ef, vf, t), within the chol tolerance of the plain version."""
+    d = 256
+    eps, v, mu, f = _inputs(cuda, b, d, seed=11 * b)
+    fs.reset_launch_counts()
+    m_k, f_k, g_k = fs.gsm_eps_update_fused(eps, v, mu, f, method="chol")
+    counts = fs.launch_counts()
+    assert counts["gsm_eps_update_fused"] == 1 and counts["thin_product"] == 3
+    m_p, f_p, g_p = fs.gsm_eps_update_chol_reference(eps, v, mu, f)
+    assert bool(g_k) and bool(g_p)
+    p64 = fs.gsm_eps_update_chol_reference(
+        *[x.double() for x in (eps, v, mu, f)])
+    assert _chol_within((m_k, f_k), (m_p, f_p), p64)
+
+
 @pytest.mark.parametrize("case", ["indefinite", "nan_score"])
 @pytest.mark.parametrize("b", [8, 32, 64])
 def test_chol_kernel_rejects_like_plain(cuda, b, case):
@@ -1077,6 +1095,25 @@ def test_zoo_score_kernels_match_plain(cuda, name, b, d):
     assert fs.launch_counts()[f"{name}_score"] == 1
     v_p, tol = _score_tol(getattr(fs, f"{name}_score_reference"), x, params,
                           1e-4 if name == "student_t" else 1e-5)
+    assert float((v_k - v_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("b,d", [(512, 1024), (256, 256), (1, 2), (5, 3),
+                                 (7, 1027), (3, 8192)])
+def test_banana_kernel_over_its_row_mappings(cuda, b, d):
+    """Banana at the large shapes (the two-phase bulk's (512, 1024), K6's
+    (256, 256)), at D < 4 and at a ragged D (scalar loads and stores), and
+    where a row's threads walk several chunks (D = 8192): one launch,
+    within 1e-5 * max(1, max|v|) of the plain version."""
+    from gsmvi_tpu_torch import models
+
+    score_fn, params = models.banana(d, device=cuda).fused_score
+    x = torch.from_numpy(np.random.default_rng(b + d).standard_normal(
+        (b, d)).astype(np.float32)).to(cuda)
+    fs.reset_launch_counts()
+    v_k = score_fn(x, *params)
+    assert fs.launch_counts()["banana_score"] == 1
+    v_p, tol = _score_tol(fs.banana_score_reference, x, params, 1e-5)
     assert float((v_k - v_p).abs().max()) <= tol
 
 

@@ -2,7 +2,8 @@
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
     python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001]
-                                 [--only-bam | --only-dense | --only-advi]
+                                 [--only-bam | --only-dense | --only-advi |
+                                  --only-chol]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -36,7 +37,12 @@ allocations per block (two fits of ``--steps`` and 2 ``--steps`` steps,
 their difference over the extra blocks).  Then the same device breakdown per
 call of K4 alone (``make_fused_eps_step``, ns and chol) and K4a
 (``gsm_eps_update_fused(method="chol")``), 64 calls back to back from
-(0, I).  The profiler slows the host, so it
+(0, I).  ``--only-chol``: those K4 chol and K4a calls alone, at (B, D) =
+(32, 256) and (64, 256), each beside one ``torch.linalg.cholesky_ex`` of
+the step's jittered (2B, 2B) Gram (a partial library yardstick: the first
+of K4a's two factorizations), and the K4a call's CUDA-event time per call
+(200 calls); then the Philox draw of K4's on-card route
+(``philox_normal``) at (32, 256).  The profiler slows the host, so it
 also times the same fit unprofiled and prints the idle share that the
 profiled device time leaves of that wall time.  First, before any
 profiler has run in the process, the host cost of the eps draws per step of
@@ -338,6 +344,64 @@ def profile_advi(t, steps, torch):
                               z, zz, zz, *params), 64, torch)
 
 
+def jittered_gram(e, v, f, jitter: float = 1e-6):
+    """The K4a update's (2B, 2B) Gram Z^T Z + jitter (tr / 2B + 1) I of
+    rows e, scores v and factor f, in their dtype (``_eps_update_core``)."""
+    import torch
+
+    b = e.shape[0]
+    a = -(e @ f.T)
+    vf = v @ f
+    t = vf @ f.T
+    vsv = (v * t).sum(1, keepdim=True)
+    mv = (a * v).sum(1, keepdim=True)
+    rho = 0.5 * (torch.sqrt(1.0 + 4.0 * (vsv + mv * mv)) - 1.0)
+    w = (v * (t - a)).sum(1, keepdim=True)
+    inv1r = 1.0 / (1.0 + rho)
+    gamma = 1.0 - (1.0 + w / (1.0 + rho + mv)) * inv1r
+    zt = torch.cat([-e, -e * gamma + vf * inv1r]) / b ** 0.5
+    g = zt @ zt.T
+    eye = torch.eye(2 * b, dtype=e.dtype, device=e.device)
+    return g + jitter * (torch.trace(g) / (2 * b) + 1.0) * eye
+
+
+def profile_chol(t, torch, d: int = 256) -> None:
+    """``--only-chol``: K4's chol step and K4a per call at (32, d) and
+    (64, d) on the device, beside ``cholesky_ex`` of the jittered Gram
+    (``t`` a target of dimension d); then the Philox draw at (32, d)."""
+    from gsmvi_tpu_torch.ops import fused_step as fs
+
+    score_fn, params = t.fused_score
+    for b in (32, 64):
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        e = torch.randn((b, d), generator=gen, device="cuda")
+        mean, f = torch.zeros(d, device="cuda"), torch.eye(d, device="cuda")
+        v = t.lp_g(mean + e @ f.T)
+        step = fs.make_fused_eps_step(score_fn, len(params), b, d,
+                                      external_eps=True, method="chol")
+        profile_calls(f"K4 make_fused_eps_step (chol, external draw) B={b}",
+                      lambda: step(e, mean, f, *params), 64, torch)
+        k4a = lambda: fs.gsm_eps_update_fused(e, v, mean, f, method="chol")
+        rec = profile_calls(f"K4a gsm_eps_update_fused(method='chol') B={b}",
+                            k4a, 64, torch, quiet=True)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(200):
+            k4a()
+        stop.record()
+        torch.cuda.synchronize()
+        rec["events_us_per_call"] = start.elapsed_time(stop) * 1e3 / 200
+        rec["good"] = bool(k4a()[2])
+        print(json.dumps(rec), flush=True)
+        g = jittered_gram(e, v, f)
+        profile_calls(f"library cholesky_ex of the jittered (2B)^2 Gram B={b} "
+                      "(partial: the first factorization)",
+                      lambda: torch.linalg.cholesky_ex(g), 64, torch)
+    profile_calls("Philox draw philox_normal B=32",
+                  lambda: fs.philox_normal(7, 32, d, device="cuda"), 64, torch)
+
+
 def main() -> int:
     import torch
 
@@ -348,6 +412,7 @@ def main() -> int:
     only.add_argument("--only-bam", action="store_true")
     only.add_argument("--only-dense", action="store_true")
     only.add_argument("--only-advi", action="store_true")
+    only.add_argument("--only-chol", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_gpu: no CUDA device", file=sys.stderr)
@@ -364,6 +429,9 @@ def main() -> int:
         return 0
     if args.only_advi:
         profile_advi(t, args.steps, torch)
+        return 0
+    if args.only_chol:
+        profile_chol(t, torch)
         return 0
     if not args.only_bam:
         fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,

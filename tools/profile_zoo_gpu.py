@@ -2,7 +2,7 @@
 """Where the time of the zoo path and of the large-batch small spaces goes
 on one NVIDIA GPU.
 
-    python3 tools/profile_zoo_gpu.py [--steps 64] [--only-zoo]
+    python3 tools/profile_zoo_gpu.py [--steps 64] [--only-zoo | --only-scores]
 
 With ``torch.profiler``, as ``tools/profile_gpu.py`` profiles the GSM
 paths (its ``profile_fit`` and ``profile_calls``; one JSON line each: host
@@ -18,8 +18,8 @@ idle share, launches per step and device time by kernel name):
   beside its library yardsticks, one PyTorch call each for a part of the
   score: ``addmm`` (x - loc) Prec for the Student-t, ``mm`` w X^T and
   ``mm`` resid X (resid of shape (B, N)) for logreg, ``mm`` x M^T for the
-  mixture; the funnel and the mixture also at (B, D) = (512, 1024) and at
-  K6's (256, 256) (K=8 replicas of B=32, stacked), each with its
+  mixture; the funnel, banana and the mixture also at (B, D) = (512, 1024)
+  and at K6's (256, 256) (K=8 replicas of B=32, stacked), each with its
   yardstick; and the launch floor, a one-element ``fill_``, the smallest
   kernel PyTorch launches;
 - ``FactorGSM(fused_score=...)`` on ``dense_gaussian(0, 256)`` at B=128,
@@ -29,7 +29,7 @@ idle share, launches per step and device time by kernel name):
   D=256, from (0, I).
 
 ``--only-zoo``: the zoo fits and the scores alone, nothing at B=128 or
-B=512.  To time another checkout's port with this script, copy it into
+B=512; ``--only-scores``: the scores alone.  To time another checkout's port with this script, copy it into
 that checkout's ``tools/`` and run it from there (``profile_gpu.py``
 puts its own checkout first on ``sys.path``).
 """
@@ -94,15 +94,16 @@ def profile_scores(torch, b: int = 32, d: int = 256) -> None:
 
 
 def profile_split_scores(torch) -> None:
-    """The funnel and the mixture at (512, 1024) and K6's (256, 256), the
-    mixture beside ``mm`` x M^T; then the launch floor."""
-    from gsmvi_tpu_torch.models import funnel, gaussian_mixture
+    """The funnel, banana and the mixture at (512, 1024) and K6's (256,
+    256), the mixture beside ``mm`` x M^T; then the launch floor."""
+    from gsmvi_tpu_torch.models import banana, funnel, gaussian_mixture
 
     gen = torch.Generator(device="cuda").manual_seed(20)
     for b, d in ((512, 1024), (256, 256)):
         x = torch.randn((b, d), generator=gen, device="cuda")
         mixture = gaussian_mixture(0, d, device="cuda")
-        for t in (funnel(d, device="cuda"), mixture):
+        for t in (funnel(d, device="cuda"), banana(d, device="cuda"),
+                  mixture):
             score, params = t.fused_score
             profile_calls(f"{score.__name__} B={b} D={d} ({t.name})",
                           lambda: score(x, *params), 64, torch)
@@ -119,7 +120,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=64)
-    parser.add_argument("--only-zoo", action="store_true")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-zoo", action="store_true")
+    only.add_argument("--only-scores", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_zoo_gpu: no CUDA device", file=sys.stderr)
@@ -133,6 +136,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.only_scores:
+        profile_scores(torch)
+        profile_split_scores(torch)
+        return 0
     for t in (funnel(256, device="cuda"), banana(256, device="cuda"),
               student_t(0, 256, df=6.0, device="cuda"),
               gaussian_mixture(0, 256, device="cuda"),

@@ -2,7 +2,7 @@
 """Where the time of a cluster small space goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|large|k5|zoo]
+    python3 tools/smallspace_phases.py [--kernel eps|bam|panel|large|k5|zoo|chol]
                                        [--shapes 32x256 ...] [--tile 16|32]
 
 Builds the eps-NS cluster small space (``ops/cuda/csrc/
@@ -35,9 +35,17 @@ cooperative launch on the grid of the port's occupancy query, the tile of
 schedule (``grid_schedule.py``), the ops it runs, its work (block 0's
 start to the last block's end of work), the grid barrier after it (that
 end to the next phase's start) and the longest time a block spent in the
-norm and residual tickets' reductions, and the sums over the phases.  The
-stamps cost a few global stores per phase; the kernel the port runs has
-none.
+norm and residual tickets' reductions, and the sums over the phases.
+``--kernel chol``: K4a, ``gsm_eps_update_fused(method="chol")`` through
+the port's wrapper on a whole library built with the stamps (so that the
+same command times another checkout's K4a, whatever its launches), at
+(32, 256) and (64, 256) by default: the mean microseconds per call (all of
+its launches) and, of the last call, the exact small space's phases as
+block 0 of ``eps_chol.cu`` stamps them: the Gram and jitter (with the rows
+and the Gram where that launch forms them), the first sweep, K, the
+inverse, the second sweep, X, S2 and S2 Z^T with the mean, and the wait
+before the exit.  The stamps cost a few global stores per phase; the
+kernel the port runs has none.
 """
 
 from __future__ import annotations
@@ -75,6 +83,9 @@ ZL_PHASES = ("phase 1 walk (first tile)", "phase 1 group sums + resid (all tiles
              "cluster sync", "phase 2 walk (first tile)", "phase 2 group sums + stores + exit sync")
 MX_PHASES = ("x, M and partial logits and norms", "barrier", "warp-ordered sums + softmax",
              "v")
+CH_PHASES = ("rows, Gram, jitter", "first sweep: chol(G)", "K = I + Lg^T J Lg",
+             "inverse M = Lg^-T", "second sweep: chol(K)", "X = M (Ck^T - I)^T", "S2 = X M^T",
+             "S2 Z^T + mean", "exit wait")
 K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait + barrier",
              "A, dmu, Bm in place + barrier", "dmu column sums + FMA + barrier",
              "partials + cluster sync", "rank-ordered sums", "stores, mean + exit sync")
@@ -82,14 +93,17 @@ K5_PHASES = ("prologue: tile, mu0, first slab issued", "row scalars", "slab wait
 
 def build(build_mod, kernel: str) -> Path:
     """The stamped library of ``kernel`` (built once per source hash)."""
-    pattern = ("eps_smallspace_panel*.cu" if kernel == "panel"
+    pattern = ("*.cu" if kernel == "chol"        # K4a's sources, below
+               else "eps_smallspace_panel*.cu" if kernel == "panel"
                else "eps_smallspace_grid*.cu" if kernel == "large"
                else "gsm_step.cu" if kernel == "k5"
                else "zoo_*.cu" if kernel == "zoo"
                else f"{kernel}_smallspace_cluster*.cu")
     srcs = sorted(p for p in build_mod.CSRC.glob(pattern)
-                  if kernel != "zoo" or p.stem in ("zoo_student_t", "zoo_logreg",
-                                                    "zoo_score_b"))
+                  if (kernel != "zoo" or p.stem in ("zoo_student_t", "zoo_logreg",
+                                                     "zoo_score_b"))
+                  and (kernel != "chol" or p.stem.startswith("eps_chol")
+                       or p.stem in ("thin_gemm", "gemm")))
     h = hashlib.sha256(b"GSMVI_PHASE_STAMPS" + kernel.encode())
     for p in sorted(build_mod.CSRC.glob("*.cu*")):
         h.update(p.read_bytes())
@@ -116,7 +130,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernel", choices=("eps", "bam", "panel", "large", "k5",
-                                             "zoo"), default="eps")
+                                             "zoo", "chol"), default="eps")
     parser.add_argument("--shapes", nargs="*", default=None)
     parser.add_argument("--tile", type=int, choices=(16, 32), default=None)
     args = parser.parse_args()
@@ -130,7 +144,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
-    lib = ctypes.CDLL(str(build(_build, args.kernel)))
+    so = build(_build, args.kernel)
+    if args.kernel == "chol":
+        return chol_phases(_build, so, card, args.shapes or ["32x256", "64x256"], torch)
+    lib = ctypes.CDLL(str(so))
     if args.kernel == "k5":
         return k5_phases(lib, _build, card, args.shapes or ["32x256", "512x256"], torch)
     if args.kernel == "zoo":
@@ -361,6 +378,64 @@ def large_phases(lib, build_mod, card, shapes, tile, torch) -> int:
                           "us_last_launch": (st[nph] - st[0]) / 1e3,
                           "us_work": tot["work"], "us_barriers": tot["barrier"],
                           "us_reductions": tot["reduction"], "by_phase": rows}), flush=True)
+    return 0
+
+
+def chol_phases(build_mod, so, card, shapes, torch) -> int:
+    """``--kernel chol``: K4a at each (B, D) through the port's wrapper on
+    the stamped library, its small space by phase."""
+    from gsmvi_tpu_torch.config import pin_fp32
+    from gsmvi_tpu_torch.ops import fused_step as fs
+
+    class Stamped:
+        """The stamped library of K4a's sources behind the port's ``call``
+        (each entry bound at its first call)."""
+
+        def __init__(self):
+            self._lib = ctypes.CDLL(str(so))
+            self._lib.gsmvi_error_string.restype = ctypes.c_char_p
+
+        def call(self, name, *args):
+            fn = getattr(self._lib, name)
+            fn.argtypes, fn.restype = build_mod.SIGNATURES[name], ctypes.c_int
+            rc = fn(*args)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc} "
+                                   f"({self._lib.gsmvi_error_string(rc).decode()})")
+
+    pin_fp32()
+    build_mod._LIBRARY = lib = Stamped()
+    dev = torch.device("cuda")
+    for shape in shapes:
+        b, d = map(int, shape.split("x"))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        e = torch.randn((b, d), generator=gen, device=dev)
+        v = 0.3 * torch.randn((b, d), generator=gen, device=dev)
+        f = torch.eye(d, device=dev) + 0.3 * torch.randn((d, d), generator=gen,
+                                                         device=dev) / d ** 0.5
+        mean = torch.randn(d, generator=gen, device=dev)
+        call = lambda: fs.gsm_eps_update_fused(e, v, mean, f, method="chol")
+        for _ in range(20):
+            good = call()[2]
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(200):
+            call()
+        stop.record()
+        torch.cuda.synchronize()
+        n = len(CH_PHASES) + 1
+        stamps = (ctypes.c_longlong * n)()
+        # One entry per tile instantiation where the kernel has several.
+        names = [f"gsmvi_eps_chol_b{32 if b <= 32 else 64}_phases", "gsmvi_eps_chol_phases"]
+        entry = next(getattr(lib._lib, nm) for nm in names if hasattr(lib._lib, nm))
+        if entry(stamps) != 0:
+            raise RuntimeError("the chol phase stamps could not be read")
+        print(json.dumps({"card": card, "kernel": "chol", "B": b, "D": d, "good": bool(good),
+                          "us_per_call": start.elapsed_time(stop) * 1e3 / 200,
+                          "us_small_space": (stamps[n - 1] - stamps[0]) / 1e3,
+                          "us_per_phase": {name: (stamps[i + 1] - stamps[i]) / 1e3
+                                           for i, name in enumerate(CH_PHASES)}}), flush=True)
     return 0
 
 
