@@ -113,7 +113,9 @@ the script exits non-zero):
     plain version's bit for bit, its normals within 4 ulp, and over 2^20
     draws |mean| < 5e-3, |var - 1| < 1e-2 and the KS distance to N(0, 1)
     < 3e-3; two seeds give other draws; the on-card-draw K4 step against
-    the plain step on the plain draw.
+    the plain step on the plain draw.  The draw's times at (32, 256) and
+    (512, 1024) beside ``torch.randn`` of the same shape (its yardstick:
+    another stream, the same distribution), CUDA events and device time.
 15. eps-step path: ``FactorGSM(..., fused_score=..., steps_per_call=1)
     .fit(seed, batch_size=32, niter=N_ITER)``: K4 exactly N_ITER + 1 times,
     K2 never, and the final state equals phase 3's spc=8 state bit for bit.
@@ -167,10 +169,39 @@ the script exits non-zero):
     and one ``ADVI.fit_fused`` run per target, equal bit for bit to the
     same run on eager blocks, its K9 block with the zoo score captured.
 
+21. surface: the flow of ``examples/example_initializers.py`` at D=256 on
+    ``dense_gaussian(0, 256)``: ``lbfgs_init(ones(256), t.lp, t.lp_g)``,
+    then ``GSM.fit`` from its (mean, cov) at B=32, N_ITER steps under
+    ``KLMonitor(batch_size_kl=32, checkpoint=10, offset_evals=res.nfev)``
+    (K1 exactly N_ITER + 1 times, under the GSM bound), then ``ADVI.fit``
+    under a second monitor; each monitor's ``rkl``/``fkl``/``nevals`` of
+    the JAX package's cadence length, ``rkl`` finite and falling, ``nevals``
+    from the L-BFGS cost.  ``Posterior.from_fit`` of the GSM fit: its
+    float32 ``log_prob`` against float64 on the same (mean, chol), its
+    ``save``/``load`` bit for bit.  A ``FactorGSM(fused_score)`` fit saved
+    (``save_state``) after CKPT_STEP steps, loaded (``load_state``) and
+    resumed equals phase 3's state bit for bit.
+22. replicas: K7 over stacked replicas (``bam_eps_update_replicas``, one
+    launch sequence for K replicas, the small spaces' clusters on
+    blockIdx.y, each replica on its own NS tier from a tier table) against
+    its plain version and against K7 on each replica alone (bit for bit) at
+    (B, D) = (2, 10), (32, 256), (56, 256), (128, 256) (the row panels)
+    for K = 1 and 8, the eight on mixed tiers with a rejecting and a stiff
+    replica; ``FactorBaM.fit_batch(range(8), linear(100.0), B=32,
+    niter=N_BAM)`` on it (one replica launch a step; replicas 0 and 1
+    equal to ``fit(0)``/``fit(1)`` bit for bit; every replica under the
+    BaM bound; per-replica and aggregate it/s beside the single fits');
+    ``BaM.fit_batch`` and ``ADVI.fit_batch`` over seeds 0..3, 500 steps
+    (replicas 0, 1 equal to their single fits, losses (K, niter + 1), under
+    1.5 x the worst JAX CPU fit_batch replica);
+    per-call times of the replica K7 at K=8 beside eight single K7 calls.
+
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
-D=2048 fit of 17, each fit of 18 and of 20) and read just after it; every
-kernel of the ``kernels`` line must have launched on those paths.
+D=2048 fit of 17, each fit of 18 and of 20, the monitored GSM fit and the
+checkpointed fit of 21, the FactorBaM replica fit of 22) and read just
+after it; every kernel of the ``kernels`` line must have launched on those
+paths.
 Then the card's name and power limit, the kernel table (each kernel's
 bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
 its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
@@ -196,6 +227,7 @@ before printing any result.  Nothing here imports JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -310,6 +342,9 @@ SOURCES = {
     "bam_smallspace": (
         "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/bam_fused.py:195"),
+    "bam_eps_update_replicas": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:407"),
     "make_fused_bam_multistep": (
         "gsmvi_tpu_torch/ops/cuda/csrc/bam_smallspace_cluster.cu",
         "gsmvi_tpu/ops/pallas/bam_fused.py:425"),
@@ -370,6 +405,7 @@ CHOL_MEAN_TOL, CHOL_COV_TOL, CHOL_FLOOR = 1e-4, 2e-4, 4.0
 PRNG_SHAPE = (1024, 1024)
 PRNG_ULP = 4
 PRNG_MEAN_TOL, PRNG_VAR_TOL, PRNG_KS_TOL = 5e-3, 1e-2, 3e-3
+PHILOX_LARGE = (512, 1024)
 AUDIT_EVERY, AUDIT_TOL = 500, 1e-3
 
 
@@ -2395,10 +2431,26 @@ def phase_eps_step_times(fs, t, torch):
             calls=20)[0],
         "philox_normal": device_ms(
             lambda: fs.philox_normal(7, B, D, device=dev))[0]}
+    # The Philox draw's yardstick: torch.randn of the same shape (partial:
+    # another stream, the same distribution), CUDA events and device time,
+    # at the main path's shape and the two-phase bulk's (512, 1024).
+    yardstick = {}
+    for b, d in ((B, D), PHILOX_LARGE):
+        yardstick[f"{b}x{d}"] = {
+            "philox_ms": cuda_ms(lambda: fs.philox_normal(7, b, d,
+                                                          device=dev),
+                                 reps=200),
+            "philox_device_ms": device_ms(
+                lambda: fs.philox_normal(7, b, d, device=dev))[0],
+            "randn_ms": cuda_ms(lambda: torch.randn((b, d), device=dev),
+                                reps=200),
+            "randn_device_ms": device_ms(
+                lambda: torch.randn((b, d), device=dev))[0]}
     emit({"phase": "eps_step_times", "B": B, "D": D,
           "ms_per_call": {k: {"kernel": a, "plain": p,
                               "device": device.get(k)}
-                          for k, (a, p) in times.items()}})
+                          for k, (a, p) in times.items()},
+          "philox_yardstick": yardstick})
     work = {
         "make_fused_eps_step": (
             lambda: fs.eps_step_reference(ref, params, e, mean, f),
@@ -3063,6 +3115,400 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
     return counts
 
 
+# Phase 21: the surface at the headline width, the flow of the reference's
+# examples/example_initializers.py on dense_gaussian(0, 256): lbfgs_init
+# from ones(D), then GSM.fit under a KLMonitor (batch_size_kl=32,
+# checkpoint=10, offset_evals=res.nfev) at B=32 for N_ITER steps, then
+# ADVI.fit under a second monitor (B=32, N_SURFACE_ADVI steps) at
+# Adam(SURFACE_ADVI_LR): from this warm start Adam(1e-2)'s noise on the
+# 32,896 parameters outruns the ELBO's gradient at D=256 (its reverse KL
+# rose 633 -> 838 over 1000 steps on an H100), Adam(1e-3)'s falls.
+# A monitor gets one entry per checkpoint and one after the loop, as the
+# JAX package's monitor does (tests/test_torch_surface.py holds the lengths
+# and nevals against it).  The posterior's float32 log density is held to
+# its float64 evaluation on the same (mean, chol) within POST_LP_RTOL of
+# the largest |log p|; the checkpoint is taken after CKPT_STEP steps, a
+# whole number of spc=8 blocks.
+SURFACE_KL_BATCH, SURFACE_CHECKPOINT = 32, 10
+N_SURFACE_ADVI, SURFACE_ADVI_LR = 1000, 1e-3
+POST_DRAWS, POST_LP_RTOL = 1024, 1e-4
+CKPT_STEP = 1600
+
+
+def monitor_cadence(niter: int, checkpoint: int) -> int:
+    """Entries a monitor gets over a fit: one per checkpoint i = 0,
+    checkpoint, ... <= niter, and one after the loop."""
+    return niter // checkpoint + 2
+
+
+def _monitor_record(mon, niter: int, nfev: int, np) -> dict:
+    rkl = np.asarray(mon.rkl, np.float64)
+    return {"entries": [len(mon.rkl), len(mon.fkl), len(mon.nevals)],
+            "cadence": monitor_cadence(niter, mon.checkpoint),
+            "rkl_first": float(rkl[0]), "rkl_last": float(rkl[-1]),
+            "rkl_finite": bool(np.isfinite(rkl).all()),
+            "nevals_first": mon.nevals[0], "nevals_last": mon.nevals[-1],
+            "nfev": nfev}
+
+
+def _check_monitor(rec: dict, what: str) -> None:
+    check(rec["entries"] == [rec["cadence"]] * 3,
+          f"{what}: monitor entries {rec['entries']} != cadence "
+          f"{rec['cadence']}")
+    check(rec["rkl_finite"] and rec["rkl_last"] < rec["rkl_first"],
+          f"{what}: reverse KL not finite or not falling {rec}")
+    check(rec["nevals_first"] == rec["nfev"] + 1,
+          f"{what}: nevals must start at the L-BFGS cost {rec}")
+
+
+def phase_surface(GSM, ADVI, Adam, FactorGSM, fs, t, st3, torch, np):
+    """Phase 21: lbfgs_init, GSM.fit and ADVI.fit under KL monitors,
+    Posterior.from_fit (log_prob against float64, save/load bit for bit)
+    and a FactorGSM(fused_score) checkpoint resumed to phase 3's state bit
+    for bit.  Returns the launch counts of the monitored GSM fit and of the
+    resumed fit's two halves."""
+    import tempfile
+
+    from gsmvi_tpu_torch import (KLMonitor, Posterior, lbfgs_init,
+                                 load_state, save_state)
+    from gsmvi_tpu_torch.distributions import mvn_logpdf
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    mean0, cov0, res = lbfgs_init(np.ones(D), t.lp, t.lp_g, device=dev)
+    lbfgs_s = time.perf_counter() - t0
+    em0, _ = moment_errs(mean0, cov0, *(a.cpu().numpy().astype(np.float64)
+                                        for a in (t.mean, t.cov)))
+    check(bool(res.success) and np.isfinite(cov0).all(),
+          f"lbfgs_init failed: {res.message}")
+
+    mon = KLMonitor(batch_size_kl=SURFACE_KL_BATCH,
+                    checkpoint=SURFACE_CHECKPOINT, offset_evals=res.nfev)
+    g = GSM(D, t.lp, t.lp_g, device=dev)
+    fs.reset_launch_counts()
+    (mean, cov), wall = _timed(lambda: g.fit(
+        FIT_SEED, mean=mean0, cov=cov0, batch_size=B, niter=N_ITER,
+        verbose=False, monitor=mon), torch)
+    gsm_counts = fs.launch_counts()
+    em, ec = errs(mean, cov, t)
+    rec_gsm = _monitor_record(mon, N_ITER, res.nfev, np)
+    emit({"phase": "surface", "step": "lbfgs_gsm", "D": D, "B": B,
+          "niter": N_ITER, "lbfgs_nfev": res.nfev, "lbfgs_nit": res.nit,
+          "lbfgs_s": lbfgs_s, "lbfgs_mean_err": em0,
+          "k1_launches": gsm_counts["gsm_eps_update_fused"],
+          "monitor": rec_gsm, "mean_err": em, "cov_err": ec,
+          "iters_per_s_with_monitor": (N_ITER + 1) / wall})
+    _check_monitor(rec_gsm, "GSM.fit")
+    check(gsm_counts["gsm_eps_update_fused"] == N_ITER + 1,
+          "the monitored GSM.fit must launch K1 once per step")
+    check(em < MEAN_ERR_BOUND and ec < COV_ERR_BOUND,
+          "the monitored GSM.fit did not converge under the GSM bound")
+
+    mon2 = KLMonitor(batch_size_kl=SURFACE_KL_BATCH,
+                     checkpoint=SURFACE_CHECKPOINT, offset_evals=res.nfev)
+    a = ADVI(D, t.lp, device=dev)
+    (am, ac, losses), wall = _timed(lambda: a.fit(
+        FIT_SEED, Adam(SURFACE_ADVI_LR), mean=mean0, cov=cov0,
+        batch_size=B, niter=N_SURFACE_ADVI, verbose=False, monitor=mon2),
+        torch)
+    rec_advi = _monitor_record(mon2, N_SURFACE_ADVI, res.nfev, np)
+    ema, eca = errs(am, ac, t)
+    emit({"phase": "surface", "step": "lbfgs_advi", "D": D, "B": B,
+          "niter": N_SURFACE_ADVI, "monitor": rec_advi, "mean_err": ema,
+          "cov_err": eca, "losses_finite": bool(np.isfinite(losses).all()),
+          "iters_per_s_with_monitor": (N_SURFACE_ADVI + 1) / wall})
+    _check_monitor(rec_advi, "ADVI.fit")
+
+    post = Posterior.from_fit(mean, cov)
+    x = post.sample(7, POST_DRAWS)
+    lp32 = post.log_prob(x)
+    lp64 = mvn_logpdf(x.double(), post.mean.double(), post.chol.double())
+    lp_err = float((lp32.double() - lp64).abs().max())
+    lp_tol = POST_LP_RTOL * max(1.0, float(lp64.abs().max()))
+    with tempfile.TemporaryDirectory() as tmp:
+        post.save(os.path.join(tmp, "posterior"))
+        back = Posterior.load(os.path.join(tmp, "posterior"), device=dev)
+        same = bool(torch.equal(back.mean, post.mean)
+                    and torch.equal(back.chol, post.chol))
+
+        # Checkpoint and resume: the K2 fit of phase 3 cut after CKPT_STEP
+        # steps.
+        fg = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score,
+                       device=dev)
+        fs.reset_launch_counts()
+        half = fg.fit(FIT_SEED, batch_size=B, niter=CKPT_STEP - 1,
+                      verbose=False, return_state=True)
+        save_state(os.path.join(tmp, "state"), half)
+        loaded = load_state(os.path.join(tmp, "state"), device=dev)
+        done = fg.fit(FIT_SEED, batch_size=B, niter=N_ITER - CKPT_STEP,
+                      verbose=False, return_state=True, state=loaded)
+        ckpt_counts = fs.launch_counts()
+    resumed = bool(torch.equal(done.mean, st3.mean)
+                   and torch.equal(done.factor, st3.factor)
+                   and int(done.n_accepted) == int(st3.n_accepted)
+                   and done.step == st3.step)
+    emit({"phase": "surface", "step": "posterior_checkpoint",
+          "log_prob_err": lp_err, "log_prob_tol": lp_tol,
+          "save_load_bitwise": same, "checkpoint_step": CKPT_STEP,
+          "resumed_step": done.step, "resumed_equals_phase3": resumed,
+          "k2_launches": ckpt_counts["make_fused_eps_multistep"]})
+    check(bool(torch.isfinite(lp32).all()) and lp_err <= lp_tol,
+          f"Posterior.log_prob vs float64: {lp_err} > {lp_tol}")
+    check(same, "Posterior save/load is not bit for bit")
+    check(resumed, "the resumed FactorGSM fit differs from phase 3's")
+    return [gsm_counts, ckpt_counts]
+
+
+# Phase 22: replicas.  K7 over stacked replicas against its plain version
+# (``bam_eps_update_replicas_reference``) and against K7 on each replica
+# alone (bit for bit) at BAM_REPLICA_SHAPES, K in (1, 8); K = 8 runs the
+# four NS tiers side by side, replica 5 on a two-sweep tier with open gates
+# (its residual gates reject), replica 6 on a tier whose lmax gate every
+# input passes over (stiff), at one shared reg.  Then FactorBaM.fit_batch
+# (K7's replica axis) over seeds 0..7, and BaM.fit_batch and ADVI.fit_batch
+# over seeds 0..3 at D=256, B=32: replicas 0 and 1 equal to their single
+# fits bit for bit, every replica under its bound.  BaM's and ADVI's
+# replicas run their steps one replica after another (ADVI's autograd step
+# and BaM's dense step at ~3.5 and ~4 ms a replica-step on an H100, host
+# bound), so they run N_REPLICA_DENSE steps, not phase 5's and 8's.  Their
+# bounds are 1.5 x the worst of 8 JAX CPU fit_batch replicas of the same
+# arrays, niter, batch and schedule (tools/jax_fit_batch_bound.py
+# --niter 500): BaM(use_factor=False) with retries=0 and BAM_REGF0, mean_err
+# 6.7792e-3, cov_err 7.2138e-4; ADVI with adam(ADVI_LR), 1.29951 and
+# 0.995514.
+BAM_REPLICA_SHAPES = ((2, 10), (B, D), (56, D), (128, D))
+BAM_REPLICA_KS = (1, 8)
+BAM_REPLICA_REG = 0.5
+REPLICA_K, REPLICA_K_DENSE, N_REPLICA_DENSE = 8, 4, 500
+BAM_DENSE_MEAN_ERR_BOUND = 1.5 * 6.7792e-3
+BAM_DENSE_COV_ERR_BOUND = 1.5 * 7.2138e-4
+ADVI_BATCH_MEAN_ERR_BOUND = 1.5 * 1.29951
+ADVI_BATCH_COV_ERR_BOUND = 1.5 * 0.995514
+
+
+def bam_replica_cases(bf, np, b: int, d: int, k: int):
+    """(eps, v, mu, f) stacked over ``k`` replicas (numpy float32) and each
+    replica's NS tier (iters, gu_gate, lmax_gate)."""
+    rng = np.random.default_rng(7000 + 31 * b + d + k)
+    arrays, tiers = [], []
+    for i in range(k):
+        e = rng.standard_normal((b, d)).astype(np.float32)
+        f = (np.eye(d) + 0.05 * rng.standard_normal((d, d))
+             ).astype(np.float32)
+        mu = rng.standard_normal(d).astype(np.float32)
+        v = (0.05 * rng.standard_normal((b, d))).astype(np.float32)
+        arrays.append((e, v, mu, f))
+        tier = bf.BAM_NS_TIERS[i % len(bf.BAM_NS_TIERS)]
+        if k > 1 and i == 5:
+            tier = (_SHORT_ITERS, float("inf"), float("inf"))
+        if k > 1 and i == 6:
+            tier = (bf.BAM_NS_ITERS_DEFAULT, bf.GU_GATE_DEFAULT, 1e-3)
+        tiers.append(tier)
+    return [np.stack(x) for x in zip(*arrays)], tiers
+
+
+def phase_bam_replica_kernels(bf, torch, np):
+    """K7's replica axis against its plain version and against single K7
+    calls; returns the worst error against the plain version."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    worst = 0.0
+    for b, d in BAM_REPLICA_SHAPES:
+        for k in BAM_REPLICA_KS:
+            arrays, tiers = bam_replica_cases(bf, np, b, d, k)
+            e, v, mu, f = (cu(x) for x in arrays)
+            reg = BAM_REPLICA_REG
+            got = bf.bam_eps_update_replicas(e, v, mu, f, reg, tiers)
+            want = bf.bam_eps_update_replicas_reference(e, v, mu, f, reg,
+                                                        tiers)
+            singles = [bf.bam_eps_update_fused(
+                e[i], v[i], mu[i], f[i], reg, iters=tiers[i][0],
+                gu_gate=tiers[i][1], lmax_gate=tiers[i][2])
+                for i in range(k)]
+            torch.cuda.synchronize()
+            em, tm = _bam_close(got[0], want[0], BAM_TOL)
+            ef_, tf = _bam_close(got[1], want[1], BAM_TOL)
+            keep, stiff = got[2].tolist(), got[3].tolist()
+            bitwise = all(
+                torch.equal(got[0][i], s[0]) and torch.equal(got[1][i], s[1])
+                and bool(got[2][i]) == bool(s[2])
+                and bool(got[3][i]) == bool(s[3])
+                and torch.equal(got[4][i], s[4])
+                for i, s in enumerate(singles))
+            rec = {"kernel": "bam_eps_update_replicas", "B": b, "D": d,
+                   "K": k, "tiers": [list(t[0]) for t in tiers],
+                   "keep": [keep, want[2].tolist()],
+                   "stiff": [stiff, want[3].tolist()], "mean_err": em,
+                   "mean_tol": tm, "f_err": ef_, "f_tol": tf,
+                   "equals_single_k7": bitwise}
+            emit({"phase": "bam_replica_kernels", **rec})
+            check(keep == want[2].tolist() and stiff == want[3].tolist(),
+                  f"replica K7 flags {rec}")
+            check(np.allclose(got[4].cpu().numpy(), want[4].cpu().numpy(),
+                              rtol=BAM_STATS_RTOL, atol=0),
+                  f"replica K7 stats {rec}")
+            check(em <= tm and ef_ <= tf,
+                  f"replica K7 disagrees with its plain version: {rec}")
+            check(bitwise, f"replica K7 differs from single K7 calls: {rec}")
+            if k > 1:
+                check(keep[0] and keep[1] and not keep[5] and not stiff[5]
+                      and stiff[6],
+                      f"replica K7 cases missed their design: {rec}")
+            for i in range(k):
+                if not keep[i]:
+                    check(torch.equal(got[0][i], mu[i])
+                          and torch.equal(got[1][i], f[i]),
+                          "replica K7 must return a replica's old state "
+                          "unless it keeps")
+            worst = max(worst, em, ef_)
+    return worst
+
+
+def phase_bam_replica_times(bf, torch, np):
+    """Per-call times of K7's replica axis at K=8, (32, 256) on the long
+    profile, beside eight single K7 calls on the same inputs (CUDA events
+    and device time) and the plain version; the bound's inputs."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    arrays, _ = bam_replica_cases(bf, np, B, D, REPLICA_K)
+    e, v, mu, f = (cu(x) for x in arrays)
+    reg = BAM_REPLICA_REG
+    rep = lambda: bf.bam_eps_update_replicas(e, v, mu, f, reg)
+    singles = lambda: [bf.bam_eps_update_fused(e[i], v[i], mu[i], f[i], reg)
+                       for i in range(REPLICA_K)]
+    plain = lambda: bf.bam_eps_update_replicas_reference(e, v, mu, f, reg)
+    ms, ms_singles = cuda_ms(rep), cuda_ms(singles, reps=20)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    dev_ms, names = device_ms(rep, calls=20)
+    dev_singles, _ = device_ms(singles, calls=10)
+    emit({"phase": "bam_replica_times", "B": B, "D": D, "K": REPLICA_K,
+          "ms_per_call": {"replicas": ms, "eight_single_k7": ms_singles,
+                          "plain": plain_ms},
+          "device_ms": {"replicas": dev_ms, "eight_single_k7": dev_singles},
+          "kernels": names})
+    check("bam_cluster_kernel" in " ".join(names),
+          f"replica K7 must run the BaM cluster kernel: {names}")
+    times = {"bam_eps_update_replicas": (ms, plain_ms)}
+    work = {"bam_eps_update_replicas": (plain, (e, v, mu, f))}
+    extra = {"bam_eps_update_replicas": {
+        "K": REPLICA_K, "ms_eight_single_k7": ms_singles,
+        "device_ms_eight_single_k7": dev_singles}}
+    return times, work, {"bam_eps_update_replicas": dev_ms}, extra
+
+
+def _equal_states(a, b, fields) -> bool:
+    return all(torch_equal(getattr(a, x), getattr(b, x)) for x in fields)
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x, y)) if torch.is_tensor(x) else x == y
+
+
+def phase_replica_paths(BaM, FactorBaM, ADVI, Adam, Regularizers, fs, t,
+                        torch):
+    """Phase 22's fits: FactorBaM.fit_batch on K7's replica axis, then
+    BaM.fit_batch and ADVI.fit_batch.  Returns the launch counts of the
+    FactorBaM replica fit."""
+    from gsmvi_tpu_torch.ops.gsm_factor import factor_to_cov
+    from gsmvi_tpu_torch.state import replica
+
+    dev = torch.device("cuda")
+    regf = Regularizers().linear(BAM_REGF0)
+    fb = FactorBaM(D, t.lp, t.lp_g, device=dev)
+    check(fb._fused_mode(B) == "update",
+          "FactorBaM.fit_batch must run K7's update mode")
+    seeds = tuple(range(REPLICA_K))
+    fb.fit_batch((11, 12), regf, batch_size=B, niter=20, retries=0)  # warm up
+    fs.reset_launch_counts()
+    st, wall = _timed(lambda: fb.fit_batch(
+        seeds, regf, batch_size=B, niter=N_BAM, retries=0,
+        return_state=True), torch)
+    counts = fs.launch_counts()
+    fc = dict(fb.fit_counts)
+    ips = (N_BAM + 1) / wall
+    singles, walls = [], []
+    for seed in seeds[:2]:
+        s, w = _timed(lambda: fb.fit(seed, regf, batch_size=B, niter=N_BAM,
+                                     verbose=False, retries=0,
+                                     return_state=True), torch)
+        singles.append(s)
+        walls.append(w)
+    fields = ("mean", "factor", "step", "n_accepted", "n_rejected",
+              "ns_stats")
+    equal = [_equal_states(replica(st, i), s, fields)
+             for i, s in enumerate(singles)]
+    covs = factor_to_cov(st.factor)
+    errs_k = [errs(st.mean[i], covs[i], t) for i in range(REPLICA_K)]
+    emit({"phase": "replica_path", "fitter": "FactorBaM.fit_batch",
+          "K": REPLICA_K, "D": D, "B": B, "niter": N_BAM, "retries": 0,
+          "replica_k7_launches": counts["bam_eps_update_replicas"],
+          "single_k7_launches": counts["bam_eps_update_fused"],
+          "fit_counts": fc, "replicas_equal_single": equal,
+          "n_accepted": st.n_accepted.tolist(),
+          "errs": errs_k, "iters_per_s_per_replica": ips,
+          "aggregate_iters_per_s": REPLICA_K * ips,
+          "single_k7_iters_per_s": [(N_BAM + 1) / w for w in walls]})
+    check(counts["bam_eps_update_replicas"] == N_BAM + 1
+          and fc["kernel_calls"] == N_BAM + 1
+          and fc["report_reads"] == N_BAM + 1,
+          "FactorBaM.fit_batch: one replica K7 launch and one read a step")
+    check(counts["bam_eps_update_fused"] == 0
+          and counts["make_fused_bam_multistep"] == 0,
+          "FactorBaM.fit_batch launched single K7 or K8")
+    check(all(equal), "FactorBaM.fit_batch replicas 0, 1 != fit(0), fit(1)")
+    check(all(em < BAM_MEAN_ERR_BOUND and ec < BAM_COV_ERR_BOUND
+              for em, ec in errs_k),
+          f"a FactorBaM.fit_batch replica over the BaM bound: {errs_k}")
+
+    seeds = tuple(range(REPLICA_K_DENSE))
+    n = N_REPLICA_DENSE
+    g = BaM(D, t.lp, t.lp_g, device=dev, use_factor=False)
+    stb, wall = _timed(lambda: g.fit_batch(
+        seeds, regf, batch_size=B, niter=n, retries=0, return_state=True),
+        torch)
+    equal = [_equal_states(replica(stb, i), g.fit(
+        seed, regf, batch_size=B, niter=n, verbose=False, retries=0,
+        return_state=True), ("mean", "cov", "chol", "n_accepted"))
+        for i, seed in enumerate(seeds[:2])]
+    errs_b = [errs(stb.mean[i], stb.cov[i], t) for i in range(len(seeds))]
+    emit({"phase": "replica_path", "fitter": "BaM.fit_batch",
+          "K": len(seeds), "D": D, "B": B, "niter": n, "retries": 0,
+          "route": "dense, per replica", "replicas_equal_single": equal,
+          "errs": errs_b, "mean_err_bound": BAM_DENSE_MEAN_ERR_BOUND,
+          "cov_err_bound": BAM_DENSE_COV_ERR_BOUND,
+          "iters_per_s_per_replica": (n + 1) / wall})
+    check(all(equal), "BaM.fit_batch replicas 0, 1 != fit(0), fit(1)")
+    check(all(em < BAM_DENSE_MEAN_ERR_BOUND and ec < BAM_DENSE_COV_ERR_BOUND
+              for em, ec in errs_b),
+          f"a BaM.fit_batch replica over its bound: {errs_b}")
+
+    a = ADVI(D, t.lp, device=dev)
+    (am, ac, losses), wall = _timed(lambda: a.fit_batch(
+        seeds, Adam(ADVI_LR), batch_size=B, niter=n), torch)
+    equal = []
+    for i, seed in enumerate(seeds[:2]):
+        m1, c1, l1 = a.fit(seed, Adam(ADVI_LR), batch_size=B, niter=n,
+                           verbose=False)
+        equal.append(bool(torch.equal(am[i], m1) and torch.equal(ac[i], c1)
+                          and (losses[i] == l1).all()))
+    errs_a = [errs(am[i], ac[i], t) for i in range(len(seeds))]
+    emit({"phase": "replica_path", "fitter": "ADVI.fit_batch",
+          "K": len(seeds), "D": D, "B": B, "niter": n,
+          "losses_shape": list(losses.shape), "replicas_equal_single": equal,
+          "errs": errs_a, "mean_err_bound": ADVI_BATCH_MEAN_ERR_BOUND,
+          "cov_err_bound": ADVI_BATCH_COV_ERR_BOUND,
+          "iters_per_s_per_replica": (n + 1) / wall})
+    check(tuple(losses.shape) == (len(seeds), n + 1),
+          "ADVI.fit_batch losses must be (K, niter + 1)")
+    check(all(equal), "ADVI.fit_batch replicas 0, 1 != fit(0), fit(1)")
+    check(all(em < ADVI_BATCH_MEAN_ERR_BOUND
+              and ec < ADVI_BATCH_COV_ERR_BOUND for em, ec in errs_a),
+          f"an ADVI.fit_batch replica over its bound: {errs_a}")
+    return [counts]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3223,8 +3669,19 @@ def main() -> int:
     advi_more = phase_advi_times(af, fs, torch, np)
     for name, more in advi_more[3].items():
         extra[name] = {**extra.get(name, {}), **more}
+    # Phases 21-22 after the per-call times of the earlier kernels.
+    surface_counts = phase_surface(GSM, ADVI, Adam, FactorGSM, fs, t, st,
+                                   torch, np)
+    worst["bam_eps_update_replicas"] = phase_bam_replica_kernels(bf, torch,
+                                                                 np)
+    replica_counts = phase_replica_paths(BaM, FactorBaM, ADVI, Adam,
+                                         Regularizers, fs, t, torch)
+    replica_more = phase_bam_replica_times(bf, torch, np)
+    for name, more in replica_more[3].items():
+        extra[name] = {**extra.get(name, {}), **more}
     for more in (bam_more[:3],
                  advi_more[:3],
+                 replica_more[:3],
                  k6_times[:3],
                  phase_eps_step_times(fs, t, torch),
                  (range_times, range_work, range_device),
@@ -3241,7 +3698,8 @@ def main() -> int:
     path_counts = ([main_counts, counts] + list(bam_counts)
                    + list(advi_counts) + dense_counts + batch_counts
                    + [step_counts] + audit_counts + wide_counts
-                   + example_counts + zoo_counts)
+                   + example_counts + zoo_counts + surface_counts
+                   + replica_counts)
     launches = {name: sum(c[name] for c in path_counts) for name in SOURCES}
     check(all(launches.values()),
           f"a kernel never launched on the paths: {launches}")

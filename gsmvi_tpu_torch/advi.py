@@ -31,7 +31,8 @@ JAX carries a PRNG key; the port carries ``seed`` and the absolute
 ``step_seed(seed, s)`` on every path (JAX's ``fit`` splits its key per step
 instead, and its fused path folds the step in: both are replaced by the one
 stream, so trajectories do not depend on ``steps_per_call`` or the chunk
-cadence and resume exactly).  ``mesh=`` and ``fit_batch`` are not ported.
+cadence and resume exactly).  ``fit_batch`` runs K replica fits of ``fit``
+in lock step.  ``mesh=`` is not ported.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import torch
 
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import (EpsStream, RunnerCache, draw_block, make_chunk_runner,
-                     on_gpu, run_fit_loop)
+from .driver import (EpsStream, RunnerCache, broadcast_replicas, draw_block,
+                     make_chunk_runner, on_gpu, run_fit_loop)
 from .ops.advi_fused import (ADVI_KERNEL_BATCH_RANGE, ADVI_KERNEL_DIM_RANGE,
                              REP_NDONE, REP_STIFF, _adam_apply,
                              advi_kernel_supports, lr_bias_arrays,
@@ -574,6 +575,38 @@ class ADVI:
             return state, None
         return state.loc, self.scales_to_cov(state.l), None
 
-    def fit_batch(self, *args, **kwargs):
-        raise NotImplementedError("fit_batch: K independent ADVI replicas "
-                                  "are not ported")
+    def fit_batch(self, seeds, opt, mean=None, cov=None, batch_size=8,
+                  niter=1000):
+        """K independent ADVI replicas, one per seed in ``seeds``, each
+        ``niter + 1`` autograd steps with ``opt`` (the port's ``Adam``);
+        returns (means (K, D), covs (K, D, D), losses (K, niter + 1)), the
+        losses a numpy array, as the JAX package's ``fit_batch``
+        (``gsmvi_tpu/advi.py:620-655``).
+
+        ``mean``/``cov`` are broadcast to every replica or carry a leading
+        K axis.  Each step runs ``fit``'s step (``_make_step``) on every
+        replica in turn, each with its own Adam state, so replica i is
+        ``fit(seeds[i], opt, ...)`` exactly; the losses stay on the device
+        until the end (one copy)."""
+        pin_fp32()
+        seeds = tuple(int(s) for s in seeds)
+        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
+        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
+        states = []
+        for seed, m, c in zip(seeds, means0, covs0):
+            loc, scales = self._start(m, c, dtype)
+            states.append(ADVIState(loc, scales, opt.init((loc, scales)),
+                                    seed, 0, torch.zeros((), dtype=dtype,
+                                                         device=dev)))
+        step = self._runners.get(("batch", batch_size, dtype), (opt,),
+                                 lambda: self._make_step(batch_size, opt))
+        losses = [[] for _ in range(k)]
+        for _ in range(niter + 1):
+            for i in range(k):
+                states[i], loss = step(states[i])
+                losses[i].append(loss)
+        means = torch.stack([s.loc for s in states])
+        covs = torch.stack([self.scales_to_cov(s.scales) for s in states])
+        return means, covs, torch.stack(
+            [torch.stack(l) for l in losses]).cpu().numpy()

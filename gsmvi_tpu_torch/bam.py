@@ -20,11 +20,12 @@ import torch
 
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
-                     retry_seed, run_fit_loop)
+from .driver import (EpsStream, RunnerCache, broadcast_replicas,
+                     make_chunk_runner, on_gpu, retry_seed, run_fit_loop)
 from .ops.bam import Regularizers, bam_lowrank_update, bam_update  # noqa: F401 (re-export)
 from .ops.gsm_factor import factor_to_cov
-from .state import FactorVIState, VIState, accept_or_revert, init_state
+from .state import (FactorVIState, VIState, accept_or_revert, init_state,
+                    per_replica, stack_like)
 
 
 class BaM:
@@ -176,6 +177,39 @@ class BaM:
         state = run_fit_loop(state, niter, run_chunk,
                              monitor=monitor, lp=self.lp, nprint=nprint,
                              verbose=verbose, batch_size=batch_size)
+        if return_state:
+            return state
+        return state.mean, state.cov
+
+    def fit_batch(self, seeds, regf, mean=None, cov=None, batch_size=2,
+                  niter=5000, retries=10, jitter=1e-6, return_state=False):
+        """K independent BaM replicas, one per seed in ``seeds``, each
+        ``niter + 1`` dense steps; returns (means (K, D), covs (K, D, D)),
+        or the stacked ``VIState``.
+
+        As the JAX package's ``fit_batch`` (``gsmvi_tpu/bam.py:282-311``),
+        which vmaps the dense step, the replicas run the dense route
+        whatever ``use_factor`` says: replica i is
+        ``BaM(..., use_factor=False).fit(seeds[i])``, its retries its own.
+        The dense step has no kernel, so the replicas run it one after
+        another each step (``per_replica``).  ``regf`` must be a pure
+        schedule; ``mean``/``cov`` are broadcast or carry a leading K
+        axis."""
+        pin_fp32()
+        seeds = tuple(int(s) for s in seeds)
+        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
+        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
+        # Factored one replica at a time, as fit's init_state factors, each
+        # in LAPACK's layout.
+        chols0 = stack_like([safe_cholesky(c) for c in covs0])
+        zero = torch.zeros(k, dtype=torch.int32, device=dev)
+        state = VIState(means0, covs0, chols0, seeds, 0, zero, zero)
+        run = self._runners.get(
+            ("batch", batch_size, retries, jitter), (regf,),
+            lambda: make_chunk_runner(per_replica(
+                self._make_step(batch_size, regf, retries, jitter))))
+        state = run(state, niter + 1)
         if return_state:
             return state
         return state.mean, state.cov

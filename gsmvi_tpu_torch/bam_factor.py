@@ -48,18 +48,21 @@ import torch
 
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
-from .driver import (EpsStream, RunnerCache, make_chunk_runner, on_gpu,
-                     retry_seed, run_fit_loop)
+from .driver import (EpsStream, RunnerCache, broadcast_replicas,
+                     draw_replicas, make_chunk_runner, on_gpu, retry_seed,
+                     run_fit_loop)
 from .ops.bam_eps import bam_eps_update
 from .ops.bam_fused import (BAM_KERNEL_BATCH_RANGE, BAM_KERNEL_DIM_RANGE,
                             BAM_NS_ITERS_DEFAULT, BAM_NS_TIERS,
                             FEEDBACK_CADENCE, GU_GATE_DEFAULT,
                             LMAX_GATE_DEFAULT, REP_GU, REP_KEEP, REP_LMAX,
                             REP_NACC, REP_NDONE, REP_STIFF, REP_STOPPED,
-                            _bam_update_packed, bam_kernel_supports,
-                            make_fused_bam_multistep, ns_tier_from_stats)
+                            _bam_update_packed, _bam_update_replicas_packed,
+                            bam_kernel_supports, make_fused_bam_multistep,
+                            ns_tier_from_stats)
 from .ops.gsm_factor import factor_to_cov
-from .state import FactorVIState
+from .state import (NS_STATS_INIT, FactorVIState, per_replica, replica,
+                    stack_replicas)
 from .utils.audit import make_audit_hook, make_bam_audit
 
 __all__ = ["FactorBaM"]
@@ -233,6 +236,77 @@ class FactorBaM:
 
         return step
 
+    def _replica_rows(self, s: FactorVIState, batch_size: int):
+        """(eps, ef, vs) of stacked replicas at ``s.step``, (K, B, D) each,
+        replica i's exactly as the single fit's step forms them: its draw,
+        ``ef = eps F^T`` and ``lp_g`` on its own (B, D) rows.  Neither runs
+        on the stack: cuBLAS rounds a batched product, or one over K B
+        rows, differently from the B-row product of a single fit (on an
+        H100, the Gaussian score on 8 x 32 stacked rows differed from the
+        per-replica scores by up to 3e-4), which would break replica i =
+        ``fit(seeds[i])``."""
+        eps = draw_replicas(self._eps, s.seed, s.step, batch_size, self.D,
+                            self.dtype)
+        ef = torch.stack([e @ f.T for e, f in zip(eps, s.factor)])
+        vs = torch.stack([self.lp_g(m + x).to(torch.float32)
+                          for m, x in zip(s.mean, ef)])
+        return eps, ef, vs
+
+    def _make_replica_step(self, batch_size: int, regf, retries: int):
+        """One step of K stacked replicas in the "update" mode: the draws
+        and scores (``_replica_rows``), ONE K7 launch sequence for all
+        replicas, each on the NS tier its own carried stats pick
+        (``_bam_update_replicas_packed``), ONE read of the (K, REP_SIZE)
+        report, then per replica what the single fit's step does: a stiff
+        replica replays on the SVD route with its own draw, a rejected one
+        (``retries`` > 0) resamples from its own retry stream while the
+        others hold, and each carries its own feedback stats.  Replica i
+        ends each step in the single fit's state."""
+        tiers = self._ns_tiers()
+        counts = self.fit_counts
+
+        def step(s: FactorVIState) -> FactorVIState:
+            eps, ef, vs = self._replica_rows(s, batch_size)
+            reg = regf(s.step)
+            tjs = [ns_tier_from_stats(*st, tiers) for st in s.ns_stats]
+            mean_new, f_new, rep = _bam_update_replicas_packed(
+                eps, vs, s.mean, s.factor, reg, [tiers[j] for j in tjs],
+                ef=ef)
+            r = rep.tolist()                    # the one read of the step
+            counts["kernel_calls"] += 1
+            counts["report_reads"] += 1
+            for tj in tjs:
+                counts["tiers"][tj] += 1
+            cadence = (s.step + 1) % FEEDBACK_CADENCE == 0
+            stiff = [row[REP_STIFF] != 0 for row in r]
+            keep = [row[REP_KEEP] != 0 for row in r]
+            ns = tuple((row[REP_GU], row[REP_LMAX]) if cadence or st
+                       else old for row, st, old in zip(r, stiff,
+                                                        s.ns_stats))
+            slow = [st or (retries > 0 and not kp)
+                    for st, kp in zip(stiff, keep)]
+            if not any(slow):
+                g32 = (rep[:, REP_KEEP] != 0).to(torch.int32)
+                return FactorVIState(mean_new, f_new, s.seed, s.step + 1,
+                                     s.n_accepted + g32,
+                                     s.n_rejected + (1 - g32), ns)
+            out = []
+            for i in range(len(s.seed)):
+                si = replica(s, i)
+                m, f, good = mean_new[i], f_new[i], keep[i]
+                if stiff[i]:
+                    counts["replays"] += 1
+                    m, f, good = bam_eps_update(eps[i], vs[i], si.mean,
+                                                si.factor, reg,
+                                                solver=self.solver)
+                if slow[i] and retries > 0:
+                    m, f, good = self._retry(si, m, f, good, reg, retries,
+                                             batch_size)
+                out.append(self._advance(si, m, f, good, ns[i]))
+            return stack_replicas(out)
+
+        return step
+
     def _make_fused_runner(self, batch_size: int, regf, retries: int):
         """Chunk runner of the "step" mode on K8.
 
@@ -346,6 +420,54 @@ class FactorBaM:
             (batch_size, retries, mode, self.steps_per_call, self.solver,
              self.lmax_gate, self.gu_gate, self.ns_iters, self.ns_profile,
              self.dtype), (regf, *score_objs), build)
+
+    def fit_batch(self, seeds, regf, mean=None, cov=None, batch_size=2,
+                  niter=5000, retries=10, return_state=False):
+        """K independent FactorBaM replicas, one per seed in ``seeds``, each
+        ``niter + 1`` steps; returns (means (K, D), covs (K, D, D)), or the
+        stacked ``FactorVIState`` (``ns_stats`` one pair per replica).
+
+        ``regf`` must be a pure schedule: one ``reg`` serves every replica
+        of a step.  ``mean``/``cov`` are broadcast to every replica or carry
+        a leading K axis.  Replica i draws what ``fit(seeds[i])`` draws and
+        ends where that fit ends, on the route ``fit`` takes without
+        ``fused_score`` (the "update" mode: ``lp_g`` is opaque here, called
+        on each replica's rows).  On the card each step is one K7 launch
+        sequence for all K replicas (``_make_replica_step``); off the card,
+        or with ``use_fused=False``, the plain step per replica.  Monitors
+        and audits are not supported (``fit`` takes them); ``fit_counts``
+        holds the replica launches, replays and retries of the call."""
+        pin_fp32()
+        mode = self._fused_mode(batch_size)
+        seeds = tuple(int(s) for s in seeds)
+        k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
+        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
+        if cov is None:
+            f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype, dev)
+        else:
+            # Factored one replica at a time, as fit factors its cov.
+            f0 = torch.stack([safe_cholesky(c) for c in broadcast_replicas(
+                cov, None, k, (d, d), dtype, dev)])
+        zero = torch.zeros(k, dtype=torch.int32, device=dev)
+        state = FactorVIState(means0, f0, seeds, 0, zero, zero,
+                              (NS_STATS_INIT,) * k)
+        self._reset_counts()
+
+        def build():
+            if mode is None:
+                return make_chunk_runner(per_replica(
+                    self._make_step(batch_size, regf, retries)))
+            return make_chunk_runner(
+                self._make_replica_step(batch_size, regf, retries))
+
+        run = self._runners.get(
+            ("batch", batch_size, retries, mode is None, self.solver,
+             self.lmax_gate, self.gu_gate, self.ns_iters, self.ns_profile,
+             self.dtype), (regf, self.lp_g), build)
+        state = run(state, niter + 1)
+        if return_state:
+            return state
+        return state.mean, factor_to_cov(state.factor)
 
     def fit(self, seed: int, regf, mean=None, cov=None, batch_size=2,
             niter=5000, nprint=10, verbose=True, check_goodness=True,

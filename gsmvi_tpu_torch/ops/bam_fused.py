@@ -40,6 +40,16 @@ nothing once the block has stopped.  Both return a float32 report of
 ``REP_SIZE`` values on the device (``REP_*`` indices), so a caller reads
 every flag and statistic of a call in ONE device-to-host transfer
 (``_bam_update_packed``, ``step.packed``).
+
+K7 also takes a leading replica axis (``bam_eps_update_replicas``, the
+route of ``FactorBaM.fit_batch``): the same eight launches update K
+replicas, the thin products on their replica tiles, the small space's
+cluster (or row panels) of each replica on blockIdx.y, the apply batched,
+one finalize block and one select row of blocks per replica, with a (K,
+REP_SIZE) report.  Each replica runs its own NS tier from a (K,
+TIER_STRIDE) table on the card (``tier_table``, made once per combination
+of tiers), and replica i computes, bit for bit, what K7 on it alone
+computes.  Plain version: ``bam_eps_update_replicas_reference``.
 Wrappers run the plain version on CPU tensors, launch on CUDA tensors, and
 raise on what the kernels do not take; they never fall back.
 """
@@ -89,6 +99,10 @@ REP_KEEP, REP_STIFF, REP_GU, REP_LMAX = 0, 1, 2, 3
 REP_NDONE, REP_NACC, REP_STOPPED, REP_APPLY = 4, 5, 6, 7
 REP_SIZE = 8
 SS_SIZE = 6
+# Floats a replica owns in the small space's results and in a tier table
+# (BAM_SS_STRIDE and BAM_TIER_STRIDE of ops/cuda/csrc/bam_replica.cuh): a
+# tier row is the five NS sweep counts, lmax_gate, gu_gate and a pad.
+SS_STRIDE, TIER_STRIDE = 8, 8
 
 # Shapes the CUDA kernels take.  The small space is padded to kpad = B + 8
 # (the TPU kernel's padding, which the gates depend on).  The cluster kernel
@@ -371,6 +385,27 @@ def bam_multistep_reference(score_fn, params, regs, nmax: int,
     return mu[0], f, n_done, n_acc, stopped, stats
 
 
+def _long_profile_tiers(k: int):
+    """K replicas' tiers, all on the long profile."""
+    return [(BAM_NS_ITERS_DEFAULT, GU_GATE_DEFAULT, LMAX_GATE_DEFAULT)] * k
+
+
+def bam_eps_update_replicas_reference(eps, vs, mean, f, reg, tiers=None,
+                                      ef=None):
+    """The plain version of K7's replica axis: ``bam_eps_update_ns_reference``
+    applied replica by replica to eps, vs, ef (K, B, D), mean (K, D) and f
+    (K, D, D), replica i on its tier ``tiers[i]`` = (iters, gu_gate,
+    lmax_gate) (default: the long profile for all).  Returns (mean (K, D),
+    f (K, D, D), keep (K,), stiff (K,), ns_stats (K, 2))."""
+    tiers = tiers or _long_profile_tiers(eps.shape[0])
+    outs = [bam_eps_update_ns_reference(
+        eps[i], vs[i], mean[i], f[i], reg, iters=tuple(int(x) for x in it),
+        lmax_gate=float(lm), gu_gate=float(gg),
+        ef=None if ef is None else ef[i])
+        for i, (it, gg, lm) in enumerate(tiers)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def _plain_report(*, keep=False, stiff=False, stats=NS_STATS_INIT, n_done=0,
                   n_acc=0, stopped=0, apply=False):
     """The report a kernel call writes, from the plain version's outputs
@@ -396,16 +431,20 @@ def _require_bam_shape(b: int, d: int) -> None:
 
 
 class _BamBuffers:
-    """Scratch of one BaM update on the card, allocated once per call."""
+    """Scratch of one BaM update on the card (of K replicas: a leading axis
+    K), allocated once per call."""
 
-    def __init__(self, b: int, d: int, device, with_f_prop: bool = False):
-        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
+    def __init__(self, b: int, d: int, device, with_f_prop: bool = False,
+                 k=None):
+        lead = () if k is None else (k,)
+        empty = lambda *s: torch.empty((*lead, *s), dtype=torch.float32,
+                                       device=device)
         k1 = b + 1
         self.vf, self.t = empty(b, d), empty(b, d)
         self.rows = empty(4 * k1, d)
         self.su, self.sw = empty(2 * k1, d), empty(2 * k1, d)
         self.vec = empty(2, d)
-        self.ss = empty(8)
+        self.ss = empty(SS_STRIDE)
         self.t1, self.sg = empty(1, d), empty(1, d)
         self.nparts = (-(-d // _GEMM_TILE)) ** 2
         self.partial = empty(2 * self.nparts)
@@ -416,14 +455,18 @@ class _BamBuffers:
 
 
 def _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf: _BamBuffers,
-                           reg, iters, lmax_gate, gu_gate, halt=None) -> None:
-    """The small space of one update, from ``buf.vf`` and ``buf.t``: the
-    stacked rows ``buf.su``/``buf.sw``, ``buf.vec`` and ``buf.ss``.  By
-    batch alone: up to ``BAM_SHARED_MAX_B`` on a cluster of
-    ``cluster_columns(D)`` blocks (counted in ``bam_smallspace.launches``),
-    above on row panels over a cluster of ``PANEL_RANKS`` blocks
-    (``bam_smallspace_panel``)."""
-    b, d = e.shape
+                           reg, iters, lmax_gate, gu_gate, halt=None,
+                           tier=None) -> None:
+    """The small space of one update (of K replicas), from ``buf.vf`` and
+    ``buf.t``: the stacked rows ``buf.su``/``buf.sw``, ``buf.vec`` and
+    ``buf.ss``.  By batch alone: up to ``BAM_SHARED_MAX_B`` on a cluster of
+    ``cluster_columns(D)`` blocks per replica (counted in
+    ``bam_smallspace.launches``), above on row panels over a cluster of
+    ``PANEL_RANKS`` blocks per replica (``bam_smallspace_panel``).  With a
+    tier table ``tier`` (K, TIER_STRIDE) on the device, replica i runs the
+    sweeps and gates of its row instead of ``iters`` and the gates."""
+    k = e.shape[0] if e.dim() == 3 else 1
+    b, d = e.shape[-2:]
     args = (_ptr(e), _ptr(v), _ptr(buf.vf), _ptr(buf.t), _ptr(ef),
             _ptr(mean_in), _ptr(buf.rows), _ptr(buf.su), _ptr(buf.sw),
             _ptr(buf.vec), _ptr(buf.ss), _ptr(halt))
@@ -431,50 +474,58 @@ def _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf: _BamBuffers,
     if b <= BAM_SHARED_MAX_B:
         bam_smallspace.launches += 1
         lib.call("gsmvi_bam_smallspace_cluster", *args, b, d, *scalars,
-                 *cluster_columns(d), bam_cluster_tile(b), stream)
+                 *cluster_columns(d), bam_cluster_tile(b), _ptr(tier), k,
+                 stream)
     else:
-        bam_smallspace_panel(lib, stream, args, buf.ws, b, d, scalars)
+        bam_smallspace_panel(lib, stream, args, buf.ws, b, d, scalars,
+                             tier=tier, k=k)
 
 
 def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
                        f_prop, buf: _BamBuffers, reg, iters, lmax_gate,
                        gu_gate, rep, halt=None, multistep: int = 0,
-                       stop_on_reject: int = 0) -> None:
+                       stop_on_reject: int = 0, tier=None) -> None:
     """One update's launches: vf, t (thin product), small space, fat apply
     (F' into ``f_prop``), the two mean matvecs on F' (thin product),
     finalize (mean into ``mean_out``, report into ``rep``) and the select of
-    F' or ``f_in`` into ``f_dst``."""
-    b, d = e.shape
+    F' or ``f_in`` into ``f_dst``.  With a leading replica axis K on every
+    operand (packed; ``rep`` (K, REP_SIZE)) the same eight launches update
+    the K replicas, replica i as a call on it alone would (``tier``: see
+    ``_launch_bam_smallspace``)."""
+    k = e.shape[0] if e.dim() == 3 else 1
+    b, d = e.shape[-2:]
     _thin(lib, stream, v, f_in, buf.vf, trans=False, halt=halt)
     _thin(lib, stream, buf.vf, f_in, buf.t, trans=True, halt=halt)
     _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf, reg, iters,
-                           lmax_gate, gu_gate, halt=halt)
+                           lmax_gate, gu_gate, halt=halt, tier=tier)
     lib.call("gsmvi_bam_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_prop), _ptr(buf.partial), _ptr(halt), 2 * (b + 1), d,
+             _ptr(f_prop), _ptr(buf.partial), _ptr(halt), 2 * (b + 1), d, k,
              stream)
-    _thin(lib, stream, buf.vec[:1], f_prop, buf.t1, trans=False, halt=halt)
+    _thin(lib, stream, buf.vec[..., :1, :], f_prop, buf.t1, trans=False,
+          halt=halt)
     _thin(lib, stream, buf.t1, f_prop, buf.sg, trans=True, halt=halt)
     lib.call("gsmvi_bam_finalize", _ptr(buf.partial), buf.nparts,
              _ptr(buf.ss), _ptr(buf.sg), _ptr(buf.vec), _ptr(mean_in),
              _ptr(mean_out), _ptr(rep), multistep, stop_on_reject,
-             float(reg), d, stream)
+             float(reg), d, k, stream)
     lib.call("gsmvi_bam_select", _ptr(rep), _ptr(f_prop), _ptr(f_in),
-             _ptr(f_dst), d * d, stream)
+             _ptr(f_dst), d * d, k, stream)
 
 
 def bam_smallspace_panel(lib, stream, args, ws, b: int, d: int,
-                         scalars) -> None:
+                         scalars, tier=None, k: int = 1) -> None:
     """Launch the row-panel BaM small space (``bam_smallspace_panel.cu``)
     that K7 and K8 run above ``BAM_SHARED_MAX_B``: one cluster of
-    ``PANEL_RANKS`` blocks, ``args`` ``gsmvi_bam_smallspace_cluster``'s
-    pointers, ``ws`` the mirrors of its panels in device memory,
-    ``scalars`` (reg, iters, gates, tol).  Its placement is
-    checked first (``panel_clusters``); ``launches`` counts the updates that
-    took it, so a run shows which small space ran."""
+    ``PANEL_RANKS`` blocks per replica (``k`` of them), ``args``
+    ``gsmvi_bam_smallspace_cluster``'s pointers, ``ws`` the mirrors of its
+    panels in device memory, ``scalars`` (reg, iters, gates, tol),
+    ``tier`` the replicas' tier table or None.  Its placement is checked
+    first (``panel_clusters``); ``launches`` counts the updates that took
+    it, so a run shows which small space ran."""
     panel_clusters(lib, "bam", b)
     bam_smallspace_panel.launches += 1
     lib.call("gsmvi_bam_smallspace_panel", *args, _ptr(ws), b, d, *scalars,
-             stream)
+             _ptr(tier), k, stream)
 
 
 bam_smallspace_panel.launches = 0
@@ -538,6 +589,96 @@ def bam_eps_update_fused(eps, vs, mean, f, reg, iters=BAM_NS_ITERS_DEFAULT,
 
 
 bam_eps_update_fused.launches = 0
+
+
+# The replicas' tier tables on the card, by (device, tiers): made when a
+# combination of tiers first runs and held (a fit's replicas change tier
+# only at feedback-cadence boundaries and stiff steps); at most
+# TIER_TABLES_MAX held, the oldest dropped first.
+_TIER_TABLES = {}
+TIER_TABLES_MAX = 64
+
+
+def tier_table(tiers, device) -> torch.Tensor:
+    """The (K, TIER_STRIDE) float32 tier table of ``tiers`` (K (iters,
+    gu_gate, lmax_gate) triples) on ``device``: rows [iters..., lmax_gate,
+    gu_gate, 0], read by the small spaces replica by replica."""
+    key = (str(device), tuple((tuple(int(x) for x in it), float(gg),
+                               float(lm)) for it, gg, lm in tiers))
+    table = _TIER_TABLES.pop(key, None)
+    if table is None:
+        rows = [[*it, lm, gg, 0.0] for it, gg, lm in key[1]]
+        table = torch.tensor(rows, dtype=torch.float32, device=device)
+        if len(_TIER_TABLES) >= TIER_TABLES_MAX:
+            _TIER_TABLES.pop(next(iter(_TIER_TABLES)))
+    _TIER_TABLES[key] = table
+    return table
+
+
+def _bam_update_replicas_packed(eps, vs, mean, f, reg, tiers=None, ef=None):
+    """K7 over stacked replicas as (mean (K, D), f (K, D, D), report (K,
+    REP_SIZE)): eps, vs, ef (K, B, D), mean (K, D), f (K, D, D), one
+    ``reg`` for all, replica i on its NS tier ``tiers[i]`` = (iters,
+    gu_gate, lmax_gate) (default: the long profile for all).  On the card
+    the eight launches of one K7 call cover the K replicas, replica i
+    computing what K7 on it alone computes; the report of all K is read in
+    one transfer."""
+    k, b, d = eps.shape
+    tiers = tiers or _long_profile_tiers(k)
+    if len(tiers) != k:
+        raise ValueError(f"expected {k} tiers, got {len(tiers)}")
+    tensors = [eps, vs, mean, f] + ([ef] if ef is not None else [])
+    if _on_cpu(*tensors):
+        m, ff, keep, stiff, stats = bam_eps_update_replicas_reference(
+            eps, vs, mean, f, reg, tiers, ef=ef)
+        return m, ff, torch.stack([
+            _plain_report(keep=keep[i], stiff=stiff[i], stats=stats[i],
+                          n_done=1, n_acc=keep[i], apply=keep[i])
+            for i in range(k)])
+    _require_bam_shape(b, d)
+    for name, t, shape in (("eps", eps, (k, b, d)), ("vs", vs, (k, b, d)),
+                           ("mean", mean, (k, d)), ("f", f, (k, d, d))):
+        _require(name, t, shape)
+    dev = eps.device
+    lib = _library()
+    stream = _stream(dev)
+    bam_eps_update_replicas.launches += 1
+    if ef is None:
+        ef = torch.empty_like(eps)
+        _thin(lib, stream, eps, f, ef, trans=True)
+    else:
+        _require("ef", ef, (k, b, d))
+    table = tier_table(tiers, dev)
+    buf = _BamBuffers(b, d, dev, k=k)
+    mean_out = torch.empty_like(mean)
+    f_out = torch.empty_like(f)
+    rep = torch.empty((k, REP_SIZE), dtype=torch.float32, device=dev)
+    # The launch scalars' profile is the table's first row; the kernels
+    # read every replica's own row.
+    it0, gg0, lm0 = tiers[0]
+    _launch_bam_update(lib, stream, eps, vs, ef, mean, mean_out, f, f_out,
+                       f_out, buf, reg, tuple(int(x) for x in it0),
+                       float(lm0), float(gg0), rep, tier=table)
+    return mean_out, f_out, rep
+
+
+def bam_eps_update_replicas(eps, vs, mean, f, reg, tiers=None, ef=None):
+    """K7 with a replica axis: one update of K independent BaM fits.
+
+    eps, vs (K, B, D); mean (K, D); f (K, D, D); ``reg`` a float shared by
+    the replicas (a step of a pure schedule); ``tiers`` K (iters, gu_gate,
+    lmax_gate) NS tiers, one per replica (default: the long profile);
+    ``ef`` optional ``eps @ f^T``.  Returns (mean (K, D), f (K, D, D), keep
+    (K,), stiff (K,), ns_stats (K, 2)); replica i's values are those of
+    ``bam_eps_update_fused`` on replica i alone at its tier.  Plain
+    version: ``bam_eps_update_replicas_reference``."""
+    mean_out, f_out, rep = _bam_update_replicas_packed(eps, vs, mean, f, reg,
+                                                       tiers, ef)
+    return (mean_out, f_out, rep[:, REP_KEEP] != 0, rep[:, REP_STIFF] != 0,
+            rep[:, REP_GU:REP_LMAX + 1])
+
+
+bam_eps_update_replicas.launches = 0
 
 
 def make_fused_bam_multistep(score_fn, n_params: int, batch: int, d: int,
@@ -655,6 +796,7 @@ bam_smallspace.launches = 0
 # ``reset_launch_counts()`` cover every kernel of the package.
 KERNEL_WRAPPERS.update({
     "bam_eps_update_fused": bam_eps_update_fused,
+    "bam_eps_update_replicas": bam_eps_update_replicas,
     "make_fused_bam_multistep": make_fused_bam_multistep,
     "bam_smallspace_panel": bam_smallspace_panel,
     "bam_smallspace": bam_smallspace,

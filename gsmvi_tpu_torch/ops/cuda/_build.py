@@ -42,11 +42,11 @@ SIGNATURES = {
     "gsmvi_eps_chol": [_P] * 12 + [_I] * 4 + [_F, _P],
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 8 + [_I] * 7 + [_P],
-    "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _P],
+    "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _I, _P],
     "gsmvi_bam_smallspace_cluster": [_P] * 12 + [_I, _I, _F] + [_I] * 5
-    + [_F, _F, _F] + [_I] * 3 + [_P],
-    "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _P],
-    "gsmvi_bam_select": [_P] * 4 + [_I, _P],
+    + [_F, _F, _F] + [_I] * 3 + [_P, _I, _P],
+    "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _I, _P],
+    "gsmvi_bam_select": [_P] * 4 + [_I, _I, _P],
     "gsmvi_advi_rows": [_P] * 6 + [_I] * 3 + [_P],
     "gsmvi_advi_update": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 2
     + [_F] * 6 + [_P],
@@ -57,7 +57,7 @@ SIGNATURES = {
     "gsmvi_eps_smallspace_large": [_P] * 16 + [_I] * 3 + [_F, _I, _L, _I, _I, _P],
     "gsmvi_eps_smallspace_panel": [_P] * 14 + [_I] * 7 + [_F, _I, _L, _P],
     "gsmvi_bam_smallspace_panel": [_P] * 13 + [_I, _I, _F] + [_I] * 5
-    + [_F, _F, _F, _P],
+    + [_F, _F, _F, _P, _I, _P],
     "gsmvi_funnel_score": [_P] * 3 + [_I] * 4 + [_P],
     "gsmvi_banana_score": [_P] * 3 + [_I] * 4 + [_P],
     "gsmvi_student_t_score": [_P] * 7 + [_I] * 4 + [_P],

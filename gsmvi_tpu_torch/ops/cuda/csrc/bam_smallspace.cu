@@ -15,7 +15,10 @@
 // fixed order (no float atomics: the accept flag reproduces), decides
 // keep = good & ~stiff, writes the mean and a float32 report; a grid select
 // then copies F or F'.  In a multistep block each launch reads the report's
-// `stopped` word and does nothing once the block has stopped.
+// `stopped` word and does nothing once the block has stopped.  Over K
+// stacked replicas (FactorBaM.fit_batch) the finalize runs one block per
+// replica and the select one row of blocks per replica, each on its own
+// report.
 #include "smallspace.cuh"
 
 namespace {
@@ -25,7 +28,9 @@ constexpr int SEL_THREADS = 256;
 
 // Report (float32), the layout of ops/bam_fused.py's REP_* indices.
 constexpr int REP_KEEP = 0, REP_STIFF = 1, REP_GU = 2, REP_LMAX = 3, REP_NDONE = 4,
-              REP_NACC = 5, REP_STOPPED = 6, REP_APPLY = 7;
+              REP_NACC = 5, REP_STOPPED = 6, REP_APPLY = 7, REP_SIZE = 8;
+// Floats a replica owns in `ss` (BAM_SS_STRIDE of bam_replica.cuh).
+constexpr int SS_STRIDE = 8;
 // Small-space results handed to the finalize (BC_SS_* of
 // bam_smallspace_cluster.cuh, the row-panel small space's alike).
 constexpr int SS_GU = 0, SS_LMAX = 1, SS_RESOK = 2, SS_STIFF = 3, SS_TRA = 4, SS_TRB = 5;
@@ -45,9 +50,21 @@ struct FinArgs {
 };
 
 // Trace gate, keep = good & ~stiff, the mean with its select, and the
-// report (bam_fused.py:323-333, :368-374, :477-490).
+// report (bam_fused.py:323-333, :368-374, :477-490).  Block z decides
+// replica z of a K-replica update (its operands packed after replica
+// z - 1's).
 __global__ void __launch_bounds__(FIN_THREADS) bam_finalize_kernel(FinArgs p) {
     __shared__ float red[32];
+    {
+        const long long z = blockIdx.x;
+        p.partial += 2 * z * p.nparts;
+        p.ss += z * SS_STRIDE;
+        p.sg += z * p.d;
+        p.vec += 2 * z * p.d;
+        p.mean_in += z * p.d;
+        p.mean_out += z * p.d;
+        p.rep += z * REP_SIZE;
+    }
     if (p.multistep && p.rep[REP_STOPPED] != 0.f) return;
     float a = 0.f, c = 0.f;
     for (int i = threadIdx.x; i < p.nparts; i += blockDim.x) {
@@ -91,8 +108,15 @@ __global__ void __launch_bounds__(FIN_THREADS) bam_finalize_kernel(FinArgs p) {
 }
 
 // dst = a if the report's apply flag is set else b; dst may equal a or b.
+// Replica blockIdx.y of a K-replica update: its report, a, b and dst
+// REP_SIZE and n elements after replica blockIdx.y - 1's.
 __global__ void __launch_bounds__(SEL_THREADS) bam_select_kernel(const float* rep, const float* a,
                                                                  const float* b, float* dst, int n) {
+    const long long z = blockIdx.y;
+    rep += z * REP_SIZE;
+    a += z * n;
+    b += z * n;
+    dst += z * n;
     const float* src = rep[REP_APPLY] != 0.f ? a : b;
     if (src == dst) return;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
@@ -103,21 +127,26 @@ __global__ void __launch_bounds__(SEL_THREADS) bam_select_kernel(const float* re
 
 extern "C" {
 
+// One block per replica: `reps` replicas' operands stored one after
+// another (a multistep block has one).
 int gsmvi_bam_finalize(const float* partial, int nparts, const float* ss, const float* sg,
                        const float* vec, const float* mean_in, float* mean_out, float* rep,
-                       int multistep, int stop_on_reject, float reg, int d, void* stream) {
+                       int multistep, int stop_on_reject, float reg, int d, int reps,
+                       void* stream) {
+    if (reps < 1 || (reps > 1 && multistep)) return (int)cudaErrorInvalidValue;
     FinArgs p{partial, nparts, ss, sg, vec, mean_in, mean_out, rep, multistep,
               stop_on_reject, reg, d};
-    bam_finalize_kernel<<<1, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    bam_finalize_kernel<<<reps, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
     return (int)cudaGetLastError();
 }
 
 int gsmvi_bam_select(const float* rep, const float* a, const float* b, float* dst, int n,
-                     void* stream) {
+                     int reps, void* stream) {
+    if (reps < 1 || reps > 65535) return (int)cudaErrorInvalidValue;
     int blocks = (n + SEL_THREADS - 1) / SEL_THREADS;
     if (blocks > 1024) blocks = 1024;
-    bam_select_kernel<<<blocks, SEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        rep, a, b, dst, n);
+    bam_select_kernel<<<dim3(blocks, reps), SEL_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(rep, a, b, dst, n);
     return (int)cudaGetLastError();
 }
 

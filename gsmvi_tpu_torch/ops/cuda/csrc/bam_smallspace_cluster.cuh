@@ -57,6 +57,12 @@
 // Halt: in a multistep block each launch reads the report's `stopped`
 // word; every block reads it once, at entry, and returns before any cluster
 // barrier, so no block waits on a peer that left.
+// K replicas (FactorBaM.fit_batch, K7's replica axis): blockIdx.y =
+// replica, one cluster each, every operand of replica z packed after
+// replica z - 1's.  C depends on D only, never on K, so replica z equals a
+// launch on replica z alone, bit for bit.  With a tier table (K rows of
+// BAM_TIER_STRIDE floats: the five sweep counts, lmax_gate, gu_gate) each
+// replica runs its own NS tier; without one, the launch's scalars.
 //
 // The kernel is a template on the chain tile T; each of its instantiations
 // lives in its own source (bam_smallspace_cluster.cu for T = 3, the main
@@ -64,6 +70,7 @@
 // build compiles them side by side.
 #pragma once
 
+#include "bam_replica.cuh"
 #include "eps_smallspace_cluster.cuh"
 
 namespace {
@@ -93,6 +100,7 @@ struct BamClusterArgs {
     float reg;
     int it0, it1, it2, it3, it4;
     float lmax_gate, gu_gate, tol;
+    const float* tier;   // optional (K, BAM_TIER_STRIDE) per-replica NS tiers
 };
 
 // Leading dimension of the (kpad, kpad) matrices at tile T: a multiple of 4
@@ -209,6 +217,7 @@ template <int T>
 __global__ void __launch_bounds__(SC_THREADS, 1) bam_cluster_kernel(BamClusterArgs p) {
     // The same word for every block: all return here or none does.
     if (p.halt != nullptr && *p.halt != 0.f) return;
+    bam_take_replica(p);
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     cg::cluster_group cluster = cg::this_cluster();
@@ -483,7 +492,8 @@ __global__ void __launch_bounds__(SC_THREADS, 1) bam_cluster_kernel(BamClusterAr
 }
 
 template <int T>
-cudaError_t launch_bam_cluster(const BamClusterArgs& p, int ranks, cudaStream_t stream) {
+cudaError_t launch_bam_cluster(const BamClusterArgs& p, int ranks, int reps,
+                               cudaStream_t stream) {
     // Above 48 KB needs the opt-in, a function attribute: it covers every
     // later launch of this instantiation (kpad up to 16 T).
     static bool smem_opt_in = false;
@@ -495,7 +505,7 @@ cudaError_t launch_bam_cluster(const BamClusterArgs& p, int ranks, cudaStream_t 
         smem_opt_in = true;
     }
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(ranks, 1, 1);
+    cfg.gridDim = dim3(ranks, reps, 1);
     cfg.blockDim = dim3(SC_THREADS, 1, 1);
     cfg.dynamicSmemBytes = bam_cluster_smem(p.b + 8, T);
     cfg.stream = stream;
@@ -511,13 +521,14 @@ cudaError_t launch_bam_cluster(const BamClusterArgs& p, int ranks, cudaStream_t 
     return cudaGetLastError();
 }
 
-// One instantiation's C entry: args points to a BamClusterArgs.  With
+// One instantiation's C entry: args points to a BamClusterArgs, `reps`
+// replicas on blockIdx.y.  With
 // GSMVI_PHASE_STAMPS (tools/smallspace_phases.py --kernel bam), name_phases
 // copies its phase timestamps (PHASE(0..14) above) into out.
 #define GSMVI_BAM_CLUSTER_ENTRY(name, T)                                                       \
-    extern "C" int name(const void* args, int ranks, void* stream) {                          \
+    extern "C" int name(const void* args, int ranks, int reps, void* stream) {                \
         return (int)launch_bam_cluster<T>(*static_cast<const BamClusterArgs*>(args), ranks,    \
-                                          static_cast<cudaStream_t>(stream));                  \
+                                          reps, static_cast<cudaStream_t>(stream));            \
     }                                                                                          \
     GSMVI_EPS_CLUSTER_PHASES(name)
 

@@ -5,7 +5,7 @@
 // 128; bam_smallspace_panel_t22.cu holds the (2, 2) one).
 #include "bam_smallspace_panel.cuh"
 
-extern "C" int gsmvi_bam_panel_t22(const void* args, void* stream);
+extern "C" int gsmvi_bam_panel_t22(const void* args, int reps, void* stream);
 extern "C" long long gsmvi_bam_panel_t22_clusters(int b);
 
 GSMVI_BAM_PANEL_ENTRY(gsmvi_bam_panel_t11, 1, 1)
@@ -24,8 +24,8 @@ bool bam_panel_wide(int b) { return b + 8 > 128; }
 
 extern "C" {
 
-// Workspace floats of gsmvi_bam_smallspace_panel at batch b: the mirrors
-// of its panels.
+// Workspace floats per replica of gsmvi_bam_smallspace_panel at batch b:
+// the mirrors of its panels.
 long long gsmvi_bam_panel_ws(int b) { return pn_ws_floats(b + 8, PB_NMAT); }
 
 // How many clusters of BaM's panel small space at batch b the card holds
@@ -36,18 +36,22 @@ long long gsmvi_bam_panel_clusters(int b) {
 }
 
 // The arguments of gsmvi_bam_smallspace_cluster without the cluster's
-// column split and tile, plus `ws` (gsmvi_bam_panel_ws(b) floats): one
-// cluster of PN_RANKS blocks, ceil((B + 8) / 16) rows each (the last blocks
-// may hold none).
+// column split and tile, plus `ws` (gsmvi_bam_panel_ws(b) floats per
+// replica): one cluster of PN_RANKS blocks per replica, ceil((B + 8) / 16)
+// rows each (the last blocks may hold none); `tier` and `reps` as there.
 int gsmvi_bam_smallspace_panel(const float* e, const float* v, const float* vf, const float* t,
                                const float* ef, const float* mean_in, float* rows, float* su,
                                float* sw, float* vec, float* ss, const float* halt, float* ws,
                                int b, int d, float reg, int it0, int it1, int it2, int it3,
-                               int it4, float lmax_gate, float gu_gate, float tol, void* stream) {
-    if (!bam_panel_shape_ok(b) || d < 1) return (int)cudaErrorInvalidValue;
+                               int it4, float lmax_gate, float gu_gate, float tol,
+                               const float* tier, int reps, void* stream) {
+    if (!bam_panel_shape_ok(b) || d < 1 || reps < 1 || reps > 65535 ||
+        (reps > 1 && halt != nullptr))
+        return (int)cudaErrorInvalidValue;
     const PanelBamArgs p{e, v, vf, t, ef, mean_in, rows, su, sw, vec, ss, halt, ws, b, d, reg,
-                         it0, it1, it2, it3, it4, lmax_gate, gu_gate, tol};
-    return bam_panel_wide(b) ? gsmvi_bam_panel_t22(&p, stream) : gsmvi_bam_panel_t11(&p, stream);
+                         it0, it1, it2, it3, it4, lmax_gate, gu_gate, tol, tier};
+    return bam_panel_wide(b) ? gsmvi_bam_panel_t22(&p, reps, stream)
+                             : gsmvi_bam_panel_t11(&p, reps, stream);
 }
 
 }  // extern "C"

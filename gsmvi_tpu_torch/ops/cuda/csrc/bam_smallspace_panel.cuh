@@ -34,6 +34,8 @@
 // Halt: in a multistep block each launch reads the report's `stopped`
 // word; every block reads it once, at entry, and returns before any cluster
 // barrier, so no block waits on a peer that left.
+// K replicas: blockIdx.y = replica, one cluster each (bam_replica.cuh),
+// with its own mirrors; replica z equals a launch on replica z alone.
 // Shared memory (P = 16): fourteen (9, 140) panels, a (140, 140) staging
 // matrix, a (9, 132) Gram slab and the column sums' partials: 158,992 bytes
 // at kpad = 136 (pn_smem_floats); the panels' mirrors in device memory,
@@ -46,6 +48,7 @@
 // 128) and (2, 2) in bam_smallspace_panel_t22.cu (kpad 129-136, 9 rows).
 #pragma once
 
+#include "bam_replica.cuh"
 #include "smallspace_panel.cuh"
 
 namespace {
@@ -82,12 +85,15 @@ struct PanelBamArgs {
     float reg;
     int it0, it1, it2, it3, it4;
     float lmax_gate, gu_gate, tol;
+    const float* tier;   // optional (K, BAM_TIER_STRIDE) per-replica NS tiers
 };
 
 template <int TR, int NC>
 __global__ void __launch_bounds__(PN_THREADS, 1) bam_panel_kernel(PanelBamArgs p) {
     // The same word for every block: all return here or none does.
     if (p.halt != nullptr && *p.halt != 0.f) return;
+    bam_take_replica(p);
+    p.ws += blockIdx.y * pn_ws_floats(p.b + 8, PB_NMAT);
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int b = p.b, d = p.d, m = b + 1, n = b + 8;
@@ -316,14 +322,14 @@ __global__ void __launch_bounds__(PN_THREADS, 1) bam_panel_kernel(PanelBamArgs p
     extern "C" long long name##_clusters(int b) {                                         \
         return pn_max_clusters(bam_panel_kernel<TR, NC>, pb_smem_bytes(b), &name##_smem); \
     }                                                                                     \
-    extern "C" int name(const void* args, void* stream) {                                 \
+    extern "C" int name(const void* args, int reps, void* stream) {                       \
         const PanelBamArgs& p = *static_cast<const PanelBamArgs*>(args);                 \
         const size_t smem = pb_smem_bytes(p.b);                                           \
         cudaError_t err = pn_attributes(bam_panel_kernel<TR, NC>, smem, &name##_smem);    \
         if (err != cudaSuccess) return (int)err;                                          \
         cudaLaunchAttribute attr[1];                                                      \
         const cudaLaunchConfig_t cfg =                                                    \
-            pn_config(1, smem, static_cast<cudaStream_t>(stream), attr);                  \
+            pn_config(reps, smem, static_cast<cudaStream_t>(stream), attr);               \
         err = cudaLaunchKernelEx(&cfg, bam_panel_kernel<TR, NC>, p);                     \
         if (err != cudaSuccess) return (int)err;                                          \
         return (int)cudaGetLastError();                                                   \

@@ -36,12 +36,18 @@ int gsmvi_factor_apply(const float* su, const float* sw, const float* f_in,
 
 // BaM fat apply: f_out = f_in + su^T @ sw, su, sw (K, D), f (D, D), f_out
 // distinct from f_in; partial (2 * ceil(D/32)^2,) gets each output tile's
-// (sum f_out^2, sum f_in^2).  No-op while *halt != 0.
+// (sum f_out^2, sum f_in^2).  No-op while *halt != 0.  For `reps`
+// replicas stored one after another (su, sw (reps, K, D), f (reps, D, D),
+// partial (reps, 2 * ceil(D/32)^2)); halt only with one.
 int gsmvi_bam_apply(const float* su, const float* sw, const float* f_in, float* f_out,
-                    float* partial, const float* halt, int k, int d, void* stream) {
+                    float* partial, const float* halt, int k, int d, int reps,
+                    void* stream) {
+    if (reps < 1 || reps > 65535 || (reps > 1 && halt != nullptr))
+        return (int)cudaErrorInvalidValue;
     GemmArgs p{};
     p.a = su; p.b = sw; p.c = f_out; p.c_in = f_in; p.partial = partial; p.halt = halt;
     p.m = d; p.n = d; p.k = k; p.lda = d; p.ldb = d; p.ldc = d;
+    p.batch = reps; p.sa = p.sb = (long long)k * d; p.sc = (long long)d * d;
     return launch_gemm<EPI_ADD_SUMSQ>(p, static_cast<cudaStream_t>(stream));
 }
 

@@ -50,8 +50,8 @@ enum Epilogue { EPI_SELECT_ADD = 2, EPI_ADD_SUMSQ = 3 };
 //                          partial[2 * block + 1] = sum(c_in^2) over the tile
 // With a non-null halt, the launch does nothing while *halt != 0.
 // batch replicas (0 means 1) start sa, sb, sc and sgood elements apart in
-// a, b, (c, c_in) and good; halt and partial are not batched (their
-// epilogue takes one replica).
+// a, b, (c, c_in) and good; replica z's tile sums follow replica z - 1's
+// in partial (2 tiles values each); halt is not batched.
 struct GemmArgs {
     const float* a;
     const float* b;
@@ -134,7 +134,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
                 a += red[0][w];
                 b += red[1][w];
             }
-            const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+            const size_t blk = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                               blockIdx.x;
             p.partial[2 * blk] = a;
             p.partial[2 * blk + 1] = b;
         }

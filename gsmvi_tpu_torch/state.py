@@ -13,8 +13,9 @@ the fit's device, so a fit loop never waits for the device.
 ``fit_batch`` keeps K replicas in the same states, stacked (the
 counterpart of the vmapped states of ``gsmvi_tpu/gsm_factor.py:652-662``):
 means (K, D), covariances, factors and Cholesky factors (K, D, D), ``seed``
-a tuple of K ints, one host ``step`` (the replicas advance together) and
-(K,) int32 counters.  ``replica``/``stack_replicas`` move between the two.
+a tuple of K ints, one host ``step`` (the replicas advance together),
+(K,) int32 counters and, for FactorBaM, K ``ns_stats`` pairs.
+``replica``/``stack_replicas`` move between the two.
 """
 
 from __future__ import annotations
@@ -103,19 +104,48 @@ def accept_or_revert(state: VIState, mean_new: torch.Tensor,
         state.n_rejected + (~good).to(torch.int32))
 
 
+def _stacked_stats(ns_stats) -> bool:
+    """Whether ``ns_stats`` holds one (gu_ub, lmax_ub) pair per replica
+    (FactorBaM's ``fit_batch``) rather than one pair shared by all (the GSM
+    fitters' default)."""
+    return len(ns_stats) > 0 and isinstance(ns_stats[0], tuple)
+
+
 def replica(state, i: int):
     """Replica ``i`` of a stacked ``VIState``/``FactorVIState``, as the state
-    of a single fit (views of the stacked tensors)."""
-    return state._replace(seed=state.seed[i], **{
+    of a single fit (views of the stacked tensors; its own ``ns_stats``
+    pair where the replicas carry one each)."""
+    extra = {}
+    if getattr(state, "ns_stats", None) is not None and _stacked_stats(
+            state.ns_stats):
+        extra["ns_stats"] = state.ns_stats[i]
+    return state._replace(seed=state.seed[i], **extra, **{
         name: value[i] for name, value in state._asdict().items()
         if torch.is_tensor(value)})
 
 
+def stack_like(tensors) -> torch.Tensor:
+    """``torch.stack`` that keeps the replicas' memory layout: matrices that
+    are all column-major (as LAPACK's Cholesky factors come back) stay
+    column-major in the stack, so that replica i's view enters every later
+    product exactly as the single fit's tensor does (a BLAS product rounds
+    differently on the transposed layout)."""
+    if all(x.dim() == 2 and not x.is_contiguous() and x.mT.is_contiguous()
+           for x in tensors):
+        return torch.stack([x.mT for x in tensors]).mT
+    return torch.stack(tensors)
+
+
 def stack_replicas(states):
-    """The stacked state of single-fit states that share ``step``."""
+    """The stacked state of single-fit states that share ``step``
+    (``stack_like`` per field); factor states keep each replica's
+    ``ns_stats`` pair."""
     first = states[0]
-    return first._replace(seed=tuple(s.seed for s in states), **{
-        name: torch.stack([getattr(s, name) for s in states])
+    extra = {}
+    if isinstance(first, FactorVIState):
+        extra["ns_stats"] = tuple(tuple(s.ns_stats) for s in states)
+    return first._replace(seed=tuple(s.seed for s in states), **extra, **{
+        name: stack_like([getattr(s, name) for s in states])
         for name, value in first._asdict().items() if torch.is_tensor(value)})
 
 

@@ -328,7 +328,8 @@ def test_fit_fused_recovers_target():
 def test_fit_fused_routing_and_errors(monkeypatch):
     """Unknown estimators raise on both paths; on the card fit_fused runs
     the kernels or raises (shape, dtype), never turning into fit; the
-    unported options raise."""
+    unported option (mesh=) raises, and fit_batch, once unported, runs
+    (tests/test_torch_fit_batch_bam_advi.py holds its replicas)."""
     d = 8
     t = dense_gaussian(1, d, scale=0.5, device=DEV)
     g = ADVI(d, t.lp, fused_score=t.fused_score, device=DEV)
@@ -353,8 +354,10 @@ def test_fit_fused_routing_and_errors(monkeypatch):
                  0, niter=2, batch_size=8, verbose=False)
     with pytest.raises(NotImplementedError, match="mesh"):
         ADVI(d, t.lp, mesh=object(), device=DEV)
-    with pytest.raises(NotImplementedError, match="fit_batch"):
-        ADVI(d, t.lp, device=DEV).fit_batch(None, Adam(1e-2))
+    means, covs, losses = ADVI(d, t.lp, device=DEV).fit_batch(
+        (0, 1), Adam(1e-2), niter=2, batch_size=4)
+    assert means.shape == (2, d) and covs.shape == (2, d, d)
+    assert losses.shape == (2, 3)
 
 
 def test_collect_aux_stacks_values_across_chunks():

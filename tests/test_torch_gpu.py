@@ -2229,3 +2229,94 @@ def test_grid_launch_raises_when_refused_or_unplaceable(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match=r"B=256 \(tile 16\) cannot be "):
         fs.gsm_eps_update_fused(eps, v, mu, f)
     assert fs.launch_counts()["eps_smallspace_large"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K7 over stacked replicas (FactorBaM.fit_batch)
+# ---------------------------------------------------------------------------
+
+def _bam_replica_inputs(dev, b, d, k):
+    """``chip_smoke.bam_replica_cases``: K replicas' (eps, v, mu, f) on the
+    card and their NS tiers, replica 5 on a two-sweep tier with open gates
+    (a residual reject), replica 6 on a tier whose lmax gate it passes
+    (stiff)."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    rng = np.random.default_rng(7000 + 31 * b + d + k)
+    arrays, tiers = [], []
+    for i in range(k):
+        e = rng.standard_normal((b, d)).astype(np.float32)
+        f = (np.eye(d) + 0.05 * rng.standard_normal((d, d))
+             ).astype(np.float32)
+        mu = rng.standard_normal(d).astype(np.float32)
+        v = (0.05 * rng.standard_normal((b, d))).astype(np.float32)
+        arrays.append((e, v, mu, f))
+        tier = bf.BAM_NS_TIERS[i % len(bf.BAM_NS_TIERS)]
+        if k > 1 and i == 5:
+            tier = ((2, 2, 2, 2, 2), float("inf"), float("inf"))
+        if k > 1 and i == 6:
+            tier = (bf.BAM_NS_ITERS_DEFAULT, bf.GU_GATE_DEFAULT, 1e-3)
+        tiers.append(tier)
+    return ([torch.from_numpy(np.stack(x)).to(dev) for x in zip(*arrays)],
+            tiers)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("b,d", [(2, 10), (32, 256), (56, 256), (128, 256)])
+def test_bam_replica_k7_matches_plain_and_single_k7(cuda, b, d, k):
+    """Replica i of one K7 launch sequence equals K7 on replica i alone at
+    its tier, bit for bit, and its plain version within 1e-5 of max(1,
+    scale); flags equal, a rejecting and a stiff replica keep their old
+    state beside replicas that accept (the row-panel small space at
+    B=128)."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    (e, v, mu, f), tiers = _bam_replica_inputs(cuda, b, d, k)
+    got = bf.bam_eps_update_replicas(e, v, mu, f, 0.5, tiers)
+    want = bf.bam_eps_update_replicas_reference(e, v, mu, f, 0.5, tiers)
+    assert got[2].tolist() == want[2].tolist()
+    assert got[3].tolist() == want[3].tolist()
+    for x, y in zip(got[:2], want[:2]):
+        assert float((x - y).abs().max()) <= 1e-5 * max(
+            1.0, float(y.abs().max()))
+    np.testing.assert_allclose(got[4].cpu().numpy(), want[4].cpu().numpy(),
+                               rtol=1e-3, atol=0)
+    for i, (it, gg, lm) in enumerate(tiers):
+        one = bf.bam_eps_update_fused(e[i], v[i], mu[i], f[i], 0.5, iters=it,
+                                      gu_gate=gg, lmax_gate=lm)
+        for x, y in zip(got, one):
+            assert torch.equal(x[i], y), i
+        if not bool(got[2][i]):
+            assert torch.equal(got[0][i], mu[i])
+            assert torch.equal(got[1][i], f[i])
+    if k > 1:
+        keep, stiff = got[2].tolist(), got[3].tolist()
+        assert keep[0] and keep[1] and not keep[5] and not stiff[5]
+        assert stiff[6]
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_factor_bam_fit_batch_replicas_equal_single_fits(cuda, b):
+    """FactorBaM.fit_batch on K7's replica axis: replica i equals
+    ``fit(seeds[i])`` bit for bit, one replica launch a step; B=64 runs
+    the row-panel small space."""
+    from gsmvi_tpu_torch import FactorBaM, Regularizers
+    from gsmvi_tpu_torch.state import replica
+
+    d, niter, seeds = 64, 150, (3, 1, 4, 5)
+    t = dense_gaussian(0, d, device=cuda)
+    fb = FactorBaM(d, t.lp, t.lp_g, device=cuda)
+    regf = Regularizers().linear(100.0)
+    fs.reset_launch_counts()
+    st = fb.fit_batch(seeds, regf, batch_size=b, niter=niter, retries=0,
+                      return_state=True)
+    counts = fs.launch_counts()
+    assert counts["bam_eps_update_replicas"] == niter + 1
+    assert counts["bam_eps_update_fused"] == 0
+    for i, seed in enumerate(seeds[:2]):
+        s = fb.fit(seed, regf, batch_size=b, niter=niter, retries=0,
+                   verbose=False, return_state=True)
+        r = replica(st, i)
+        assert torch.equal(r.mean, s.mean) and torch.equal(r.factor, s.factor)
+        assert r.ns_stats == s.ns_stats
+        assert int(r.n_accepted) == int(s.n_accepted)

@@ -203,7 +203,7 @@ def main() -> int:
             tile = f"t{bf.bam_cluster_tile(b)}"
             call = lambda: fn(*ptrs, b, d, 0.5, *bf.BAM_NS_ITERS_DEFAULT,
                               bf.LMAX_GATE_DEFAULT, bf.GU_GATE_DEFAULT, bf.NS_TOL, ranks,
-                              cols, bf.bam_cluster_tile(b), stream)
+                              cols, bf.bam_cluster_tile(b), None, 1, stream)
             verdict = lambda: {"ss": buf.ss[:bf.SS_SIZE].tolist()}
         for _ in range(20):
             if call() != 0:
