@@ -195,16 +195,43 @@ the script exits non-zero):
     (replicas 0, 1 equal to their single fits, losses (K, niter + 1), under
     1.5 x the worst JAX CPU fit_batch replica);
     per-call times of the replica K7 at K=8 beside eight single K7 calls.
+23. host callables: ``GSM(256, None, lp_np)`` on dense_gaussian(0, 256)'s
+    numpy score (the dense eager host loop: K5 exactly N_ITER + 1 times
+    and nothing else, under the GSM bound), its it/s and profiled idle
+    share beside the tensor dense route's; a numpy wrapper of the tensor
+    score equal to the tensor dense fit bit for bit (N_HOST_EQUAL steps);
+    ``BaM(jit_compile=False)`` on the numpy score (no kernel, under phase
+    22's dense BaM bound); ``FactorGSM``/``FactorBaM`` on it raise
+    ``TypeError``.
+24. precision: the bf16 and bf16x3 tensor-core thin product (both
+    transposes, x = mu + out) and fat apply (its select) against their
+    plain versions (``mm_prec``) and float64 at (32, 256), (8, 200),
+    (128, 256) and (512, 1024), within the bounds of PREC_SUM and
+    PREC_REL, and K=3 replica launches against single launches bit for
+    bit; K1, K4, K2 and K6 at "high" and "bf16" against their plain
+    versions at (32, 256) and (8, 200); the products' device times beside
+    ``torch.mm`` on bf16 operands, and K1, K4, K2 and K6 per call at each
+    precision beside their bounds; ``FactorGSM(fused_score,
+    pallas_precision=p)`` at D=256, B=32, N_ITER steps for each p (three
+    tensor-core row products and one tensor-core apply a sub-step, finite
+    and PD, under 1.5 x the worst plain CPU fit of ``tools/
+    option_bounds.py``), and on K1 for N_PREC_K1 steps.
+25. methods: ``FactorGSM(method=m)`` for m in twophase and qr at D=256,
+    B=32, N_ITER steps on the card (no kernel, Finv refreshed exactly 3
+    times at refresh_every=1000), under 1.5 x the worst JAX CPU fit of the
+    same method (``tools/option_bounds.py``).
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
 D=2048 fit of 17, each fit of 18 and of 20, the monitored GSM fit and the
-checkpointed fit of 21, the FactorBaM replica fit of 22) and read just
-after it; every kernel of the ``kernels`` line must have launched on those
-paths.
+checkpointed fit of 21, the FactorBaM replica fit of 22, the numpy-score
+GSM fit of 23, each fit of 24) and read just after it; every kernel of the
+``kernels`` line must have launched on those paths.
 Then the card's name and power limit, the kernel table (each kernel's
 bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
-its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores;
+its matrix-product FLOPs over 67 TFLOP/s, float32 outside the tensor cores,
+or, for the bf16 and bf16x3 variants, over 989 TFLOP/s, the dense bf16
+tensor-core peak, three passes at bf16x3;
 the time of one PyTorch call computing the same function where there is
 one; ``device_ms`` and ``library_device_ms``, the kernel's and that call's
 device time per call under ``torch.profiler`` for K1, its small space and
@@ -387,6 +414,18 @@ SOURCES = {
     "logreg_score": (
         "gsmvi_tpu_torch/ops/cuda/csrc/zoo_logreg.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:869"),
+    "thin_product_bf16": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/thin_mma.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:622"),
+    "thin_product_bf16x3": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/thin_mma.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:622"),
+    "factor_apply_bf16": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/apply_mma.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:346"),
+    "factor_apply_bf16x3": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/apply_mma.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:346"),
 }
 # K4: the shapes of phase 14.  A whole step carries the score's GEMM
 # rounding into the update, as K2's sub-steps do, so the ns step is held to
@@ -589,14 +628,16 @@ def _tensors(obj):
             yield from _tensors(o)
 
 
-def bound(plain, inputs, flops=None) -> dict:
+def bound(plain, inputs, flops=None, peak=None) -> dict:
     """The least time the card could take for the work of ``plain()``:
     the larger of its bytes (each tensor of ``inputs`` read once, each
     output written once) over HBM_BYTES_PER_S and its matrix-product FLOPs
-    over F32_FLOPS_PER_S: ``flops`` where the function needs fewer than
-    its plain version forms, else torch's FlopCounterMode over ``plain()``
-    (counted on this run's inputs, so a block that stops early counts what
-    it did)."""
+    over ``peak`` (default F32_FLOPS_PER_S; the tensor-core variants take
+    BF16_FLOPS_PER_S, their plain version forming each bf16x3 pass as a
+    product): ``flops`` where the function needs fewer than its plain
+    version forms, else torch's FlopCounterMode over ``plain()`` (counted
+    on this run's inputs, so a block that stops early counts what it
+    did)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
@@ -604,7 +645,8 @@ def bound(plain, inputs, flops=None) -> dict:
     flops = counter.get_total_flops() if flops is None else flops
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*_tensors(inputs), *_tensors(out)))
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (F32_FLOPS_PER_S if peak is None else peak)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -3509,6 +3551,578 @@ def phase_replica_paths(BaM, FactorBaM, ADVI, Adam, Regularizers, fs, t,
     return [counts]
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-25: the host-callable routes, the tensor-core precisions, and
+# FactorGSM's twophase and qr methods.
+# ---------------------------------------------------------------------------
+
+# Phase 23: the numpy-score GSM fit runs N_ITER steps under the GSM bound;
+# the bit-for-bit comparison of a numpy wrapper of the tensor score with the
+# tensor dense fit runs N_HOST_EQUAL; BaM(jit_compile=False) runs phase 22's
+# dense BaM configuration (N_REPLICA_DENSE steps) under its bound.
+N_HOST_EQUAL = 500
+
+
+def phase_host_paths(GSM, BaM, FactorGSM, FactorBaM, Regularizers, fs, t,
+                     torch, np):
+    """Phase 23: ``GSM`` on dense_gaussian(0, 256)'s numpy score (the dense
+    eager host loop: K5 once a step), a numpy wrapper of the tensor score
+    equal to the tensor dense fit bit for bit, ``BaM(jit_compile=False)``
+    on the numpy score, and the factor fitters' TypeError.  Returns the
+    numpy-score GSM fit's launch counts."""
+    dev = torch.device("cuda")
+    _, params = t.fused_score
+    mu_np, prec_np = (p.cpu().numpy() for p in params)
+    lp_np = lambda x: (mu_np - x) @ prec_np
+    g = GSM(D, None, lp_np, device=dev)
+    check(g._host(B) and not g._factor_route(B, True) and g._dense_fused(B),
+          "a numpy score must take the dense eager route on K5")
+    fs.reset_launch_counts()
+    (mean, cov), wall = _timed(lambda: g.fit(
+        FIT_SEED, batch_size=B, niter=N_ITER, verbose=False), torch)
+    c = fs.launch_counts()
+    em, ec = errs(mean, cov, t)
+    busy, wall_prof = busy_per_step(lambda: g.fit(
+        FIT_SEED, batch_size=B, niter=DENSE_WINDOW - 1, verbose=False),
+        DENSE_WINDOW)
+    gt = GSM(D, t.lp, t.lp_g, use_factor=False, device=dev)
+    _, wall_t = _timed(lambda: gt.fit(FIT_SEED, batch_size=B, niter=N_ITER,
+                                      verbose=False), torch)
+    busy_t, wall_prof_t = busy_per_step(lambda: gt.fit(
+        FIT_SEED, batch_size=B, niter=DENSE_WINDOW - 1, verbose=False),
+        DENSE_WINDOW)
+    wrap = lambda x: t.lp_g(torch.as_tensor(x, device=dev)).cpu().numpy()
+    kw = dict(batch_size=B, niter=N_HOST_EQUAL, verbose=False,
+              return_state=True)
+    same = _equal_states(GSM(D, t.lp, wrap, device=dev).fit(FIT_SEED, **kw),
+                         gt.fit(FIT_SEED, **kw),
+                         ("mean", "cov", "chol", "n_accepted"))
+    emit({"phase": "host_path", "fitter": "GSM(numpy lp_g)", "D": D,
+          "B": B, "niter": N_ITER, "route": "dense eager host loop, K5",
+          "launches": {k: n for k, n in c.items() if n},
+          "mean_err": em, "cov_err": ec, "mean_err_bound": MEAN_ERR_BOUND,
+          "cov_err_bound": COV_ERR_BOUND,
+          "iters_per_s": (N_ITER + 1) / wall,
+          "device_busy_us_per_step": busy,
+          "wall_us_per_step_profiled": wall_prof,
+          "device_idle_share_profiled": 1.0 - busy / wall_prof,
+          "tensor_route_iters_per_s": (N_ITER + 1) / wall_t,
+          "tensor_route_device_busy_us_per_step": busy_t,
+          "tensor_route_device_idle_share_profiled":
+              1.0 - busy_t / wall_prof_t,
+          "numpy_wrapper_equals_tensor_fit": same,
+          "equal_niter": N_HOST_EQUAL})
+    check(c["gsm_update_fused"] == N_ITER + 1
+          and sum(c.values()) == N_ITER + 1,
+          f"numpy-score GSM: K5 must launch once a step and alone: {c}")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()),
+          "numpy-score GSM fit not finite")
+    check(em < MEAN_ERR_BOUND and ec < COV_ERR_BOUND,
+          "numpy-score GSM fit over the GSM bound")
+    check(same, "a numpy wrapper of the tensor score != the tensor dense fit")
+
+    regf = Regularizers().linear(BAM_REGF0)
+    bm = BaM(D, None, lp_np, jit_compile=False, device=dev)
+    check(not bm._factor_route(bm._host(B)),
+          "BaM(jit_compile=False) must run the dense eager loop")
+    fs.reset_launch_counts()
+    (mb, cb), wall_b = _timed(lambda: bm.fit(
+        FIT_SEED, regf, batch_size=B, niter=N_REPLICA_DENSE, verbose=False,
+        retries=0), torch)
+    cbam = fs.launch_counts()
+    emb, ecb = errs(mb, cb, t)
+    busy_b, wall_prof_b = busy_per_step(lambda: bm.fit(
+        FIT_SEED, regf, batch_size=B, niter=DENSE_WINDOW - 1, verbose=False,
+        retries=0), DENSE_WINDOW)
+    emit({"phase": "host_path", "fitter": "BaM(jit_compile=False, numpy "
+          "lp_g)", "D": D, "B": B, "niter": N_REPLICA_DENSE,
+          "regf": f"linear({BAM_REGF0})", "retries": 0,
+          "mean_err": emb, "cov_err": ecb,
+          "mean_err_bound": BAM_DENSE_MEAN_ERR_BOUND,
+          "cov_err_bound": BAM_DENSE_COV_ERR_BOUND,
+          "iters_per_s": (N_REPLICA_DENSE + 1) / wall_b,
+          "device_busy_us_per_step": busy_b,
+          "wall_us_per_step_profiled": wall_prof_b,
+          "device_idle_share_profiled": 1.0 - busy_b / wall_prof_b})
+    check(sum(cbam.values()) == 0, f"the dense BaM step ran a kernel: {cbam}")
+    check(emb < BAM_DENSE_MEAN_ERR_BOUND and ecb < BAM_DENSE_COV_ERR_BOUND,
+          "BaM(jit_compile=False) over the dense BaM bound")
+
+    refused = []
+    for cls, args in ((FactorGSM, ()), (FactorBaM, (regf,))):
+        try:
+            cls(D, None, lp_np, device=dev).fit(FIT_SEED, *args, niter=2,
+                                                verbose=False)
+        except TypeError:
+            refused.append(cls.__name__)
+    emit({"phase": "host_path", "refused_with_type_error": refused})
+    check(refused == ["FactorGSM", "FactorBaM"],
+          f"the factor fitters must refuse a numpy score: {refused}")
+    return [c]
+
+
+# Phase 24: the tensor-core products.  Kernel and plain version round the
+# same float32 operands to the same bfloat16 values (round to nearest even
+# on both), so each product of two of them is exact in float32 and the two
+# differ only in their float32 sums over K terms (K = D for the row
+# products, 2B for the fat apply; 3K at bf16x3): within PREC_SUM K 2^-24
+# (|a| @ |b|) elementwise, the worst case of a recursive sum rounded to
+# nearest (K u) plus one whose adds truncate (2 K u, the tensor cores').
+# Against the float64 product each stays within its precision's operand
+# bound plus that: 2^-8 (1 + 2^-8) |a| @ |b| at bf16, 2^-16 at bf16x3
+# (tests/test_torch_options.py).
+PREC_SHAPES = ((B, D), RAGGED, (128, D), (512, 1024))
+PREC_SUM = 4.0
+PREC_PASSES = {"bf16": 1, "high": 3}
+PREC_REL = {"bf16": 2.0 ** -8 * (1 + 2.0 ** -8), "high": 2.0 ** -16}
+# The card's dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet).
+BF16_FLOPS_PER_S = 989e12
+# K1, K2, K4 and K6 at "high" against their plain versions: one update
+# within 2^-14 x max(1, |F|) (the 2^-16 of bf16x3 on the products, carried
+# through the small space), the spc=8 blocks within 8 x that.  At "bf16"
+# a float32 sum-order difference can move an operand across a bfloat16
+# rounding boundary, 2^-8 of that one term: one update (K1, K4) is held to
+# BF16_UPDATE_SHARE of the plain versions' own bf16-vs-float32 distance on
+# the same input, and no less than "high"'s; over the eight chained
+# sub-steps of a K2/K6 block such flips compound until two bf16 chains that
+# differ only in sum order lie as far apart as bf16 and float32 do
+# (measured 0.26-1.31 x that distance on an NVIDIA H100), so a block is
+# held to BF16_MULTI_SHARE of it.
+HIGH_UPDATE_TOL = 2.0 ** -14
+HIGH_MULTI_TOL = 8 * HIGH_UPDATE_TOL
+BF16_UPDATE_SHARE, BF16_MULTI_SHARE = 0.5, 2.0
+# The precisions' fits (FactorGSM(fused_score, pallas_precision=p) at D=256,
+# B=32, N_ITER steps) under 1.5 x the worst of the port's plain-version fits
+# on the CPU (K2's plain version at p, keys 0..7; JAX on the CPU computes
+# float32 whatever the precision says): tools/option_bounds.py, "high"
+# mean_err <= 1.4366e-3, cov_err <= 5.6536e-4 (the float32 route's size);
+# "bf16" 0.15326 and 0.15463 (the fit settles at a bf16-biased moment).
+HIGH_MEAN_REF, HIGH_COV_REF = 1.4366e-3, 5.6536e-4
+BF16_MEAN_REF, BF16_COV_REF = 0.15326, 0.15463
+PREC_FIT_WORST = {"high": (HIGH_MEAN_REF, HIGH_COV_REF),
+                  "bf16": (BF16_MEAN_REF, BF16_COV_REF)}
+N_PREC_K1 = 500
+PREC_NAMES = ("thin_product_bf16", "thin_product_bf16x3", "factor_apply_bf16",
+              "factor_apply_bf16x3")
+
+
+def _abs_product(a, b):
+    return a.abs().double() @ b.abs().double()
+
+
+def phase_precision_kernels(fs, bfm, t, torch, np):
+    """Phase 24a: the tensor-core thin product (both transposes, with x =
+    mu + out) and fat apply (with its select) against their plain versions
+    and the float64 product at PREC_SHAPES, a K=3 replica launch against
+    single launches bit for bit; then K1, K4, K2 and K6 at "bf16" and
+    "high" against their plain versions at (32, 256) and (8, 200).
+    Returns the worst |kernel - plain| per variant."""
+    dev = torch.device("cuda")
+    cu = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    worst = {name: 0.0 for name in PREC_NAMES}
+    for p in ("bf16", "high"):
+        tag = fs.MMA_TAG[p]
+        for m, d in PREC_SHAPES:
+            rng = np.random.default_rng(2400 + m + d)
+            rows = cu(rng.standard_normal((m, d)).astype(np.float32))
+            f = cu((rng.standard_normal((d, d)) / np.sqrt(d))
+                   .astype(np.float32))
+            mu = cu(rng.standard_normal(d).astype(np.float32))
+            su = cu(rng.standard_normal((2 * m, d)).astype(np.float32))
+            sw = cu((0.1 * rng.standard_normal((2 * m, d)))
+                    .astype(np.float32))
+            cases = []
+            for trans in (False, True):
+                fb = f.T if trans else f
+                if trans:
+                    out, x = fs.thin_product(rows, f, trans=True, mu=mu,
+                                             precision=p)
+                    check(torch.equal(x, mu + out),
+                          f"thin {tag}: x != mu + out")
+                else:
+                    out = fs.thin_product(rows, f, trans=False, precision=p)
+                cases.append((f"thin_product_{tag}", f"trans={trans}", out,
+                              fs.mm_prec(rows, fb, p), rows, fb, d))
+            # The apply's sums on F = 0 (F + acc is then acc exactly); its
+            # select on the random F.
+            flag = torch.tensor(False, device=dev)
+            check(torch.equal(fs.factor_apply(su, sw, f, flag, precision=p),
+                              f), f"apply {tag}: a rejected update != F")
+            flag = torch.tensor(True, device=dev)
+            zero = torch.zeros_like(f)
+            cases.append((f"factor_apply_{tag}", "apply",
+                          fs.factor_apply(su, sw, zero, flag, precision=p),
+                          fs.factor_apply_reference(su, sw, zero, flag, p),
+                          su.T, sw, 2 * m))
+            torch.cuda.synchronize()
+            for name, case, got, want, a, b, k in cases:
+                absprod = _abs_product(a, b)
+                exact = a.double() @ b.double()
+                sum_tol = PREC_SUM * PREC_PASSES[p] * k * 2.0 ** -24
+                diff = (got.double() - want.double()).abs()
+                dev_exact = (got.double() - exact).abs()
+                err = float(diff.max())
+                rec = {"kernel": name, "case": case, "M": m, "D": d,
+                       "max_abs_err": err,
+                       "max_rel_to_abs_product": float(
+                           (diff / absprod.clamp_min(1e-30)).max()),
+                       "sum_tol_rel": sum_tol,
+                       "vs_float64_rel": float(
+                           (dev_exact / absprod.clamp_min(1e-30)).max()),
+                       "precision_tol_rel": PREC_REL[p] + sum_tol}
+                emit({"phase": "precision_kernels", **rec})
+                check(bool((diff <= sum_tol * absprod + 1e-30).all()),
+                      f"{name} disagrees with its plain version: {rec}")
+                check(bool((dev_exact <= (PREC_REL[p] + sum_tol) * absprod
+                            + 1e-30).all()),
+                      f"{name} is off its precision's bound: {rec}")
+                worst[name] = max(worst[name], err)
+        # The replica axis: K=3 stacked launches equal single launches.
+        rng = np.random.default_rng(2499)
+        rows = cu(rng.standard_normal((3, B, D)).astype(np.float32))
+        fk = cu((rng.standard_normal((3, D, D)) / 16).astype(np.float32))
+        su = cu(rng.standard_normal((3, 2 * B, D)).astype(np.float32))
+        good = torch.tensor([True, False, True], device=dev)
+        out_k = fs.thin_product(rows, fk, trans=True, precision=p)
+        app_k = fs.factor_apply(su, su, fk, good, precision=p)
+        same = all(torch.equal(out_k[i], fs.thin_product(
+            rows[i], fk[i], trans=True, precision=p)) and torch.equal(
+            app_k[i], fs.factor_apply(su[i], su[i], fk[i], good[i],
+                                      precision=p)) for i in range(3))
+        emit({"phase": "precision_kernels", "precision": p, "case":
+              "replicas", "K": 3, "equal_single_launches": same})
+        check(same, f"a {tag} replica launch differs from a single launch")
+
+    score_fn, params = t.fused_score
+    ref = fs.gaussian_score_reference
+    for b, d in ((B, D), RAGGED):
+        rng = np.random.default_rng(2450 + d)
+        a = rng.standard_normal((d, d))
+        f = cu(np.linalg.cholesky(a @ a.T / d + np.eye(d)).astype(np.float32))
+        mu = cu(rng.standard_normal(d).astype(np.float32))
+        eps = cu(rng.standard_normal((b, d)).astype(np.float32))
+        v = cu((0.3 * rng.standard_normal((b, d))).astype(np.float32))
+        tgt = t if d == D else None
+        if tgt is None:
+            from gsmvi_tpu_torch.models import dense_gaussian
+
+            tgt = dense_gaussian(TARGET_SEED, d, device=dev)
+        sf, sp = tgt.fused_score
+        spc, k = 8, 3
+        gen = torch.Generator(device=dev).manual_seed(24 + d)
+        block = torch.randn((spc * b, d), generator=gen, device=dev)
+        blocks = torch.randn((k, spc * b, d), generator=gen, device=dev)
+        means = torch.zeros((k, d), device=dev)
+        factors = torch.eye(d, device=dev).repeat(k, 1, 1)
+        zero, eye = torch.zeros(d, device=dev), torch.eye(d, device=dev)
+
+        def runs(p):
+            k4 = fs.make_fused_eps_step(sf, len(sp), b, d, external_eps=True,
+                                        precision=p)
+            k2 = fs.make_fused_eps_multistep(sf, len(sp), b, d, spc,
+                                             precision=p)
+            k6 = bfm.make_fused_eps_batch_multistep(sf, len(sp), b, d, k,
+                                                    spc, precision=p)
+            return {
+                "gsm_eps_update_fused": (
+                    lambda: fs.gsm_eps_update_fused(eps, v, mu, f,
+                                                    precision=p),
+                    lambda: fs.gsm_eps_update_ns_reference(eps, v, mu, f,
+                                                           precision=p)),
+                "make_fused_eps_step": (
+                    lambda: k4(eps, mu, f, *sp),
+                    lambda: fs.eps_step_reference(ref, sp, eps, mu, f,
+                                                  precision=p)),
+                "make_fused_eps_multistep": (
+                    lambda: graph_block(k2, spc, block, zero, eye, sp,
+                                        torch),
+                    lambda: fs.eps_multistep_reference(
+                        ref, sp, spc, block, zero, eye, batch=b,
+                        precision=p)),
+                "make_fused_eps_batch_multistep": (
+                    lambda: graph_block(k6, spc, blocks, means, factors, sp,
+                                        torch),
+                    lambda: bfm.eps_batch_multistep_reference(
+                        ref, sp, spc, blocks, means, factors, batch=b,
+                        precision=p)),
+            }
+
+        plain32 = {name: pl() for name, (_, pl) in runs("highest").items()}
+        for p in ("high", "bf16"):
+            for name, (kern, pl) in runs(p).items():
+                got, want = kern(), pl()
+                torch.cuda.synchronize()
+                multi = "multistep" in name
+                base = HIGH_MULTI_TOL if multi else HIGH_UPDATE_TOL
+                fscale = max(1.0, float(want[1].abs().max()))
+                em = float((got[0] - want[0]).abs().max())
+                ef_ = float((got[1] - want[1]).abs().max())
+                own = max(float((want[0] - plain32[name][0]).abs().max()),
+                          float((want[1] - plain32[name][1]).abs().max())
+                          / fscale)
+                share = BF16_MULTI_SHARE if multi else BF16_UPDATE_SHARE
+                tol = base if p == "high" else max(base, share * own)
+                flags = [x.tolist() if torch.is_tensor(x) else x
+                         for x in (got[2], want[2])]
+                rec = {"kernel": name, "precision": p, "B": b, "D": d,
+                       "flags": flags, "mean_err": em, "f_err": ef_,
+                       "tol": tol, "f_tol": tol * fscale,
+                       "plain_vs_float32": own}
+                emit({"phase": "precision_kernels", **rec})
+                check(flags[0] == flags[1],
+                      f"{name} at {p}: flags differ from the plain: {rec}")
+                check(em <= tol and ef_ <= tol * fscale,
+                      f"{name} at {p} disagrees with its plain version: "
+                      f"{rec}")
+    return worst
+
+
+def phase_precision_times(fs, bfm, t, torch):
+    """Phase 24b: per-call times of the tensor-core products at the main
+    path's shapes beside the float32 kernel, the plain version and
+    ``torch.mm`` on bf16 operands (the library yardstick, operands
+    converted ahead); then K1, K4, K2 (an 8-step block) and K6 (K=8) at
+    each precision on the device, with their bounds.  Returns (times,
+    work, library, device, library_device) of PREC_NAMES."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2424)
+    vf = torch.randn((B, D), generator=gen, device=dev)
+    f = torch.randn((D, D), generator=gen, device=dev) / 16
+    su = torch.randn((2 * B, D), generator=gen, device=dev)
+    sw = 0.1 * torch.randn((2 * B, D), generator=gen, device=dev)
+    good = torch.ones(1, dtype=torch.int32, device=dev)   # the kernel's flag
+    vf16, f16 = vf.bfloat16(), f.bfloat16()
+    su16, sw16 = su.bfloat16(), sw.bfloat16()
+    times, work, library, device, library_device = {}, {}, {}, {}, {}
+    for p in ("bf16", "high"):
+        tag = fs.MMA_TAG[p]
+        thin = lambda p=p: fs.thin_product(vf, f, trans=True, precision=p)
+        thin_plain = lambda p=p: fs.mm_prec(vf, f.T, p)
+        app = lambda p=p: fs.factor_apply(su, sw, f, good, precision=p)
+        app_plain = lambda p=p: fs.factor_apply_reference(su, sw, f, good, p)
+        lib_thin = lambda: torch.mm(vf16, f16.T)
+        lib_app = lambda: torch.mm(su16.T, sw16)
+        for name, kern, plain, lib, inputs in (
+                (f"thin_product_{tag}", thin, thin_plain, lib_thin, (vf, f)),
+                (f"factor_apply_{tag}", app, app_plain, lib_app,
+                 (su, sw, f, good))):
+            times[name] = (cuda_ms(kern, reps=200), cuda_ms(plain, reps=200))
+            work[name] = (plain, inputs, None, BF16_FLOPS_PER_S)
+            library[name] = cuda_ms(lib, reps=200)
+            device[name], names = device_ms(kern)
+            library_device[name] = device_ms(lib)[0]
+            want = "thin_mma_kernel" if "thin" in name else "apply_mma_kernel"
+            check(len(names) == 1 and want in names[0],
+                  f"{name} runs other kernels: {names}")
+    emit({"phase": "precision_times", "B": B, "D": D, "ms_per_call": {
+        k: {"kernel": a, "plain": b, "library_bf16_mm": library[k],
+            "device": device[k], "library_device": library_device[k]}
+        for k, (a, b) in times.items()},
+        "float32_thin_device_ms": device_ms(
+            lambda: fs.thin_product(vf, f, trans=True))[0]})
+
+    # K1, K4, K2 and K6 at each precision: device ms per call, bytes and
+    # FLOPs bounds (the O(B D^2) products over the bf16 peak x passes, the
+    # rest of the plain version's FLOPs over the float32 one).  A whole
+    # update forms five B D^2-sized products' worth: ef, vf, t and the fat
+    # apply (2B x D x D, two of them); K3 stays float32.
+    score_fn, params = t.fused_score
+    ref = fs.gaussian_score_reference
+    eps = torch.randn((B, D), generator=gen, device=dev)
+    mean, eye = torch.zeros(D, device=dev), torch.eye(D, device=dev)
+    v = t.lp_g(mean + eps)
+    spc, k = 8, FIT_BATCH_K
+    block = torch.randn((spc * B, D), generator=gen, device=dev)
+    blocks = torch.randn((k, spc * B, D), generator=gen, device=dev)
+    means, factors = torch.zeros((k, D), device=dev), eye.repeat(k, 1, 1)
+    big = 2 * B * D * D           # FLOPs of one O(B D^2) product
+    out = {}
+    for p in ("highest", "high", "bf16"):
+        k4 = fs.make_fused_eps_step(score_fn, len(params), B, D,
+                                    external_eps=True, precision=p)
+        k2 = fs.make_fused_eps_multistep(score_fn, len(params), B, D, spc,
+                                         precision=p)
+        k6 = bfm.make_fused_eps_batch_multistep(score_fn, len(params), B, D,
+                                                k, spc, precision=p)
+        passes = PREC_PASSES.get(p, 0)
+        cases = {
+            "gsm_eps_update_fused": (
+                lambda: fs.gsm_eps_update_fused(eps, v, mean, eye,
+                                                precision=p),
+                lambda: fs.gsm_eps_update_ns_reference(eps, v, mean, eye,
+                                                       precision="highest"),
+                (eps, v, mean, eye), 5, 50),
+            "make_fused_eps_step": (
+                lambda: k4(eps, mean, eye, *params),
+                lambda: fs.eps_step_reference(ref, params, eps, mean, eye),
+                (eps, mean, eye, *params), 5, 50),
+            "make_fused_eps_multistep": (
+                lambda: k2(spc, block, mean, eye, *params),
+                lambda: fs.eps_multistep_reference(ref, params, spc, block,
+                                                   mean, eye, batch=B),
+                (block, mean, eye, *params), 5 * spc, 20),
+            "make_fused_eps_batch_multistep": (
+                lambda: k6(spc, blocks, means, factors, *params),
+                lambda: bfm.eps_batch_multistep_reference(
+                    ref, params, spc, blocks, means, factors, batch=B),
+                (blocks, means, factors, *params), 5 * spc * k, 10),
+        }
+        for name, (kern, plain32, inputs, nbig, calls) in cases.items():
+            b32 = bound(plain32, inputs)
+            small_flops = b32["flops"] - nbig * big
+            t_ops = (small_flops / F32_FLOPS_PER_S + (
+                nbig * big * passes / BF16_FLOPS_PER_S if passes else
+                nbig * big / F32_FLOPS_PER_S))
+            t_bytes = b32["bytes"] / HBM_BYTES_PER_S
+            out.setdefault(name, {})[p] = {
+                "ms": cuda_ms(kern, reps=calls),
+                "device_ms": device_ms(kern, calls=calls)[0],
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    emit({"phase": "precision_times", "B": B, "D": D, "spc": spc, "K": k,
+          "per_call": out})
+    return times, work, library, device, library_device
+
+
+def phase_precision_paths(FactorGSM, fs, t, torch):
+    """Phase 24c: ``FactorGSM(fused_score, pallas_precision=p)`` at D=256,
+    B=32, N_ITER steps for p in ("high", "bf16"): K2 with its three row
+    products and the fat apply on the tensor-core kernels every sub-step
+    (K3 stays float32), finite and PD, under 1.5 x the worst plain CPU fit;
+    then the same precision on K1 (``FactorGSM`` without ``fused_score``,
+    N_PREC_K1 steps, finite and PD).  Returns the fits' launch counts."""
+    from gsmvi_tpu_torch.ops.gsm_factor import factor_to_cov
+
+    dev = torch.device("cuda")
+    counts = []
+    for p in ("high", "bf16"):
+        tag = fs.MMA_TAG[p]
+        fg = FactorGSM(D, t.lp, t.lp_g, fused_score=t.fused_score,
+                       pallas_precision=p, device=dev)
+        check(fg._fused_mode(B) == "step", f"{p}: the K2 path must run")
+        fs.reset_launch_counts()
+        st, wall = _timed(lambda: fg.fit(FIT_SEED, batch_size=B,
+                                         niter=N_ITER, verbose=False,
+                                         return_state=True), torch)
+        c = fs.launch_counts()
+        counts.append(c)
+        em, ec = errs(st.mean, st.cov, t)
+        lmin = float(torch.linalg.eigvalsh(st.cov.double()).min())
+        wm, wc = PREC_FIT_WORST[p]
+        emit({"phase": "precision_path", "fitter":
+              "FactorGSM(fused_score)", "pallas_precision": p, "D": D,
+              "B": B, "niter": N_ITER,
+              "launches": {k: n for k, n in c.items() if n},
+              "n_accepted": int(st.n_accepted), "mean_err": em,
+              "cov_err": ec, "mean_err_bound": 1.5 * wm,
+              "cov_err_bound": 1.5 * wc, "cov_min_eig": lmin,
+              "iters_per_s": (N_ITER + 1) / wall})
+        n = N_ITER + 1
+        check(c[f"thin_product_{tag}"] == 3 * n
+              and c[f"factor_apply_{tag}"] == n
+              and c["make_fused_eps_multistep"] > 0
+              and c["gaussian_score"] == n and c["thin_product"] == 0,
+              f"{p}: every sub-step must run its products on the "
+              f"tensor-core kernels: {c}")
+        check(bool(torch.isfinite(st.mean).all()
+                   and torch.isfinite(st.cov).all()) and lmin > 0.0,
+              f"FactorGSM at {p}: not finite and PD")
+        check(em < 1.5 * wm and ec < 1.5 * wc,
+              f"FactorGSM at {p} over 1.5 x its plain CPU fit")
+
+        fk = FactorGSM(D, t.lp, t.lp_g, pallas_precision=p, device=dev)
+        check(fk._fused_mode(B) == "update", f"{p}: the K1 path must run")
+        fs.reset_launch_counts()
+        sk = fk.fit(FIT_SEED, batch_size=B, niter=N_PREC_K1, verbose=False,
+                    return_state=True)
+        ck = fs.launch_counts()
+        counts.append(ck)
+        cov_k = factor_to_cov(sk.factor)
+        lk = float(torch.linalg.eigvalsh(cov_k.double()).min())
+        emk, eck = errs(sk.mean, cov_k, t)
+        emit({"phase": "precision_path", "fitter": "FactorGSM",
+              "pallas_precision": p, "D": D, "B": B, "niter": N_PREC_K1,
+              "launches": {k: n for k, n in ck.items() if n},
+              "mean_err": emk, "cov_err": eck, "cov_min_eig": lk})
+        check(ck["gsm_eps_update_fused"] == N_PREC_K1 + 1
+              and ck[f"thin_product_{tag}"] == 2 * (N_PREC_K1 + 1)
+              and ck[f"factor_apply_{tag}"] == N_PREC_K1 + 1,
+              f"{p}: K1 must run its products on the tensor cores: {ck}")
+        check(bool(torch.isfinite(sk.mean).all()
+                   and torch.isfinite(cov_k).all()) and lk > 0.0,
+              f"FactorGSM (K1) at {p}: not finite and PD")
+    return counts
+
+
+# Phase 25: twophase and qr at D=256, B=32, N_ITER steps, under 1.5 x the
+# worst of the JAX package's own CPU fits of the same method, arrays, batch
+# and niter (FactorGSM(method=m), PRNGKey(k), k = 0..7):
+# tools/option_bounds.py, twophase mean_err <= 1.6638e-3, cov_err <=
+# 2.5461e-4; qr 1.4353e-3 and 3.4642e-4.
+TWOPHASE_MEAN_REF, TWOPHASE_COV_REF = 1.6638e-3, 2.5461e-4
+QR_MEAN_REF, QR_COV_REF = 1.4353e-3, 3.4642e-4
+METHOD_WORST = {"twophase": (TWOPHASE_MEAN_REF, TWOPHASE_COV_REF),
+                "qr": (QR_MEAN_REF, QR_COV_REF)}
+
+
+def phase_method_paths(FactorGSM, fs, t, torch):
+    """Phase 25: ``FactorGSM(method=m)`` for m in ("twophase", "qr") on the
+    card: torch's own ops (no kernel launches), Finv refreshed after steps
+    999, 1999 and 2999 (``refresh_every=1000``), Finv F close to I, the
+    moments under the bound; it/s and the idle share of a profiled
+    window."""
+    import gsmvi_tpu_torch.gsm_factor as gf
+
+    dev = torch.device("cuda")
+    real = gf.factor_refresh
+    calls = []
+
+    def counting(f, finv):
+        calls.append(1)
+        return real(f, finv)
+
+    gf.factor_refresh = counting
+    try:
+        for m in ("twophase", "qr"):
+            fg = FactorGSM(D, t.lp, t.lp_g, method=m, device=dev)
+            check(fg._fused_mode(B) is None, f"{m} must run no kernel")
+            fs.reset_launch_counts()
+            calls.clear()
+            st, wall = _timed(lambda: fg.fit(
+                FIT_SEED, batch_size=B, niter=N_ITER, verbose=False,
+                return_state=True), torch)
+            c = fs.launch_counts()
+            refreshes = len(calls)
+            em, ec = errs(st.mean, st.cov, t)
+            eye = torch.eye(D, device=dev)
+            inv_res = float((st.finv @ st.factor - eye).abs().max())
+            busy, wall_prof = busy_per_step(lambda: fg.fit(
+                FIT_SEED, batch_size=B, niter=DENSE_WINDOW - 1,
+                verbose=False), DENSE_WINDOW)
+            wm, wc = METHOD_WORST[m]
+            emit({"phase": "method_path", "fitter": "FactorGSM",
+                  "method": m, "D": D, "B": B, "niter": N_ITER,
+                  "refresh_every": fg.refresh_every,
+                  "refreshes": refreshes, "n_accepted": int(st.n_accepted),
+                  "finv_residual": inv_res, "mean_err": em, "cov_err": ec,
+                  "mean_err_bound": 1.5 * wm, "cov_err_bound": 1.5 * wc,
+                  "iters_per_s": (N_ITER + 1) / wall,
+                  "device_busy_us_per_step": busy,
+                  "wall_us_per_step_profiled": wall_prof,
+                  "device_idle_share_profiled": 1.0 - busy / wall_prof})
+            check(sum(c.values()) == 0, f"{m} launched a kernel: {c}")
+            check(refreshes == (N_ITER + 1) // fg.refresh_every,
+                  f"{m}: {refreshes} refreshes at refresh_every="
+                  f"{fg.refresh_every}")
+            check(bool(torch.isfinite(st.mean).all()
+                       and torch.isfinite(st.cov).all()),
+                  f"FactorGSM({m}) not finite")
+            check(em < 1.5 * wm and ec < 1.5 * wc,
+                  f"FactorGSM({m}) over 1.5 x the JAX CPU fit")
+    finally:
+        gf.factor_refresh = real
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3679,13 +4293,24 @@ def main() -> int:
     replica_more = phase_bam_replica_times(bf, torch, np)
     for name, more in replica_more[3].items():
         extra[name] = {**extra.get(name, {}), **more}
+    # Phases 23-25.
+    host_counts = phase_host_paths(GSM, BaM, FactorGSM, FactorBaM,
+                                   Regularizers, fs, t, torch, np)
+    worst.update(phase_precision_kernels(fs, bfm, t, torch, np))
+    prec_times, prec_work, prec_library, prec_device, prec_library_device = \
+        phase_precision_times(fs, bfm, t, torch)
+    precision_counts = phase_precision_paths(FactorGSM, fs, t, torch)
+    phase_method_paths(FactorGSM, fs, t, torch)
+    library.update(prec_library)
+    library_device.update(prec_library_device)
     for more in (bam_more[:3],
                  advi_more[:3],
                  replica_more[:3],
                  k6_times[:3],
                  phase_eps_step_times(fs, t, torch),
                  (range_times, range_work, range_device),
-                 (zoo_times, zoo_work, zoo_device)):
+                 (zoo_times, zoo_work, zoo_device),
+                 (prec_times, prec_work, prec_device)):
         times.update(more[0])
         work.update(more[1])
         device.update(more[2] if len(more) > 2 else {})
@@ -3699,7 +4324,7 @@ def main() -> int:
                    + list(advi_counts) + dense_counts + batch_counts
                    + [step_counts] + audit_counts + wide_counts
                    + example_counts + zoo_counts + surface_counts
-                   + replica_counts)
+                   + replica_counts + host_counts + precision_counts)
     launches = {name: sum(c[name] for c in path_counts) for name in SOURCES}
     check(all(launches.values()),
           f"a kernel never launched on the paths: {launches}")

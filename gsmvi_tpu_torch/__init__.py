@@ -18,7 +18,11 @@ dense route is plain torch.  ``ADVI(D, lp)`` fits by autograd and ``Adam``
 (``utils/audit.py``): periodic checks of the fused kernels against the
 exact plain step on the live state.  The surface around the fits:
 ``Gaussian``, ``mvn_kl``, ``Posterior``, ``KLMonitor``, ``lbfgs_init``,
-``map_init`` and ``save_state``/``load_state`` (``utils/``).  The JAX
+``map_init`` and ``save_state``/``load_state`` (``utils/``).  ``GSM`` and
+``BaM`` take numpy score callables (their dense eager loop, as
+``BaM(jit_compile=False)``), ``compat`` holds the numpy GSM, and
+``FactorGSM`` takes ``pallas_precision`` "bf16"/"high" (bf16 tensor-core
+products) and ``method`` "twophase"/"qr".  The JAX
 package ``gsmvi_tpu`` is the reference the port is tested against.  This
 package imports torch, numpy and (``lbfgs_init``) scipy only.
 """

@@ -12,6 +12,13 @@ resample-on-failure loop keeps its semantics: with ``retries > 0`` a failed
 proposal is redrawn from the disjoint retry stream, which reads the
 validity flag on the host.  ``regf`` is a pure function of the iteration
 index (``Regularizers``).
+
+``jit_compile=False``, or an ``lp_g`` that does not take tensors (a numpy
+score), runs the dense eager loop, as JAX's ``_make_eager_step``
+(``gsmvi_tpu/bam.py:240-275``) does: the same dense step with its
+``retries`` and ``jitter``, a numpy score called on host copies of the rows
+(``driver.host_score``).  The port's dense step is eager already, so a
+tensor ``lp_g`` under ``jit_compile=False`` is called on tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import torch
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, broadcast_replicas,
-                     make_chunk_runner, on_gpu, retry_seed, run_fit_loop)
+                     host_score, make_chunk_runner, on_gpu, retry_seed,
+                     run_fit_loop, takes_tensors)
 from .ops.bam import Regularizers, bam_lowrank_update, bam_update  # noqa: F401 (re-export)
 from .ops.gsm_factor import factor_to_cov
 from .state import (FactorVIState, VIState, accept_or_revert, init_state,
@@ -33,11 +41,12 @@ class BaM:
 
     D    — dimensionality.
     lp   — target log-probability callable (monitors only).
-    lp_g — score callable on tensors, (B, D) -> (B, D).
+    lp_g — score callable, (B, D) -> (B, D): on tensors, or on numpy
+           arrays (the dense eager loop).
     use_lowrank — force the low-rank algebra (``auto_lowrank`` takes it
            when 4 (B+1) <= D; U is exactly rank B+1, so both agree).
-    jit_compile — accepted for parity; only True (the tensor-callable
-           route) is ported.
+    jit_compile — False runs the dense eager loop whatever ``use_factor``
+           says, as JAX's does (the module docstring).
     device, dtype — where and in what precision the fit runs (default: the
            CUDA card, ``"cuda"``; raises without one; torch's default dtype).
     sqrt_method — the dense root: "auto" (= "eigh" on CPU and GPU, as the
@@ -51,10 +60,6 @@ class BaM:
                  auto_lowrank: bool = True,
                  use_factor: "bool | str" = "auto",
                  use_fused: "bool | str" = "auto", fused_score=None):
-        if not jit_compile:
-            raise NotImplementedError(
-                "jit_compile=False (the eager numpy-callable loop) is not "
-                "ported; lp_g must take and return torch tensors")
         if sqrt_method == "auto":
             sqrt_method = "eigh"
         if sqrt_method not in ("eigh", "newton"):
@@ -76,10 +81,18 @@ class BaM:
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
 
-    def _factor_route(self) -> bool:
+    def _host(self, batch_size: int) -> bool:
+        """Whether ``lp_g`` is a host (numpy) callable (``takes_tensors``
+        probes it once per fit on the fit's device)."""
+        return not takes_tensors(self.lp_g, batch_size, self.D, self.dtype,
+                                 self.device)
+
+    def _factor_route(self, host: bool = False) -> bool:
         """Whether ``fit`` runs on the factor route: "auto" exactly on a
-        CUDA device; True forces it anywhere (it is exact everywhere)."""
-        if self.use_factor is False:
+        CUDA device; True forces it anywhere (it is exact everywhere).  A
+        host ``lp_g`` or ``jit_compile=False`` never takes it
+        (``gsmvi_tpu/bam.py:92-101``)."""
+        if host or not self.jit_compile or self.use_factor is False:
             return False
         if self.use_factor is True:
             return True
@@ -125,15 +138,18 @@ class BaM:
         return bam_update(samples, vs, mean, cov, reg, jitter,
                           sqrt_method=self.sqrt_method)
 
-    def _make_step(self, batch_size: int, regf, retries: int, jitter: float):
+    def _make_step(self, batch_size: int, regf, retries: int, jitter: float,
+                   host: bool = False):
         """Dense step: sample, score, update, resample while the proposal
-        fails (``retries``), accept/revert."""
+        fails (``retries``), accept/revert.  ``host``: the score is a
+        numpy callable, called through ``host_score``."""
         d = self.D
         dtype = self.dtype
+        lp_g = host_score(self.lp_g) if host else self.lp_g
 
         def attempt(s: VIState, eps, reg):
             samples = s.mean + eps @ s.chol.T
-            vs = self.lp_g(samples).to(dtype)
+            vs = lp_g(samples).to(dtype)
             mean_new, cov_new = self._update(samples, vs, s.mean, s.cov, reg,
                                              jitter)
             good = torch.isfinite(safe_cholesky(cov_new)).all()
@@ -161,19 +177,24 @@ class BaM:
         ``VIState`` with ``return_state``.  ``jitter`` lands on V's
         diagonal on the dense route and is inert on the factor route (its
         proposal is PD by construction).  ``check_goodness`` is accepted
-        for parity; checking is always on."""
+        for parity; checking is always on.  ``jit_compile=False`` or a
+        numpy ``lp_g`` runs the dense eager loop (the module docstring)."""
         pin_fp32()
-        if self._factor_route():
+        host = self._host(batch_size)
+        if self._factor_route(host):
             return self._fit_factor(seed, regf, mean, cov, batch_size, niter,
                                     nprint, verbose, monitor, retries,
                                     return_state, state)
         if state is None:
             state = init_state(seed, self.D, mean, cov, self.dtype,
                                self.device)
+        if (host or not self.jit_compile) and verbose:
+            print("lp_g does not take tensors or jit_compile=False; using "
+                  "the eager host loop")
         run_chunk = self._runners.get(
-            (batch_size, retries, jitter), (regf,),
+            (batch_size, retries, jitter, host), (regf,),
             lambda: make_chunk_runner(
-                self._make_step(batch_size, regf, retries, jitter)))
+                self._make_step(batch_size, regf, retries, jitter, host)))
         state = run_fit_loop(state, niter, run_chunk,
                              monitor=monitor, lp=self.lp, nprint=nprint,
                              verbose=verbose, batch_size=batch_size)
@@ -194,9 +215,11 @@ class BaM:
         The dense step has no kernel, so the replicas run it one after
         another each step (``per_replica``).  ``regf`` must be a pure
         schedule; ``mean``/``cov`` are broadcast or carry a leading K
-        axis."""
+        axis.  A numpy ``lp_g`` is called on each replica's rows through
+        ``host_score`` (JAX's vmapped step cannot call one)."""
         pin_fp32()
         seeds = tuple(int(s) for s in seeds)
+        host = self._host(batch_size)
         k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
         means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
         covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
@@ -206,9 +229,9 @@ class BaM:
         zero = torch.zeros(k, dtype=torch.int32, device=dev)
         state = VIState(means0, covs0, chols0, seeds, 0, zero, zero)
         run = self._runners.get(
-            ("batch", batch_size, retries, jitter), (regf,),
+            ("batch", batch_size, retries, jitter, host), (regf,),
             lambda: make_chunk_runner(per_replica(
-                self._make_step(batch_size, regf, retries, jitter))))
+                self._make_step(batch_size, regf, retries, jitter, host))))
         state = run(state, niter + 1)
         if return_state:
             return state

@@ -50,7 +50,7 @@ from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, broadcast_replicas,
                      draw_replicas, make_chunk_runner, on_gpu, retry_seed,
-                     run_fit_loop)
+                     run_fit_loop, takes_tensors)
 from .ops.bam_eps import bam_eps_update
 from .ops.bam_fused import (BAM_KERNEL_BATCH_RANGE, BAM_KERNEL_DIM_RANGE,
                             BAM_NS_ITERS_DEFAULT, BAM_NS_TIERS,
@@ -486,9 +486,16 @@ class FactorBaM:
         with the exact thin-SVD step on a fresh, stream-disjoint draw from
         the live state (``utils/audit.py``); an accepted non-stiff step
         deviating beyond ``audit_tol`` warns.  Records land in
-        ``self.audit_log``; the trajectory is unchanged."""
+        ``self.audit_log``; the trajectory is unchanged.  ``lp_g`` must take
+        tensors: a numpy score raises ``TypeError``, as JAX's does
+        (``gsmvi_tpu/bam_factor.py:528-531``); ``BaM`` takes one."""
         pin_fp32()
         dev, dtype = self.device, self.dtype
+        self._fused_mode(batch_size)     # the kernels' range gates first
+        if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
+            raise TypeError(
+                "FactorBaM requires an lp_g that takes (B, D) tensors of the "
+                "fit's dtype and device; use BaM for numpy score functions")
         if state is None:
             mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
                      if mean is None

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -29,6 +30,37 @@ _MASK64 = (1 << 64) - 1
 def on_gpu(device) -> bool:
     """True when ``device`` (a fitter's device) is a CUDA device."""
     return torch.device(device).type == "cuda"
+
+
+def takes_tensors(fn: Callable, batch: int, d: int, dtype, device) -> bool:
+    """Whether the score ``fn`` is a tensor callable: the counterpart of
+    ``is_traceable`` (``gsmvi_tpu/driver.py:38``), with JAX's rule that any
+    exception counts.  One probe call of ``fn`` on a (batch, d) tensor of
+    zeros on the fit's device; a callable that raises on it, or returns
+    something that is not a tensor, is a host (numpy) callable, which the
+    fitters call through ``host_score``."""
+    probe = torch.zeros((batch, d), dtype=dtype, device=device)
+    try:
+        return torch.is_tensor(fn(probe))
+    except Exception:
+        return False
+
+
+def host_score(lp_g: Callable) -> Callable:
+    """The tensor form of a host (numpy) score: rows on the device are
+    copied to the host (``.cpu().numpy()``), ``lp_g`` is called on the
+    numpy array, and its result is copied back (``torch.as_tensor(...,
+    device=, dtype=)``, the rows' device and dtype).  The two copies are the
+    contract of a host callable, as JAX's eager loop makes them
+    (``gsmvi_tpu/gsm.py:255-265``): every step waits for the device, and
+    the score runs on the host."""
+
+    def score(x: torch.Tensor) -> torch.Tensor:
+        out = lp_g(x.detach().cpu().numpy())
+        return torch.as_tensor(np.asarray(out), dtype=x.dtype,
+                               device=x.device)
+
+    return score
 
 
 def step_seed(seed: int, step: int) -> int:

@@ -12,6 +12,12 @@ as JAX computes it in XLA outside its kernel).  On a CUDA device in
 float32 the dense update runs on K5 (``ops/gsm_step.py``) for every shape
 in its range and raises outside it; ``use_fused=False`` runs the plain
 update (``ops/gsm.py``) there, and off the card it always runs.
+
+An ``lp_g`` that does not take tensors (a numpy score, as the reference
+GSM-VI's users write it) takes the dense eager route, as in JAX
+(``gsmvi_tpu/gsm.py:104-127``, ``:255-265``): each step samples on the
+device, copies the rows to the host for the score and its result back
+(``driver.host_score``), and runs the same dense update (K5 on the card).
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, broadcast_replicas, draw_replicas,
-                     make_chunk_runner, on_gpu, run_fit_loop)
+                     host_score, make_chunk_runner, on_gpu, run_fit_loop,
+                     takes_tensors)
 from .ops.gsm_factor import factor_to_cov
 from .ops.gsm_step import (GSM_STEP_BATCH_RANGE, GSM_STEP_DIM_RANGE,
                            gsm_step_supports, gsm_update_fused,
@@ -37,7 +44,8 @@ class GSM:
 
     D    — dimensionality.
     lp   — target log-probability callable (monitors only).
-    lp_g — score callable on tensors, (B, D) -> (B, D), row by row.
+    lp_g — score callable, (B, D) -> (B, D), row by row: on tensors, or on
+           numpy arrays (the dense eager host loop; ``driver.host_score``).
     device, dtype — where and in what precision the fit runs (default: the
            CUDA card, ``"cuda"``; raises without one; torch's default dtype).
     use_factor — "auto" (factor route on CUDA), True or False.
@@ -62,11 +70,12 @@ class GSM:
         self._eps = EpsStream(self.device)
         self._runners = {}
 
-    def _get_runner(self, batch_size: int, replicas: bool = False):
+    def _get_runner(self, batch_size: int, replicas: bool = False,
+                    host: bool = False):
         fused = self._dense_fused(batch_size)
-        key = (batch_size, fused, replicas)
+        key = (batch_size, fused, replicas, host)
         if key not in self._runners:
-            step = self._make_step(batch_size, fused)
+            step = self._make_step(batch_size, fused, host)
             if replicas and not fused:
                 step = per_replica(step)
             self._runners[key] = make_chunk_runner(step)
@@ -92,12 +101,24 @@ class GSM:
                 "plain-torch step on the card")
         return True
 
-    def _factor_route(self, batch_size: int) -> bool:
+    def _host(self, batch_size: int) -> bool:
+        """Whether ``lp_g`` is a host (numpy) callable (``takes_tensors``
+        probes it once per fit on the fit's device)."""
+        return not takes_tensors(self.lp_g, batch_size, self.D, self.dtype,
+                                 self.device)
+
+    def _factor_route(self, batch_size: int, host: bool = False) -> bool:
         """Whether this fit runs on the factor route: "auto" takes it
         exactly on CUDA; True forces it anywhere except the huge-batch
         regime (B >= 128 with 2B > D), where the rank-2B small space is no
-        smaller than the dense problem and the dense route runs."""
-        if self.use_factor is False:
+        smaller than the dense problem and the dense route runs.  A host
+        ``lp_g`` always runs the dense route (``gsmvi_tpu/gsm.py:118-124``,
+        with its warning under ``use_factor=True``)."""
+        if host or self.use_factor is False:
+            if host and self.use_factor is True:
+                warnings.warn(
+                    "use_factor=True requested but lp_g does not take "
+                    "tensors; using the dense eager host loop", stacklevel=3)
             return False
         if batch_size >= 128 and 2 * batch_size > self.D:
             if self.use_factor is True:
@@ -153,11 +174,12 @@ class GSM:
                 "dense step has no whole-step kernel and fused_score is "
                 "ignored", stacklevel=3)
 
-    def _make_step(self, batch_size: int, fused: bool):
+    def _make_step(self, batch_size: int, fused: bool, host: bool = False):
         """Dense step: sample, score, Gram-form update (K5 or its plain
         version), accept/revert.  With ``fused`` it also takes stacked
-        replicas (K5 and the accept/revert run batched)."""
-        lp_g = self.lp_g
+        replicas (K5 and the accept/revert run batched).  ``host``: the
+        score is a numpy callable, called through ``host_score``."""
+        lp_g = host_score(self.lp_g) if host else self.lp_g
         d = self.D
         dtype = self.dtype
         update = gsm_update_fused if fused else gsm_update_replicas_reference
@@ -182,9 +204,11 @@ class GSM:
         """Run ``niter + 1`` GSM steps; returns (mean, cov), or the
         ``VIState`` with ``return_state``.  ``state`` resumes a saved fit
         (exactly on the dense route).  ``check_goodness`` is accepted for
-        parity; checking is always on."""
+        parity; checking is always on.  A numpy ``lp_g`` runs the dense
+        eager host loop (the module docstring)."""
         pin_fp32()
-        if self._factor_route(batch_size):
+        host = self._host(batch_size)
+        if self._factor_route(batch_size, host):
             return self._fit_factor(seed, mean, cov, batch_size, niter,
                                     nprint, verbose, monitor, return_state,
                                     state)
@@ -192,10 +216,13 @@ class GSM:
         if state is None:
             state = init_state(seed, self.D, mean, cov, self.dtype,
                                self.device)
+        if host and verbose:
+            print("lp_g does not take tensors; using the eager host loop")
         # K5 takes contiguous operands (a caller's covariance may not be).
         state = state._replace(mean=state.mean.contiguous(),
                                cov=state.cov.contiguous())
-        state = run_fit_loop(state, niter, self._get_runner(batch_size),
+        state = run_fit_loop(state, niter,
+                             self._get_runner(batch_size, host=host),
                              monitor=monitor, lp=self.lp, nprint=nprint,
                              verbose=verbose, batch_size=batch_size)
         if return_state:
@@ -213,12 +240,16 @@ class GSM:
         ``FactorGSM.fit_batch`` (``small_solver="auto"``) and converts the
         states at the boundary; the dense route runs the K replicas through
         one batched K5 and one batched ``cholesky_ex`` per step on the card
-        (its plain step one replica at a time elsewhere).  Monitors are not
-        supported (``fit`` takes them).
+        (its plain step one replica at a time elsewhere).  A numpy ``lp_g``
+        takes the dense route, JAX's rule (``gsmvi_tpu/gsm.py:356``); JAX's
+        vmapped step then cannot call it, the port's eager step calls it on
+        the K·B stacked rows (one replica's rows at a time off the card).
+        Monitors are not supported (``fit`` takes them).
         """
         pin_fp32()
         seeds = tuple(int(s) for s in seeds)
-        if self._factor_route(batch_size):
+        host = self._host(batch_size)
+        if self._factor_route(batch_size, host):
             fst = self._get_factor_fitter().fit_batch(
                 seeds, mean=mean, cov=cov, batch_size=batch_size,
                 niter=niter, return_state=True)
@@ -232,7 +263,8 @@ class GSM:
         zero = torch.zeros(k, dtype=torch.int32, device=dev)
         state = VIState(means0, covs0, safe_cholesky(covs0), seeds, 0, zero,
                         zero)
-        state = self._get_runner(batch_size, replicas=True)(state, niter + 1)
+        state = self._get_runner(batch_size, replicas=True, host=host)(
+            state, niter + 1)
         if return_state:
             return state
         return state.mean, state.cov

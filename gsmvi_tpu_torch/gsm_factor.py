@@ -1,10 +1,10 @@
 """FactorGSM: the Cholesky-free GSM fitter on factor state S = F F^T.
 
-Counterpart of ``gsmvi_tpu/gsm_factor.py:46-527`` with ``method="eps"``.
-Sampling is ``mu + eps F^T``, the update is the rank-2B eps-coordinate
-correction of F (``ops/gsm_eps.py``), and the hot loop factors nothing
-D-sized.  On a CUDA device, at shapes the kernels take, a step runs on the
-hand-written Hopper kernels (``ops/fused_step.py``):
+Counterpart of ``gsmvi_tpu/gsm_factor.py:46-680``.  Sampling is ``mu + eps
+F^T``, the update (``method="eps"``, the default) is the rank-2B
+eps-coordinate correction of F (``ops/gsm_eps.py``), and the hot loop
+factors nothing D-sized.  On a CUDA device, at shapes the kernels take, an
+eps step runs on the hand-written Hopper kernels (``ops/fused_step.py``):
 
 - ``"update"`` mode (opaque ``lp_g``): sampling product and score in torch,
   then K1 ``gsm_eps_update_fused`` (update, residual gates, select);
@@ -19,6 +19,25 @@ hand-written Hopper kernels (``ops/fused_step.py``):
 ``fit_batch`` runs K replica fits together on the same modes: batched K1
 (``small_solver`` "auto"/"ns") or K6 ``make_fused_eps_batch_multistep``
 ("fused", ``ops/batch_fused.py``), each launch covering all K replicas.
+
+``pallas_precision`` ("highest", "high", "bf16") names the precision of the
+kernels' O(B D^2) products (``ef``, ``vf``, ``t`` and the fat apply) as in
+JAX: "highest" true float32; "bf16" both operands rounded to bfloat16 with
+float32 products and sums (the TPU's 1-pass ``Precision.DEFAULT``); "high"
+bf16x3 (the TPU's 3-pass ``Precision.HIGH``).  The (2B)^2 small space and
+its gates stay float32.  On the card "bf16" and "high" run hand-written
+``mma.sync`` bf16 tensor-core products (``thin_mma.cu``, ``apply_mma.cu``);
+JAX runs "high" only on its XLA paths, since Mosaic has no 3-pass
+lowering (``gsmvi_tpu/gsm_factor.py:159-170``).  Off the card the plain
+eps step is float32 whatever the option says, as JAX's CPU run is.
+
+``method="twophase"`` and ``"qr"`` carry Finv in ``FactorVIState.finv``
+and update (F, Finv) by ``ops/gsm_factor.py`` (a PSD update then a
+downdate; a thin QR and a (2B)^2 ``eigh``), refreshing Finv against F by
+Newton steps every ``refresh_every`` steps.  JAX has no Pallas kernel for
+them (its ``_pallas_mode`` returns None off ``method="eps"``) and runs them
+in XLA; the port runs them in torch's own ops on every device, which is
+that design, not a fallback: ``use_fused=True`` with such a method raises.
 
 ``fit(..., audit_every=N)`` audits the kernel path every N iterations
 (``utils/audit.py``): one fresh, stream-disjoint draw from the live state
@@ -47,18 +66,20 @@ from .config import default_dtype, pin_fp32, resolve_device
 from .distributions import safe_cholesky
 from .driver import (EpsStream, RunnerCache, broadcast_replicas,
                      draw_block, draw_replicas, make_chunk_runner, on_gpu,
-                     run_fit_loop)
+                     run_fit_loop, takes_tensors)
 from .ops.batch_fused import make_fused_eps_batch_multistep
 from .ops.fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
-                             gsm_eps_update_fused, kernel_supports,
-                             make_fused_eps_multistep, make_fused_eps_step,
-                             ns_iters_for_batch)
+                             check_precision, gsm_eps_update_fused,
+                             kernel_supports, make_fused_eps_multistep,
+                             make_fused_eps_step, ns_iters_for_batch)
 from .ops.gsm_eps import apply_eps_step
-from .ops.gsm_factor import factor_to_cov
+from .ops.gsm_factor import (factor_gsm_step_stats, factor_gsm_step_stats_v2,
+                             factor_refresh, factor_to_cov)
 from .state import FactorVIState, per_replica
 from .utils.audit import make_audit_hook, make_gsm_audit
 
 SMALL_SOLVERS = ("auto", "ns", "fused", "chol")
+METHODS = ("eps", "twophase", "qr")
 
 __all__ = ["FactorGSM", "FactorVIState"]
 
@@ -67,10 +88,10 @@ class FactorGSM:
     """Cholesky-free GSM fitter; ``fit`` surface matches ``GSM.fit``."""
 
     def __init__(self, D, lp, lp_g, device=None, dtype=None,
-                 method: str = "eps", use_fused: "bool | str" = "auto",
-                 fused_score=None, steps_per_call=None,
-                 pallas_precision: str = "highest", ns_iters=None,
-                 cuda_graph: bool = True):
+                 refresh_every: int = 1000, method: str = "eps",
+                 use_fused: "bool | str" = "auto", fused_score=None,
+                 steps_per_call=None, pallas_precision: str = "highest",
+                 ns_iters=None, cuda_graph: bool = True):
         """``device`` defaults to the CUDA card (raises without one; pass
         ``device="cpu"`` for the CPU).  ``use_fused`` ("auto"/True/False):
         on a CUDA device the step runs on the CUDA kernels unless it is
@@ -78,8 +99,12 @@ class FactorGSM:
         (sampling product, score, update, select) runs ``steps_per_call``
         sub-steps per kernel call.
 
-        ``pallas_precision`` names the precision of the O(B D^2) products,
-        as in the JAX package; only "highest" (true fp32) is ported.
+        ``method``: "eps" (default), "twophase" or "qr" (the module
+        docstring); the last two maintain Finv, refreshed every
+        ``refresh_every`` steps (0: never), and run no kernel.
+        ``pallas_precision`` ("highest", "high", "bf16") names the
+        precision of the kernels' O(B D^2) products (the module
+        docstring).
         ``ns_iters`` overrides the Newton-Schulz sweep counts (sqrt1, inv1,
         inv2, sqrt2, inv3); the default is batch-aware
         (``ns_iters_for_batch``).  The residual gates catch catastrophic
@@ -88,19 +113,22 @@ class FactorGSM:
         host instead of replaying its CUDA graph: the same numbers, the
         comparison route for the graph's cost.
         """
-        if method != "eps":
-            raise NotImplementedError(
-                f"method={method!r}: only the 'eps' factor method is ported")
-        if pallas_precision != "highest":
-            raise NotImplementedError(
-                f"pallas_precision={pallas_precision!r}: only 'highest' "
-                "(true fp32) is ported")
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got "
+                             f"{method!r}")
+        check_precision(pallas_precision)
+        if method != "eps" and use_fused is True:
+            raise ValueError(
+                f"method={method!r} has no kernel (the JAX package runs it in "
+                "XLA, the port in torch's own ops): use_fused=True takes "
+                "method='eps'")
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
         self.device = resolve_device(device)
         self.dtype = default_dtype(dtype)
         self.method = method
+        self.refresh_every = int(refresh_every)
         self.use_fused = use_fused
         self.fused_score = fused_score
         # Sub-steps per K2 call.  Trajectories do not depend on it.
@@ -116,11 +144,12 @@ class FactorGSM:
     def _fused_mode(self, batch_size: int):
         """None | "update" | "step": which kernel path this config runs.
 
-        None off the card or with ``use_fused=False``.  On a CUDA device the
-        kernels take float32 with B in ``KERNEL_BATCH_RANGE`` and D in
-        ``KERNEL_DIM_RANGE``; anything else raises rather than running the
-        plain step on the card."""
-        if self.use_fused is False or not on_gpu(self.device):
+        None off the card, with ``use_fused=False`` and for the twophase
+        and qr methods.  On a CUDA device the kernels take float32 with B in
+        ``KERNEL_BATCH_RANGE`` and D in ``KERNEL_DIM_RANGE``; anything else
+        raises rather than running the plain step on the card."""
+        if (self.use_fused is False or self.method != "eps"
+                or not on_gpu(self.device)):
             return None
         if self.dtype != torch.float32:
             raise NotImplementedError(
@@ -176,7 +205,19 @@ class FactorGSM:
 
         return self._runners.get(
             (batch_size, mode, k, self.steps_per_call,
-             self._iters(batch_size), self.dtype), score_objs, build)
+             self._iters(batch_size), self.dtype, self.method,
+             self.refresh_every, self.pallas_precision), score_objs, build)
+
+    def _init_finv(self, f0):
+        """Finv of the initial factor: None for the eps method, which never
+        applies F^{-1}; else the triangular inverse of the (lower) Cholesky
+        factor (``gsmvi_tpu/gsm_factor.py:492-498``), per replica for a
+        stack."""
+        if self.method == "eps":
+            return None
+        eye = torch.eye(self.D, dtype=f0.dtype, device=f0.device)
+        return torch.linalg.solve_triangular(f0, eye.expand_as(f0),
+                                             upper=False)
 
     def _draw(self, state, batch_size: int, offset: int = 0):
         """Step ``state.step + offset``'s draws: (B, D), or (K, B, D) for
@@ -196,12 +237,17 @@ class FactorGSM:
         dtype = self.dtype
         d = self.D
         iters = self._iters(batch_size)
+        prec = self.pallas_precision
 
-        def advance(s, mean, f, good):
+        def advance(s, mean, f, good, finv=None):
             n_acc = good.to(torch.int32)
             return FactorVIState(mean, f, s.seed, s.step + 1,
                                  s.n_accepted + n_acc,
-                                 s.n_rejected + (1 - n_acc))
+                                 s.n_rejected + (1 - n_acc), s.ns_stats,
+                                 finv)
+
+        if mode is None and self.method != "eps":
+            return self._make_method_step(batch_size, advance)
 
         if mode == "update":
             def step(s: FactorVIState) -> FactorVIState:
@@ -211,7 +257,7 @@ class FactorGSM:
                 vs = lp_g(x).to(torch.float32).reshape(ef.shape).contiguous()
                 mean, f, good = gsm_eps_update_fused(eps, vs, s.mean,
                                                      s.factor, iters=iters,
-                                                     ef=ef)
+                                                     ef=ef, precision=prec)
                 return advance(s, mean, f, good)
 
             return step
@@ -219,7 +265,8 @@ class FactorGSM:
         if mode == "step":
             score_fn, params = self.fused_score
             fused = make_fused_eps_step(score_fn, len(params), batch_size, d,
-                                        external_eps=True, iters=iters)
+                                        external_eps=True, iters=iters,
+                                        precision=prec)
 
             def step(s: FactorVIState) -> FactorVIState:
                 mean, f, good = fused(self._draw(s, batch_size), s.mean,
@@ -233,6 +280,28 @@ class FactorGSM:
             vs = lp_g(s.mean + eps @ s.factor.T).to(dtype)
             mean, f, good = apply_eps_step(s.mean, s.factor, eps, vs)
             return advance(s, mean, f, good)
+
+        return step
+
+    def _make_method_step(self, batch_size: int, advance):
+        """One step of the twophase or qr method (``gsmvi_tpu/gsm_factor.py
+        :445-464``): sample, score, the (F, Finv) update, the select, and
+        Finv's Newton refresh after every ``refresh_every``-th step."""
+        stats = (factor_gsm_step_stats_v2 if self.method == "twophase"
+                 else factor_gsm_step_stats)
+        refresh_every = self.refresh_every
+
+        def step(s: FactorVIState) -> FactorVIState:
+            samples = s.mean + self._draw(s, batch_size) @ s.factor.T
+            vs = self.lp_g(samples).to(self.dtype)
+            dmu, f_new, finv_new, good = stats(samples, vs, s.mean, s.factor,
+                                               s.finv)
+            mean = torch.where(good, s.mean + dmu, s.mean)
+            f = torch.where(good, f_new, s.factor)
+            finv = torch.where(good, finv_new, s.finv)
+            if refresh_every and (s.step + 1) % refresh_every == 0:
+                finv = factor_refresh(f, finv)
+            return advance(s, mean, f, good, finv)
 
         return step
 
@@ -251,11 +320,12 @@ class FactorGSM:
         if k is None:
             multi = make_fused_eps_multistep(score_fn, len(params),
                                              batch_size, self.D, spc,
-                                             iters=iters)
+                                             iters=iters,
+                                             precision=self.pallas_precision)
         else:
             multi = make_fused_eps_batch_multistep(
                 score_fn, len(params), batch_size, self.D, k, spc,
-                iters=iters)
+                iters=iters, precision=self.pallas_precision)
 
         def block(s: FactorVIState, nmax: int) -> FactorVIState:
             eps_block = multi.eps_block(s.mean.device)
@@ -294,11 +364,13 @@ class FactorGSM:
         score = self.fused_score if mode == "step" else None
         score_objs = () if score is None else (score[0], *score[1])
         audit_fn = self._runners.get(
-            ("audit", batch_size, mode, self._iters(batch_size), self.dtype),
+            ("audit", batch_size, mode, self._iters(batch_size), self.dtype,
+             self.pallas_precision),
             (self.lp_g, *score_objs),
             lambda: make_gsm_audit(self.lp_g, batch_size, self.D,
                                    self._iters(batch_size),
-                                   fused_score=score))
+                                   fused_score=score,
+                                   precision=self.pallas_precision))
         return make_audit_hook(audit_fn, self.audit_log, tol, "FactorGSM")
 
     def fit(self, seed: int, mean=None, cov=None, batch_size=2, niter=5000,
@@ -316,9 +388,18 @@ class FactorGSM:
         ``audit_tol`` (relative, either moment) warns.  Records land in
         ``self.audit_log``.  The audit draw is stream-disjoint from the
         fit, so the trajectory is unchanged.  This catches slow NS bias,
-        which the residual gates cannot (they catch catastrophic loss)."""
+        which the residual gates cannot (they catch catastrophic loss).
+
+        ``lp_g`` must take tensors: a numpy score raises ``TypeError``, as
+        JAX's does (``gsmvi_tpu/gsm_factor.py:502-506``); ``GSM`` takes
+        one."""
         pin_fp32()
         dev, dtype = self.device, self.dtype
+        self._fused_mode(batch_size)     # the kernels' range gates first
+        if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
+            raise TypeError(
+                "FactorGSM requires an lp_g that takes (B, D) tensors of the "
+                "fit's dtype and device; use GSM for numpy score functions")
         if state is None:
             mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
                      if mean is None
@@ -327,7 +408,11 @@ class FactorGSM:
                   else safe_cholesky(torch.as_tensor(cov, dtype=dtype,
                                                      device=dev)))
             zero = torch.zeros((), dtype=torch.int32, device=dev)
-            state = FactorVIState(mean0, f0, int(seed), 0, zero, zero)
+            state = FactorVIState(mean0, f0, int(seed), 0, zero, zero,
+                                  finv=self._init_finv(f0))
+        elif self.method != "eps" and state.finv is None:
+            # A state of the eps method (or a dense one) carries no Finv.
+            state = state._replace(finv=torch.linalg.inv(state.factor))
         # The kernels take contiguous operands (a LAPACK factor may not be).
         state = state._replace(mean=state.mean.contiguous(),
                                factor=state.factor.contiguous())
@@ -359,7 +444,10 @@ class FactorGSM:
         ``fused_score`` inside (each replica then equals the single
         ``fit`` on K2 bit for bit); "chol" the exact plain step per
         replica.  Off the card every route is the exact plain step per
-        replica, as ``fit`` runs there.  Monitors are not supported.
+        replica, as ``fit`` runs there.  The twophase and qr methods run
+        their plain step per replica on every device, as JAX vmaps its
+        method step whatever ``small_solver`` says.  Monitors are not
+        supported.
         """
         pin_fp32()
         mode = self._batch_mode(batch_size, small_solver)
@@ -372,7 +460,8 @@ class FactorGSM:
             f0 = safe_cholesky(broadcast_replicas(cov, None, k, (d, d), dtype,
                                                   dev)).contiguous()
         zero = torch.zeros(k, dtype=torch.int32, device=dev)
-        state = FactorVIState(means0, f0, seeds, 0, zero, zero)
+        state = FactorVIState(means0, f0, seeds, 0, zero, zero,
+                              finv=self._init_finv(f0))
         state = self._get_runner(batch_size, mode, k)(state, niter + 1)
         if return_state:
             return state

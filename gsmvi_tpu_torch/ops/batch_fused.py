@@ -31,19 +31,21 @@ from .fused_step import (KERNEL_WRAPPERS, FusedBlocks,
 
 
 def eps_batch_multistep_reference(score_fn, params, nmax: int, eps_blocks,
-                                  means, factors, *, batch: int, iters=None):
+                                  means, factors, *, batch: int, iters=None,
+                                  precision: str = "highest"):
     """K6's plain version: ``eps_multistep_reference`` on each replica's
     (eps block, mean, factor); returns (means (K, D), factors (K, D, D),
     n_accepted (K,) int32)."""
     return over_replicas(
         lambda e, m, f: eps_multistep_reference(score_fn, params, nmax, e, m,
-                                                f, batch=batch, iters=iters),
+                                                f, batch=batch, iters=iters,
+                                                precision=precision),
         eps_blocks, means, factors)
 
 
 def make_fused_eps_batch_multistep(score_fn, n_params: int, batch: int,
                                    d: int, k: int, steps_per_call: int,
-                                   iters=None):
+                                   iters=None, precision: str = "highest"):
     """K6: ``steps_per_call`` whole GSM steps of K replicas per call.
 
     Returns a ``FusedBlocks``, ``step(nmax, eps_blocks, means, factors,
@@ -53,14 +55,16 @@ def make_fused_eps_batch_multistep(score_fn, n_params: int, batch: int,
     means (K, D); factors (K, D, D); ``n_acc`` (K,) int32 on the operands'
     device.  The params are shared; ``score_fn(x, *params)`` maps (M, D)
     rows to (M, D) scores row by row (e.g. the port's ``gaussian_score``)
-    and on the card must be capturable into a CUDA graph.
+    and on the card must be capturable into a CUDA graph.  ``precision``
+    is that of each sub-step's four O(B D^2) products (K2's).
     """
     iters = ns_iters_for_batch(batch, iters)
     return FusedBlocks(
         score_fn, n_params, batch, d, steps_per_call, iters, int(k),
         make_fused_eps_batch_multistep,
         lambda params, nmax, e, m, f: eps_batch_multistep_reference(
-            score_fn, params, nmax, e, m, f, batch=batch, iters=iters))
+            score_fn, params, nmax, e, m, f, batch=batch, iters=iters,
+            precision=precision), precision=precision)
 
 
 make_fused_eps_batch_multistep.launches = 0

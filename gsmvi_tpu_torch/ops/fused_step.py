@@ -39,6 +39,19 @@ K1 also takes a leading replica axis K (eps, vs (K, B, D), mean (K, D), f
 covers all K replicas; replica i's result equals, bit for bit, a call on
 replica i alone.  K3 takes any row count, e.g. K replicas' B rows stacked.
 
+K1 (ns), K2, K4 (ns) and K6 take ``precision`` ("highest" | "high" |
+"bf16"), the JAX package's ``big_prec``: it reaches only the O(B D^2)
+products ``ef``, ``vf``, ``t`` and the fat apply; the (2B)^2 small space
+and its gates stay float32.  The plain versions define it
+(``mm_prec``): "bf16" rounds both operands to bfloat16 (round to nearest
+even) and forms the products and sums in float32, the TPU's 1-pass
+``Precision.DEFAULT``; "high" is bf16x3, a_hi b_hi + a_hi b_lo + a_lo b_hi
+with a_hi = bf16(a), a_lo = bf16(a - a_hi), the TPU's 3-pass
+``Precision.HIGH``.  On the card those products run on hand-written
+``mma.sync`` bf16 tensor-core kernels (``thin_mma.cu``, ``apply_mma.cu``)
+with the same partitions and epilogues as the float32 ones; "highest" runs
+the float32 kernels unchanged.
+
 Every wrapper runs its plain version on CPU tensors and launches its CUDA
 kernels on CUDA tensors (``ops/cuda/csrc``), raising on a dtype, shape,
 device or contiguity the kernels do not take; it never falls back.  Each
@@ -75,6 +88,7 @@ host.
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import math
 import time
@@ -200,6 +214,46 @@ def eps_panel_smem_bytes(b: int) -> int:
     return panel_smem_bytes(b, 11, 3 * panel_rows(b) + 2 * b)
 
 
+# The precisions of the O(B D^2) products (``mm_prec``), and the mode number
+# of the tensor-core kernels' entry points for the two that run there.
+PRECISIONS = ("highest", "high", "bf16")
+MMA_MODE = {"bf16": 1, "high": 2}
+# The name of each tensor-core precision in the kernels' counters.
+MMA_TAG = {"bf16": "bf16", "high": "bf16x3"}
+
+
+def check_precision(precision: str) -> str:
+    """``precision`` when it is one of PRECISIONS (the kernels' and
+    ``FactorGSM``'s ``pallas_precision``), else ValueError."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision (pallas_precision) must be one of "
+                         f"{PRECISIONS}, got {precision!r}")
+    return precision
+
+
+def bf16_round(x):
+    """``x`` rounded to bfloat16 (round to nearest even) and back to its
+    dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def mm_prec(a, b, precision: str = "highest"):
+    """``a @ b`` in ``precision``, the plain version of the kernels' O(B D^2)
+    products: "highest" the float32 product; "bf16" both operands rounded
+    to bfloat16, products and sums in float32; "high" bf16x3, a_hi b_hi +
+    (a_hi b_lo + a_lo b_hi) with x_hi = bf16(x), x_lo = bf16(x - x_hi).
+    A product of two bfloat16 values is exact in float32, so only the sums
+    round."""
+    if precision == "highest":
+        return a @ b
+    a_hi, b_hi = bf16_round(a), bf16_round(b)
+    if precision == "bf16":
+        return a_hi @ b_hi
+    check_precision(precision)
+    a_lo, b_lo = bf16_round(a - a_hi), bf16_round(b - b_hi)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
 def ns_iters_for_batch(b: int, override=None) -> tuple:
     """The NS profile for batch ``b``: ``override`` when given, else the
     short profile for B <= 32 and the long one above."""
@@ -254,7 +308,8 @@ def _newton_inv(a, iters: int):
 
 
 def eps_smallspace_ns_reference(e, v, vf, mu, f, *, batch: int,
-                                tol: float = NS_TOL, iters=None, ef_t=None):
+                                tol: float = NS_TOL, iters=None, ef_t=None,
+                                precision: str = "highest"):
     """Two-phase (PSD update, then PSD downdate) factorisation of
     M = I + (eps^T eps - C^T C)/B with matmul-only small solves.
 
@@ -265,11 +320,13 @@ def eps_smallspace_ns_reference(e, v, vf, mu, f, *, batch: int,
         cu = (I + S1)^{-1}, cui = (I + S1 + Gu)^{-1}, S1 = sqrt(I + Gu)
         cv = -(I + S2)^{-1},                          S2 = sqrt(I - Gv)
     and F' = F + stack_u^T stack_w in one (D, 2B) @ (2B, D) product.
+    ``precision`` is that of ``ef``, ``t`` and the fat apply (``mm_prec``).
     """
-    ef = e @ f.T if ef_t is None else ef_t
+    ef = mm_prec(e, f.T, precision) if ef_t is None else ef_t
     mu_new, stack_u, stack_w, good = eps_smallspace_stacks_reference(
-        e, v, vf, vf @ f.T, ef, mu, batch=batch, tol=tol, iters=iters)
-    return mu_new, f + stack_u.T @ stack_w, good
+        e, v, vf, mm_prec(vf, f.T, precision), ef, mu, batch=batch, tol=tol,
+        iters=iters)
+    return mu_new, f + mm_prec(stack_u.T, stack_w, precision), good
 
 
 def eps_smallspace_stacks_reference(e, v, vf, t, ef, mu, *, batch: int,
@@ -332,13 +389,16 @@ def eps_smallspace_stacks_reference(e, v, vf, t, ef, mu, *, batch: int,
     return mu + dmu, stack_u, stack_w, good
 
 
-def gsm_eps_update_ns_reference(eps, vs, mean, f, iters=None, ef_t=None):
+def gsm_eps_update_ns_reference(eps, vs, mean, f, iters=None, ef_t=None,
+                                precision: str = "highest"):
     """Update + select with the NS small space: (mean, f, good), the old
-    values kept where ``good`` is false.  Twin of ``gsm_eps_update_ns_xla``."""
+    values kept where ``good`` is false.  Twin of ``gsm_eps_update_ns_xla``
+    (``precision`` its ``big_prec``)."""
     b, d = eps.shape
-    vf = vs @ f
+    vf = mm_prec(vs, f, precision)
     mu_new, f_new, good = eps_smallspace_ns_reference(
-        eps, vs, vf, mean.reshape(1, d), f, batch=b, iters=iters, ef_t=ef_t)
+        eps, vs, vf, mean.reshape(1, d), f, batch=b, iters=iters, ef_t=ef_t,
+        precision=precision)
     return (torch.where(good, mu_new[0], mean), torch.where(good, f_new, f),
             good)
 
@@ -440,17 +500,20 @@ def gsm_eps_update_chol_reference(eps, vs, mean, f, jitter=CHOL_JITTER,
 
 
 def eps_step_reference(score_fn, params, e, mean, f, *, method: str = "ns",
-                       iters=None, jitter: float = CHOL_JITTER):
+                       iters=None, jitter: float = CHOL_JITTER,
+                       precision: str = "highest"):
     """One whole step: ``ef = e F^T``, ``x = mu + ef``, ``v = score_fn(x,
     *params)``, the ns or chol update and the select.  Returns (mean, f,
-    good)."""
-    ef = e @ f.T
+    good).  ``precision`` (ns only) is that of ``ef``, ``vf``, ``t`` and
+    the fat apply."""
+    _check_method(method, precision)
+    ef = mm_prec(e, f.T, precision)
     v = score_fn(mean + ef, *params)
     if method == "ns":
         d = f.shape[-1]
         mu_new, f_new, good = eps_smallspace_ns_reference(
-            e, v, v @ f, mean.reshape(1, d), f, batch=e.shape[0],
-            iters=iters, ef_t=ef)
+            e, v, mm_prec(v, f, precision), mean.reshape(1, d), f,
+            batch=e.shape[0], iters=iters, ef_t=ef, precision=precision)
         return (torch.where(good, mu_new[0], mean),
                 torch.where(good, f_new, f), good)
     return gsm_eps_update_chol_reference(e, v, mean, f, jitter=jitter,
@@ -458,7 +521,8 @@ def eps_step_reference(score_fn, params, e, mean, f, *, method: str = "ns",
 
 
 def eps_multistep_reference(score_fn, params, nmax: int, eps_block, mean, f,
-                            *, batch: int, iters=None):
+                            *, batch: int, iters=None,
+                            precision: str = "highest"):
     """The first ``nmax`` whole ns steps of an eps block
     (``eps_step_reference`` on each sub-step's rows).  Returns (mean, f,
     n_accepted int32)."""
@@ -466,7 +530,7 @@ def eps_multistep_reference(score_fn, params, nmax: int, eps_block, mean, f,
     for j in range(int(nmax)):
         mean, f, good = eps_step_reference(
             score_fn, params, eps_block[j * batch:(j + 1) * batch], mean, f,
-            iters=iters)
+            iters=iters, precision=precision)
         acc = acc + good.to(torch.int32)
     return mean, f, acc
 
@@ -666,18 +730,45 @@ def _replicas(rows):
 
 
 def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
-          halt=None) -> None:
+          halt=None, precision: str = "highest") -> None:
     """out = rows @ F^T (``trans``) or rows @ F on the split-k thin product
     (``thin_gemm.cu``), counted in ``thin_product.launches``; with ``x_out``
     also x_out = mu + out; a no-op while ``*halt`` is non-zero.  A leading
     replica axis K on rows (any replica stride), f, mu, out and x_out
-    (packed) runs all K in one launch."""
+    (packed) runs all K in one launch.  "high"/"bf16" ``precision`` runs the
+    tensor-core variant on the same partition (``thin_mma.cu``), counted in
+    ``thin_product_bf16x3``/``thin_product_bf16``."""
     k, stride = _replicas(rows)
     m, d = rows.shape[-2:]
-    thin_product.launches += 1
-    lib.call("gsmvi_thin_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
-             _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride,
-             *thin_split(d), stream)
+    if precision == "highest":
+        thin_product.launches += 1
+        lib.call("gsmvi_thin_rows", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
+                 _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride,
+                 *thin_split(d), stream)
+        return
+    THIN_MMA[precision].launches += 1
+    lib.call("gsmvi_thin_rows_mma", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
+             _ptr(x_out), m, d, int(trans), k, stride, *thin_split(d),
+             MMA_MODE[precision], stream)
+
+
+def _apply(lib, stream, su, sw, f_in, f_out, good, *, precision: str,
+           reps: int = 1) -> None:
+    """The fat apply with its select: f_out = f_in + su^T sw where
+    ``*good``, else f_in (in place when f_out is f_in), su, sw (2B, D), on
+    the float32 GEMM template (``gemm.cu``) or, at "high"/"bf16", its
+    tensor-core variant (``apply_mma.cu``, counted in
+    ``factor_apply_bf16x3``/``factor_apply_bf16``); ``reps`` replicas
+    stored one after another."""
+    k, d = su.shape[-2:]
+    if precision == "highest":
+        lib.call("gsmvi_factor_apply", _ptr(su), _ptr(sw), _ptr(f_in),
+                 _ptr(f_out), _ptr(good), k, d, reps, stream)
+        return
+    APPLY_MMA[precision].launches += 1
+    lib.call("gsmvi_factor_apply_mma", _ptr(su), _ptr(sw), _ptr(f_in),
+             _ptr(f_out), _ptr(good), k, d, reps, MMA_MODE[precision],
+             stream)
 
 
 class _UpdateBuffers:
@@ -736,19 +827,19 @@ def _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out,
 
 
 def _launch_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in, f_out,
-                   buf: _UpdateBuffers, iters, nacc=None) -> None:
+                   buf: _UpdateBuffers, iters, nacc=None,
+                   precision: str = "highest") -> None:
     """K1's launches: vf and t (thin product), small space (mean + good),
-    fat apply (F).  With a leading replica axis every launch covers the K
-    replicas; eps may be a view whose replicas lie apart, the other operands
-    are packed."""
+    fat apply (F), the products in ``precision``.  With a leading replica
+    axis every launch covers the K replicas; eps may be a view whose
+    replicas lie apart, the other operands are packed."""
     k, _ = _replicas(eps)
-    b, d = eps.shape[-2:]
-    _thin(lib, stream, vs, f_in, buf.vf, trans=False)
-    _thin(lib, stream, buf.vf, f_in, buf.t, trans=True)
+    _thin(lib, stream, vs, f_in, buf.vf, trans=False, precision=precision)
+    _thin(lib, stream, buf.vf, f_in, buf.t, trans=True, precision=precision)
     _launch_smallspace(lib, stream, eps, vs, ef, mean_in, mean_out, buf,
                        iters, nacc=nacc)
-    lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_out), _ptr(buf.good), 2 * b, d, k, stream)
+    _apply(lib, stream, buf.su, buf.sw, f_in, f_out, buf.good,
+           precision=precision, reps=k)
 
 
 def _launch_chol_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in,
@@ -765,27 +856,30 @@ def _launch_chol_update(lib, stream, eps, vs, ef, mean_in, mean_out, f_in,
              _ptr(buf.t), _ptr(ef), _ptr(mean_in), _ptr(mean_out),
              _ptr(buf.good), _ptr(nacc), _ptr(buf.zt), _ptr(buf.su),
              _ptr(buf.sw), b, d, *thin_split(d), float(jitter), stream)
-    lib.call("gsmvi_factor_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_out), _ptr(buf.good), 2 * b, d, 1, stream)
+    _apply(lib, stream, buf.su, buf.sw, f_in, f_out, buf.good,
+           precision="highest")
 
 
 def _launch_step(lib, stream, e, score_fn, params, mean_in, mean_out, f_in,
                  f_out, ef, x, buf: _UpdateBuffers, iters,
-                 jitter: float = CHOL_JITTER, nacc=None) -> None:
+                 jitter: float = CHOL_JITTER, nacc=None,
+                 precision: str = "highest") -> None:
     """One whole step on the card: ``ef = e F^T`` and ``x = mu + ef`` (one
     thin product), the score on x's rows, then one update's launches (``buf.method``)
     from (mean_in, f_in) into (mean_out, f_out), which may be the same
     tensors.  K4 makes one such step per call, K2 and K6 one per sub-step;
-    a leading replica axis (K6) stacks the K replicas' rows for the score."""
+    a leading replica axis (K6) stacks the K replicas' rows for the score.
+    ``precision`` (ns only) is that of the four O(B D^2) products."""
     d = e.shape[-1]
-    _thin(lib, stream, e, f_in, ef, trans=True, mu=mean_in, x_out=x)
+    _thin(lib, stream, e, f_in, ef, trans=True, mu=mean_in, x_out=x,
+          precision=precision)
     rows = x.reshape(-1, d)
     v = score_fn(rows, *params)
     _require("score", v, tuple(rows.shape))
     v = v.reshape(ef.shape)
     if buf.method == "ns":
         _launch_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_out,
-                       buf, iters, nacc=nacc)
+                       buf, iters, nacc=nacc, precision=precision)
     else:
         _launch_chol_update(lib, stream, e, v, ef, mean_in, mean_out, f_in,
                             f_out, buf, jitter, nacc=nacc)
@@ -916,9 +1010,14 @@ def eps_smallspace_panel(lib, stream, args, ws, b: int, d: int, iters,
 eps_smallspace_panel.launches = 0
 
 
-def _check_method(method: str) -> None:
+def _check_method(method: str, precision: str = "highest") -> None:
     if method not in ("ns", "chol"):
         raise ValueError(f"method must be 'ns' or 'chol', got {method!r}")
+    check_precision(precision)
+    if method == "chol" and precision != "highest":
+        raise ValueError(
+            f"precision={precision!r}: the exact (chol) variant runs its "
+            "products in float32 only, as the JAX package's does")
 
 
 # ---------------------------------------------------------------------------
@@ -933,11 +1032,11 @@ def over_replicas(fn, *args):
 
 
 def gsm_eps_update_replicas_reference(eps, vs, mean, f, iters=None,
-                                      ef_t=None):
+                                      ef_t=None, precision: str = "highest"):
     """``gsm_eps_update_ns_reference`` with an optional leading replica
     axis, one replica at a time: (mean (K, D), f (K, D, D), good (K,))."""
     one = lambda e, v, m, f_, ef: gsm_eps_update_ns_reference(
-        e, v, m, f_, iters=iters, ef_t=ef)
+        e, v, m, f_, iters=iters, ef_t=ef, precision=precision)
     if eps.dim() == 2:
         return one(eps, vs, mean, f, ef_t)
     efs = [None] * eps.shape[0] if ef_t is None else ef_t
@@ -945,7 +1044,8 @@ def gsm_eps_update_replicas_reference(eps, vs, mean, f, iters=None,
 
 
 def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
-                         jitter: float = CHOL_JITTER, method: str = "ns"):
+                         jitter: float = CHOL_JITTER, method: str = "ns",
+                         precision: str = "highest"):
     """K1 (``method="ns"``) and K4a (``method="chol"``): eps-coordinate GSM
     update + validity + select.
 
@@ -959,8 +1059,11 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
       fits: (mean (K, D), f (K, D, D), good (K,)).
     - "chol": the exact variant, two (2B)^2 Choleskys with ``jitter`` on
       the Gram and the min-pivot PD check; (B, D) only.
+
+    ``precision`` (ns only): that of ``vf``, ``t``, the fat apply and, when
+    ``ef`` is not given, ``ef`` (``mm_prec``; the module docstring).
     """
-    _check_method(method)
+    _check_method(method, precision)
     b, d = eps.shape[-2:]
     lead = tuple(eps.shape[:-2])
     if len(lead) > (1 if method == "ns" else 0):
@@ -973,8 +1076,8 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
         if method == "chol":
             return gsm_eps_update_chol_reference(eps, vs, mean, f,
                                                  jitter=jitter, ef_t=ef)
-        return gsm_eps_update_replicas_reference(eps, vs, mean, f,
-                                                 iters=iters, ef_t=ef)
+        return gsm_eps_update_replicas_reference(
+            eps, vs, mean, f, iters=iters, ef_t=ef, precision=precision)
     _require_shape_supported(b, d, method)
     for name, t, shape in (("eps", eps, (b, d)), ("vs", vs, (b, d)),
                            ("mean", mean, (d,)), ("f", f, (d, d))):
@@ -984,7 +1087,7 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
     gsm_eps_update_fused.launches += 1
     if ef is None:
         ef = torch.empty_like(eps)
-        _thin(lib, stream, eps, f, ef, trans=True)
+        _thin(lib, stream, eps, f, ef, trans=True, precision=precision)
     else:
         _require("ef", ef, lead + (b, d))
     buf = _UpdateBuffers(b, d, eps.device, *lead, method=method)
@@ -992,7 +1095,7 @@ def gsm_eps_update_fused(eps, vs, mean, f, iters=None, ef=None,
     f_out = torch.empty_like(f)
     if method == "ns":
         _launch_update(lib, stream, eps, vs, ef, mean, mean_out, f, f_out,
-                       buf, iters)
+                       buf, iters, precision=precision)
     else:
         _launch_chol_update(lib, stream, eps, vs, ef, mean, mean_out, f,
                             f_out, buf, jitter)
@@ -1043,7 +1146,7 @@ philox_normal.launches = 0
 def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
                         jitter: float = CHOL_JITTER,
                         external_eps: bool = False, method: str = "ns",
-                        iters=None):
+                        iters=None, precision: str = "highest"):
     """K4: one whole GSM step per call.
 
     Returns ``step(first, mean, f, *params) -> (mean, f, good)``: the draw
@@ -1052,9 +1155,10 @@ def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
     per step, and the draw is ``philox_normal(first, B, D)`` on the card),
     ``ef = e F^T``, ``x = mu + ef``, ``v = score_fn(x, *params)``, the
     ``method`` update ("ns": K1's Newton-Schulz small space with ``iters``;
-    "chol": K4a's Choleskys with ``jitter``) and the select.
+    "chol": K4a's Choleskys with ``jitter``) and the select; ``precision``
+    (ns only) that of its four O(B D^2) products.
     """
-    _check_method(method)
+    _check_method(method, precision)
     iters = ns_iters_for_batch(batch, iters)
 
     def step(first, mean, f, *params):
@@ -1067,7 +1171,7 @@ def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
                                                          mean.device)
             return eps_step_reference(score_fn, params, e, mean, f,
                                       method=method, iters=iters,
-                                      jitter=jitter)
+                                      jitter=jitter, precision=precision)
         _require_shape_supported(batch, d, method)
         for name, t, shape in (("mean", mean, (d,)), ("f", f, (d, d))):
             _require(name, t, shape)
@@ -1085,7 +1189,8 @@ def make_fused_eps_step(score_fn, n_params: int, batch: int, d: int,
         x = torch.empty_like(ef)
         mean_out, f_out = torch.empty_like(mean), torch.empty_like(f)
         _launch_step(lib, stream, e, score_fn, params, mean, mean_out, f,
-                     f_out, ef, x, buf, iters, jitter=jitter)
+                     f_out, ef, x, buf, iters, jitter=jitter,
+                     precision=precision)
         return mean_out, f_out, buf.good[0] != 0
 
     return step
@@ -1190,8 +1295,10 @@ class FusedBlocks:
     """
 
     def __init__(self, score_fn, n_params: int, batch: int, d: int,
-                 steps_per_call: int, iters, k, counter, reference):
+                 steps_per_call: int, iters, k, counter, reference,
+                 precision: str = "highest"):
         self.score_fn, self.n_params = score_fn, n_params
+        self.precision = check_precision(precision)
         self.batch, self.d, self.spc = batch, d, int(steps_per_call)
         self.iters, self.k = tuple(iters), k
         self._lead = () if k is None else (k,)
@@ -1262,7 +1369,7 @@ class FusedBlocks:
                          bufs.eps[..., j * self.batch:(j + 1) * self.batch, :],
                          self.score_fn, params, bufs.mean, bufs.mean, bufs.f,
                          bufs.f, bufs.ef, bufs.x, bufs.buf, self.iters,
-                         nacc=bufs.acc)
+                         nacc=bufs.acc, precision=self.precision)
 
     def _replay(self, bufs: _BlockBuffers, params) -> None:
         key = (bufs.eps.device, tuple(_param_key(p) for p in params))
@@ -1303,7 +1410,8 @@ class FusedBlocks:
 
 
 def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
-                             steps_per_call: int, iters=None):
+                             steps_per_call: int, iters=None,
+                             precision: str = "highest"):
     """K2: ``steps_per_call`` whole GSM steps per call.
 
     Returns a ``FusedBlocks``, ``step(nmax, eps_block, mean, f, *params)
@@ -1312,13 +1420,15 @@ def make_fused_eps_multistep(score_fn, n_params: int, batch: int, d: int,
     operands' device.  ``score_fn(x, *params) -> (B, D)`` is the score,
     e.g. the port's ``gaussian_score`` (the counterpart of tracing it into
     the TPU kernel); on the card it must be capturable into a CUDA graph.
+    ``precision`` is that of each sub-step's four O(B D^2) products.
     """
     iters = ns_iters_for_batch(batch, iters)
     return FusedBlocks(
         score_fn, n_params, batch, d, steps_per_call, iters, None,
         make_fused_eps_multistep,
         lambda params, nmax, e, m, f: eps_multistep_reference(
-            score_fn, params, nmax, e, m, f, batch=batch, iters=iters))
+            score_fn, params, nmax, e, m, f, batch=batch, iters=iters,
+            precision=precision), precision=precision)
 
 
 make_fused_eps_multistep.launches = 0
@@ -1347,16 +1457,19 @@ def gaussian_score(x, mu_t, prec):
 gaussian_score.launches = 0
 
 
-def thin_product(rows, f, *, trans: bool, mu=None):
+def thin_product(rows, f, *, trans: bool, mu=None,
+                 precision: str = "highest"):
     """The row products of K1, K2, K4 and K6: rows @ F^T (``trans``) or
     rows @ F, rows (M, D) or (K, M, D), F (D, D) or (K, D, D); with ``mu``
     ((D,) or (K, D); ``trans`` only) it returns (out, x = mu + out).  On the
-    card the split-k thin product (``thin_gemm.cu``), one launch for all
-    replicas; on the CPU the plain products."""
+    card the split-k thin product (``thin_gemm.cu``; at "high"/"bf16"
+    ``precision`` its tensor-core variant ``thin_mma.cu``), one launch for
+    all replicas; on the CPU the plain products (``mm_prec``)."""
+    check_precision(precision)
     if mu is not None and not trans:
         raise ValueError("thin_product: mu (x = mu + out) needs trans=True")
     if _on_cpu(rows, f, *([] if mu is None else [mu])):
-        out = rows @ (f.transpose(-1, -2) if trans else f)
+        out = mm_prec(rows, f.transpose(-1, -2) if trans else f, precision)
         return out if mu is None else (out, mu.unsqueeze(-2) + out)
     m, d = rows.shape[-2:]
     lead = tuple(rows.shape[:-2])
@@ -1372,11 +1485,71 @@ def thin_product(rows, f, *, trans: bool, mu=None):
         _require("mu", mu, lead + (d,))
         x = torch.empty_like(rows)
     _thin(_library(), _stream(rows.device), rows, f, out, trans=trans, mu=mu,
-          x_out=x)
+          x_out=x, precision=precision)
     return out if mu is None else (out, x)
 
 
 thin_product.launches = 0
+
+
+def factor_apply_reference(su, sw, f, good=None, precision: str = "highest"):
+    """The fat apply's plain version: f + su^T sw (``mm_prec``) where
+    ``good`` (default: everywhere), else f; su, sw (2B, D) or (K, 2B, D),
+    f (D, D) or (K, D, D), good () or (K,), bool or int32 (0 rejects)."""
+    f_new = f + mm_prec(su.transpose(-1, -2), sw, precision)
+    if good is None:
+        return f_new
+    keep = good.reshape(f.shape[:-2] + (1, 1)) != 0
+    return torch.where(keep, f_new, f)
+
+
+def factor_apply(su, sw, f, good=None, *, precision: str):
+    """The fat apply of K1, K2, K4 and K6 at a tensor-core ``precision``
+    ("high" or "bf16"): f + su^T sw where ``good`` (default: everywhere),
+    else f; shapes as ``factor_apply_reference``.  On the card the
+    ``mma.sync`` bf16 kernel (``apply_mma.cu``), one launch for all
+    replicas; on the CPU ``factor_apply_reference``.  The float32 apply
+    runs inside K1 (``gemm.cu``) and has no wrapper of its own."""
+    if precision not in MMA_MODE:
+        raise ValueError(f"factor_apply takes precision 'high' or 'bf16', "
+                         f"got {precision!r}")
+    tensors = [su, sw, f] + ([] if good is None else [good])
+    if _on_cpu(*tensors):
+        return factor_apply_reference(su, sw, f, good, precision)
+    n, d = su.shape[-2:]
+    lead = tuple(su.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"su: (2B, D) or (K, 2B, D) required, got "
+                         f"{tuple(su.shape)}")
+    _require_dim_supported(d)
+    for name, t, shape in (("su", su, (n, d)), ("sw", sw, (n, d)),
+                           ("f", f, (d, d))):
+        _require(name, t, lead + shape)
+    k = lead[0] if lead else 1
+    if good is None:
+        flags = torch.ones(k, dtype=torch.int32, device=f.device)
+    elif good.dtype == torch.int32 and good.is_contiguous():
+        flags = good.reshape(k)        # the kernel's own flag: no conversion
+    else:
+        flags = good.reshape(k).to(torch.int32).contiguous()
+    out = torch.empty_like(f)
+    _apply(_library(), _stream(f.device), su, sw, f, out, flags,
+           precision=precision, reps=k)
+    return out
+
+
+def _mma_counter(fn, precision: str):
+    """``fn`` at ``precision``: the wrapper of one tensor-core variant,
+    whose ``launches`` counts that variant's launches wherever they run."""
+    variant = functools.partial(fn, precision=precision)
+    variant.__name__ = f"{fn.__name__}_{MMA_TAG[precision]}"
+    variant.launches = 0
+    return variant
+
+
+# The tensor-core variants' wrappers and launch counts, by precision.
+THIN_MMA = {p: _mma_counter(thin_product, p) for p in MMA_MODE}
+APPLY_MMA = {p: _mma_counter(factor_apply, p) for p in MMA_MODE}
 
 
 def eps_smallspace(e, v, vf, t, ef, mean, iters=None):
@@ -1655,6 +1828,7 @@ KERNEL_WRAPPERS = {
     "eps_smallspace_panel": eps_smallspace_panel,
     "eps_smallspace": eps_smallspace,
     "thin_product": thin_product,
+    **{fn.__name__: fn for fn in (*THIN_MMA.values(), *APPLY_MMA.values())},
     "funnel_score": funnel_score,
     "banana_score": banana_score,
     "student_t_score": student_t_score,

@@ -48,12 +48,13 @@ NS_STATS_INIT = (float("inf"), float("inf"))
 
 
 class FactorVIState(NamedTuple):
-    """Factor state: S = factor @ factor.T (no maintained inverse: the eps
-    method never applies F^{-1}).  ``ns_stats`` is FactorBaM's carried
-    (gu_ub, lmax_ub) pair, measured by its kernels at the last
+    """Factor state: S = factor @ factor.T.  ``ns_stats`` is FactorBaM's
+    carried (gu_ub, lmax_ub) pair, measured by its kernels at the last
     feedback-cadence boundary or stiff step; host floats, because the BaM
     fitter reads them from the card once per step or block anyway.  The GSM
-    fitters leave it at its default."""
+    fitters leave it at its default.  ``finv`` is the maintained inverse of
+    ``factor`` of FactorGSM's twophase and qr methods; None (JAX's empty
+    placeholder) for the eps method, which never applies F^{-1}."""
 
     mean: torch.Tensor        # (D,)
     factor: torch.Tensor      # (D, D)
@@ -62,6 +63,7 @@ class FactorVIState(NamedTuple):
     n_accepted: torch.Tensor
     n_rejected: torch.Tensor
     ns_stats: tuple = NS_STATS_INIT
+    finv: "torch.Tensor | None" = None   # (D, D), or None
 
     @property
     def cov(self) -> torch.Tensor:

@@ -65,7 +65,7 @@ def _result(fused, exact, extra_valid=None):
 
 
 def make_gsm_audit(lp_g, batch_size: int, d: int, ns_iters,
-                   fused_score=None):
+                   fused_score=None, precision: str = "highest"):
     """``audit(state, i, eps=None) -> (mean_err, cov_err, valid)`` (0-d
     tensors on the state's device) comparing the fused GSM kernels with the
     exact eps step (``ops/gsm_eps.apply_eps_step``) on one fresh draw from
@@ -81,12 +81,15 @@ def make_gsm_audit(lp_g, batch_size: int, d: int, ns_iters,
     biased).  ``eps`` replaces the audit draw (tests feed the JAX package's
     draws); ``audit.proposals(state, i, eps=None)`` returns the two
     proposals ((mean, f, good) fused, then exact) behind the errors.
+    ``precision`` is the fused side's (the fitter's ``pallas_precision``);
+    the exact side is float32.
     """
     step = None
     if fused_score is not None:
         score_fn, params = fused_score
         step = make_fused_eps_step(score_fn, len(params), batch_size, d,
-                                   external_eps=True, iters=ns_iters)
+                                   external_eps=True, iters=ns_iters,
+                                   precision=precision)
 
     def proposals(state, i: int, eps=None):
         if eps is None:
@@ -96,7 +99,8 @@ def make_gsm_audit(lp_g, batch_size: int, d: int, ns_iters,
         if step is not None:
             fused = step(eps, mean, f, *params)
         else:
-            fused = gsm_eps_update_fused(eps, vs, mean, f, iters=ns_iters)
+            fused = gsm_eps_update_fused(eps, vs, mean, f, iters=ns_iters,
+                                         precision=precision)
         return fused, apply_eps_step(mean, f, eps, vs)
 
     def audit(state, i: int, eps=None):

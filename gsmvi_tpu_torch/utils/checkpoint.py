@@ -4,8 +4,9 @@ Counterpart of ``gsmvi_tpu/utils/checkpoint.py:32-87`` (``save_state``,
 ``load_state``).  The array fields keep the JAX package's names
 (``_FIELDS``, ``_FACTOR_FIELDS``: ``ns_stats`` included; a factor state
 saves its real fields, not the materialized cov/chol); the port's ``seed``
-takes the key's place (an int64, or a (K,) array for stacked replicas) and
-the port has no ``finv``.  A loaded state resumes its fit exactly through
+takes the key's place (an int64, or a (K,) array for stacked replicas);
+``finv`` is saved where the state carries one (FactorGSM's twophase and qr
+methods).  A loaded state resumes its fit exactly through
 ``fit(..., state=...)``: the eps stream is a function of (seed, step).
 Orbax checkpoints (``save_orbax``/``restore_orbax``) are JAX-only and not
 ported.
@@ -46,6 +47,8 @@ def save_state(path: str, state) -> None:
     arrays["seed"] = np.asarray(state.seed, dtype=np.int64)
     if factor:
         arrays["_factor_state"] = np.asarray(True)
+        if state.finv is not None:
+            arrays["finv"] = state.finv.detach().cpu().numpy()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(_npz_path(path), **arrays)
 
@@ -68,6 +71,7 @@ def load_state(path: str, device=None):
             stats = data["ns_stats"].tolist()
             stats = (tuple(stats) if data["ns_stats"].ndim == 1
                      else tuple(tuple(pair) for pair in stats))
+            finv = t("finv") if "finv" in data else None
             return FactorVIState(t("mean"), t("factor"), seed, step, *counts,
-                                 stats)
+                                 stats, finv)
         return VIState(t("mean"), t("cov"), t("chol"), seed, step, *counts)

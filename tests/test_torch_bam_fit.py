@@ -24,7 +24,7 @@ from gsmvi_tpu.models.gaussian import _gaussian_target
 from gsmvi_tpu_torch import BaM, FactorBaM, Regularizers
 from gsmvi_tpu_torch.models import dense_gaussian, gaussian_target_from_arrays
 from gsmvi_tpu_torch.ops.bam_fused import FEEDBACK_CADENCE
-from gsmvi_tpu_torch.state import NS_STATS_INIT, FactorVIState
+from gsmvi_tpu_torch.state import NS_STATS_INIT, FactorVIState, VIState
 
 # The port runs on the card by default; these tests run on the CPU.
 DEV = "cpu"
@@ -303,7 +303,13 @@ def test_routes_state_boundary_and_gates(monkeypatch, kernel_paths):
     fb.fit(0, Regularizers().linear(1.0), niter=10, batch_size=8,
            verbose=False, retries=0, audit_every=5)
     assert [r["i"] for r in fb.audit_log] == [5, 10]
-    with pytest.raises(NotImplementedError):
-        BaM(d, t.lp, t.lp_g, jit_compile=False, device=DEV)
+    # jit_compile=False is ported: the dense eager loop, never the factor
+    # route (tests/test_torch_options.py holds it against JAX's).
+    eager = BaM(d, t.lp, t.lp_g, jit_compile=False, use_factor=True,
+                device=DEV)
+    assert not eager._factor_route()
+    st = eager.fit(0, Regularizers().linear(1.0), niter=5, batch_size=8,
+                   verbose=False, return_state=True)
+    assert isinstance(st, VIState) and st.step == 6
     assert FactorVIState(*s[:2], 0, 0, s.n_accepted,
                          s.n_rejected).ns_stats == NS_STATS_INIT

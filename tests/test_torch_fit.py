@@ -186,10 +186,14 @@ def test_kernel_gate_raises_on_the_card(monkeypatch, kernel_paths):
                      dtype=torch.float64, device=DEV)._fused_mode(600) is None
     monkeypatch.setattr(t_gsm, "on_gpu", lambda device: True)
     # B=600 at D=2048 keeps the factor route (2B <= D), whose gate raises
-    # before any step runs.
+    # before any step runs.  The target is D=2048's: GSM probes lp_g on a
+    # (B, D) tensor, and a score that fails on it is a host callable, which
+    # takes the dense route.
+    big = dense_gaussian(7, 2048, scale=0.3, device=DEV)
     with pytest.raises(ValueError, match="use_fused=False"):
-        GSM(2048, t.lp, t.lp_g, device=DEV).fit(0, niter=2, batch_size=600,
-                                                verbose=False)
+        GSM(2048, big.lp, big.lp_g, device=DEV).fit(0, niter=2,
+                                                    batch_size=600,
+                                                    verbose=False)
 
 
 def test_eps_stream_seeding():
@@ -231,10 +235,20 @@ def test_dense_resume_and_unported_options():
         res = g.fit(0, niter=25, batch_size=4, verbose=False,
                     return_state=True, state=half)
     assert torch.equal(res.cov, full.cov) and res.step == full.step
-    with pytest.raises(NotImplementedError):
-        FactorGSM(d, t.lp, t.lp_g, pallas_precision="bf16", device=DEV)
-    with pytest.raises(NotImplementedError):
-        FactorGSM(d, t.lp, t.lp_g, method="qr", device=DEV)
+    # pallas_precision "bf16"/"high" and methods "qr"/"twophase" are ported
+    # (tests/test_torch_options.py, tests/test_torch_factor_methods.py);
+    # what is not an option of the JAX package raises.
+    for precision in ("bf16", "high"):
+        assert FactorGSM(d, t.lp, t.lp_g, pallas_precision=precision,
+                         device=DEV).pallas_precision == precision
+    assert FactorGSM(d, t.lp, t.lp_g, method="qr", device=DEV).method == "qr"
+    with pytest.raises(ValueError, match="pallas_precision"):
+        FactorGSM(d, t.lp, t.lp_g, pallas_precision="tf32", device=DEV)
+    with pytest.raises(ValueError, match="method"):
+        FactorGSM(d, t.lp, t.lp_g, method="svd", device=DEV)
+    with pytest.raises(ValueError, match="no kernel"):
+        FactorGSM(d, t.lp, t.lp_g, method="twophase", use_fused=True,
+                  device=DEV)
 
 
 DEFAULT_DEVICE_CALLS = {
@@ -273,7 +287,8 @@ def test_import_loads_neither_jax_nor_triton():
             "gsmvi_tpu_torch.ops.bam, gsmvi_tpu_torch.ops.bam_eps, "
             "gsmvi_tpu_torch.ops.bam_fused, gsmvi_tpu_torch.ops.sqrtm, "
             "gsmvi_tpu_torch.ops.gsm_step, gsmvi_tpu_torch.ops.batch_fused, "
-            "gsmvi_tpu_torch.utils.audit; "
+            "gsmvi_tpu_torch.utils.audit, gsmvi_tpu_torch.compat, "
+            "gsmvi_tpu_torch.compat.gsm_numpy, gsmvi_tpu_torch.ops.gsm_factor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'gsmvi_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -2320,3 +2320,178 @@ def test_factor_bam_fit_batch_replicas_equal_single_fits(cuda, b):
         assert torch.equal(r.mean, s.mean) and torch.equal(r.factor, s.factor)
         assert r.ns_stats == s.ns_stats
         assert int(r.n_accepted) == int(s.n_accepted)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 and bf16x3 tensor-core products ("bf16"/"high" precision)
+# ---------------------------------------------------------------------------
+# Kernel and plain version (``fs.mm_prec``) round the same float32 operands
+# to the same bfloat16 values, so they differ only in float32 sums of K
+# terms (3K at bf16x3): within 4 K 2^-24 (|a| @ |b|) elementwise (a
+# recursive sum rounded to nearest, K u, plus the tensor cores' truncating
+# adds, 2 K u).  Against float64: 2^-8 (1 + 2^-8) |a| @ |b| at bf16, 2^-16 at
+# bf16x3, plus that (as chip_smoke.py phase 24).
+
+PREC_PASSES = {"bf16": 1, "high": 3}
+PREC_REL = {"bf16": 2.0 ** -8 * (1 + 2.0 ** -8), "high": 2.0 ** -16}
+
+
+def _check_product(got, want, a, b, k, precision):
+    absprod = a.abs().double() @ b.abs().double()
+    sum_tol = 4.0 * PREC_PASSES[precision] * k * 2.0 ** -24
+    assert bool(((got.double() - want.double()).abs()
+                 <= sum_tol * absprod + 1e-30).all())
+    exact = a.double() @ b.double()
+    assert bool(((got.double() - exact).abs()
+                 <= (PREC_REL[precision] + sum_tol) * absprod + 1e-30).all())
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("m,d", [(32, 256), (8, 200), (128, 256), (512, 1024),
+                                 (1, 1), (3, 17)])
+def test_tensor_core_thin_product_matches_plain(cuda, precision, trans, m,
+                                                d):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    rows = torch.randn((m, d), generator=gen, device=cuda)
+    f = torch.randn((d, d), generator=gen, device=cuda) / d ** 0.5
+    mu = torch.randn(d, generator=gen, device=cuda)
+    fs.reset_launch_counts()
+    if trans:
+        out, x = fs.thin_product(rows, f, trans=True, mu=mu,
+                                 precision=precision)
+        assert torch.equal(x, mu + out)
+    else:
+        out = fs.thin_product(rows, f, trans=False, precision=precision)
+    tag = fs.MMA_TAG[precision]
+    assert fs.launch_counts()[f"thin_product_{tag}"] == 1
+    fb = f.T if trans else f
+    _check_product(out, fs.mm_prec(rows, fb, precision), rows, fb, d,
+                   precision)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+@pytest.mark.parametrize("b,d", [(32, 256), (8, 200), (128, 256),
+                                 (512, 1024), (1, 1)])
+def test_tensor_core_apply_matches_plain(cuda, precision, b, d):
+    gen = torch.Generator(device=cuda).manual_seed(3 * b + d)
+    su = torch.randn((2 * b, d), generator=gen, device=cuda)
+    sw = 0.1 * torch.randn((2 * b, d), generator=gen, device=cuda)
+    f = torch.randn((d, d), generator=gen, device=cuda)
+    yes, no = (torch.tensor(x, device=cuda) for x in (True, False))
+    assert torch.equal(fs.factor_apply(su, sw, f, no, precision=precision), f)
+    zero = torch.zeros_like(f)
+    got = fs.factor_apply(su, sw, zero, yes, precision=precision)
+    want = fs.factor_apply_reference(su, sw, zero, yes, precision)
+    _check_product(got, want, su.T, sw, 2 * b, precision)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+def test_tensor_core_replicas_equal_single_launches(cuda, precision):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    k, b, d = 3, 32, 256
+    rows = torch.randn((k, b, d), generator=gen, device=cuda)
+    f = torch.randn((k, d, d), generator=gen, device=cuda) / 16
+    su = torch.randn((k, 2 * b, d), generator=gen, device=cuda)
+    good = torch.tensor([True, False, True], device=cuda)
+    out = fs.thin_product(rows, f, trans=False, precision=precision)
+    app = fs.factor_apply(su, su, f, good, precision=precision)
+    for i in range(k):
+        assert torch.equal(out[i], fs.thin_product(rows[i], f[i], trans=False,
+                                                   precision=precision))
+        assert torch.equal(app[i], fs.factor_apply(su[i], su[i], f[i],
+                                                   good[i],
+                                                   precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+@pytest.mark.parametrize("b,d", [(8, 200), (32, 256)])
+def test_eps_kernels_at_precision_match_plain(cuda, precision, b, d):
+    """K1, K4 and K2 at "high" within 2^-14 (one update) and 8 x that (an
+    8-step block) of max(1, |F|) of their plain versions; at "bf16" one
+    update within half the plain version's own distance from float32 on
+    the same input (a sum-order difference can move an operand across a
+    bfloat16 rounding boundary), a block within twice it (such flips
+    compound over chained sub-steps), and no less than "high"'s
+    (chip_smoke.py phase 24)."""
+    eps, v, mu, f = _inputs(cuda, b, d, seed=7 * b + d)
+    t = dense_gaussian(0, d, device=cuda)
+    score_fn, params = t.fused_score
+    spc = 8
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    block = torch.randn((spc * b, d), generator=gen, device=cuda)
+    zero, eye = torch.zeros(d, device=cuda), torch.eye(d, device=cuda)
+    ref = fs.gaussian_score_reference
+
+    def cases(p):
+        k4 = fs.make_fused_eps_step(score_fn, len(params), b, d,
+                                    external_eps=True, precision=p)
+        k2 = fs.make_fused_eps_multistep(score_fn, len(params), b, d, spc,
+                                         precision=p)
+        return {
+            "k1": (lambda: fs.gsm_eps_update_fused(eps, v, mu, f,
+                                                   precision=p),
+                   lambda: fs.gsm_eps_update_ns_reference(eps, v, mu, f,
+                                                          precision=p), 1),
+            "k4": (lambda: k4(eps, mu, f, *params),
+                   lambda: fs.eps_step_reference(ref, params, eps, mu, f,
+                                                 precision=p), 1),
+            "k2": (lambda: k2(spc, block, zero, eye, *params),
+                   lambda: fs.eps_multistep_reference(
+                       ref, params, spc, block, zero, eye, batch=b,
+                       precision=p), 8)}
+
+    plain32 = {k: pl() for k, (_, pl, _) in cases("highest").items()}
+    for name, (kern, plain, steps) in cases(precision).items():
+        got, want = kern(), plain()
+        fscale = max(1.0, float(want[1].abs().max()))
+        base = steps * 2.0 ** -14
+        own = max(float((want[0] - plain32[name][0]).abs().max()),
+                  float((want[1] - plain32[name][1]).abs().max()) / fscale)
+        share = 2.0 if steps > 1 else 0.5
+        tol = base if precision == "high" else max(base, share * own)
+        assert int(got[2]) == int(want[2]), name
+        assert float((got[0] - want[0]).abs().max()) <= tol, name
+        assert float((got[1] - want[1]).abs().max()) <= tol * fscale, name
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+def test_factor_gsm_fits_at_precision(cuda, precision):
+    """FactorGSM(fused_score, pallas_precision=p) on the card: every
+    sub-step's three row products and fat apply on the tensor cores, a
+    finite, PD fit; the K6 replica equals the K2 fit bit for bit."""
+    d, b, niter = 256, 32, 200
+    t = dense_gaussian(0, d, device=cuda)
+    fg = FactorGSM(d, t.lp, t.lp_g, fused_score=t.fused_score,
+                   pallas_precision=precision, device=cuda)
+    fs.reset_launch_counts()
+    st = fg.fit(0, batch_size=b, niter=niter, verbose=False,
+                return_state=True)
+    c = fs.launch_counts()
+    tag = fs.MMA_TAG[precision]
+    assert c[f"thin_product_{tag}"] == 3 * (niter + 1)
+    assert c[f"factor_apply_{tag}"] == niter + 1 and c["thin_product"] == 0
+    cov = st.cov
+    assert bool(torch.isfinite(cov).all())
+    assert float(torch.linalg.eigvalsh(cov.double()).min()) > 0.0
+    batch = fg.fit_batch((0, 1), batch_size=b, niter=niter,
+                         return_state=True, small_solver="fused")
+    assert torch.equal(batch.mean[0], st.mean)
+    assert torch.equal(batch.factor[0], st.factor)
+
+
+def test_methods_small_eigh_is_orthogonal_on_the_card(cuda):
+    """The twophase/qr steps' small eigh on the card (float64 inside, see
+    ``ops/gsm_factor._small_eigh``) gives eigenvectors orthogonal to the
+    CPU's LAPACK level at k=64, where torch's float32 eigh there reaches
+    only ~1.4e-5."""
+    from gsmvi_tpu_torch.ops.gsm_factor import _small_eigh
+
+    rng = np.random.default_rng(0)
+    a = 0.3 * rng.standard_normal((64, 64))
+    m = torch.tensor(np.eye(64) + 0.5 * (a + a.T) / 8, dtype=torch.float32,
+                     device=cuda)
+    w, q = _small_eigh(m)
+    assert w.dtype == q.dtype == torch.float32
+    eye = torch.eye(64, dtype=torch.float64, device=cuda)
+    assert float((q.T.double() @ q.double() - eye).abs().max()) < 2e-6
