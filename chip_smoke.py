@@ -206,11 +206,14 @@ the script exits non-zero):
 24. precision: the bf16 and bf16x3 tensor-core thin product (both
     transposes, x = mu + out) and fat apply (its select) against their
     plain versions (``mm_prec``) and float64 at (32, 256), (8, 200),
-    (128, 256) and (512, 1024), within the bounds of PREC_SUM and
+    (128, 256) and (512, 1024) (the apply also at D=1 and D=33,
+    APPLY_EDGES), within the bounds of PREC_SUM and
     PREC_REL, and K=3 replica launches against single launches bit for
     bit; K1, K4, K2 and K6 at "high" and "bf16" against their plain
     versions at (32, 256) and (8, 200); the products' device times beside
-    ``torch.mm`` on bf16 operands, and K1, K4, K2 and K6 per call at each
+    ``torch.mm`` on bf16 operands (converted ahead) and, for the apply,
+    the whole function by library calls (both operands' bf16 round trips
+    and ``addmm``), and K1, K4, K2 and K6 per call at each
     precision beside their bounds; ``FactorGSM(fused_score,
     pallas_precision=p)`` at D=256, B=32, N_ITER steps for each p (three
     tensor-core row products and one tensor-core apply a sub-step, finite
@@ -220,6 +223,16 @@ the script exits non-zero):
     B=32, N_ITER steps on the card (no kernel, Finv refreshed exactly 3
     times at refresh_every=1000), under 1.5 x the worst JAX CPU fit of the
     same method (``tools/option_bounds.py``).
+26. float32 fat apply: ``factor_apply`` (``apply_f32.cu``) against the
+    32x32 template it replaced (``gsmvi_factor_apply_oracle``, gemm.cu),
+    bit for bit (``same_bits``) over 2B in APPLY_K2, D in APPLY_D, K in
+    (1, 8), good 0 and 1, in place and out of place, and each replica of a
+    K=8 launch against a launch on it alone; against its plain version on
+    F = 0 within PREC_SUM 2B 2^-24 |su|^T |sw|; K1, batched K1, K4a, K4
+    (ns and chol), K2 and K6 each on ``apply_f32_kernel`` and none on the
+    template (profiler kernel names); device times beside the template's,
+    ``torch.addmm`` (TF32 off; partial: no select) and addmm with
+    ``torch.where`` at APPLY_TIMES.
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
@@ -242,9 +255,10 @@ K6, K9 and K10 with ``ms_eager`` and ``device_ms_eager``, their blocks
 enqueued eagerly, beside the graph's ``ms``; K9 and K10 per 8-step block chained through the
 working state as the fit runs them, bound on the FLOPs of lower-triangular
 L and A, ``advi_flops``), null elsewhere; the
-profiler's kernel names must show K1 on the cluster small space and the
-thin product, K3 on the thin product, K7, K8 and the BaM small space on
-the BaM cluster kernel, with every BaM row product on the thin product,
+profiler's kernel names must show K1 on the cluster small space, the
+thin product and ``apply_f32_kernel``, K3 on the thin product, K7, K8 and
+the BaM small space on the BaM cluster kernel, with every BaM row product
+on the thin product,
 and each zoo score on its one kernel, ``ZOO_KERNELS``),
 and as the last line ``{"ok": true, "device": {...}}`` with
 ``count`` ``torch.cuda.device_count()``: everything runs on device 0.  Without a CUDA device it exits 1
@@ -420,6 +434,9 @@ SOURCES = {
     "thin_product_bf16x3": (
         "gsmvi_tpu_torch/ops/cuda/csrc/thin_mma.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:622"),
+    "factor_apply": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/apply_f32.cu",
+        "gsmvi_tpu/ops/pallas/fused_step.py:346"),
     "factor_apply_bf16": (
         "gsmvi_tpu_torch/ops/cuda/csrc/apply_mma.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:346"),
@@ -1106,14 +1123,13 @@ def phase_times(fs, dense_gaussian, torch, np):
             "library_device": library_device.get(k)}
         for k, (a, b) in times.items()}, "device_kernels": names,
         "make_fused_eps_multistep_eager": k2_eager})
-    # The main path's K1 runs the cluster small space and the thin product,
-    # and the 32x32 tile template only for the fat apply (EPI_SELECT_ADD);
-    # K3 runs the thin product alone.
+    # The main path's K1 runs the cluster small space, the thin product and
+    # the float32 fat apply (apply_f32.cu), never the 32x32 template; K3
+    # runs the thin product alone.
     k1 = " ".join(names["gsm_eps_update_fused"])
     check("eps_cluster_kernel" in k1 and "thin_kernel" in k1
-          and "eps_smallspace_kernel" not in k1
-          and all("gemm_kernel<2>" in n
-                  for n in names["gsm_eps_update_fused"] if "gemm_kernel" in n),
+          and "apply_f32_kernel" in k1 and "gemm_kernel" not in k1
+          and "eps_smallspace_kernel" not in k1,
           f"K1 runs other kernels: {names['gsm_eps_update_fused']}")
     k3 = " ".join(names["gaussian_score"])
     check("thin_kernel" in k3 and "gemm_kernel" not in k3,
@@ -3672,6 +3688,8 @@ def phase_host_paths(GSM, BaM, FactorGSM, FactorBaM, Regularizers, fs, t,
 # bound plus that: 2^-8 (1 + 2^-8) |a| @ |b| at bf16, 2^-16 at bf16x3
 # (tests/test_torch_options.py).
 PREC_SHAPES = ((B, D), RAGGED, (128, D), (512, 1024))
+# The fat apply's D edges besides (D % 4 != 0: its masked 4-byte path).
+APPLY_EDGES = ((B, 1), (B, 33))
 PREC_SUM = 4.0
 PREC_PASSES = {"bf16": 1, "high": 3}
 PREC_REL = {"bf16": 2.0 ** -8 * (1 + 2.0 ** -8), "high": 2.0 ** -16}
@@ -3722,7 +3740,7 @@ def phase_precision_kernels(fs, bfm, t, torch, np):
     worst = {name: 0.0 for name in PREC_NAMES}
     for p in ("bf16", "high"):
         tag = fs.MMA_TAG[p]
-        for m, d in PREC_SHAPES:
+        for m, d in PREC_SHAPES + APPLY_EDGES:
             rng = np.random.default_rng(2400 + m + d)
             rows = cu(rng.standard_normal((m, d)).astype(np.float32))
             f = cu((rng.standard_normal((d, d)) / np.sqrt(d))
@@ -3732,7 +3750,7 @@ def phase_precision_kernels(fs, bfm, t, torch, np):
             sw = cu((0.1 * rng.standard_normal((2 * m, d)))
                     .astype(np.float32))
             cases = []
-            for trans in (False, True):
+            for trans in (() if (m, d) in APPLY_EDGES else (False, True)):
                 fb = f.T if trans else f
                 if trans:
                     out, x = fs.thin_product(rows, f, trans=True, mu=mu,
@@ -3883,7 +3901,10 @@ def phase_precision_times(fs, bfm, t, torch):
     ``torch.mm`` on bf16 operands (the library yardstick, operands
     converted ahead); then K1, K4, K2 (an 8-step block) and K6 (K=8) at
     each precision on the device, with their bounds.  Returns (times,
-    work, library, device, library_device) of PREC_NAMES."""
+    work, library, device, library_device, extra) of PREC_NAMES; extra
+    holds each apply's whole function by library calls (its operands'
+    bfloat16 round trips, bf16x3's lo parts, and addmm: partial, no
+    select) and each library yardstick's note."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2424)
     vf = torch.randn((B, D), generator=gen, device=dev)
@@ -3894,6 +3915,20 @@ def phase_precision_times(fs, bfm, t, torch):
     vf16, f16 = vf.bfloat16(), f.bfloat16()
     su16, sw16 = su.bfloat16(), sw.bfloat16()
     times, work, library, device, library_device = {}, {}, {}, {}, {}
+    extra = {}
+
+    def whole_apply(p):
+        hi = lambda x: x.bfloat16().float()
+        if p == "bf16":
+            return lambda: torch.addmm(f, hi(su).T, hi(sw))
+
+        def run():
+            ah, bh = hi(su), hi(sw)
+            al, bl = hi(su - ah), hi(sw - bh)
+            return torch.addmm(torch.addmm(torch.addmm(f, al.T, bh), ah.T,
+                                           bl), ah.T, bh)
+        return run
+
     for p in ("bf16", "high"):
         tag = fs.MMA_TAG[p]
         thin = lambda p=p: fs.thin_product(vf, f, trans=True, precision=p)
@@ -3914,6 +3949,9 @@ def phase_precision_times(fs, bfm, t, torch):
             want = "thin_mma_kernel" if "thin" in name else "apply_mma_kernel"
             check(len(names) == 1 and want in names[0],
                   f"{name} runs other kernels: {names}")
+            extra[name] = {"library": "mm on bf16 operands converted ahead"}
+        extra[f"factor_apply_{tag}"]["library_whole_device_ms"] = device_ms(
+            whole_apply(p))[0]
     emit({"phase": "precision_times", "B": B, "D": D, "ms_per_call": {
         k: {"kernel": a, "plain": b, "library_bf16_mm": library[k],
             "device": device[k], "library_device": library_device[k]}
@@ -3981,7 +4019,7 @@ def phase_precision_times(fs, bfm, t, torch):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     emit({"phase": "precision_times", "B": B, "D": D, "spc": spc, "K": k,
           "per_call": out})
-    return times, work, library, device, library_device
+    return times, work, library, device, library_device, extra
 
 
 def phase_precision_paths(FactorGSM, fs, t, torch):
@@ -4121,6 +4159,207 @@ def phase_method_paths(FactorGSM, fs, t, torch):
                   f"FactorGSM({m}) over 1.5 x the JAX CPU fit")
     finally:
         gf.factor_refresh = real
+
+
+# Phase 26: the float32 fat apply (apply_f32.cu) against the 32x32 template
+# it replaced, which stays compiled as its oracle (gemm.cu): every output
+# keeps the template's FMA chain, so the two agree bit for bit on every
+# shape, in place or not, and a K=8 launch's replica z equals a launch on
+# it alone.  Against its plain version (torch's float32 mm, TF32 off) the
+# kernel differs in sum order alone: on F = 0 within PREC_SUM 2B 2^-24
+# |su|^T |sw|, phase 24's bound at one pass.
+APPLY_K2 = (2, 4, 2 * B, 128, 256, 1024)
+APPLY_D = (1, 33, D, 1024, 8192)
+APPLY_GOOD8 = (1, 0, 1, 1, 0, 1, 1, 1)
+APPLY_PLAIN = ((2 * B, D), (2 * RAGGED[0], RAGGED[1]), (2 * B, 33), (256, D),
+               (2 * B, 1024))
+APPLY_TIMES = ((2 * B, D), (256, D), (1024, 1024), (2 * B, 8192))
+
+
+def same_bits(x, y) -> bool:
+    """x and y hold the same float32 bits (signed zeros told apart)."""
+    import torch
+
+    return bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+
+
+def apply_oracle(fs, lib, su, sw, f, good, out):
+    """``out`` = the 32x32 template's select apply (``gsmvi_factor_apply_
+    oracle``): f + su^T sw where good[z], else f, per replica."""
+    k, d = su.shape[-2:]
+    lib.call("gsmvi_factor_apply_oracle", fs._ptr(su), fs._ptr(sw),
+             fs._ptr(f), fs._ptr(out), fs._ptr(good), k, d,
+             f.shape[0] if f.dim() == 3 else 1, fs._stream(f.device))
+    return out
+
+
+def apply_routes(fs, bfm, t, torch) -> dict:
+    """The kernels one call of each eps route runs at "highest" (K1, K1
+    over K replicas, K4a, K4 ns and chol, a K2 block, a K6 block), by
+    ``torch.profiler``; each must run ``apply_f32_kernel`` for its fat
+    apply and never the 32x32 template."""
+    dev = torch.device("cuda")
+    score_fn, params = t.fused_score
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    spc, k = 8, 4
+    eps = torch.randn((B, D), generator=gen, device=dev)
+    mean, eye = torch.zeros(D, device=dev), torch.eye(D, device=dev)
+    v = t.lp_g(mean + eps)
+    eps_k, v_k = eps.repeat(k, 1, 1), v.repeat(k, 1, 1)
+    means, factors = mean.repeat(k, 1), eye.repeat(k, 1, 1)
+    block = torch.randn((spc * B, D), generator=gen, device=dev)
+    blocks = torch.randn((k, spc * B, D), generator=gen, device=dev)
+    step = lambda method: fs.make_fused_eps_step(
+        score_fn, len(params), B, D, external_eps=True, method=method)
+    k4, k4c = step("ns"), step("chol")
+    k2 = fs.make_fused_eps_multistep(score_fn, len(params), B, D, spc)
+    k6 = bfm.make_fused_eps_batch_multistep(score_fn, len(params), B, D, k,
+                                            spc)
+    routes = {
+        "K1": lambda: fs.gsm_eps_update_fused(eps, v, mean, eye),
+        "K1 batched": lambda: fs.gsm_eps_update_fused(eps_k, v_k, means,
+                                                      factors),
+        "K4a": lambda: fs.gsm_eps_update_fused(eps, v, mean, eye,
+                                               method="chol"),
+        "K4 ns": lambda: k4(eps, mean, eye, *params),
+        "K4 chol": lambda: k4c(eps, mean, eye, *params),
+        "K2": lambda: k2(spc, block, mean, eye, *params),
+        "K6": lambda: k6(spc, blocks, means, factors, *params)}
+    out = {}
+    for name, fn in routes.items():
+        names = device_ms(fn, calls=4, warmup=2)[1]
+        out[name] = [n for n in names if "apply" in n or "gemm" in n]
+        check(any("apply_f32_kernel" in n for n in names)
+              and not any("gemm_kernel" in n for n in names),
+              f"{name} runs other kernels for its fat apply: {names}")
+    return out
+
+
+def phase_apply_f32(fs, bfm, lib, t, torch):
+    """Phase 26: ``factor_apply`` at "highest" against the template oracle
+    bit for bit over APPLY_K2 x APPLY_D x K in (1, 8) x good x in place,
+    replica z of K=8 against a launch on it alone; against its plain
+    version at APPLY_PLAIN; every eps route on ``apply_f32_kernel``
+    (``apply_routes``); device times at APPLY_TIMES beside the template's,
+    ``torch.addmm`` and addmm + ``torch.where``.  Returns (times, work,
+    library, device, library_device, worst, extra) of ``factor_apply``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rand = lambda *shape, scale=1.0: scale * torch.randn(
+        shape, generator=gen, device=dev)
+    stream = fs._stream(dev)
+    unequal, n = [], 0
+    for k2 in APPLY_K2:
+        for d in APPLY_D:
+            for reps in (1, 8):
+                lead = (reps,) if reps > 1 else ()
+                su, sw = rand(*lead, k2, d), rand(*lead, k2, d, scale=0.1)
+                f = rand(*lead, d, d)
+                for gv in ((1,), (0,)) if reps == 1 else (APPLY_GOOD8,):
+                    good = torch.tensor(gv, dtype=torch.int32, device=dev)
+                    want = apply_oracle(fs, lib, su, sw, f, good,
+                                        torch.empty_like(f))
+                    got = fs.factor_apply(su, sw, f, good)
+                    inplace = f.clone()
+                    fs._apply(lib, stream, su, sw, inplace, inplace, good,
+                              precision="highest", reps=reps)
+                    same = {"out_of_place": same_bits(got, want),
+                            "in_place": same_bits(inplace, want)}
+                    if reps > 1:
+                        same["replicas_alone"] = all(
+                            same_bits(fs.factor_apply(
+                                su[z], sw[z], f[z], good[z:z + 1]), want[z])
+                            for z in range(reps))
+                    n += 1
+                    if not all(same.values()):
+                        unequal.append({"2B": k2, "D": d, "K": reps,
+                                        "good": list(gv), **same})
+                del want, got, inplace
+            del su, sw, f
+    # Signed zeros: a k chain that ends at -0 (a product underflowing) on
+    # F = -0; the template's zero FMAs to its 32-deep slab make it +0.
+    su = torch.zeros((2, 64), device=dev)
+    sw = torch.zeros((2, 64), device=dev)
+    su[1], sw[1] = -2.0 ** -80, 2.0 ** -80
+    f = torch.full((64, 64), -0.0, device=dev)
+    good = torch.ones(1, dtype=torch.int32, device=dev)
+    want = apply_oracle(fs, lib, su, sw, f, good, torch.empty_like(f))
+    n += 1
+    if not (same_bits(fs.factor_apply(su, sw, f, good), want)
+            and not bool(torch.signbit(want).any())):
+        unequal.append({"2B": 2, "D": 64, "K": 1, "case": "signed zeros"})
+    torch.cuda.synchronize()
+    emit({"phase": "apply_f32", "check": "template_oracle", "cases": n,
+          "2B": list(APPLY_K2), "D": list(APPLY_D), "K": [1, 8],
+          "unequal": unequal})
+    check(not unequal, f"apply_f32 differs from the template: {unequal}")
+
+    emit({"phase": "apply_f32", "check": "routes",
+          "apply_kernels": apply_routes(fs, bfm, t, torch)})
+
+    worst = 0.0
+    for k2, d in APPLY_PLAIN:
+        su, sw = rand(k2, d), rand(k2, d, scale=0.1)
+        zero = torch.zeros((d, d), device=dev)
+        got = fs.factor_apply(su, sw, zero)
+        want = fs.factor_apply_reference(su, sw, zero)
+        torch.cuda.synchronize()
+        absprod = _abs_product(su.T, sw)
+        tol = PREC_SUM * k2 * 2.0 ** -24
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max())
+        rec = {"2B": k2, "D": d, "max_abs_err": err, "sum_tol_rel": tol,
+               "max_rel_to_abs_product": float(
+                   (diff / absprod.clamp_min(1e-30)).max())}
+        emit({"phase": "apply_f32", "check": "plain", **rec})
+        check(bool((diff <= tol * absprod + 1e-30).all()),
+              f"apply_f32 disagrees with its plain version: {rec}")
+        worst = max(worst, err)
+
+    # Device time per call by torch.profiler, and by CUDA events over
+    # back-to-back calls (at D = 8192 each call runs 0.1-1 ms, so events
+    # time the device there too).
+    by_shape = {}
+    times = work = library = device = library_device = None
+    for k2, d in APPLY_TIMES:
+        su, sw, f = rand(k2, d), rand(k2, d, scale=0.1), rand(d, d)
+        good = torch.ones(1, dtype=torch.int32, device=dev)
+        keep = good.reshape(1, 1) != 0
+        out = torch.empty_like(f)
+        calls = 50 if d <= 1024 else 10
+        fns = {
+            "kernel": lambda su=su, sw=sw, f=f, good=good: fs.factor_apply(
+                su, sw, f, good),
+            "template": lambda su=su, sw=sw, f=f, good=good, out=out:
+                apply_oracle(fs, lib, su, sw, f, good, out),
+            "addmm": lambda su=su, sw=sw, f=f: torch.addmm(f, su.T, sw),
+            "addmm_where": lambda su=su, sw=sw, f=f, keep=keep: torch.where(
+                keep, torch.addmm(f, su.T, sw), f)}
+        plain = lambda su=su, sw=sw, f=f, good=good: \
+            fs.factor_apply_reference(su, sw, f, good)
+        ms, names = device_ms(fns["kernel"], calls=calls)
+        check(len(names) == 1 and "apply_f32_kernel" in names[0],
+              f"factor_apply at ({k2}, {d}) runs other kernels: {names}")
+        bd = bound(plain, (su, sw, f, good))
+        rec = {"device_ms": ms}
+        for key, fn in fns.items():
+            if key != "kernel":
+                rec[f"{key}_device_ms"] = device_ms(fn, calls=calls)[0]
+            rec[f"{key}_events_ms"] = cuda_ms(fn, reps=calls)
+        by_shape[f"{k2}x{d}"] = {**rec, "bound_ms": bd["bound_ms"],
+                                 "bound_by": bd["bound_by"]}
+        if (k2, d) == (2 * B, D):
+            times = {"factor_apply": (cuda_ms(fns["kernel"], reps=200),
+                                      cuda_ms(plain, reps=200))}
+            work = {"factor_apply": (plain, (su, sw, f, good))}
+            library = {"factor_apply": cuda_ms(fns["addmm"], reps=200)}
+            device = {"factor_apply": ms}
+            library_device = {"factor_apply": rec["addmm_device_ms"]}
+    emit({"phase": "apply_f32", "check": "times", "by_shape": by_shape})
+    extra = {"factor_apply": {
+        "library": "addmm, TF32 off (partial: no select)",
+        "by_shape": by_shape}}
+    return times, work, library, device, library_device, worst, extra
 
 
 def main() -> int:
@@ -4297,12 +4536,17 @@ def main() -> int:
     host_counts = phase_host_paths(GSM, BaM, FactorGSM, FactorBaM,
                                    Regularizers, fs, t, torch, np)
     worst.update(phase_precision_kernels(fs, bfm, t, torch, np))
-    prec_times, prec_work, prec_library, prec_device, prec_library_device = \
-        phase_precision_times(fs, bfm, t, torch)
+    (prec_times, prec_work, prec_library, prec_device, prec_library_device,
+     prec_extra) = phase_precision_times(fs, bfm, t, torch)
     precision_counts = phase_precision_paths(FactorGSM, fs, t, torch)
     phase_method_paths(FactorGSM, fs, t, torch)
+    (apply_times, apply_work, apply_library, apply_device,
+     apply_library_device, worst["factor_apply"], apply_extra) = \
+        phase_apply_f32(fs, bfm, lib, t, torch)
     library.update(prec_library)
     library_device.update(prec_library_device)
+    library.update(apply_library)
+    library_device.update(apply_library_device)
     for more in (bam_more[:3],
                  advi_more[:3],
                  replica_more[:3],
@@ -4310,13 +4554,15 @@ def main() -> int:
                  phase_eps_step_times(fs, t, torch),
                  (range_times, range_work, range_device),
                  (zoo_times, zoo_work, zoo_device),
-                 (prec_times, prec_work, prec_device)):
+                 (prec_times, prec_work, prec_device),
+                 (apply_times, apply_work, apply_device)):
         times.update(more[0])
         work.update(more[1])
         device.update(more[2] if len(more) > 2 else {})
     library.update(zoo_library)
     library_device.update(zoo_library_device)
-    for name, more in (*zoo_extra.items(), *range_extra.items()):
+    for name, more in (*zoo_extra.items(), *range_extra.items(),
+                       *prec_extra.items(), *apply_extra.items()):
         extra[name] = {**extra.get(name, {}), **more}
     bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
     emit({"phase": "bounds", **bounds})

@@ -9,7 +9,7 @@ small_solver="fused")``).
 On the TPU the replica axis was the Pallas grid, whose cells ran one after
 another on the chip's one core, so K6 bought bit-identity, not throughput.
 On the card every launch of K2's sub-steps gains the replica axis instead:
-the GEMM template's blockIdx.z, one small-space cluster per replica (side
+the fat apply's blockIdx.z, one small-space cluster per replica (side
 by side on the SMs), and one K3 score launch over the K·B stacked rows.  A
 sub-step is the same six launches for any K, and a full block is one CUDA
 graph replay on persistent buffers, as K2's (``FusedBlocks``,

@@ -34,11 +34,12 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _U = ctypes.c_uint
 # C entry points: argument types (all return an int cudaError_t).
 SIGNATURES = {
-    "gsmvi_factor_apply": [_P] * 5 + [_I] * 3 + [_P],
+    "gsmvi_factor_apply": [_P] * 5 + [_I] * 5 + [_P],
+    "gsmvi_factor_apply_oracle": [_P] * 5 + [_I] * 3 + [_P],
     "gsmvi_thin_rows": [_P] * 6 + [_I] * 4 + [_L, _I, _I, _P],
     "gsmvi_thin_score": [_P] * 4 + [_I] * 4 + [_P],
     "gsmvi_thin_rows_mma": [_P] * 5 + [_I] * 4 + [_L, _I, _I, _I, _P],
-    "gsmvi_factor_apply_mma": [_P] * 5 + [_I] * 4 + [_P],
+    "gsmvi_factor_apply_mma": [_P] * 5 + [_I] * 6 + [_P],
     "gsmvi_eps_smallspace_cluster": [_P] * 13 + [_I] * 7
     + [_F, _I, _L, _I, _I, _P],
     "gsmvi_eps_chol": [_P] * 12 + [_I] * 4 + [_F, _P],

@@ -1,19 +1,15 @@
-// C entry points of the f32 GEMM template (gemm.cuh) at the fat applies of
-// the eps GSM step and of BaM.
+// C entry points of the f32 GEMM template (gemm.cuh): BaM's fat apply, and
+// the eps step's former fat apply, kept as the oracle of its redesign.
 //
-// Replaces, in gsmvi_tpu/ops/pallas/fused_step.py:
-//   gsmvi_factor_apply   `F + t_mm(stack_u, stack_w)` at :346 (and the chol
-//                        route's `f + t_mm(fzt, mm(s2, zt))` at :417)
-//                        together with the accept/revert select at
-//                        :454-455/:738-739, also over K replicas (the
-//                        batched K1 and K6 of
-//                        gsmvi_tpu/ops/pallas/batch_fused.py :118),
-// and, in gsmvi_tpu/ops/pallas/bam_fused.py (K7/K8):
+// In gsmvi_tpu/ops/pallas/bam_fused.py (K7/K8), replaces:
 //   gsmvi_bam_apply      the fat apply `f + t_mm(stack_u, stack_w)` at :319
-//                        with the tile sums of squares of the trace screen
-// (every row product of both steps runs on the split-k thin product,
-// thin_gemm.cu).  Bounds and design: see gemm.cuh.  Every entry returns
-// cudaGetLastError().
+//                        with the tile sums of squares of the trace screen.
+// gsmvi_factor_apply_oracle is the template's select epilogue: the eps
+// step's fat apply (gsmvi_tpu/ops/pallas/fused_step.py :346/:417 with the
+// select at :454-455/:738-739) as the port ran it until apply_f32.cu took
+// its place.  No wrapper calls it: chip_smoke.py and tests/test_torch_gpu.py
+// hold apply_f32.cu's kernel to it bit for bit and time it beside it.
+// Bounds and design: see gemm.cuh.  Every entry returns cudaGetLastError().
 #include "gemm.cuh"
 
 using namespace gsmvi;
@@ -24,9 +20,9 @@ extern "C" {
 // f (D, D), for each of `reps` replicas stored one after another (su, sw
 // (reps, R, D), f (reps, D, D), good (reps,)).  f_out may be f_in (in
 // place: each element is read and written by the one thread that owns it).
-int gsmvi_factor_apply(const float* su, const float* sw, const float* f_in,
-                       float* f_out, const int* good, int k, int d, int reps,
-                       void* stream) {
+int gsmvi_factor_apply_oracle(const float* su, const float* sw, const float* f_in,
+                              float* f_out, const int* good, int k, int d, int reps,
+                              void* stream) {
     GemmArgs p{};
     p.a = su; p.b = sw; p.c = f_out; p.c_in = f_in; p.good = good;
     p.m = d; p.n = d; p.k = k; p.lda = d; p.ldb = d; p.ldc = d;

@@ -1,12 +1,12 @@
-// Tiled f32 GEMM template for the fat applies of the eps GSM step and of
-// BaM: F' = F + A^T B with A, B (2B, D) row stacks.
+// Tiled f32 GEMM template: F' = F + A^T B with A, B (2B, D) row stacks.
 //
 // Replaces the Precision.HIGHEST `dot_general` contraction that the Pallas
-// kernels run in their own bodies for the fat apply
-// (gsmvi_tpu/ops/pallas/fused_step.py `F + stack_u^T stack_w` at :346, the
-// chol route's at :417; gsmvi_tpu/ops/pallas/bam_fused.py :319).  Every row
-// product of both steps, K3 and the zoo's product scores run on the split-k
-// thin product (thin_gemm.cu) and its primitives.
+// kernels run in their own bodies for BaM's fat apply
+// (gsmvi_tpu/ops/pallas/bam_fused.py :319).  The eps step's fat apply
+// (gsmvi_tpu/ops/pallas/fused_step.py :346/:417) runs on apply_f32.cu; its
+// select epilogue here is that kernel's bit-for-bit oracle
+// (gsmvi_factor_apply_oracle).  Every row product runs on the split-k thin
+// product (thin_gemm.cu) and its primitives.
 //
 // Two epilogues: the eps step's select (F' where *good, else F, per
 // replica), and BaM's, which also writes per-block sums of squares of F'
@@ -20,8 +20,8 @@
 // so it is latency- and L2-bound, not FLOP-bound; the factor stays in L2
 // between the launches of one step.  Design: a 32x32 output tile per block
 // of 256 threads, 32-deep k slabs staged in padded shared memory, 4 outputs
-// per thread, ragged edges masked on load and store.  Making it fast
-// (wgmma on 3xTF32 splits, persistent tiles) is later work.
+// per thread, ragged edges masked on load and store.  apply_f32.cu is its
+// redesign for the eps step; BaM's apply still runs here.
 //
 // Replica axis: with `batch` = K > 1 the grid gains blockIdx.z = replica,
 // and every operand of replica z starts its own batch stride further on

@@ -1,7 +1,8 @@
 // bf16 tensor-core primitives of the "bf16" and "high" products: operand
 // rounding and the warp-level mma.sync.aligned.m16n8k16 bf16 product with
 // float32 accumulation (the split-k thin product's variant, thin_mma.cu,
-// and the fat apply's, apply_mma.cu).
+// and the fat apply's, apply_mma.cu, which stages its operands as bf16 and
+// loads fragments with ldmatrix).
 //
 // The precisions are those of the JAX package's big_prec
 // (gsmvi_tpu/ops/pallas/fused_step.py:247-282): "bf16" (MODE 1) rounds both
@@ -81,6 +82,28 @@ __device__ __forceinline__ void frag_b(float2 k0, float2 k8, uint32_t (&hi)[2],
                                        uint32_t (&lo)[2]) {
     split_pair<MODE>(k0.x, k0.y, hi[0], lo[0]);
     split_pair<MODE>(k8.x, k8.y, hi[1], lo[1]);
+}
+
+// Fragments from bf16 staged k-major (row k holds 8 contiguous m or n values
+// at each 16-byte row address): ldmatrix .trans hands lane 4 g + t the
+// elements (k 2t, 2t+1) of column g of each 8 x 8 matrix, which is A's and
+// B's fragment order above.  x4: A's four matrices (lanes 8q..8q+7 address
+// rows k = 8 (q / 2) + 0..7 at columns 8 (q % 2)); x2: B's two (lanes
+// 0..15 address rows k = 0..15).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* row) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(s)
+                 : "memory");
 }
 
 }  // namespace

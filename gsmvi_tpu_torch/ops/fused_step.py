@@ -63,8 +63,10 @@ and ``t = vf F^T`` on the split-k thin product (``thin_product``,
 ``thin_gemm.cu``: one cluster of ``thin_split(D)`` blocks per output tile),
 the small space on a thread-block cluster (``eps_smallspace``,
 ``eps_smallspace_cluster.cu``: ``cluster_columns(D)`` blocks per replica,
-which writes ``good`` and the new mean), and the fat apply on the GEMM
-template, whose epilogue reads ``good`` and writes F or F' (the select).
+which writes ``good`` and the new mean), and the fat apply
+(``factor_apply``, ``apply_f32.cu``: ``apply_tile(D)`` output tiles, the
+k rows staged by cp.async while F is read), whose epilogue reads ``good``
+and writes F or F' (the select).
 Above ``SHARED_SMALLSPACE_MAX_B``, up to ``PANEL_SMALLSPACE_MAX_B``, the
 small space is ``eps_smallspace_panel``, one cluster of ``PANEL_RANKS``
 blocks per replica with the (B, B) matrices in row panels over the
@@ -187,6 +189,24 @@ def thin_split(d: int) -> tuple:
     slabs = -(-d // SLAB)
     per = -(-slabs // CLUSTER_MAX_BLOCKS)
     return -(-slabs // per), per * SLAB
+
+
+# The fat apply's tile plans (``apply.cuh``), shared by its float32 kernel
+# (``apply_f32.cu``) and its tensor-core twin (``apply_mma.cu``): the
+# (rows, columns) of F a block, by D alone (``apply_tile``); 2B sets only
+# how many passes the k staging makes.
+APPLY_TILE_SMALL = (16, 32)
+APPLY_TILE_LARGE = (64, 64)
+APPLY_LARGE_D = 768
+
+
+def apply_tile(d: int) -> tuple:
+    """(tile_m, tile_n): the fat apply's output tile of F a block at
+    dimension ``d``, 16 x 32 below APPLY_LARGE_D (128 blocks at D=256),
+    64 x 64 from it on; the grid is (ceil(d/tile_n), ceil(d/tile_m), K).
+    Not a function of 2B or K: replica z of a K-replica launch runs the
+    tiles and k order of a launch on it alone."""
+    return APPLY_TILE_LARGE if d >= APPLY_LARGE_D else APPLY_TILE_SMALL
 
 
 def panel_rows(n: int) -> int:
@@ -755,20 +775,21 @@ def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
 def _apply(lib, stream, su, sw, f_in, f_out, good, *, precision: str,
            reps: int = 1) -> None:
     """The fat apply with its select: f_out = f_in + su^T sw where
-    ``*good``, else f_in (in place when f_out is f_in), su, sw (2B, D), on
-    the float32 GEMM template (``gemm.cu``) or, at "high"/"bf16", its
-    tensor-core variant (``apply_mma.cu``, counted in
-    ``factor_apply_bf16x3``/``factor_apply_bf16``); ``reps`` replicas
-    stored one after another."""
+    ``good[z]``, else f_in (in place when f_out is f_in), su, sw (2B, D), on
+    ``apply_f32.cu`` (counted in ``factor_apply``) or, at "high"/"bf16", its
+    tensor-core twin (``apply_mma.cu``, counted in
+    ``factor_apply_bf16x3``/``factor_apply_bf16``), both on
+    ``apply_tile(D)``; ``reps`` replicas stored one after another."""
     k, d = su.shape[-2:]
+    args = (_ptr(su), _ptr(sw), _ptr(f_in), _ptr(f_out), _ptr(good), k, d,
+            reps)
     if precision == "highest":
-        lib.call("gsmvi_factor_apply", _ptr(su), _ptr(sw), _ptr(f_in),
-                 _ptr(f_out), _ptr(good), k, d, reps, stream)
+        factor_apply.launches += 1
+        lib.call("gsmvi_factor_apply", *args, *apply_tile(d), stream)
         return
     APPLY_MMA[precision].launches += 1
-    lib.call("gsmvi_factor_apply_mma", _ptr(su), _ptr(sw), _ptr(f_in),
-             _ptr(f_out), _ptr(good), k, d, reps, MMA_MODE[precision],
-             stream)
+    lib.call("gsmvi_factor_apply_mma", *args, MMA_MODE[precision],
+             *apply_tile(d), stream)
 
 
 class _UpdateBuffers:
@@ -1503,16 +1524,15 @@ def factor_apply_reference(su, sw, f, good=None, precision: str = "highest"):
     return torch.where(keep, f_new, f)
 
 
-def factor_apply(su, sw, f, good=None, *, precision: str):
-    """The fat apply of K1, K2, K4 and K6 at a tensor-core ``precision``
-    ("high" or "bf16"): f + su^T sw where ``good`` (default: everywhere),
-    else f; shapes as ``factor_apply_reference``.  On the card the
-    ``mma.sync`` bf16 kernel (``apply_mma.cu``), one launch for all
-    replicas; on the CPU ``factor_apply_reference``.  The float32 apply
-    runs inside K1 (``gemm.cu``) and has no wrapper of its own."""
-    if precision not in MMA_MODE:
-        raise ValueError(f"factor_apply takes precision 'high' or 'bf16', "
-                         f"got {precision!r}")
+def factor_apply(su, sw, f, good=None, *, precision: str = "highest"):
+    """The fat apply of K1, K2, K4 and K6 with its select: f + su^T sw
+    where ``good`` (default: everywhere), else f, at ``precision``; shapes
+    as ``factor_apply_reference``.  On the card one launch for all
+    replicas: "highest" on ``apply_f32.cu`` (float32 FFMA, counted in
+    ``factor_apply.launches``), "high"/"bf16" on the ``mma.sync`` bf16 kernel
+    ``apply_mma.cu`` (counted in ``factor_apply_bf16x3``/
+    ``factor_apply_bf16``); on the CPU ``factor_apply_reference``."""
+    check_precision(precision)
     tensors = [su, sw, f] + ([] if good is None else [good])
     if _on_cpu(*tensors):
         return factor_apply_reference(su, sw, f, good, precision)
@@ -1536,6 +1556,9 @@ def factor_apply(su, sw, f, good=None, *, precision: str):
     _apply(_library(), _stream(f.device), su, sw, f, out, flags,
            precision=precision, reps=k)
     return out
+
+
+factor_apply.launches = 0
 
 
 def _mma_counter(fn, precision: str):
@@ -1828,6 +1851,7 @@ KERNEL_WRAPPERS = {
     "eps_smallspace_panel": eps_smallspace_panel,
     "eps_smallspace": eps_smallspace,
     "thin_product": thin_product,
+    "factor_apply": factor_apply,
     **{fn.__name__: fn for fn in (*THIN_MMA.values(), *APPLY_MMA.values())},
     "funnel_score": funnel_score,
     "banana_score": banana_score,

@@ -2372,7 +2372,8 @@ def test_tensor_core_thin_product_matches_plain(cuda, precision, trans, m,
 
 @pytest.mark.parametrize("precision", ["bf16", "high"])
 @pytest.mark.parametrize("b,d", [(32, 256), (8, 200), (128, 256),
-                                 (512, 1024), (1, 1)])
+                                 (512, 1024), (1, 1), (32, 1), (32, 33),
+                                 (32, 768)])
 def test_tensor_core_apply_matches_plain(cuda, precision, b, d):
     gen = torch.Generator(device=cuda).manual_seed(3 * b + d)
     su = torch.randn((2 * b, d), generator=gen, device=cuda)
@@ -2495,3 +2496,110 @@ def test_methods_small_eigh_is_orthogonal_on_the_card(cuda):
     assert w.dtype == q.dtype == torch.float32
     eye = torch.eye(64, dtype=torch.float64, device=cuda)
     assert float((q.T.double() @ q.double() - eye).abs().max()) < 2e-6
+
+
+# ---------------------------------------------------------------------------
+# The float32 fat apply (apply_f32.cu) against the 32x32 template it replaced
+# ---------------------------------------------------------------------------
+
+def _apply_oracle(su, sw, f, good, out):
+    """The template's select apply (``gsmvi_factor_apply_oracle``, gemm.cu):
+    the float32 apply's bit-for-bit yardstick."""
+    k, d = su.shape[-2:]
+    fs._library().call("gsmvi_factor_apply_oracle", fs._ptr(su), fs._ptr(sw),
+                       fs._ptr(f), fs._ptr(out), fs._ptr(good), k, d,
+                       f.shape[0] if f.dim() == 3 else 1,
+                       fs._stream(f.device))
+    return out
+
+
+@pytest.mark.parametrize("reps", [1, 8])
+@pytest.mark.parametrize("k2,d", [(2, 1), (4, 33), (64, 256), (128, 200),
+                                  (256, 767), (64, 768), (1024, 1031)])
+def test_f32_apply_equals_the_template_bit_for_bit(cuda, k2, d, reps):
+    """Every output keeps the template's chain (fmaf in k order from 0, a
+    ragged k's zero FMAs as acc + 0, then F + acc), out of place, in place,
+    and each replica of a K-replica launch as a launch on it alone."""
+    gen = torch.Generator(device=cuda).manual_seed(k2 + d + reps)
+    lead = (reps,) if reps > 1 else ()
+    su = torch.randn((*lead, k2, d), generator=gen, device=cuda)
+    sw = 0.1 * torch.randn((*lead, k2, d), generator=gen, device=cuda)
+    f = torch.randn((*lead, d, d), generator=gen, device=cuda)
+    flags = (1, 0, 1, 1, 0, 1, 1, 1)[:reps] if reps > 1 else (1,)
+    for gv in (flags, (0,) * reps):
+        good = torch.tensor(gv, dtype=torch.int32, device=cuda)
+        want = _apply_oracle(su, sw, f, good, torch.empty_like(f))
+        fs.reset_launch_counts()
+        assert torch.equal(fs.factor_apply(su, sw, f, good).view(torch.int32),
+                           want.view(torch.int32))
+        assert fs.launch_counts()["factor_apply"] == 1
+        inplace = f.clone()
+        fs._apply(fs._library(), fs._stream(cuda), su, sw, inplace, inplace,
+                  good, precision="highest", reps=reps)
+        assert torch.equal(inplace, want)
+        for z in range(reps if reps > 1 else 0):
+            assert torch.equal(fs.factor_apply(su[z], sw[z], f[z],
+                                               good[z:z + 1]), want[z])
+
+
+def test_f32_apply_keeps_the_templates_signed_zeros(cuda):
+    """A k chain that ends at -0 (the last product underflows) on F = -0:
+    the template's zero FMAs to its 32-deep slab make the sum +0, and so
+    does the kernel's acc + 0; bit for bit, not only by value."""
+    su = torch.zeros((2, 64), device=cuda)
+    sw = torch.zeros((2, 64), device=cuda)
+    su[1], sw[1] = -2.0 ** -80, 2.0 ** -80
+    f = torch.full((64, 64), -0.0, device=cuda)
+    good = torch.ones(1, dtype=torch.int32, device=cuda)
+    want = _apply_oracle(su, sw, f, good, torch.empty_like(f))
+    got = fs.factor_apply(su, sw, f, good)
+    assert not bool(torch.signbit(want).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("k2,d", [(64, 256), (16, 200), (64, 33),
+                                  (256, 1024)])
+def test_f32_apply_matches_plain(cuda, k2, d):
+    """On F = 0 the kernel and torch's float32 mm (TF32 off) differ in sum
+    order alone: within 4 (2B) 2^-24 |su|^T |sw| (chip_smoke.py
+    PREC_SUM, one pass); the select keeps F where ``good`` is 0."""
+    gen = torch.Generator(device=cuda).manual_seed(k2 * d)
+    su = torch.randn((k2, d), generator=gen, device=cuda)
+    sw = 0.1 * torch.randn((k2, d), generator=gen, device=cuda)
+    zero = torch.zeros((d, d), device=cuda)
+    got = fs.factor_apply(su, sw, zero)
+    want = fs.factor_apply_reference(su, sw, zero)
+    absprod = su.T.abs().double() @ sw.abs().double()
+    assert bool(((got.double() - want.double()).abs()
+                 <= 4.0 * k2 * 2.0 ** -24 * absprod + 1e-30).all())
+    f = torch.randn((d, d), generator=gen, device=cuda)
+    no = torch.tensor(False, device=cuda)
+    assert torch.equal(fs.factor_apply(su, sw, f, no), f)
+
+
+def test_eps_paths_launch_the_f32_apply(cuda):
+    """K1 and a K2 block run ``apply_f32_kernel`` for the fat apply, one
+    launch an update (the wrappers' counts), and never the template (the
+    profiler's kernel names; it may drop a record of a short window, so
+    it is asked only which kernels ran)."""
+    from tools.profile_gpu import profile_window
+
+    eps, v, mu, f = _inputs(cuda, 32, 256)
+    t = dense_gaussian(0, 256, device=cuda)
+    score_fn, params = t.fused_score
+    spc = 8
+    block = torch.randn((spc * 32, 256), device=cuda)
+    step = fs.make_fused_eps_multistep(score_fn, len(params), 32, 256, spc)
+
+    def run():
+        fs.gsm_eps_update_fused(eps, v, mu, f)
+        step(spc, block, mu, f, *params, graph=False)
+        torch.cuda.synchronize()
+
+    run()
+    fs.reset_launch_counts()
+    _, kernels, _ = profile_window(run)
+    names = {k.name for k in kernels}
+    assert any("apply_f32_kernel" in n for n in names)
+    assert not any("gemm_kernel" in n for n in names)
+    assert fs.launch_counts()["factor_apply"] == 1 + spc

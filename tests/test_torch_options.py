@@ -438,8 +438,12 @@ def test_plain_products_and_apply_at_precision(precision):
         want = (f[i] + fs.mm_prec(su[i].T, sw[i], precision) if good[i]
                 else f[i])
         assert torch.equal(got[i], want)
-    with pytest.raises(ValueError, match="'high' or 'bf16'"):
-        fs.factor_apply(su, sw, f, precision="highest")
+    # "highest" is the float32 apply (apply_f32.cu on the card); any other
+    # name is refused.
+    assert torch.equal(fs.factor_apply(su, sw, f, good, precision="highest"),
+                       fs.factor_apply_reference(su, sw, f, good, "highest"))
+    with pytest.raises(ValueError, match="must be one of"):
+        fs.factor_apply(su, sw, f, precision="tf32")
 
 
 def test_factor_gsm_precision_on_cpu_matches_jax_fit():

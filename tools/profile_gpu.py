@@ -2,8 +2,8 @@
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
     python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001]
-                                 [--only-bam | --only-dense | --only-advi |
-                                  --only-chol]
+                                 [--only-gsm | --only-bam | --only-dense |
+                                  --only-advi | --only-chol]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -17,7 +17,7 @@ accept/revert per step) and ``fit_batch`` of K=8 replicas on its "fused"
 paths, ``BaM.fit`` (K7 per step) and ``FactorBaM(fused_score=...)`` (K8
 with K3 inside, spc=8), with ``Regularizers().linear(100.0)`` and
 retries=0, each with its steps per NS tier (``--only-bam``: these
-alone).  For each it prints one JSON line: the host wall time per step
+alone; ``--only-gsm``: the GSM paths alone).  For each it prints one JSON line: the host wall time per step
 (profiler on, so inflated), the device busy time per step (union of
 kernel intervals), the device's idle share of the profiled window,
 device time per kernel name (per step of all the replicas together for
@@ -409,6 +409,7 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=64)
     parser.add_argument("--bam-steps", type=int, default=2001)
     only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-gsm", action="store_true")
     only.add_argument("--only-bam", action="store_true")
     only.add_argument("--only-dense", action="store_true")
     only.add_argument("--only-advi", action="store_true")
@@ -456,6 +457,8 @@ def main() -> int:
         profile_fit("FactorGSM.fit_batch ns (batched K1), K=8",
                     FactorGSM(256, t.lp, t.lp_g, device="cuda"), args.steps,
                     torch, replicas=8, small_solver="ns")
+    if args.only_gsm:
+        return 0
     regf = Regularizers().linear(100.0)
     bam = BaM(256, t.lp, t.lp_g, device="cuda")
     profile_fit("BaM (K7 per step)", bam, args.bam_steps, torch,
