@@ -4,8 +4,9 @@ check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Phases (one JSON object per phase on its own line; any failure raises and
-the script exits non-zero):
+Phases (one JSON object per phase on its own line, with ``t_s``, the
+seconds since the start; any failure raises and the script exits
+non-zero):
 
 0. device: the card's name and power limit (``nvidia-smi``), and the build
    of the CUDA kernels from ``gsmvi_tpu_torch/ops/cuda/csrc``.
@@ -213,7 +214,9 @@ the script exits non-zero):
     versions at (32, 256) and (8, 200); the products' device times beside
     ``torch.mm`` on bf16 operands (converted ahead) and, for the apply,
     the whole function by library calls (both operands' bf16 round trips
-    and ``addmm``), and K1, K4, K2 and K6 per call at each
+    and ``addmm``); the thin product's three products (vf, t, ef with x)
+    at every PREC_SHAPES shape and both precisions beside ``torch.mm`` on
+    bf16 operands, each on ``thin_mma_kernel`` alone; K1, K4, K2 and K6 per call at each
     precision beside their bounds; ``FactorGSM(fused_score,
     pallas_precision=p)`` at D=256, B=32, N_ITER steps for each p (three
     tensor-core row products and one tensor-core apply a sub-step, finite
@@ -233,6 +236,18 @@ the script exits non-zero):
     template (profiler kernel names); device times beside the template's,
     ``torch.addmm`` (TF32 off; partial: no select) and addmm with
     ``torch.where`` at APPLY_TIMES.
+27. BaM's fat apply: ``bam_apply`` (``apply_f32.cu``, ``gsmvi_bam_apply``:
+    F + su^T sw and each tile's (sum F'^2, sum F^2)) against the 32x32
+    template it replaced (``gsmvi_bam_apply_oracle``, gemm.cu) over
+    2(B+1) for B in BAM_APPLY_B x D in BAM_APPLY_D x K in (1, 3): F' bit
+    for bit, each tile's pair within (n - 1) 2^-24 of its exact sums and
+    the totals within (n + 32^2) 2^-24 of the oracle's, replica z of K=3
+    equal to a launch on it alone, a signed-zero case, the halt word (set:
+    nothing written; cleared: it runs); against its plain version on F = 0
+    at BAM_APPLY_PLAIN; device times of the kernel, the template and
+    ``torch.addmm`` + the two sums at BAM_APPLY_TIMES.  K7 and K8 (phase
+    4's times) and the replica K7 (phase 22's) are checked there to run
+    ``apply_f32_kernel`` and never ``gemm_kernel``.
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
@@ -258,7 +273,7 @@ L and A, ``advi_flops``), null elsewhere; the
 profiler's kernel names must show K1 on the cluster small space, the
 thin product and ``apply_f32_kernel``, K3 on the thin product, K7, K8 and
 the BaM small space on the BaM cluster kernel, with every BaM row product
-on the thin product,
+on the thin product and the fat apply on ``apply_f32_kernel``,
 and each zoo score on its one kernel, ``ZOO_KERNELS``),
 and as the last line ``{"ok": true, "device": {...}}`` with
 ``count`` ``torch.cuda.device_count()``: everything runs on device 0.  Without a CUDA device it exits 1
@@ -443,6 +458,9 @@ SOURCES = {
     "factor_apply_bf16x3": (
         "gsmvi_tpu_torch/ops/cuda/csrc/apply_mma.cu",
         "gsmvi_tpu/ops/pallas/fused_step.py:346"),
+    "bam_apply": (
+        "gsmvi_tpu_torch/ops/cuda/csrc/apply_f32.cu",
+        "gsmvi_tpu/ops/pallas/bam_fused.py:319"),
 }
 # K4: the shapes of phase 14.  A whole step carries the score's GEMM
 # rounding into the update, as K2's sub-steps do, so the ns step is held to
@@ -465,7 +483,14 @@ PHILOX_LARGE = (512, 1024)
 AUDIT_EVERY, AUDIT_TOL = 500, 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1293,16 +1318,17 @@ def phase_bam_times(bf, fs, fb, t, st, torch):
         for label, tt in out.items()},
         "device_kernels": {f"{k} {label}": n for (k, label), n in
                            names.items()}})
-    # K7 and K8 at B <= 56 run the cluster small space and every row
-    # product on the thin product: the 32x32 template only for the fat
-    # apply (one instantiation), never a one-block small space.
+    # K7 and K8 at B <= 56 run the cluster small space, every row product
+    # on the thin product and the fat apply on apply_f32_kernel: never the
+    # 32x32 template, never a one-block small space.
     for (k, label), kn in names.items():
         joined = " ".join(kn)
-        gemm = {n for n in kn if "gemm_kernel" in n}
         check("bam_cluster_kernel" in joined
               and "bam_smallspace_kernel" not in joined
+              and "gemm_kernel" not in joined
               and (k == "bam_smallspace"
-                   or ("thin_kernel" in joined and len(gemm) == 1)),
+                   or ("thin_kernel" in joined
+                       and "apply_f32_kernel" in joined)),
               f"{k} ({label}) runs other kernels: {kn}")
     it, gg, lm = bf.BAM_NS_TIERS[0]
     kw = dict(iters=it, lmax_gate=lm, gu_gate=gg)
@@ -3444,8 +3470,11 @@ def phase_bam_replica_times(bf, torch, np):
                           "plain": plain_ms},
           "device_ms": {"replicas": dev_ms, "eight_single_k7": dev_singles},
           "kernels": names})
-    check("bam_cluster_kernel" in " ".join(names),
-          f"replica K7 must run the BaM cluster kernel: {names}")
+    joined = " ".join(names)
+    check("bam_cluster_kernel" in joined and "apply_f32_kernel" in joined
+          and "gemm_kernel" not in joined,
+          f"replica K7 must run the BaM cluster kernel and apply_f32_kernel,"
+          f" never the 32x32 template: {names}")
     times = {"bam_eps_update_replicas": (ms, plain_ms)}
     work = {"bam_eps_update_replicas": (plain, (e, v, mu, f))}
     extra = {"bam_eps_update_replicas": {
@@ -3959,6 +3988,43 @@ def phase_precision_times(fs, bfm, t, torch):
         "float32_thin_device_ms": device_ms(
             lambda: fs.thin_product(vf, f, trans=True))[0]})
 
+    # The three row products at every PREC_SHAPES shape, each precision,
+    # device ms a call beside mm on bf16 operands converted ahead: vf = v F,
+    # t = vf F^T, ef = e F^T with x = mu + ef.
+    by_shape = {}
+    for m, d in PREC_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(2425 + m + d)
+        rows = torch.randn((m, d), generator=g, device=dev)
+        fm = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+        mu = torch.randn(d, generator=g, device=dev)
+        rows16, f16 = rows.bfloat16(), fm.bfloat16()
+        fns = {}
+        for p in ("bf16", "high"):
+            tag = fs.MMA_TAG[p]
+            fns[f"vf_{tag}"] = lambda p=p: fs.thin_product(
+                rows, fm, trans=False, precision=p)
+            fns[f"t_{tag}"] = lambda p=p: fs.thin_product(
+                rows, fm, trans=True, precision=p)
+            fns[f"ef_{tag}"] = lambda p=p: fs.thin_product(
+                rows, fm, trans=True, mu=mu, precision=p)
+        fns["mm_vf"] = lambda: torch.mm(rows16, f16)
+        fns["mm_t"] = lambda: torch.mm(rows16, f16.T)
+        res = {key: device_ms(fn, calls=50 if d <= 256 else 20)
+               for key, fn in fns.items()}
+        for key, (_, names) in res.items():
+            if not key.startswith("mm"):
+                check(len(names) == 1 and "thin_mma_kernel" in names[0],
+                      f"thin {key} at ({m}, {d}) runs other kernels: {names}")
+        by_shape[f"{m}x{d}"] = {key: ms for key, (ms, _) in res.items()}
+    emit({"phase": "precision_times", "check": "thin_by_shape",
+          "device_ms": by_shape})
+    for p in ("bf16", "high"):
+        tag = fs.MMA_TAG[p]
+        extra[f"thin_product_{tag}"]["by_shape_device_ms"] = {
+            shape: {key: ms for key, ms in row.items()
+                    if key.endswith(tag) or key.startswith("mm")}
+            for shape, row in by_shape.items()}
+
     # K1, K4, K2 and K6 at each precision: device ms per call, bytes and
     # FLOPs bounds (the O(B D^2) products over the bf16 peak x passes, the
     # rest of the plain version's FLOPs over the float32 one).  A whole
@@ -4362,6 +4428,198 @@ def phase_apply_f32(fs, bfm, lib, t, torch):
     return times, work, library, device, library_device, worst, extra
 
 
+# Phase 27: BaM's fat apply (apply_f32.cu, ``gsmvi_bam_apply``) against the
+# 32x32 template it replaced, kept as its oracle (``gsmvi_bam_apply_oracle``,
+# gemm.cu).  Every output keeps the template's FMA chain, so F' agrees bit
+# for bit on every shape.  The trace screen's sums are taken over other
+# tiles in another order: a float32 sum of n non-negative terms in any order
+# lies within (n - 1) 2^-24 of its exact value, relative to it, so each new
+# tile's pair is held to (n - 1) 2^-24 of the float64 sums over its tile
+# (of F', bit equal to the oracle's, and of F), and each replica's totals
+# to (n_new + n_old) 2^-24 of the exact totals against the oracle's (n the
+# elements of a tile; the tiles' sums taken in float64).
+BAM_APPLY_B = (1, 2, 32, 56, 63, 64, 128)
+BAM_APPLY_D = (1, 33, D, 1024)
+BAM_APPLY_TIMES = ((B, D), (128, D), (B, 1024), (8, 33))
+BAM_APPLY_HALT = (B, D)
+# Against its plain version (torch's float32 mm, TF32 off) on F = 0: phase
+# 26's bound, PREC_SUM 2(B+1) 2^-24 |su|^T |sw| (the tile sums are held to
+# exact sums of the kernel's own F' above).
+BAM_APPLY_PLAIN = ((B, D), (12, 200), (B, 33), (128, D), (B, 1024))
+
+
+def bam_apply_oracle(fs, lib, su, sw, f):
+    """The 32x32 template's BaM apply (``gsmvi_bam_apply_oracle``): (f +
+    su^T sw, its 32x32 tiles' (sum f'^2, sum f^2) pairs (..., tiles, 2))."""
+    import torch
+
+    k2, d = su.shape[-2:]
+    reps = f.shape[0] if f.dim() == 3 else 1
+    out = torch.empty_like(f)
+    part = out.new_empty((*f.shape[:-2], (-(-d // 32)) ** 2, 2))
+    lib.call("gsmvi_bam_apply_oracle", fs._ptr(su), fs._ptr(sw), fs._ptr(f),
+             fs._ptr(out), fs._ptr(part), None, k2, d, reps,
+             fs._stream(f.device))
+    return out, part
+
+
+def _bam_apply_sums_ok(bf, f, got, part, opart) -> dict:
+    """The tile and total bounds of phase 27 on one launch's outputs (a
+    leading replica axis allowed); returns the worst ratios to them."""
+    d = f.shape[-1]
+    bm, bn = bf.apply_tile(d)
+    u = 2.0 ** -24
+    exact = (bf._tile_sums_of_squares(got.double()),
+             bf._tile_sums_of_squares(f.double()))
+    tile = max(float(((part[..., i].double() - exact[i]).abs()
+                      / ((bm * bn - 1) * u * exact[i]).clamp_min(1e-300))
+                     .max()) for i in (0, 1))
+    total = 0.0
+    for i in (0, 1):
+        ex = exact[i].sum(-1)
+        gap = (part[..., i].double().sum(-1)
+               - opart[..., i].double().sum(-1)).abs()
+        total = max(total, float((gap / ((bm * bn + 32 * 32) * u * ex)
+                                  .clamp_min(1e-300)).max()))
+    return {"tile_over_bound": tile, "total_over_bound": total}
+
+
+def phase_bam_apply(bf, fs, lib, torch, np):
+    """Phase 27: ``bam_apply`` against the template oracle over 2(B+1) for
+    B in BAM_APPLY_B x D in BAM_APPLY_D x K in (1, 3) (F' bit for bit, the
+    sums within their bounds, replica z of K=3 equal to a launch on it
+    alone), a signed-zero case, the halt word (a set word leaves F' and the
+    partials untouched, a cleared one runs); device times of the kernel,
+    the oracle and addmm + the two sums of squares (TF32 off; partial: the
+    trace sums in one order, no halt) at BAM_APPLY_TIMES; against its plain
+    version at BAM_APPLY_PLAIN.  Returns (times, work, library, device,
+    library_device, worst, extra) of ``bam_apply``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rand = lambda *shape, scale=1.0: scale * torch.randn(
+        shape, generator=gen, device=dev)
+    unequal, n, ratios = [], 0, {"tile_over_bound": 0.0,
+                                 "total_over_bound": 0.0}
+    for b in BAM_APPLY_B:
+        k2 = 2 * (b + 1)
+        for d in BAM_APPLY_D:
+            for reps in (1, 3):
+                lead = (reps,) if reps > 1 else ()
+                su, sw = rand(*lead, k2, d), rand(*lead, k2, d, scale=0.1)
+                f = rand(*lead, d, d)
+                got, part = bf.bam_apply(su, sw, f)
+                want, opart = bam_apply_oracle(fs, lib, su, sw, f)
+                same = {"f_out": same_bits(got, want)}
+                if reps > 1:
+                    alone = [bf.bam_apply(su[z], sw[z], f[z])
+                             for z in range(reps)]
+                    same["replicas_alone"] = all(
+                        same_bits(a[0], got[z]) and same_bits(a[1], part[z])
+                        for z, a in enumerate(alone))
+                torch.cuda.synchronize()
+                r = _bam_apply_sums_ok(bf, f, got, part, opart)
+                for key in ratios:
+                    ratios[key] = max(ratios[key], r[key])
+                n += 1
+                if not all(same.values()) or max(r.values()) > 1.0:
+                    unequal.append({"B": b, "D": d, "K": reps, **same, **r})
+    # Signed zeros: a k chain that ends at -0 on F = -0; the template's zero
+    # FMAs to its 32-deep slab make it +0, and so must the kernel.
+    su = torch.zeros((2, 64), device=dev)
+    sw = torch.zeros((2, 64), device=dev)
+    su[1], sw[1] = -2.0 ** -80, 2.0 ** -80
+    f = torch.full((64, 64), -0.0, device=dev)
+    got, _ = bf.bam_apply(su, sw, f)
+    want, _ = bam_apply_oracle(fs, lib, su, sw, f)
+    n += 1
+    if not (same_bits(got, want) and not bool(torch.signbit(want).any())):
+        unequal.append({"B": 0, "D": 64, "K": 1, "case": "signed zeros"})
+    # The halt word: set, the launch leaves its outputs as they were;
+    # cleared, it computes what bam_apply computes.
+    b, d = BAM_APPLY_HALT
+    su, sw, f = rand(2 * (b + 1), d), rand(2 * (b + 1), d, scale=0.1), \
+        rand(d, d)
+    stream = fs._stream(dev)
+    halt = torch.ones(1, device=dev)
+    out = torch.full_like(f, 7.0)
+    part = torch.full((bf.bam_apply_tiles(d), 2), 7.0, device=dev)
+    bf._launch_bam_apply(lib, stream, su, sw, f, out, part, halt, 1)
+    torch.cuda.synchronize()
+    halted = bool((out == 7.0).all() and (part == 7.0).all())
+    halt.zero_()
+    bf._launch_bam_apply(lib, stream, su, sw, f, out, part, halt, 1)
+    ref = bf.bam_apply(su, sw, f)
+    torch.cuda.synchronize()
+    ran = same_bits(out, ref[0]) and same_bits(part, ref[1])
+    emit({"phase": "bam_apply", "check": "template_oracle", "cases": n,
+          "B": list(BAM_APPLY_B), "D": list(BAM_APPLY_D), "K": [1, 3],
+          "worst_over_bound": ratios, "halt_set_no_op": halted,
+          "halt_cleared_runs": ran, "unequal": unequal})
+    check(not unequal, f"bam_apply differs from the template: {unequal}")
+    check(halted and ran, "bam_apply does not honour its halt word")
+
+    worst = 0.0
+    for b, d in BAM_APPLY_PLAIN:
+        k2 = 2 * (b + 1)
+        su, sw = rand(k2, d), rand(k2, d, scale=0.1)
+        zero = torch.zeros((d, d), device=dev)
+        got = bf.bam_apply(su, sw, zero)[0]
+        want = bf.bam_apply_reference(su, sw, zero)[0]
+        torch.cuda.synchronize()
+        absprod = _abs_product(su.T, sw)
+        tol = PREC_SUM * k2 * 2.0 ** -24
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max())
+        rec = {"B": b, "D": d, "max_abs_err": err, "sum_tol_rel": tol,
+               "max_rel_to_abs_product": float(
+                   (diff / absprod.clamp_min(1e-30)).max())}
+        emit({"phase": "bam_apply", "check": "plain", **rec})
+        check(bool((diff <= tol * absprod + 1e-30).all()),
+              f"bam_apply disagrees with its plain version: {rec}")
+        worst = max(worst, err)
+
+    # Device time per call of the three functions; CUDA events at the main
+    # shape for the kernels line.
+    by_shape, out = {}, {}
+    for b, d in BAM_APPLY_TIMES:
+        k2 = 2 * (b + 1)
+        su, sw, f = rand(k2, d), rand(k2, d, scale=0.1), rand(d, d)
+        fns = {
+            "kernel": lambda su=su, sw=sw, f=f: bf.bam_apply(su, sw, f),
+            "template": lambda su=su, sw=sw, f=f: bam_apply_oracle(
+                fs, lib, su, sw, f),
+            "addmm_sums": lambda su=su, sw=sw, f=f: (lambda fp: (
+                fp, (fp * fp).sum(), (f * f).sum()))(
+                torch.addmm(f, su.T, sw))}
+        res = {key: device_ms(fn, calls=50) for key, fn in fns.items()}
+        names = res["kernel"][1]
+        check(len(names) == 1 and "apply_f32_kernel" in names[0],
+              f"bam_apply at ({b}, {d}) runs other kernels: {names}")
+        check(any("gemm_kernel" in x for x in res["template"][1]),
+              f"the oracle runs other kernels: {res['template'][1]}")
+        plain = lambda su=su, sw=sw, f=f: bf.bam_apply_reference(su, sw, f)
+        bd = bound(plain, (su, sw, f))
+        by_shape[f"{b}x{d}"] = {
+            **{f"{key}_device_ms": ms for key, (ms, _) in res.items()},
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+        if (b, d) == (B, D):
+            out = {"times": (cuda_ms(fns["kernel"], reps=200),
+                             cuda_ms(plain, reps=200)),
+                   "work": (plain, (su, sw, f)),
+                   "library": cuda_ms(fns["addmm_sums"], reps=200),
+                   "device": res["kernel"][0],
+                   "library_device": res["addmm_sums"][0]}
+    emit({"phase": "bam_apply", "check": "times", "by_shape": by_shape})
+    extra = {"library": "addmm + (F'*F').sum() + (F*F).sum(), TF32 off "
+                        "(partial: the sums in one order, no halt)",
+             "template_device_ms": by_shape[f"{B}x{D}"]["template_device_ms"],
+             "by_shape": by_shape}
+    return ({"bam_apply": out["times"]}, {"bam_apply": out["work"]},
+            {"bam_apply": out["library"]}, {"bam_apply": out["device"]},
+            {"bam_apply": out["library_device"]}, worst,
+            {"bam_apply": extra})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4543,6 +4801,15 @@ def main() -> int:
     (apply_times, apply_work, apply_library, apply_device,
      apply_library_device, worst["factor_apply"], apply_extra) = \
         phase_apply_f32(fs, bfm, lib, t, torch)
+    (bam_apply_times, bam_apply_work, bam_apply_library, bam_apply_device,
+     bam_apply_library_device, worst["bam_apply"], bam_apply_extra) = \
+        phase_bam_apply(bf, fs, lib, torch, np)
+    apply_times.update(bam_apply_times)
+    apply_work.update(bam_apply_work)
+    apply_library.update(bam_apply_library)
+    apply_device.update(bam_apply_device)
+    apply_library_device.update(bam_apply_library_device)
+    apply_extra.update(bam_apply_extra)
     library.update(prec_library)
     library_device.update(prec_library_device)
     library.update(apply_library)

@@ -30,8 +30,10 @@ on the split-k thin product (``thin_gemm.cu``), the small space on a
 thread-block cluster of ``cluster_columns(D)`` blocks
 (``ops/cuda/csrc/bam_smallspace_cluster.cu``; above ``BAM_SHARED_MAX_B``
 ``bam_smallspace_panel``, its (kpad, kpad) matrices in row panels over a
-cluster of ``PANEL_RANKS`` blocks, ``bam_smallspace_panel.cu``), the fat apply on the GEMM template
-into a second buffer with per-tile sums of squares, the two mean matvecs on
+cluster of ``PANEL_RANKS`` blocks, ``bam_smallspace_panel.cu``), the fat
+apply (``apply_f32.cu`` on ``apply_tile(D)``'s output tiles, counted in
+``bam_apply.launches``; its plain version ``bam_apply_reference``) into a
+second buffer with per-tile sums of squares, the two mean matvecs on
 F' (thin product), a one-block finalize (trace gate, keep, mean, report;
 ``bam_smallspace.cu``) and a grid select of F or F'.  A K8 call loops its
 sub-steps on the host with the ``ef``/``x`` thin product and the score
@@ -64,9 +66,9 @@ import torch
 from ..state import NS_STATS_INIT
 from .fused_step import (KERNEL_DIM_RANGE, KERNEL_WRAPPERS, SMEM_LIMIT_BYTES,
                          _library, _newton_inv, _ns_sqrt, _on_cpu, _ptr,
-                         _require, _spd_norm_ub, _stream, _thin,
-                         cluster_columns, ns_sqrt_both, panel_clusters,
-                         panel_smem_bytes)
+                         _require, _require_dim_supported, _spd_norm_ub,
+                         _stream, _thin, apply_tile, cluster_columns,
+                         ns_sqrt_both, panel_clusters, panel_smem_bytes)
 
 # Newton-Schulz sweep counts (u_sqrt, cu_inv, s1_sqrt, p_invsqrt, w_inv),
 # sized by the JAX package for the gated envelope (bam_fused.py:65-76).
@@ -119,7 +121,6 @@ SS_STRIDE, TIER_STRIDE = 8, 8
 # D is masked at the tile edges.
 _KPAD_MAX, _NMAT, _SLAB_LD, _COL_PARTS = 64, 12, 36, 3 * 8 * 32
 _PANEL_NMAT, _PANEL_COL_PARTS = 14, 5 * 8 * 32
-_GEMM_TILE = 32                      # gemm.cuh's output tile
 
 
 def bam_cluster_tile(b: int) -> int:
@@ -446,7 +447,7 @@ class _BamBuffers:
         self.vec = empty(2, d)
         self.ss = empty(SS_STRIDE)
         self.t1, self.sg = empty(1, d), empty(1, d)
-        self.nparts = (-(-d // _GEMM_TILE)) ** 2
+        self.nparts = bam_apply_tiles(d)
         self.partial = empty(2 * self.nparts)
         self.f_prop = empty(d, d) if with_f_prop else None
         # The panel small space's mirrors of its panels.
@@ -498,9 +499,8 @@ def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
     _thin(lib, stream, buf.vf, f_in, buf.t, trans=True, halt=halt)
     _launch_bam_smallspace(lib, stream, e, v, ef, mean_in, buf, reg, iters,
                            lmax_gate, gu_gate, halt=halt, tier=tier)
-    lib.call("gsmvi_bam_apply", _ptr(buf.su), _ptr(buf.sw), _ptr(f_in),
-             _ptr(f_prop), _ptr(buf.partial), _ptr(halt), 2 * (b + 1), d, k,
-             stream)
+    _launch_bam_apply(lib, stream, buf.su, buf.sw, f_in, f_prop, buf.partial,
+                      halt, k)
     _thin(lib, stream, buf.vec[..., :1, :], f_prop, buf.t1, trans=False,
           halt=halt)
     _thin(lib, stream, buf.t1, f_prop, buf.sg, trans=True, halt=halt)
@@ -510,6 +510,19 @@ def _launch_bam_update(lib, stream, e, v, ef, mean_in, mean_out, f_in, f_dst,
              float(reg), d, k, stream)
     lib.call("gsmvi_bam_select", _ptr(rep), _ptr(f_prop), _ptr(f_in),
              _ptr(f_dst), d * d, k, stream)
+
+
+def _launch_bam_apply(lib, stream, su, sw, f_in, f_out, partial, halt,
+                      reps: int) -> None:
+    """BaM's fat apply: f_out = f_in + su^T sw and each output tile's
+    (sum f_out^2, sum f_in^2) into ``partial`` (``bam_apply_tiles(D)``
+    pairs a replica), one launch of ``apply_f32.cu`` on ``apply_tile(D)``
+    for ``reps`` packed replicas, counted in ``bam_apply.launches``; a
+    no-op while ``*halt`` is non-zero (one replica only)."""
+    k2, d = su.shape[-2:]
+    bam_apply.launches += 1
+    lib.call("gsmvi_bam_apply", _ptr(su), _ptr(sw), _ptr(f_in), _ptr(f_out),
+             _ptr(partial), _ptr(halt), k2, d, reps, *apply_tile(d), stream)
 
 
 def bam_smallspace_panel(lib, stream, args, ws, b: int, d: int,
@@ -792,6 +805,63 @@ def bam_smallspace(e, v, vf, t, ef, mean, reg, iters=BAM_NS_ITERS_DEFAULT,
 
 bam_smallspace.launches = 0
 
+
+def bam_apply_tiles(d: int) -> int:
+    """The output tiles of BaM's fat apply at dimension ``d`` (the plan
+    ``apply_tile(d)``): the count of its (sum f'^2, sum f^2) partials a
+    replica, ``nparts`` of the finalize."""
+    bm, bn = apply_tile(d)
+    return -(-d // bm) * -(-d // bn)
+
+
+def _tile_sums_of_squares(x):
+    """(..., bam_apply_tiles(D)): sum x^2 over each output tile of
+    ``apply_tile(D)``, tiles row-major (t = y ceil(D / tile_n) + x)."""
+    d = x.shape[-1]
+    bm, bn = apply_tile(d)
+    sq = torch.nn.functional.pad(x * x, (0, -d % bn, 0, -d % bm))
+    lead = tuple(x.shape[:-2])
+    sq = sq.reshape(*lead, -(-d // bm), bm, -(-d // bn), bn).sum((-3, -1))
+    return sq.reshape(*lead, -1)
+
+
+def bam_apply_reference(su, sw, f):
+    """BaM's fat apply, plain: (f + su^T sw, partial) with su, sw (2(B+1),
+    D) or (K, 2(B+1), D), f (D, D) or (K, D, D), and partial (...,
+    bam_apply_tiles(D), 2) each output tile's (sum f'^2, sum f^2) in
+    float32, which the trace gate sums (``jnp.sum(f_new * f_new)`` of
+    ``gsmvi_tpu/ops/pallas/bam_fused.py:323`` and the F norm)."""
+    f_new = f + su.transpose(-1, -2) @ sw
+    return f_new, torch.stack([_tile_sums_of_squares(f_new),
+                               _tile_sums_of_squares(f)], -1)
+
+
+def bam_apply(su, sw, f):
+    """K7/K8's fat apply alone, shapes and outputs as
+    ``bam_apply_reference``.  On the card one launch of ``apply_f32.cu``
+    (``gsmvi_bam_apply``) for all replicas, counted in
+    ``bam_apply.launches``; on the CPU ``bam_apply_reference``."""
+    if _on_cpu(su, sw, f):
+        return bam_apply_reference(su, sw, f)
+    k2, d = su.shape[-2:]
+    lead = tuple(su.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"su: (2(B+1), D) or (K, 2(B+1), D) required, got "
+                         f"{tuple(su.shape)}")
+    _require_dim_supported(d)
+    for name, t, shape in (("su", su, (k2, d)), ("sw", sw, (k2, d)),
+                           ("f", f, (d, d))):
+        _require(name, t, lead + shape)
+    f_new = torch.empty_like(f)
+    partial = torch.empty((*lead, bam_apply_tiles(d), 2), dtype=torch.float32,
+                          device=f.device)
+    _launch_bam_apply(_library(), _stream(f.device), su, sw, f, f_new,
+                      partial, None, lead[0] if lead else 1)
+    return f_new, partial
+
+
+bam_apply.launches = 0
+
 # Registered beside K1-K3, so ``fused_step.launch_counts()`` and
 # ``reset_launch_counts()`` cover every kernel of the package.
 KERNEL_WRAPPERS.update({
@@ -800,4 +870,5 @@ KERNEL_WRAPPERS.update({
     "make_fused_bam_multistep": make_fused_bam_multistep,
     "bam_smallspace_panel": bam_smallspace_panel,
     "bam_smallspace": bam_smallspace,
+    "bam_apply": bam_apply,
 })

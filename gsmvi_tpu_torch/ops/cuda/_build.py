@@ -45,7 +45,8 @@ SIGNATURES = {
     "gsmvi_eps_chol": [_P] * 12 + [_I] * 4 + [_F, _P],
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 8 + [_I] * 7 + [_P],
-    "gsmvi_bam_apply": [_P] * 6 + [_I, _I, _I, _P],
+    "gsmvi_bam_apply": [_P] * 6 + [_I] * 5 + [_P],
+    "gsmvi_bam_apply_oracle": [_P] * 6 + [_I] * 3 + [_P],
     "gsmvi_bam_smallspace_cluster": [_P] * 12 + [_I, _I, _F] + [_I] * 5
     + [_F, _F, _F] + [_I] * 3 + [_P, _I, _P],
     "gsmvi_bam_finalize": [_P, _I] + [_P] * 6 + [_I, _I, _F, _I, _I, _P],

@@ -1,6 +1,8 @@
 // The fat apply's tile plan, shared by its float32 kernel (apply_f32.cu) and
 // its bf16/bf16x3 twin (apply_mma.cu): F' = F + su^T sw where good[z], else
 // F, su and sw (2B, D) rows contiguous in D, F (D, D), for each replica z.
+// BaM's fat apply (apply_f32.cu, gsmvi_bam_apply) runs the float32 kernel
+// on the same plan, with its tile sums of squares in place of the select.
 //
 // Two plans, chosen by D alone on the host (fs.apply_tile) and passed to the
 // entry points as (tile_m, tile_n); 2B only sets how many passes the k
@@ -36,8 +38,10 @@ struct ApplyArgs {
     const float* sw;   // (k, d): B(kk, n) = sw[kk d + n]
     const float* f_in;
     float* f_out;
-    const int* good;
+    const int* good;   // the select's flags, one a replica
     int k, d;
+    const float* halt;   // BaM's: a no-op launch while *halt != 0 (or null)
+    float* partial;      // BaM's: each tile's (sum f_out^2, sum f_in^2)
 };
 
 // 16-byte accesses along D: D % 4 == 0 and every operand 16-byte aligned

@@ -59,16 +59,6 @@ struct MmaPlan {
     static_assert(LA % 16 == 8 && LB % 16 == 8 && LC % 32 == 8, "pitches");
 };
 
-// The bf16 of a float4 (hi, and lo at bf16x3) as four consecutive elements.
-template <int MODE>
-__device__ __forceinline__ void put4(__nv_bfloat16* hi, __nv_bfloat16* lo, float4 v) {
-    uint2 h, l;
-    split_pair<MODE>(v.x, v.y, h.x, l.x);
-    split_pair<MODE>(v.z, v.w, h.y, l.y);
-    *reinterpret_cast<uint2*>(hi) = h;
-    if (MODE == MMA_BF16X3) *reinterpret_cast<uint2*>(lo) = l;
-}
-
 template <class T, int WARPS, int KS, int MODE, bool VEC>
 __global__ void __launch_bounds__(32 * WARPS) apply_mma_kernel(ApplyArgs p) {
     using P = MmaPlan<T, WARPS, KS>;

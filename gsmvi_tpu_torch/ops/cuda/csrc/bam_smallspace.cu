@@ -6,8 +6,8 @@
 // small space before them is bam_smallspace_cluster.cu (B <= 56) or
 // bam_smallspace_panel.cu (B 57-128); the
 // O(B D^2) products around it run on the split-k thin product
-// (thin_gemm.cu), the fat apply on the GEMM template (gemm.cu:
-// `gsmvi_bam_apply`).
+// (thin_gemm.cu), the fat apply on apply_f32.cu (`gsmvi_bam_apply`, on
+// apply.cuh's tile plan: `nparts` its tile count).
 //
 // The select comes after the apply (the trace gate needs ||F'||^2), so the
 // fat apply writes F' to a second buffer with per-tile sums of squares, the

@@ -1,12 +1,12 @@
 // Tiled f32 GEMM template: F' = F + A^T B with A, B (2B, D) row stacks.
 //
-// Replaces the Precision.HIGHEST `dot_general` contraction that the Pallas
-// kernels run in their own bodies for BaM's fat apply
-// (gsmvi_tpu/ops/pallas/bam_fused.py :319).  The eps step's fat apply
-// (gsmvi_tpu/ops/pallas/fused_step.py :346/:417) runs on apply_f32.cu; its
-// select epilogue here is that kernel's bit-for-bit oracle
-// (gsmvi_factor_apply_oracle).  Every row product runs on the split-k thin
-// product (thin_gemm.cu) and its primitives.
+// The port's first form of the Precision.HIGHEST `dot_general` contraction
+// that the Pallas kernels run in their own bodies for the fat applies: the
+// eps step's (gsmvi_tpu/ops/pallas/fused_step.py :346/:417) and BaM's
+// (gsmvi_tpu/ops/pallas/bam_fused.py :319).  Both now run on apply_f32.cu;
+// the template's two epilogues here are that kernel's oracles
+// (gsmvi_factor_apply_oracle, gsmvi_bam_apply_oracle in gemm.cu), launched
+// by no wrapper.
 //
 // Two epilogues: the eps step's select (F' where *good, else F, per
 // replica), and BaM's, which also writes per-block sums of squares of F'
@@ -21,7 +21,7 @@
 // between the launches of one step.  Design: a 32x32 output tile per block
 // of 256 threads, 32-deep k slabs staged in padded shared memory, 4 outputs
 // per thread, ragged edges masked on load and store.  apply_f32.cu is its
-// redesign for the eps step; BaM's apply still runs here.
+// redesign for both applies.
 //
 // Replica axis: with `batch` = K > 1 the grid gains blockIdx.z = replica,
 // and every operand of replica z starts its own batch stride further on

@@ -1,8 +1,8 @@
 // bf16 tensor-core primitives of the "bf16" and "high" products: operand
 // rounding and the warp-level mma.sync.aligned.m16n8k16 bf16 product with
-// float32 accumulation (the split-k thin product's variant, thin_mma.cu,
-// and the fat apply's, apply_mma.cu, which stages its operands as bf16 and
-// loads fragments with ldmatrix).
+// float32 accumulation, shared by the thin product's variant (thin_mma.cu)
+// and the fat apply's (apply_mma.cu): both stage their operands as bf16,
+// rounded once, and load fragments with ldmatrix.
 //
 // The precisions are those of the JAX package's big_prec
 // (gsmvi_tpu/ops/pallas/fused_step.py:247-282): "bf16" (MODE 1) rounds both
@@ -68,20 +68,30 @@ __device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&ah)[4],
     mma_bf16_16816(c, ah, bh);
 }
 
-// A's fragment from four (row, k-pair) float pairs in fragment order.
+// The bf16 of a float4 (hi, and lo at bf16x3) as four consecutive elements
+// of shared memory (8-byte aligned): each operand rounded once, as staged.
 template <int MODE>
-__device__ __forceinline__ void frag_a(const float2 (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_pair<MODE>(x[i].x, x[i].y, hi[i], lo[i]);
+__device__ __forceinline__ void put4(__nv_bfloat16* hi, __nv_bfloat16* lo, float4 v) {
+    uint2 h, l;
+    split_pair<MODE>(v.x, v.y, h.x, l.x);
+    split_pair<MODE>(v.z, v.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi) = h;
+    if (MODE == MMA_BF16X3) *reinterpret_cast<uint2*>(lo) = l;
 }
 
-// B's fragment from its two k pairs (k 2t..2t+1 and 2t+8..2t+9 of column g).
-template <int MODE>
-__device__ __forceinline__ void frag_b(float2 k0, float2 k8, uint32_t (&hi)[2],
-                                       uint32_t (&lo)[2]) {
-    split_pair<MODE>(k0.x, k0.y, hi[0], lo[0]);
-    split_pair<MODE>(k8.x, k8.y, hi[1], lo[1]);
+// Fragments from bf16 staged k-contiguous (row m of A, or column n of B,
+// holds 8 contiguous k at each 16-byte row address): plain ldmatrix hands
+// lane 4 g + t the elements (2t, 2t+1) of row g of each 8 x 8 matrix, which
+// is A's fragment order above, and B's where the matrix's rows are B's
+// columns.  x4 for A: lanes 8q..8q+7 address rows m = 8 (q % 2) + 0..7 at
+// k = 8 (q / 2); x4 for two 8-column B tiles: rows n = 8 (q / 2) + 0..7 at
+// k = 8 (q % 2) (registers 0-1 the first tile's b[0..1], 2-3 the second's).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
 }
 
 // Fragments from bf16 staged k-major (row k holds 8 contiguous m or n values

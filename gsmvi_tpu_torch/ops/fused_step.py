@@ -48,9 +48,10 @@ even) and forms the products and sums in float32, the TPU's 1-pass
 ``Precision.DEFAULT``; "high" is bf16x3, a_hi b_hi + a_hi b_lo + a_lo b_hi
 with a_hi = bf16(a), a_lo = bf16(a - a_hi), the TPU's 3-pass
 ``Precision.HIGH``.  On the card those products run on hand-written
-``mma.sync`` bf16 tensor-core kernels (``thin_mma.cu``, ``apply_mma.cu``)
-with the same partitions and epilogues as the float32 ones; "highest" runs
-the float32 kernels unchanged.
+``mma.sync`` bf16 tensor-core kernels (``thin_mma.cu``: one block per
+``thin_mma_tile(D)`` output tile, its warps splitting k; ``apply_mma.cu``
+on the float32 apply's tiles) with the float32 kernels' epilogues;
+"highest" runs the float32 kernels unchanged.
 
 Every wrapper runs its plain version on CPU tensors and launches its CUDA
 kernels on CUDA tensors (``ops/cuda/csrc``), raising on a dtype, shape,
@@ -207,6 +208,24 @@ def apply_tile(d: int) -> tuple:
     Not a function of 2B or K: replica z of a K-replica launch runs the
     tiles and k order of a launch on it alone."""
     return APPLY_TILE_LARGE if d >= APPLY_LARGE_D else APPLY_TILE_SMALL
+
+
+# The tensor-core thin product's plans (``thin_mma.cu``): output tiles of
+# (rows, columns) a block, by D alone (``thin_mma_tile``); each block's
+# warps (8 on 16 x 16 tiles, 4 on 32 x 32) take 32-deep chunks of k in
+# turn.
+THIN_MMA_TILE_SMALL = (16, 16)
+THIN_MMA_TILE_LARGE = (32, 32)
+THIN_MMA_LARGE_D = 768
+
+
+def thin_mma_tile(d: int) -> tuple:
+    """(tile_m, tile_n): the tensor-core thin product's output tile at
+    dimension ``d``, 16 x 16 below THIN_MMA_LARGE_D (32 blocks at M=32,
+    D=256), 32 x 32 from it on; the grid is (ceil(d/tile_n), ceil(M/tile_m),
+    K).  The plan fixes each output's k chunks and sum order, so they are a
+    function of D alone, not of M or K."""
+    return THIN_MMA_TILE_LARGE if d >= THIN_MMA_LARGE_D else THIN_MMA_TILE_SMALL
 
 
 def panel_rows(n: int) -> int:
@@ -756,7 +775,8 @@ def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
     also x_out = mu + out; a no-op while ``*halt`` is non-zero.  A leading
     replica axis K on rows (any replica stride), f, mu, out and x_out
     (packed) runs all K in one launch.  "high"/"bf16" ``precision`` runs the
-    tensor-core variant on the same partition (``thin_mma.cu``), counted in
+    tensor-core variant (``thin_mma.cu``, one block per ``thin_mma_tile(D)``
+    output tile, no halt), counted in
     ``thin_product_bf16x3``/``thin_product_bf16``."""
     k, stride = _replicas(rows)
     m, d = rows.shape[-2:]
@@ -766,9 +786,11 @@ def _thin(lib, stream, rows, f, out, *, trans: bool, mu=None, x_out=None,
                  _ptr(x_out), _ptr(halt), m, d, int(trans), k, stride,
                  *thin_split(d), stream)
         return
+    if halt is not None:
+        raise ValueError("the tensor-core thin product takes no halt word")
     THIN_MMA[precision].launches += 1
     lib.call("gsmvi_thin_rows_mma", _ptr(rows), _ptr(f), _ptr(mu), _ptr(out),
-             _ptr(x_out), m, d, int(trans), k, stride, *thin_split(d),
+             _ptr(x_out), m, d, int(trans), k, stride, *thin_mma_tile(d),
              MMA_MODE[precision], stream)
 
 

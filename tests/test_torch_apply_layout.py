@@ -21,6 +21,17 @@ these tests hold the sources themselves:
 - The wrappers' launches on a stand-in library: the apply's shape does not
   depend on the replica count K, and K1, K2, K4, K4a and K6 count one
   ``factor_apply`` launch an update.
+- BaM's fat apply (``gsmvi_bam_apply``, the float32 kernel with its sums
+  of squares) on the same plan: its grid owns every output once over D =
+  1..8192 with k = 2(B+1) for B = 1..128 staged once; its chain equals the
+  template's padded chain bit for bit at every such k; ``nparts`` in
+  ``ops/bam_fused.py`` is its tile count; each tile's pair, as a numpy
+  float32 emulation of the kernel's order (each thread's fmaf chain, a
+  warp butterfly, the warps in order) forms it, lies within (n - 1) 2^-24
+  of the exact sums; the wrapper's launch on a stand-in library; the plain
+  version against the JAX package's ``f + t_mm(stack_u, stack_w)`` and
+  ``jnp.sum(f_new * f_new)`` (``gsmvi_tpu/ops/pallas/bam_fused.py``
+  :319-323).
 - ``factor_apply(..., precision="highest")`` on CPU tensors equals
   ``factor_apply_reference`` bit for bit, and the JAX package's
   ``f + t_mm(stack_u, stack_w)`` (``gsmvi_tpu/ops/pallas/fused_step.py``
@@ -38,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from gsmvi_tpu_torch.ops import bam_fused as bf
 from gsmvi_tpu_torch.ops import batch_fused as bfm
 from gsmvi_tpu_torch.ops import fused_step as fs
 
@@ -398,3 +410,165 @@ def test_highest_plain_apply_matches_reference_and_jax(k2, d):
         tol = 4 * k2 * u * absprod + 2 * u * np.abs(exact) + 1e-30
         diff = np.abs(got[z].numpy().astype(np.float64) - want)
         assert (diff <= tol).all(), float((diff - tol).max())
+
+
+# ---------------------------------------------------------------------------
+# BaM's fat apply on the same plan, with its tile sums of squares
+# ---------------------------------------------------------------------------
+
+def test_bam_apply_runs_the_f32_plans_with_its_epilogue():
+    """``gsmvi_bam_apply`` dispatches the float32 kernel's two plans with
+    the sums-of-squares epilogue; the template's BaM epilogue stays only
+    behind the oracle entry."""
+    src = _source("apply_f32.cu")
+    body = src[src.index("int gsmvi_bam_apply("):]
+    assert "launch_plan(p, reps, APPLY_SUMSQ, tile_m, tile_n" in body
+    gemm = _source("gemm.cu")
+    assert "int gsmvi_bam_apply_oracle(" in gemm
+    assert "int gsmvi_bam_apply(" not in gemm
+
+
+@pytest.mark.parametrize("lo,hi", D_BLOCKS)
+def test_bam_apply_grid_owns_every_output_once(lo, hi):
+    plans, _ = _f32_plans()
+    local = {tile: tuple(np.concatenate(x) for x in _f32_local(tile, rm, rn)[:2])
+             for tile, (rm, rn, _ks) in plans.items()}
+    for d in range(lo, hi + 1):
+        bm, bn = fs.apply_tile(d)
+        rows, cols = local[(bm, bn)]
+        assert _covered_once(range(0, d, bm), rows, d), d
+        assert _covered_once(range(0, d, bn), cols, d), d
+        assert bf.bam_apply_tiles(d) == -(-d // bm) * -(-d // bn)
+
+
+@pytest.mark.parametrize("b", range(1, 129))
+def test_bam_k_staging_covers_every_row_once(b):
+    _staging_covers(2 * (b + 1))
+
+
+@pytest.mark.parametrize("b", [1, 2, 14, 15, 16, 31, 32, 63, 64, 127, 128])
+def test_bam_chain_equals_the_templates_padded_chain(b):
+    """At k = 2(B+1) the kernel's chain (fmaf from 0, then acc + 0 where
+    k % 32 != 0) equals the template's zero-padded chain bit for bit,
+    signed zeros included."""
+    test_kernel_chain_equals_the_templates_padded_chain(2 * (b + 1))
+
+
+@pytest.mark.parametrize("d", [1, 33, 200, 256, 767, 768, 1031])
+def test_nparts_is_the_kernels_tile_count(d):
+    """The finalize reads ``nparts`` pairs a replica: the grid's tiles."""
+    plans, _ = _f32_plans()
+    bm, bn = fs.apply_tile(d)
+    assert (bm, bn) in plans
+    for k in (None, 3):
+        buf = bf._BamBuffers(4, d, "cpu", k=k)
+        assert buf.nparts == -(-d // bm) * -(-d // bn)
+        assert buf.partial.shape == ((() if k is None else (k,))
+                                     + (2 * buf.nparts,))
+
+
+def _kernel_tile_sums(x, tile, rm, rn):
+    """A numpy float32 emulation of the kernel's sum of x^2 over one tile:
+    thread (tm, tn) chains fmaf over its rows r, column groups j and
+    columns c; a warp's 32 sums by the xor butterfly 16, 8, 4, 2, 1; the
+    warps' sums added in warp order by thread 0."""
+    bm, bn = tile
+    tn_n = bn // rn
+    threads = (bm // rm) * tn_n
+    sums = []
+    for tid in range(threads):
+        tm, tn = tid // tn_n, tid % tn_n
+        s = np.float32(0.0)
+        for r in range(rm):
+            for j in range(rn // 4):
+                for c in range(4):
+                    v = x[tm * rm + r, j * (bn // 2) + 4 * tn + c]
+                    s = _fma32(v, v, s)
+        sums.append(s)
+    sums = np.array(sums, np.float32).reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        sums = (sums + sums[:, np.arange(32) ^ o]).astype(np.float32)
+    total = sums[0, 0]
+    for w in range(1, sums.shape[0]):
+        total = np.float32(total + sums[w, 0])
+    return total
+
+
+@pytest.mark.parametrize("d", [256, 768])
+def test_bam_tile_sums_are_within_their_bound(d):
+    """The kernel's order over a whole tile of values on a dyadic grid
+    (exact products) against the float64 sum: within (n - 1) 2^-24 of it,
+    the bound chip_smoke.py phase 27 holds the card to; the plain
+    version's tile pairs lie row-major, as the kernel's blocks."""
+    plans, _ = _f32_plans()
+    tile = fs.apply_tile(d)
+    rm, rn, _ks = plans[tile]
+    rng = np.random.default_rng(d)
+    x = (np.round(rng.standard_normal(tile) * 64) / 64).astype(np.float32)
+    got = _kernel_tile_sums(x, tile, rm, rn)
+    exact = float((x.astype(np.float64) ** 2).sum())
+    n = tile[0] * tile[1]
+    assert abs(float(got) - exact) <= (n - 1) * 2.0 ** -24 * exact
+    # The plain version's pairs: tile t = y ceil(D / tile_n) + x.
+    f = torch.from_numpy(rng.standard_normal((d, d)).astype(np.float32))
+    zero = torch.zeros((2, d))
+    f_new, part = bf.bam_apply_reference(zero, zero, f)
+    assert torch.equal(f_new, f)
+    bm, bn = tile
+    nx = -(-d // bn)
+    for t in (0, 1, nx, bf.bam_apply_tiles(d) - 1):
+        y, x0 = divmod(t, nx)
+        block = f[y * bm:(y + 1) * bm, x0 * bn:(x0 + 1) * bn].double()
+        want = float((block * block).sum())
+        assert part[t, 0].item() == pytest.approx(want, rel=n * 2.0 ** -24)
+        assert part[t, 1].item() == pytest.approx(want, rel=n * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("b,d", [(1, 1), (32, 256), (128, 1031)])
+def test_bam_apply_wrapper_launches_one_kernel(monkeypatch, card, b, d, k):
+    monkeypatch.setattr(bf, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(bf, "_library", lambda: card)
+    monkeypatch.setattr(bf, "_stream", lambda device: None)
+    lead = () if k is None else (k,)
+    k2 = 2 * (b + 1)
+    f_new, part = bf.bam_apply(_z(*lead, k2, d), _z(*lead, k2, d),
+                               _z(*lead, d, d))
+    assert tuple(f_new.shape) == (*lead, d, d)
+    assert tuple(part.shape) == (*lead, bf.bam_apply_tiles(d), 2)
+    (args,) = card.named("gsmvi_bam_apply")
+    assert [n for n, _ in card.calls] == ["gsmvi_bam_apply"]
+    assert args[5].value is None                   # no halt word
+    assert args[6:11] == (k2, d, k or 1, *fs.apply_tile(d))
+    counts = fs.launch_counts()
+    assert counts["bam_apply"] == 1 and sum(counts.values()) == 1
+
+
+@pytest.mark.parametrize("b,d", [(32, 256), (5, 33), (12, 200)])
+def test_bam_plain_apply_matches_jax(b, d):
+    """``bam_apply_reference`` on CPU tensors (``bam_apply`` takes it there)
+    against the JAX package's ``f + t_mm(stack_u, stack_w)`` at
+    Precision.HIGHEST within float32 sum order (4 k 2^-24 |su|^T |sw| +
+    2^-23 |F'|), and its tile pairs' totals against ``jnp.sum(f_new *
+    f_new)`` and ``jnp.sum(f * f)`` within the two sums' float32 orders
+    (D^2 2^-23 of the sum, a safe bound on any float32 order)."""
+    rng = np.random.default_rng(b * 1000 + d)
+    k2 = 2 * (b + 1)
+    su = rng.standard_normal((k2, d)).astype(np.float32)
+    sw = (0.1 * rng.standard_normal((k2, d))).astype(np.float32)
+    f = rng.standard_normal((d, d)).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (su, sw, f)]
+    got, part = bf.bam_apply(*t)
+    want_f = _jax_apply(su, sw, f)
+    u = 2.0 ** -24
+    exact = f.astype(np.float64) + su.T.astype(np.float64) @ sw
+    absprod = np.abs(su.T).astype(np.float64) @ np.abs(sw)
+    tol = 4 * k2 * u * absprod + 2 * u * np.abs(exact) + 1e-30
+    assert (np.abs(got.numpy().astype(np.float64) - want_f) <= tol).all()
+    jf = jnp.asarray(want_f)
+    tr_new = float(jnp.sum(jf * jf))
+    fnorm = float(jnp.sum(jnp.asarray(f) * jnp.asarray(f)))
+    sums = part.double().sum(0)
+    assert abs(float(sums[1]) - fnorm) <= d * d * 2 * u * fnorm
+    assert abs(float(sums[0]) - tr_new) <= d * d * 2 * u * tr_new + float(
+        2 * (np.abs(want_f) * tol).sum())

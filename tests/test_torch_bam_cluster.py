@@ -242,9 +242,12 @@ def test_k7_launch_shapes(card, b, d, with_ef):
     assert cl[12:14] == (b, d)
     assert cl[23:26] == (*tfs.cluster_columns(d), tbf.bam_cluster_tile(b))
     (apply,) = card.named("gsmvi_bam_apply")
-    assert apply[6:8] == (2 * (b + 1), d)
+    assert apply[6:11] == (2 * (b + 1), d, 1, *tfs.apply_tile(d))
+    (fin,) = card.named("gsmvi_bam_finalize")
+    assert fin[1] == tbf.bam_apply_tiles(d)           # nparts: the tiles
     counts = tfs.launch_counts()
     assert counts["bam_eps_update_fused"] == 1
+    assert counts["bam_apply"] == 1
     assert counts["bam_smallspace"] == 1
     assert counts["thin_product"] == len(thin)
     assert counts["bam_smallspace_panel"] == 0

@@ -440,7 +440,7 @@ def test_replica_k7_launches_one_sequence_for_all_replicas(card, k, b, d):
     assert ss[11].value is None                        # no halt word
     assert ss[-2] == k and ss[-3].value is not None    # reps, tier table
     (apply,) = card.named("gsmvi_bam_apply")
-    assert apply[6:9] == (2 * (b + 1), d, k)
+    assert apply[6:11] == (2 * (b + 1), d, k, *tfs.apply_tile(d))
     (fin,) = card.named("gsmvi_bam_finalize")
     assert fin[8] == 0 and fin[-3:-1] == (d, k)
     (sel,) = card.named("gsmvi_bam_select")
@@ -460,7 +460,7 @@ def test_single_k7_launches_keep_one_replica(card):
     (ss,) = card.named("gsmvi_bam_smallspace_cluster")
     assert ss[-2] == 1 and ss[-3].value is None
     (apply,) = card.named("gsmvi_bam_apply")
-    assert apply[8] == 1
+    assert apply[8:11] == (1, *tfs.apply_tile(9))
     assert not tbf._TIER_TABLES
 
 

@@ -1367,9 +1367,9 @@ def test_split_scores_match_plain(cuda, case, m, d):
 @pytest.mark.parametrize("name", ["funnel", "mixture"])
 def test_split_scores_are_one_kernel_without_scratch(cuda, name):
     """One kernel and one allocation (v) a call on the device; no scratch
-    held."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    held.  (The profiler now and then returns a window with no device
+    record at all; ``profile_window`` runs such a window again.)"""
+    from tools.profile_gpu import profile_window
 
     fn, params = _split_score(name if name == "funnel" else "mixture K=3",
                               256, cuda)
@@ -1382,11 +1382,12 @@ def test_split_scores_are_one_kernel_without_scratch(cuda, name):
         fn(x, *params)
     assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 4
     assert fs._ZOO_SCRATCH == held
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def window():
         for _ in range(4):
             fn(x, *params)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    names = [e.name for e in profile_window(window)[1]]
     assert 1 <= len(names) <= 4
     assert all(SPLIT_KERNELS[name] in n for n in names)
 
@@ -2603,3 +2604,206 @@ def test_eps_paths_launch_the_f32_apply(cuda):
     assert any("apply_f32_kernel" in n for n in names)
     assert not any("gemm_kernel" in n for n in names)
     assert fs.launch_counts()["factor_apply"] == 1 + spc
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core thin product's plans (thin_mma.cu): both tiles, ragged M
+# and D, and replicas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+@pytest.mark.parametrize("m,d", [(17, 767), (33, 768), (5, 1031), (64, 63),
+                                 (2, 8192)])
+def test_tensor_core_thin_plans_match_plain(cuda, precision, m, d):
+    """Both plans of ``thin_mma_tile`` (16 x 16 below 768, 32 x 32 from it)
+    at ragged M and D (D % 4 != 0 takes the masked 4-byte loads): within
+    phase 24's bounds of ``mm_prec`` for rows @ F and rows @ F^T with x."""
+    gen = torch.Generator(device=cuda).manual_seed(11 * m + d)
+    rows = torch.randn((m, d), generator=gen, device=cuda)
+    f = torch.randn((d, d), generator=gen, device=cuda) / d ** 0.5
+    mu = torch.randn(d, generator=gen, device=cuda)
+    out, x = fs.thin_product(rows, f, trans=True, mu=mu, precision=precision)
+    assert torch.equal(x, mu + out)
+    _check_product(out, fs.mm_prec(rows, f.T, precision), rows, f.T, d,
+                   precision)
+    out = fs.thin_product(rows, f, trans=False, precision=precision)
+    _check_product(out, fs.mm_prec(rows, f, precision), rows, f, d,
+                   precision)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+@pytest.mark.parametrize("b,d", [(32, 256), (8, 200), (12, 1024)])
+def test_tensor_core_thin_replicas_equal_single_launches(cuda, precision, b,
+                                                         d):
+    """K=3 replicas in one launch (rows a strided view, as K6's) equal a
+    launch on each alone, bit for bit, for all three products; and a
+    replica's rows do not depend on M: the first rows of a taller launch
+    equal a launch on them alone."""
+    gen = torch.Generator(device=cuda).manual_seed(b + d)
+    k = 3
+    block = torch.randn((k, 2 * b, d), generator=gen, device=cuda)
+    rows = block[:, :b]
+    f = torch.randn((k, d, d), generator=gen, device=cuda) / d ** 0.5
+    mu = torch.randn((k, d), generator=gen, device=cuda)
+    lib, stream = fs._library(), fs._stream(cuda)
+    vf, t, ef, x = (torch.empty((k, b, d), device=cuda) for _ in range(4))
+    fs._thin(lib, stream, rows, f, vf, trans=False, precision=precision)
+    fs._thin(lib, stream, rows, f, t, trans=True, precision=precision)
+    fs._thin(lib, stream, rows, f, ef, trans=True, mu=mu, x_out=x,
+             precision=precision)
+    for i in range(k):
+        r = rows[i].contiguous()
+        assert torch.equal(vf[i], fs.thin_product(r, f[i], trans=False,
+                                                  precision=precision))
+        assert torch.equal(t[i], fs.thin_product(r, f[i], trans=True,
+                                                 precision=precision))
+        one = fs.thin_product(r, f[i], trans=True, mu=mu[i],
+                              precision=precision)
+        assert torch.equal(ef[i], one[0]) and torch.equal(x[i], one[1])
+    tall = fs.thin_product(block[0], f[0], trans=True, precision=precision)
+    assert torch.equal(tall[:b], t[0])
+
+
+# ---------------------------------------------------------------------------
+# BaM's fat apply (apply_f32.cu, gsmvi_bam_apply) against the 32x32 template
+# it replaced (gsmvi_bam_apply_oracle)
+# ---------------------------------------------------------------------------
+
+def _bam_apply_oracle(su, sw, f):
+    """The template's BaM apply: (f + su^T sw, its 32x32 tiles' (sum f'^2,
+    sum f^2) pairs)."""
+    k2, d = su.shape[-2:]
+    out = torch.empty_like(f)
+    part = out.new_empty((*f.shape[:-2], (-(-d // 32)) ** 2, 2))
+    fs._library().call("gsmvi_bam_apply_oracle", fs._ptr(su), fs._ptr(sw),
+                       fs._ptr(f), fs._ptr(out), fs._ptr(part), None, k2,
+                       d, f.shape[0] if f.dim() == 3 else 1,
+                       fs._stream(f.device))
+    return out, part
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("b,d", [(1, 1), (2, 33), (32, 256), (56, 200),
+                                 (63, 767), (64, 768), (128, 1031)])
+def test_bam_apply_equals_the_template(cuda, b, d, reps):
+    """F' bit for bit with the template (its FMA chain), each replica of a
+    K=3 launch as a launch on it alone; each tile's (sum F'^2, sum F^2)
+    within (n - 1) 2^-24 of the exact sums over its n elements, and the
+    totals within (n + 32^2) 2^-24 of the exact ones against the
+    template's (chip_smoke.py phase 27)."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    gen = torch.Generator(device=cuda).manual_seed(b + d + reps)
+    lead = (reps,) if reps > 1 else ()
+    k2 = 2 * (b + 1)
+    su = torch.randn((*lead, k2, d), generator=gen, device=cuda)
+    sw = 0.1 * torch.randn((*lead, k2, d), generator=gen, device=cuda)
+    f = torch.randn((*lead, d, d), generator=gen, device=cuda)
+    fs.reset_launch_counts()
+    got, part = bf.bam_apply(su, sw, f)
+    assert fs.launch_counts()["bam_apply"] == 1
+    want, opart = _bam_apply_oracle(su, sw, f)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert part.shape == (*lead, bf.bam_apply_tiles(d), 2)
+    bm, bn = fs.apply_tile(d)
+    n, u = bm * bn, 2.0 ** -24
+    for i, x in enumerate((got, f)):
+        exact = bf._tile_sums_of_squares(x.double())
+        assert bool(((part[..., i].double() - exact).abs()
+                     <= (n - 1) * u * exact).all())
+        gap = (part[..., i].double().sum(-1)
+               - opart[..., i].double().sum(-1)).abs()
+        assert bool((gap <= (n + 32 * 32) * u * exact.sum(-1)).all())
+    for z in range(reps if reps > 1 else 0):
+        one, opart1 = bf.bam_apply(su[z], sw[z], f[z])
+        assert torch.equal(one, got[z]) and torch.equal(opart1, part[z])
+
+
+def test_bam_apply_keeps_the_templates_signed_zeros(cuda):
+    """A k chain that ends at -0 on F = -0: +0 after the template's zero
+    FMAs to its 32-deep slab, and so after the kernel's acc + 0."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    su = torch.zeros((2, 64), device=cuda)
+    sw = torch.zeros((2, 64), device=cuda)
+    su[1], sw[1] = -2.0 ** -80, 2.0 ** -80
+    f = torch.full((64, 64), -0.0, device=cuda)
+    want, _ = _bam_apply_oracle(su, sw, f)
+    got, _ = bf.bam_apply(su, sw, f)
+    assert not bool(torch.signbit(want).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_bam_apply_honours_its_halt_word(cuda):
+    """A set halt word leaves F' and the partials as they were; a cleared
+    one computes what ``bam_apply`` computes."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d, k2 = 256, 66
+    su = torch.randn((k2, d), generator=gen, device=cuda)
+    sw = torch.randn((k2, d), generator=gen, device=cuda)
+    f = torch.randn((d, d), generator=gen, device=cuda)
+    halt = torch.ones(1, device=cuda)
+    out = torch.full_like(f, 7.0)
+    part = torch.full((bf.bam_apply_tiles(d), 2), 7.0, device=cuda)
+    lib, stream = fs._library(), fs._stream(cuda)
+    bf._launch_bam_apply(lib, stream, su, sw, f, out, part, halt, 1)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all() and (part == 7.0).all())
+    halt.zero_()
+    bf._launch_bam_apply(lib, stream, su, sw, f, out, part, halt, 1)
+    got, want_part = bf.bam_apply(su, sw, f)
+    assert torch.equal(out, got) and torch.equal(part, want_part)
+
+
+@pytest.mark.parametrize("b,d", [(32, 256), (12, 200), (32, 33),
+                                 (128, 1024)])
+def test_bam_apply_matches_plain(cuda, b, d):
+    """On F = 0 the kernel and torch's float32 mm (TF32 off) differ in sum
+    order alone: within 4 (2(B+1)) 2^-24 |su|^T |sw|."""
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    gen = torch.Generator(device=cuda).manual_seed(b * d)
+    k2 = 2 * (b + 1)
+    su = torch.randn((k2, d), generator=gen, device=cuda)
+    sw = 0.1 * torch.randn((k2, d), generator=gen, device=cuda)
+    zero = torch.zeros((d, d), device=cuda)
+    got = bf.bam_apply(su, sw, zero)[0]
+    want = bf.bam_apply_reference(su, sw, zero)[0]
+    absprod = su.T.abs().double() @ sw.abs().double()
+    assert bool(((got.double() - want.double()).abs()
+                 <= 4.0 * k2 * 2.0 ** -24 * absprod + 1e-30).all())
+
+
+def test_bam_paths_launch_the_f32_apply(cuda):
+    """K7, a K8 block and K7 over K=3 replicas run ``apply_f32_kernel`` for
+    their fat apply, one ``bam_apply`` launch an update, and never the
+    template."""
+    from tools.profile_gpu import profile_window
+
+    from gsmvi_tpu_torch.ops import bam_fused as bf
+
+    b, d, spc, k = 32, 256, 8, 3
+    eps, v, mu, f = _bam_inputs(cuda, b, d)
+    t = dense_gaussian(0, d, device=cuda)
+    score_fn, params = t.fused_score
+    block = torch.randn((spc * b, d), device=cuda)
+    multi = bf.make_fused_bam_multistep(score_fn, len(params), b, d, spc)
+    stack = lambda x: x.repeat(k, *([1] * x.dim()))
+
+    def run():
+        bf.bam_eps_update_fused(eps, v, mu, f, 0.05)
+        multi([0.05] * spc, spc, 0, block, mu, f, *params)
+        bf.bam_eps_update_replicas(stack(eps), stack(v), stack(mu), stack(f),
+                                   0.05)
+        torch.cuda.synchronize()
+
+    run()
+    fs.reset_launch_counts()
+    _, kernels, _ = profile_window(run)
+    names = {k.name for k in kernels}
+    assert any("apply_f32_kernel" in n for n in names)
+    assert not any("gemm_kernel" in n for n in names)
+    # K7 1, K8 one an enqueued sub-step (nmax = spc), the replicas 1.
+    assert fs.launch_counts()["bam_apply"] == 1 + spc + 1

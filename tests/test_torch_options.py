@@ -566,8 +566,8 @@ def test_k1_at_precision_launches_the_tensor_core_variants(card, precision,
                                                            mode, tag, k):
     """K1 at "bf16"/"high": its three row products on ``thin_mma.cu`` and
     the fat apply on ``apply_mma.cu`` at the precision's mode, with the
-    float32 kernels' partition (``thin_split``); the small space is the
-    float32 one.  Counted in the variants' counters only."""
+    tensor-core plan ``thin_mma_tile(D)``; the small space is the float32
+    one.  Counted in the variants' counters only."""
     b, d = 32, 256
     lead = () if k is None else (k,)
     fs.gsm_eps_update_fused(_rows(*lead, b, d), _rows(*lead, b, d),
@@ -577,8 +577,8 @@ def test_k1_at_precision_launches_the_tensor_core_variants(card, precision,
     assert names == ["gsmvi_thin_rows_mma"] * 3 + [
         "gsmvi_eps_smallspace_cluster", "gsmvi_factor_apply_mma"]
     for args in card.named("gsmvi_thin_rows_mma"):
-        assert args[8] == (k or 1) and args[10:13] == (*fs.thin_split(d),
-                                                       mode)
+        assert args[8] == (k or 1) and args[10:13] == (
+            *fs.thin_mma_tile(d), mode)
     (apply,) = card.named("gsmvi_factor_apply_mma")
     assert apply[5:9] == (2 * b, d, k or 1, mode)
     counts = fs.launch_counts()

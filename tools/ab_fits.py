@@ -2,7 +2,8 @@
 """it/s of two checkouts of the port, alternated on one NVIDIA GPU.
 
     python3 tools/ab_fits.py DIR_A DIR_B [--pairs 6]
-                             [--family gsm|bam|batch|b128|dense|advi|zoo]
+                             [--family gsm|bam|batch|b128|dense|advi|zoo|
+                                       prec]
 
 For each pair, in turns (A then B, then B then A, ...), a fresh process per
 checkout times two fits of each fitter of the family at the headline cell
@@ -31,7 +32,11 @@ fit's state, and the two-phase recipe's rate over both (``bench.py``'s
 Family ``zoo``: the zoo paths whose scores are products,
 ``FactorGSM(fused_score=...)`` (K2 with K11a or K11b inside, spc=8) on
 ``student_t(0, 256, df=6)`` and ``logistic_regression(0, 256)`` (N=200),
-niter=3000, as ``chip_smoke.py``'s phase 20 runs them.  A last
+niter=3000, as ``chip_smoke.py``'s phase 20 runs them.  Family
+``prec``: ``FactorGSM(fused_score=..., pallas_precision=p)`` (K2 with its
+row products and fat apply on the bf16 tensor-core kernels, spc=8) for p
+in "bf16" and "high", niter=3000, as ``chip_smoke.py``'s phase 24 runs
+them.  A last
 line gives, per
 fit, the median and quartiles of each checkout's readings and the pairs
 in which the second checkout was faster.  The first use in each
@@ -131,6 +136,13 @@ def one(checkout: str, family: str) -> dict:
                                       fused_score=t.fused_score,
                                       device="cuda"),
         }
+    elif family == "prec":
+        niter, args, kw = 3000, (), {}
+        fitters = {
+            f"FactorGSM_k2_{p}": FactorGSM(256, t.lp, t.lp_g,
+                                           fused_score=t.fused_score,
+                                           pallas_precision=p, device="cuda")
+            for p in ("bf16", "high")}
     elif family == "zoo":
         from gsmvi_tpu_torch.models import logistic_regression, student_t
 
@@ -180,7 +192,7 @@ def main() -> int:
     parser.add_argument("checkouts", nargs="*")
     parser.add_argument("--pairs", type=int, default=6)
     parser.add_argument("--family", choices=("gsm", "bam", "batch", "b128",
-                                             "dense", "advi", "zoo"),
+                                             "dense", "advi", "zoo", "prec"),
                         default="gsm")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()

@@ -3,7 +3,7 @@
 
     python3 tools/profile_gpu.py [--steps 64] [--bam-steps 2001]
                                  [--only-gsm | --only-bam | --only-dense |
-                                  --only-advi | --only-chol]
+                                  --only-advi | --only-chol | --only-prec]
 
 Profiles ``--steps`` steps of the GSM paths at the headline cell
 (dense-Gaussian target, D=256, B=32) with ``torch.profiler``:
@@ -17,7 +17,10 @@ accept/revert per step) and ``fit_batch`` of K=8 replicas on its "fused"
 paths, ``BaM.fit`` (K7 per step) and ``FactorBaM(fused_score=...)`` (K8
 with K3 inside, spc=8), with ``Regularizers().linear(100.0)`` and
 retries=0, each with its steps per NS tier (``--only-bam``: these
-alone; ``--only-gsm``: the GSM paths alone).  For each it prints one JSON line: the host wall time per step
+alone; ``--only-gsm``: the GSM paths alone; ``--only-prec``:
+``FactorGSM(fused_score=..., pallas_precision=p)`` (K2, spc=8) at p =
+"highest", "high" and "bf16" alone, the row products and the fat apply on
+the float32 or the bf16 tensor-core kernels).  For each it prints one JSON line: the host wall time per step
 (profiler on, so inflated), the device busy time per step (union of
 kernel intervals), the device's idle share of the profiled window,
 device time per kernel name (per step of all the replicas together for
@@ -414,6 +417,7 @@ def main() -> int:
     only.add_argument("--only-dense", action="store_true")
     only.add_argument("--only-advi", action="store_true")
     only.add_argument("--only-chol", action="store_true")
+    only.add_argument("--only-prec", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_gpu: no CUDA device", file=sys.stderr)
@@ -433,6 +437,14 @@ def main() -> int:
         return 0
     if args.only_chol:
         profile_chol(t, torch)
+        return 0
+    if args.only_prec:
+        for p in ("highest", "high", "bf16"):
+            profile_fit(f"FactorGSM fused_score (K2+K3, spc=8) at {p}",
+                        FactorGSM(256, t.lp, t.lp_g,
+                                  fused_score=t.fused_score,
+                                  pallas_precision=p, device="cuda"),
+                        args.steps, torch)
         return 0
     if not args.only_bam:
         fused = FactorGSM(256, t.lp, t.lp_g, fused_score=t.fused_score,
