@@ -248,12 +248,36 @@ non-zero):
     ``torch.addmm`` + the two sums at BAM_APPLY_TIMES.  K7 and K8 (phase
     4's times) and the replica K7 (phase 22's) are checked there to run
     ``apply_f32_kernel`` and never ``gemm_kernel``.
+28. Philox: the redesigned draw (``prng.cu``) against
+    ``philox4x32_reference``/``philox_normal_reference`` bit for bit, words
+    and normals, and against the replaced design (``gsmvi_philox_oracle``)
+    at (32, 256), (512, 1024) and an odd count (37, 201); device and event
+    times at (32, 256) and (512, 1024) beside the replaced design's,
+    ``torch.randn``'s (another stream, the same distribution) and the
+    bytes-or-operations bound (``philox_bound``, on the instructions per
+    normal that ``tools/philox_sass.py`` counts in this build's SASS; the
+    new kernels' products checked to be one IMAD.WIDE.U32 each).
+29. mesh: ``initialize_distributed`` on a ``file://`` store, a one-rank
+    NCCL group; ``make_mesh(1)``; ``FactorGSM(mesh=)`` (K1, N_ITER steps),
+    ``FactorBaM(mesh=)`` (K7, N_BAM steps, ``linear(100.0)``) and
+    ``GSM(use_factor=False, mesh=)`` (K5, N_ITER steps), each equal bit
+    for bit to the same fit without a mesh in phase 2, 5 or 11, under its
+    bound, its kernel launched;
+    ``ADVI(mesh=).fit`` equal to ``ADVI.fit`` (MESH_ADVI_ITER steps);
+    ``ADVI.fit_fused`` and out-of-range shapes under a mesh raise;
+    ``blocked_cholesky`` at D=512, b=128 against float64 (and on a 1 x 1
+    mesh's column-sharded DTensor, bit for bit; NaN from the failing block
+    of a matrix that is not PD); the configuration of
+    ``examples/example_large_d_torch.py`` (D=512, B=32, 4000 steps,
+    ``chol_block=128``) under its JAX-derived bound; then the group is
+    destroyed.
 
 Launch counts are set to 0 just before each path (2, 3, 5, 6, 8, each leg
 of 9, both fits of 11, the three fits of 13, 15, both fits of 16, the
 D=2048 fit of 17, each fit of 18 and of 20, the monitored GSM fit and the
 checkpointed fit of 21, the FactorBaM replica fit of 22, the numpy-score
-GSM fit of 23, each fit of 24) and read just after it; every kernel of the
+GSM fit of 23, each fit of 24, each mesh fit of 29) and read just after
+it; every kernel of the
 ``kernels`` line must have launched on those paths.
 Then the card's name and power limit, the kernel table (each kernel's
 bound, from this run's shapes: the larger of its bytes over 3.35 TB/s and
@@ -1261,7 +1285,7 @@ def phase_bam_paths(BaM, FactorBaM, Regularizers, bf, fs, t, torch):
           "kernel_iters_per_s": [rates[0][0], rates[3][0]],
           "plain_iters_per_s": [rates[1][0], rates[2][0]],
           "steps_done": [r[1] for r in rates]})
-    return (c5, c6), st6, fb
+    return (c5, c6), st6, fb, (mean, cov)
 
 
 def phase_bam_times(bf, fs, fb, t, st, torch):
@@ -1903,8 +1927,9 @@ def graph_vs_eager(fitter, run, st, wall, steps, runner, torch) -> dict:
 
 def phase_dense_paths(GSM, fs, t, torch):
     """Phase 11: the dense route on K5 at B=32 (use_factor=False) and at
-    B=512 (the huge-batch guard)."""
-    counts = []
+    B=512 (the huge-batch guard).  Returns the launch counts and the
+    (mean, cov) of the B=32 fit."""
+    counts, fits = [], {}
     for label, b, niter, kw, bounds in (
             ("dense", B, N_ITER, {"use_factor": False},
              (MEAN_ERR_BOUND, COV_ERR_BOUND)),
@@ -1918,6 +1943,7 @@ def phase_dense_paths(GSM, fs, t, torch):
             FIT_SEED, batch_size=b, niter=niter, verbose=False), torch)
         c = fs.launch_counts()
         counts.append(c)
+        fits[label] = (mean, cov)
         em, ec = errs(mean, cov, t)
         busy, wall_prof = busy_per_step(lambda: g.fit(
             FIT_SEED, batch_size=b, niter=DENSE_WINDOW - 1, verbose=False),
@@ -1936,7 +1962,7 @@ def phase_dense_paths(GSM, fs, t, torch):
         check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
               and tuple(cov.shape) == (D, D), f"{label}: shape/finiteness")
         _errs_bounded(em, ec, bounds, f"GSM {label} route")
-    return counts
+    return counts, fits["dense"]
 
 
 def phase_batch_kernels(bfm, fs, t, torch):
@@ -4620,6 +4646,354 @@ def phase_bam_apply(bf, fs, lib, torch, np):
             {"bam_apply": extra})
 
 
+# Phase 28: the Philox draw (prng.cu), redesigned: one normal a thread for a
+# small draw, two or four interleaved chains a thread with float4/uint4
+# stores for a larger one, each round's products as one 32x32->64 multiply,
+# the grid from the SM count.  Its words and normals equal the plain
+# versions' bit for bit, and the replaced design's
+# (``gsmvi_philox_oracle``).  Its ops bound takes the instructions per
+# normal counted in this build's SASS by tools/philox_sass.py: for each
+# pipe the fewest that a thread of philox_kernel<NP> can issue on a path
+# through its float4 stores of normals (slow paths skipped, predicated and
+# unclassified instructions off their pipes), so the bound is a lower one.
+# The phase also measures the marginal cost of a normal (PHILOX_SLOPE: the
+# time between two large draws by CUDA events; at 16-32 M normals a call
+# runs ~0.1 ms, far above its host enqueue).
+PHILOX_SHAPES = ((B, D), PHILOX_LARGE, (37, 201))
+PHILOX_TIMES = ((B, D), PHILOX_LARGE)
+PHILOX_SLOPE = ((16384, 1024), (32768, 1024))
+# Philox rounds per counter block, two products each.
+PHILOX_PRODUCTS = 20
+
+
+def philox_bound(n: int, per_normal: dict, lanes: dict) -> dict:
+    """The least time of an n-normal draw: its bytes (4 n written) over the
+    memory rate, and each pipe's instructions (``per_normal`` of
+    tools/philox_sass.py) over its rate, the FP32 peak scaled by the
+    pipe's lanes (an FMA counts two FLOPs on 128 lanes)."""
+    ms = {"bytes": 4.0 * n / HBM_BYTES_PER_S * 1e3}
+    for pipe, per in per_normal.items():
+        rate = F32_FLOPS_PER_S / 2 * lanes[pipe] / 128
+        ms[pipe] = n * per / rate * 1e3
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": "bytes" if by == "bytes"
+            else "operations", "pipe": by, "by_pipe_ms": ms}
+
+
+def philox_oracle(fs, lib, seed: int, shape, torch):
+    """The replaced design's normals (``gsmvi_philox_oracle``)."""
+    dev = torch.device("cuda")
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    n = out.numel()
+    lib.call("gsmvi_philox_oracle", fs._ptr(None), fs._ptr(out),
+             (n + 1) // 2, n, int(seed) & 0xFFFFFFFF, fs.PHILOX_KEY1,
+             fs._stream(dev))
+    return out
+
+
+def phase_philox(fs, lib, torch):
+    """Phase 28: the redesigned Philox draw against its plain versions bit
+    for bit (words and normals) and against the replaced design's normals
+    at PHILOX_SHAPES; device and event times at PHILOX_TIMES beside the
+    replaced design's and ``torch.randn``'s (its yardstick: another stream,
+    the same distribution) and the bound from the SASS of this build
+    (``tools/philox_sass.py``), whose products are one IMAD.WIDE.U32
+    each (the replaced design's an IMAD and an IMAD.HI.U32)."""
+    from tools.philox_sass import pipe_counts
+
+    dev = torch.device("cuda")
+    seed = 20261018
+    sass = pipe_counts()
+    ops = {name.split("prng_cu_")[-1]: {
+        op: hist.get(op, 0) for op in ("IMAD.WIDE.U32", "IMAD.HI.U32",
+                                       "MUFU.RSQ", "STG.E.128")}
+        for name, hist in sass["kernels"].items()}
+    emit({"phase": "philox", "check": "sass", "kernels": ops,
+          "paths": sass["paths"], "per_normal": sass["per_normal"]})
+    wide = {k: v for k, v in ops.items() if "oracle" not in k}
+    check(len(wide) == 3 and all(v["IMAD.HI.U32"] == 0 for v in wide.values())
+          and all(v["IMAD.WIDE.U32"] >= PHILOX_PRODUCTS
+                  for v in wide.values())
+          and any(v["IMAD.HI.U32"] > 0 for k, v in ops.items()
+                  if "oracle" in k),
+          f"Philox products are not one wide multiply each: {ops}")
+    bound_of = lambda n: philox_bound(n, sass["per_normal"],
+                                      sass["lanes_per_sm_clock"])
+    cases = []
+    for shape in PHILOX_SHAPES:
+        n = shape[0] * shape[1]
+        nb = (n + 1) // 2
+        words = fs.philox4x32(nb, seed, fs.PHILOX_KEY1, device=dev)
+        words_p = fs.philox4x32_reference(fs._philox_counters(nb, dev), seed,
+                                          fs.PHILOX_KEY1)
+        z = fs.philox_normal(seed, *shape, device=dev)
+        z_p = fs.philox_normal_reference(seed, *shape, device=dev)
+        old = philox_oracle(fs, lib, seed, shape, torch)
+        torch.cuda.synchronize()
+        cases.append({"shape": list(shape), "normals": n,
+                      "words_equal": bool(torch.equal(words, words_p)),
+                      "normals_equal": same_bits(z, z_p),
+                      "replaced_design_equal": same_bits(old, z)})
+    emit({"phase": "philox", "check": "bits", "cases": cases})
+    check(all(c["words_equal"] and c["normals_equal"]
+              and c["replaced_design_equal"] for c in cases),
+          f"Philox kernel differs from its plain version: {cases}")
+
+    by_shape = {}
+    for shape in PHILOX_TIMES:
+        fns = {"kernel": lambda shape=shape: fs.philox_normal(
+                   7, *shape, device=dev),
+               "replaced_design": lambda shape=shape: philox_oracle(
+                   fs, lib, 7, shape, torch),
+               "randn": lambda shape=shape: torch.randn(shape, device=dev)}
+        rec = {}
+        for key, fn in fns.items():
+            ms, names = device_ms(fn, calls=200)
+            rec[f"{key}_device_ms"] = ms
+            rec[f"{key}_events_ms"] = cuda_ms(fn, reps=200)
+            if key == "kernel":
+                check(len(names) == 1 and "philox" in names[0]
+                      and "oracle" not in names[0],
+                      f"philox_normal at {shape} runs other kernels: {names}")
+                rec["kernel_name"] = names[0]
+        rec["plain_events_ms"] = cuda_ms(
+            lambda shape=shape: fs.philox_normal_reference(7, *shape, dev),
+            reps=50)
+        by_shape["x".join(map(str, shape))] = {
+            **rec, **bound_of(shape[0] * shape[1])}
+    slope = {}
+    for key, fn in (("kernel", lambda shape: fs.philox_normal(
+                        7, *shape, device=dev)),
+                    ("replaced_design", lambda shape: philox_oracle(
+                        fs, lib, 7, shape, torch)),
+                    ("randn", lambda shape: torch.randn(shape, device=dev))):
+        ms = [cuda_ms(lambda shape=shape: fn(shape), reps=20)
+              for shape in PHILOX_SLOPE]
+        n = [a * b for a, b in PHILOX_SLOPE]
+        slope[f"{key}_us_per_mnormal"] = (1e3 * (ms[1] - ms[0])
+                                          / ((n[1] - n[0]) / 1e6))
+        slope[f"{key}_events_ms"] = ms
+    per_m = {pipe: 1e3 * ms for pipe, ms in
+             bound_of(1_000_000)["by_pipe_ms"].items()}
+    emit({"phase": "philox", "check": "times", "by_shape": by_shape,
+          "slope": slope, "bound_us_per_mnormal": per_m,
+          "slope_shapes": [list(x) for x in PHILOX_SLOPE]})
+    return by_shape
+
+
+# Phase 29: the mesh path.  A world-size-1 NCCL group on a file:// store,
+# meshes over it, and the fitters' mesh routes equal bit for bit to the
+# same fits without a mesh that phases 2, 5 and 11 ran (every rank draws
+# the whole batch, and the gathered rows of one rank are the rows).  MESH_ADVI_ITER steps of ADVI; the
+# large-D configuration of examples/example_large_d_torch.py (numpy seed
+# 4, D=512, B=32, LARGE_D_ITER steps, chol_block=128 on a 1 x 1 mesh)
+# under 1.5 x the worst of 4 JAX CPU fits of the same target
+# (tools/jax_example_bound.py --only large_d, GSM(chol_block=128) float32,
+# PRNGKey(0..3)): mean_err <= 5.6002e-3, cov_err <= 1.0647e-3 (key 2).
+MESH_ADVI_ITER = 500
+LARGE_D, LARGE_D_B, LARGE_D_ITER, LARGE_D_BLOCK = 512, 32, 4000, 128
+LARGE_D_MEAN_ERR_BOUND = 1.5 * 5.6002e-3
+LARGE_D_COV_ERR_BOUND = 1.5 * 1.0647e-3
+# The blocked Cholesky at D=512, b=128 against float64: within CHOL_FLOOR
+# times the library's own float32 factor's distance from float64 (the
+# input's rounding floor).
+MESH_CHOL_D, MESH_CHOL_B = 512, 128
+
+
+def _timed_fit(fitter, fit, fs, torch):
+    """(result, launch counts, seconds) of one fit, counts reset before."""
+    fs.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fit(fitter)
+    torch.cuda.synchronize()
+    return out, fs.launch_counts(), time.perf_counter() - t0
+
+
+def phase_mesh(GSM, FactorGSM, FactorBaM, ADVI, Adam, Regularizers, fs, t,
+               plain_fits, torch):
+    """Phase 29; returns the launch counts of its fits.  ``plain_fits``:
+    the (mean, cov) of the same fits without a mesh from phases 2
+    (``GSM``, the factor route's K1), 5 (``BaM``, the factor route's K7)
+    and 11 (``GSM(use_factor=False)``, K5), which a one-rank mesh must
+    equal bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gsmvi_tpu_torch.distributions import safe_cholesky
+    from gsmvi_tpu_torch.models import dense_gaussian
+    from gsmvi_tpu_torch.parallel import (blocked_cholesky, cov_sharding,
+                                          initialize_distributed, make_mesh,
+                                          make_mesh_2d)
+    from gsmvi_tpu_torch.parallel.mesh import all_gather_into
+
+    dev = torch.device("cuda")
+    path_counts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            check(dist.is_initialized() and not multi
+                  and dist.get_backend() == "nccl",
+                  "initialize_distributed: no one-rank NCCL group")
+            mesh = make_mesh(1)
+            # The group's collectives: what a row gather costs a step on a
+            # mesh of more ranks (a one-rank axis sends nothing).
+            rows = torch.ones((B, D), device=dev)
+            parts = [torch.empty_like(rows)]
+            dist.all_gather(parts, rows)
+            one = torch.ones(1, device=dev)
+            dist.all_reduce(one)
+            torch.cuda.synchronize()
+            check(torch.equal(parts[0], rows) and float(one) == 1.0,
+                  "NCCL collectives on the one-rank group")
+            flat = torch.empty_like(rows)
+            gathers = {
+                "all_gather_list": lambda: dist.all_gather(parts, rows),
+                "all_gather_into": lambda: all_gather_into(flat, rows, None)}
+            rec = {}
+            for key, gather in gathers.items():
+                gather()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    gather()
+                rec[f"{key}_host_us"] = 1e6 * (time.perf_counter() - t0) / 50
+                rec[f"{key}_events_ms"] = cuda_ms(gather, reps=50)
+            emit({"phase": "mesh", "check": "group",
+                  "backend": dist.get_backend(),
+                  "world": dist.get_world_size(), "mesh": str(mesh),
+                  "rows": [B, D], **rec})
+            kw = dict(batch_size=B, verbose=False, return_state=True)
+            fits = (
+                ("FactorGSM", "gsm_eps_update_fused", N_ITER,
+                 lambda m: FactorGSM(D, t.lp, t.lp_g, device=dev, mesh=m),
+                 lambda g: g.fit(FIT_SEED, niter=N_ITER, **kw),
+                 (MEAN_ERR_BOUND, COV_ERR_BOUND)),
+                ("FactorBaM", "bam_eps_update_fused", N_BAM,
+                 lambda m: FactorBaM(D, t.lp, t.lp_g, device=dev, mesh=m),
+                 lambda g: g.fit(FIT_SEED, Regularizers().linear(BAM_REGF0),
+                                 niter=N_BAM, retries=0, **kw),
+                 (BAM_MEAN_ERR_BOUND, BAM_COV_ERR_BOUND)),
+                ("GSM(use_factor=False)", "gsm_update_fused", N_ITER,
+                 lambda m: GSM(D, t.lp, t.lp_g, device=dev, use_factor=False,
+                               mesh=m),
+                 lambda g: g.fit(FIT_SEED, niter=N_ITER, **kw),
+                 (MEAN_ERR_BOUND, COV_ERR_BOUND)))
+            for name, kernel, niter, make, fit, (mb, cb) in fits:
+                got, counts, wall = _timed_fit(make(mesh), fit, fs, torch)
+                path_counts.append(counts)
+                mean0, cov0 = plain_fits[name]
+                same = (torch.equal(mean0, got.mean)
+                        and torch.equal(cov0, got.cov))
+                em, ec = errs(got.mean, got.cov, t)
+                rec = {"fitter": name, "D": D, "B": B, "niter": niter,
+                       "kernel": kernel, "launches": counts[kernel],
+                       "equal_to_fit_without_mesh": same,
+                       "mean_err": em, "cov_err": ec,
+                       "mean_err_bound": mb, "cov_err_bound": cb,
+                       "iters_per_s": (niter + 1) / wall}
+                emit({"phase": "mesh", "check": "fit", **rec})
+                check(same, f"mesh fit differs from the fit without: {rec}")
+                check(counts[kernel] >= niter + 1 if kernel !=
+                      "bam_eps_update_fused" else counts[kernel] > 0,
+                      f"{kernel} not launched on the mesh path: {rec}")
+                check(em < mb and ec < cb, f"mesh fit over its bound: {rec}")
+
+            adam_fit = lambda g: g.fit(FIT_SEED, Adam(ADVI_LR), batch_size=B,
+                                       niter=MESH_ADVI_ITER, verbose=False,
+                                       return_state=True)
+            (sp, lp_), _, _ = _timed_fit(ADVI(D, t.lp, device=dev),
+                                         adam_fit, fs, torch)
+            (sm, lm), _, _ = _timed_fit(ADVI(D, t.lp, device=dev, mesh=mesh),
+                                        adam_fit, fs, torch)
+            advi_same = (torch.equal(sp.loc, sm.loc)
+                         and torch.equal(sp.scales, sm.scales)
+                         and bool((lp_ == lm).all()))
+            refused = []
+            for call in (
+                    lambda: ADVI(D, t.lp, device=dev, mesh=mesh,
+                                 fused_score=t.fused_score).fit_fused(
+                                     0, niter=2, batch_size=B, verbose=False),
+                    lambda: FactorGSM(D, t.lp, t.lp_g, device=dev,
+                                      mesh=mesh)._fused_mode(513),
+                    lambda: FactorBaM(D, t.lp, t.lp_g, device=dev,
+                                      mesh=mesh)._fused_mode(129)):
+                try:
+                    call()
+                    refused.append(False)
+                except ValueError:
+                    refused.append(True)
+            emit({"phase": "mesh", "check": "advi_and_refusals",
+                  "advi_equal_to_fit_without_mesh": advi_same,
+                  "niter": MESH_ADVI_ITER, "refused": refused})
+            check(advi_same, "ADVI(mesh).fit differs from ADVI.fit")
+            check(all(refused), f"a mesh call ran instead of raising: "
+                                f"{refused}")
+
+            gen = torch.Generator(device=dev).manual_seed(29)
+            a = torch.randn((MESH_CHOL_D, MESH_CHOL_D), generator=gen,
+                            device=dev)
+            a = a @ a.T / MESH_CHOL_D + torch.eye(MESH_CHOL_D, device=dev)
+            mesh2 = make_mesh_2d(1, 1)
+            sh = cov_sharding(mesh2)
+            l_b = blocked_cholesky(a, MESH_CHOL_B)
+            l_s = blocked_cholesky(sh.place(a), MESH_CHOL_B).full_tensor()
+            l_c = safe_cholesky(a)
+            l64 = torch.linalg.cholesky(a.double())
+            bad = blocked_cholesky(a - 2.0 * torch.eye(MESH_CHOL_D,
+                                                       device=dev),
+                                   MESH_CHOL_B)
+            bad_cols = ~torch.isfinite(bad).all(0)
+            first = int(torch.argmax(bad_cols.to(torch.int32)))
+            torch.cuda.synchronize()
+            rec = {"D": MESH_CHOL_D, "block": MESH_CHOL_B,
+                   "err_vs_float64": float((l_b.double() - l64).abs().max()),
+                   "library_err_vs_float64": float(
+                       (l_c.double() - l64).abs().max()),
+                   "sharded_equal": same_bits(l_s, l_b),
+                   "not_pd_first_nan_column": first,
+                   "not_pd_nan_from_there_on": bool(
+                       bad_cols.any() and bad_cols[first:].all()
+                       and torch.isfinite(bad[:, :first]).all())}
+            emit({"phase": "mesh", "check": "blocked_cholesky", **rec})
+            check(rec["sharded_equal"] and rec["not_pd_nan_from_there_on"]
+                  and rec["err_vs_float64"] <= CHOL_FLOOR * max(
+                      rec["library_err_vs_float64"], 1e-30),
+                  f"blocked Cholesky: {rec}")
+
+            tl = dense_gaussian(4, LARGE_D, device=dev)
+            g = GSM(LARGE_D, tl.lp, tl.lp_g, device=dev, mesh=mesh2,
+                    cov_sharding=sh, chol_block=LARGE_D_BLOCK)
+            (mean, cov), counts, wall = _timed_fit(
+                g, lambda g: g.fit(0, batch_size=LARGE_D_B,
+                                   niter=LARGE_D_ITER, verbose=False),
+                fs, torch)
+            cov = cov.full_tensor()
+            em, ec = errs(mean, cov, tl)
+            busy, wall_us = busy_per_step(
+                lambda: g.fit(0, batch_size=LARGE_D_B, niter=DENSE_WINDOW - 1,
+                              verbose=False), DENSE_WINDOW)
+            rec = {"config": "examples/example_large_d_torch.py",
+                   "D": LARGE_D, "B": LARGE_D_B, "niter": LARGE_D_ITER,
+                   "chol_block": LARGE_D_BLOCK, "mesh": [1, 1],
+                   "mean_err": em, "cov_err": ec,
+                   "mean_err_bound": LARGE_D_MEAN_ERR_BOUND,
+                   "cov_err_bound": LARGE_D_COV_ERR_BOUND,
+                   "iters_per_s": (LARGE_D_ITER + 1) / wall,
+                   "profiled_busy_us_per_step": busy,
+                   "profiled_wall_us_per_step": wall_us,
+                   "profiled_idle": 1.0 - busy / wall_us,
+                   "kernel_launches": {k: v for k, v in counts.items() if v}}
+            emit({"phase": "mesh", "check": "large_d", **rec})
+            check(bool(torch.isfinite(cov).all()) and em < LARGE_D_MEAN_ERR_BOUND
+                  and ec < LARGE_D_COV_ERR_BOUND,
+                  f"large-D example over its bound: {rec}")
+        finally:
+            dist.destroy_process_group()
+    return path_counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4666,6 +5040,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     main_counts = fs.launch_counts()
+    main_fit = (mean, cov)
     k1_launches = main_counts["gsm_eps_update_fused"]
     em2, ec2 = errs(mean, cov, t)
     fin2 = bool(torch.isfinite(mean).all() and torch.isfinite(cov).all())
@@ -4738,14 +5113,14 @@ def main() -> int:
 
     worst.update(phase_bam_kernels(bf, fs, torch, np))
     worst.update(phase_bam_smallspace(bf, torch, np))
-    bam_counts, st6, fb = phase_bam_paths(BaM, FactorBaM, Regularizers, bf,
+    bam_counts, st6, fb, bam_fit = phase_bam_paths(BaM, FactorBaM, Regularizers, bf,
                                           fs, t, torch)
 
     worst.update(phase_advi_kernels(af, fs, torch, np))
     advi_counts = phase_advi_paths(ADVI, Adam, af, fs, t, torch)
 
     worst["gsm_update_fused"] = phase_dense_kernels(gs, torch, np)
-    dense_counts = phase_dense_paths(GSM, fs, t, torch)
+    dense_counts, dense_fit = phase_dense_paths(GSM, fs, t, torch)
     worst["make_fused_eps_batch_multistep"] = phase_batch_kernels(
         bfm, fs, t, torch)
     batch_counts = phase_fit_batch_paths(GSM, FactorGSM, fs, t, st, torch)
@@ -4810,6 +5185,12 @@ def main() -> int:
     apply_device.update(bam_apply_device)
     apply_library_device.update(bam_apply_library_device)
     apply_extra.update(bam_apply_extra)
+    # Phases 28-29.
+    philox_shapes = phase_philox(fs, lib, torch)
+    mesh_counts = phase_mesh(GSM, FactorGSM, FactorBaM, ADVI, Adam,
+                             Regularizers, fs, t,
+                             {"FactorGSM": main_fit, "FactorBaM": bam_fit,
+                              "GSM(use_factor=False)": dense_fit}, torch)
     library.update(prec_library)
     library_device.update(prec_library_device)
     library.update(apply_library)
@@ -4832,12 +5213,17 @@ def main() -> int:
                        *prec_extra.items(), *apply_extra.items()):
         extra[name] = {**extra.get(name, {}), **more}
     bounds = {name: bound(*fn_inputs) for name, fn_inputs in work.items()}
+    # The draw's bound counts its instructions (phase 28), not bytes alone.
+    bounds["philox_normal"] = {
+        k: philox_shapes[f"{B}x{D}"][k] for k in ("bound_ms", "bound_by",
+                                                  "pipe", "by_pipe_ms")}
     emit({"phase": "bounds", **bounds})
     path_counts = ([main_counts, counts] + list(bam_counts)
                    + list(advi_counts) + dense_counts + batch_counts
                    + [step_counts] + audit_counts + wide_counts
                    + example_counts + zoo_counts + surface_counts
-                   + replica_counts + host_counts + precision_counts)
+                   + replica_counts + host_counts + precision_counts
+                   + mesh_counts)
     launches = {name: sum(c[name] for c in path_counts) for name in SOURCES}
     check(all(launches.values()),
           f"a kernel never launched on the paths: {launches}")

@@ -22,7 +22,13 @@ exact plain step on the live state.  The surface around the fits:
 ``BaM`` take numpy score callables (their dense eager loop, as
 ``BaM(jit_compile=False)``), ``compat`` holds the numpy GSM, and
 ``FactorGSM`` takes ``pallas_precision`` "bf16"/"high" (bf16 tensor-core
-products) and ``method`` "twophase"/"qr".  The JAX
+products) and ``method`` "twophase"/"qr".  The fitters take
+``mesh=``/``data_axis=`` (``GSM`` and ``FactorGSM`` also ``cov_sharding=``,
+``GSM`` ``chol_block=``): data-parallel fits over the ranks of a
+``torch.distributed`` process group, one rank per device, and a
+column-sharded covariance for large D; the ``parallel`` subpackage
+(``gsmvi_tpu_torch.parallel``, not re-exported here) starts the group and
+builds the meshes.  The JAX
 package ``gsmvi_tpu`` is the reference the port is tested against.  This
 package imports torch, numpy and (``lbfgs_init``) scipy only.
 """

@@ -32,7 +32,15 @@ JAX carries a PRNG key; the port carries ``seed`` and the absolute
 instead, and its fused path folds the step in: both are replaced by the one
 stream, so trajectories do not depend on ``steps_per_call`` or the chunk
 cadence and resume exactly).  ``fit_batch`` runs K replica fits of ``fit``
-in lock step.  ``mesh=`` is not ported.
+in lock step.
+
+``mesh=`` (``parallel.make_mesh``) makes ``fit`` data-parallel over its
+``data_axis``, one rank per device (JAX: ``gsmvi_tpu/advi.py:170-180``):
+every rank draws the whole batch and keeps its own rows, takes the loss on
+them and its gradient, and one all-reduce sums the gradients (the loss is
+a sum over the rows) before the replicated Adam step.  ``fit_fused`` runs
+the whole step in one kernel on one card and raises under a mesh (JAX's
+falls back to ``fit`` there); so does ``fit_batch``.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from .ops.advi_fused import (ADVI_KERNEL_BATCH_RANGE, ADVI_KERNEL_DIM_RANGE,
                              advi_kernel_supports, lr_bias_arrays,
                              make_fused_advi_multistep,
                              make_fused_advi_stl_multistep)
+from .parallel.sharded import DataRows, no_mesh
 
 __all__ = ["ADVI", "ADVIState", "Adam", "AdamState", "FusedADVIState",
            "FusedADVISTLState", "advi_state_from_numpy"]
@@ -201,7 +210,8 @@ class ADVI:
     """Fit a dense-covariance Gaussian by maximizing the ELBO."""
 
     def __init__(self, D, lp, device=None, dtype=None, fused_score=None,
-                 steps_per_call=None, mesh=None, cuda_graph: bool = True):
+                 steps_per_call=None, mesh=None, cuda_graph: bool = True,
+                 data_axis: str = "data"):
         """``lp(x)``, x (B, D), returns the batch-summed log density and
         must be differentiable by torch autograd.  ``fused_score``: the
         ``(score_fn, params)`` pair (``target.fused_score``) that
@@ -210,10 +220,8 @@ class ADVI:
         ``device="cpu"`` for the CPU).  ``cuda_graph=False`` enqueues every
         K9/K10 block's launches from the host instead of replaying its CUDA
         graph: the same numbers, the comparison route for the graph's
-        cost."""
-        if mesh is not None:
-            raise NotImplementedError("mesh=: the data-parallel ADVI batch "
-                                      "is not ported")
+        cost.  ``mesh``/``data_axis``: a data-parallel ``fit`` over that
+        mesh axis (the module docstring)."""
         self.D = D
         self.lp = lp
         self.device = resolve_device(device)
@@ -222,6 +230,8 @@ class ADVI:
         self.steps_per_call = (steps_per_call if steps_per_call is not None
                                else (16 if D <= 128 else 8))
         self.cuda_graph = bool(cuda_graph)
+        self.mesh = mesh
+        self.data_axis = data_axis
         # What the last fit_fused did: kernel calls, report reads, replays.
         # Runners hold this dict, so fit_fused resets it in place.
         self.fit_counts = {}
@@ -314,14 +324,18 @@ class ADVI:
         """One step (state) -> (state, loss): autograd on ``neg_elbo`` at
         the step's draw, then ``opt``'s update.  A nonfinite STL step is
         reverted on the device (the analytic estimator accepts every step,
-        as the reference does)."""
+        as the reference does).  Under a mesh the loss and its gradient are
+        this rank's rows', summed over the ranks."""
+        rows = DataRows(self.mesh, self.data_axis)
 
         def step(state: ADVIState):
-            eps = self._draw(state, batch_size, dtype=self.dtype)
+            eps = rows.local(self._draw(state, batch_size, dtype=self.dtype))
             loc = state.loc.detach().requires_grad_(True)
             scales = state.scales.detach().requires_grad_(True)
             loss = self.neg_elbo((loc, scales), eps, estimator)
             grads = torch.autograd.grad(loss, (loc, scales))
+            if rows.n > 1:
+                loss, grads = self._sum_ranks(loss, grads, rows.group)
             params = (state.loc, state.scales)
             (loc_n, scales_n), opt_n = opt.update(grads, state.opt_state,
                                                   params)
@@ -336,6 +350,19 @@ class ADVI:
                               state.step + 1, loss), loss)
 
         return step
+
+    @staticmethod
+    def _sum_ranks(loss, grads, group):
+        """(loss, grads) summed over the ranks of ``group`` in one
+        all-reduce."""
+        flat = torch.cat([loss.detach().reshape(1)]
+                         + [g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=group)
+        out, at = [], 1
+        for g in grads:
+            out.append(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        return flat[0], tuple(out)
 
     def fit(self, seed: int, opt, mean=None, cov=None, batch_size=8,
             niter=1000, nprint=10, verbose=True, monitor=None,
@@ -556,6 +583,10 @@ class ADVI:
         ``(state, None)`` with ``return_state``."""
         if estimator not in _ESTIMATORS:
             raise ValueError(f"unknown estimator: {estimator!r}")
+        if self.mesh is not None:
+            raise ValueError(
+                "fit_fused runs the whole step in one kernel on one card; a "
+                "data-parallel fit over mesh= runs on fit")
         self._check_fused(batch_size)
         pin_fp32()
         stl = estimator == "stl"
@@ -589,6 +620,7 @@ class ADVI:
         ``fit(seeds[i], opt, ...)`` exactly; the losses stay on the device
         until the end (one copy)."""
         pin_fp32()
+        no_mesh(self, "ADVI.fit_batch")
         seeds = tuple(int(s) for s in seeds)
         k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
         means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)

@@ -19,6 +19,12 @@ score), runs the dense eager loop, as JAX's ``_make_eager_step``
 ``retries`` and ``jitter``, a numpy score called on host copies of the rows
 (``driver.host_score``).  The port's dense step is eager already, so a
 tensor ``lp_g`` under ``jit_compile=False`` is called on tensors.
+
+``mesh=`` (``parallel.make_mesh``) makes ``fit`` data-parallel over its
+``data_axis``, as JAX's (``gsmvi_tpu/bam.py:54-63``): the factor route
+hands the mesh to ``FactorBaM``; on the dense route every rank draws the
+whole batch, scores its own rows, gathers the rows and runs the update
+replicated.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .driver import (EpsStream, RunnerCache, broadcast_replicas,
                      run_fit_loop, takes_tensors)
 from .ops.bam import Regularizers, bam_lowrank_update, bam_update  # noqa: F401 (re-export)
 from .ops.gsm_factor import factor_to_cov
+from .parallel.sharded import DataRows, no_mesh
 from .state import (FactorVIState, VIState, accept_or_revert, init_state,
                     per_replica, stack_like)
 
@@ -53,13 +60,15 @@ class BaM:
            JAX package picks off the TPU), "eigh" or "newton".
     use_factor — "auto" (factor route on CUDA), True or False.
     use_fused, fused_score — passed to the delegated ``FactorBaM``.
+    mesh, data_axis — a data-parallel ``fit`` over that mesh axis.
     """
 
     def __init__(self, D, lp, lp_g, use_lowrank=False, jit_compile=True,
                  device=None, dtype=None, sqrt_method: str = "auto",
                  auto_lowrank: bool = True,
                  use_factor: "bool | str" = "auto",
-                 use_fused: "bool | str" = "auto", fused_score=None):
+                 use_fused: "bool | str" = "auto", fused_score=None,
+                 mesh=None, data_axis: str = "data"):
         if sqrt_method == "auto":
             sqrt_method = "eigh"
         if sqrt_method not in ("eigh", "newton"):
@@ -77,6 +86,8 @@ class BaM:
         self.use_factor = use_factor
         self.use_fused = use_fused
         self.fused_score = fused_score
+        self.mesh = mesh
+        self.data_axis = data_axis
         self._factor_fitter = None
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
@@ -105,7 +116,8 @@ class BaM:
             self._factor_fitter = FactorBaM(
                 self.D, self.lp, self.lp_g, device=self.device,
                 dtype=self.dtype, use_fused=self.use_fused,
-                fused_score=self.fused_score)
+                fused_score=self.fused_score, mesh=self.mesh,
+                data_axis=self.data_axis)
         return self._factor_fitter
 
     def _fit_factor(self, seed, regf, mean, cov, batch_size, niter, nprint,
@@ -146,10 +158,11 @@ class BaM:
         d = self.D
         dtype = self.dtype
         lp_g = host_score(self.lp_g) if host else self.lp_g
+        rows = DataRows(self.mesh, self.data_axis)
 
         def attempt(s: VIState, eps, reg):
-            samples = s.mean + eps @ s.chol.T
-            vs = lp_g(samples).to(dtype)
+            ef, vs = rows.score(lp_g, eps, s.mean, s.chol, dtype)
+            samples = s.mean + ef
             mean_new, cov_new = self._update(samples, vs, s.mean, s.cov, reg,
                                              jitter)
             good = torch.isfinite(safe_cholesky(cov_new)).all()
@@ -218,6 +231,7 @@ class BaM:
         axis.  A numpy ``lp_g`` is called on each replica's rows through
         ``host_score`` (JAX's vmapped step cannot call one)."""
         pin_fp32()
+        no_mesh(self, "BaM.fit_batch")
         seeds = tuple(int(s) for s in seeds)
         host = self._host(batch_size)
         k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device

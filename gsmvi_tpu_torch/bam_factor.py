@@ -36,6 +36,15 @@ runs there) and the exact thin-SVD step; an accepted, non-stiff step that
 deviates beyond ``audit_tol`` warns, and records land in ``audit_log``.
 The audit leaves the fit's trajectory unchanged.
 
+``mesh=`` (``parallel.make_mesh``) makes ``fit`` data-parallel over its
+``data_axis``, one rank per device, as JAX's mesh step
+(``gsmvi_tpu/bam_factor.py:249-273``): every rank draws the whole batch
+and scores its own rows, the rows are gathered
+(``parallel.sharded.make_gathered_update``), and K7 with its stiff replay
+runs replicated on the whole batch (the plain step off the card); K8 does
+not run under a mesh.  On the card the batch must split evenly over the
+axis (else it raises, naming ``use_fused=False``).
+
 On a CUDA device a dtype or shape the kernels do not take raises;
 ``use_fused=False`` is the one plain route there.
 """
@@ -61,6 +70,8 @@ from .ops.bam_fused import (BAM_KERNEL_BATCH_RANGE, BAM_KERNEL_DIM_RANGE,
                             bam_kernel_supports, make_fused_bam_multistep,
                             ns_tier_from_stats)
 from .ops.gsm_factor import factor_to_cov
+from .parallel.mesh import axis_size
+from .parallel.sharded import DataRows, make_gathered_update, no_mesh
 from .state import (NS_STATS_INIT, FactorVIState, per_replica, replica,
                     stack_replicas)
 from .utils.audit import make_audit_hook, make_bam_audit
@@ -76,7 +87,8 @@ class FactorBaM:
                  fused_score=None, steps_per_call=None,
                  lmax_gate: float = LMAX_GATE_DEFAULT,
                  gu_gate: float = GU_GATE_DEFAULT,
-                 ns_iters=BAM_NS_ITERS_DEFAULT, ns_profile: str = "auto"):
+                 ns_iters=BAM_NS_ITERS_DEFAULT, ns_profile: str = "auto",
+                 mesh=None, data_axis: str = "data"):
         """``device`` defaults to the CUDA card (raises without one; pass
         ``device="cpu"`` for the CPU).  ``solver`` ("auto"/"svd"/"eigh")
         picks the small-space spectrum of the plain route and of the stiff
@@ -86,7 +98,9 @@ class FactorBaM:
         runs ``steps_per_call`` sub-steps per call.  ``lmax_gate``/``gu_gate``
         and ``ns_iters`` are the long profile's gates and sweeps;
         ``ns_profile`` "auto" runs the measured-feedback ladder below them,
-        "long" pins every step to the long profile."""
+        "long" pins every step to the long profile.  ``mesh``/``data_axis``:
+        a data-parallel ``fit`` over that mesh axis (the module
+        docstring)."""
         if ns_profile not in ("auto", "long"):
             raise ValueError("ns_profile must be 'auto' or 'long'")
         self.D = D
@@ -103,6 +117,9 @@ class FactorBaM:
         self.gu_gate = float(gu_gate)
         self.ns_iters = tuple(ns_iters)
         self.ns_profile = ns_profile
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self._rows = DataRows(mesh, data_axis)
         # What the last fit did: kernel calls, report reads, stiff replays,
         # resample attempts, and steps attempted per NS tier.  Runners hold
         # this dict, so ``fit`` resets it in place.
@@ -121,7 +138,9 @@ class FactorBaM:
 
         None off the card or with ``use_fused=False``.  On a CUDA device the
         kernels take float32 with ``bam_kernel_supports(B, D)``; anything
-        else raises rather than running the plain step on the card."""
+        else raises rather than running the plain step on the card.  Under
+        a mesh the mode is "update" (K7 on the gathered rows), and B must
+        split evenly over the data axis."""
         if self.use_fused is False or not on_gpu(self.device):
             return None
         if self.dtype != torch.float32:
@@ -134,6 +153,15 @@ class FactorBaM:
                 f"{list(BAM_KERNEL_BATCH_RANGE)} and D in "
                 f"{list(BAM_KERNEL_DIM_RANGE)}; pass use_fused=False for the "
                 "plain-torch step on the card")
+        if self.mesh is not None:
+            n = axis_size(self.mesh, self.data_axis)
+            if batch_size % n:
+                raise ValueError(
+                    f"B={batch_size} does not split evenly over the {n} ranks "
+                    f"of mesh axis {self.data_axis!r}: the update kernel runs "
+                    "on the gathered rows of equal shards; pass "
+                    "use_fused=False for the plain-torch step on the card")
+            return "update"
         return "step" if self.fused_score is not None else "update"
 
     def _ns_tiers(self):
@@ -153,7 +181,7 @@ class FactorBaM:
 
     def _attempt(self, s: FactorVIState, eps, reg):
         """One plain attempt on the SVD/eigh route with draw ``eps``."""
-        vs = self.lp_g(s.mean + eps @ s.factor.T).to(self.dtype)
+        _, vs = self._rows.score(self.lp_g, eps, s.mean, s.factor, self.dtype)
         mean_new, f_new, good = bam_eps_update(eps, vs, s.mean, s.factor,
                                                reg, solver=self.solver)
         return mean_new.to(self.dtype), f_new.to(self.dtype), good
@@ -203,16 +231,13 @@ class FactorBaM:
 
             return step
 
-        def step(s: FactorVIState) -> FactorVIState:
-            eps = self._draw(s, batch_size)
-            ef = eps @ s.factor.T
-            vs = self.lp_g(s.mean + ef).to(torch.float32).contiguous()
+        def update(eps, vs, mean, f, s: FactorVIState, ef):
             reg = regf(s.step)
             tj = ns_tier_from_stats(*s.ns_stats, tiers)
             it, gg, lm = tiers[tj]
             mean_new, f_new, rep = _bam_update_packed(
-                eps, vs, s.mean, s.factor, reg, iters=it, lmax_gate=lm,
-                gu_gate=gg, ef=ef)
+                eps, vs, mean, f, reg, iters=it, lmax_gate=lm, gu_gate=gg,
+                ef=ef)
             r = rep.tolist()                    # the one read of the step
             counts["kernel_calls"] += 1
             counts["report_reads"] += 1
@@ -223,7 +248,7 @@ class FactorBaM:
                 # Replay on the SVD route with the SAME draw.
                 counts["replays"] += 1
                 mean_new, f_new, good = bam_eps_update(
-                    eps, vs, s.mean, s.factor, reg, solver=self.solver)
+                    eps, vs, mean, f, reg, solver=self.solver)
             # Feedback carry: adopt the kernel's stats just before a cadence
             # boundary or on a stiff flag.
             ns = (((r[REP_GU], r[REP_LMAX])
@@ -234,7 +259,11 @@ class FactorBaM:
                     s, mean_new, f_new, good, reg, retries, batch_size)
             return self._advance(s, mean_new, f_new, good, ns)
 
-        return step
+        # With no mesh this rank holds every row and nothing is gathered.
+        gathered = make_gathered_update(self.mesh, self.data_axis, self.lp_g,
+                                        update, pass_ef=True)
+        return lambda s: gathered(self._rows.local(self._draw(s, batch_size)),
+                                  s.mean, s.factor, s)
 
     def _replica_rows(self, s: FactorVIState, batch_size: int):
         """(eps, ef, vs) of stacked replicas at ``s.step``, (K, B, D) each,
@@ -438,6 +467,7 @@ class FactorBaM:
         and audits are not supported (``fit`` takes them); ``fit_counts``
         holds the replica launches, replays and retries of the call."""
         pin_fp32()
+        no_mesh(self, "FactorBaM.fit_batch")
         mode = self._fused_mode(batch_size)
         seeds = tuple(int(s) for s in seeds)
         k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype

@@ -18,6 +18,19 @@ GSM-VI's users write it) takes the dense eager route, as in JAX
 (``gsmvi_tpu/gsm.py:104-127``, ``:255-265``): each step samples on the
 device, copies the rows to the host for the score and its result back
 (``driver.host_score``), and runs the same dense update (K5 on the card).
+
+``mesh=`` (``parallel.make_mesh``) makes ``fit`` data-parallel over its
+``data_axis``, one rank per device: the factor route hands the mesh to
+``FactorGSM``; the dense route has every rank draw the whole batch, score
+its own rows, gather the rows and run the update replicated (K5 on the
+card).  ``cov_sharding`` (``parallel.cov_sharding``) keeps the covariance
+and its Cholesky factor as DTensors split by columns over a model axis and
+runs the plain update on the ranks' column panels; ``chol_block=b``
+factors the covariance by the blocked right-looking Cholesky
+(``parallel.blocked_cholesky``), on those panels under ``cov_sharding``.
+Both keep the dense route, as in JAX (``gsmvi_tpu/gsm.py:128-134``);
+without ``chol_block`` a column-sharded covariance is factored whole on
+every rank, as JAX's XLA Cholesky gathers it.
 """
 
 from __future__ import annotations
@@ -32,6 +45,9 @@ from .driver import (EpsStream, broadcast_replicas, draw_replicas,
                      host_score, make_chunk_runner, on_gpu, run_fit_loop,
                      takes_tensors)
 from .ops.gsm_factor import factor_to_cov
+from .parallel.chol import make_blocked_cholesky
+from .parallel.large_d import ColumnPanels, is_dtensor, panel_gsm_update
+from .parallel.sharded import DataRows, no_mesh
 from .ops.gsm_step import (GSM_STEP_BATCH_RANGE, GSM_STEP_DIM_RANGE,
                            gsm_step_supports, gsm_update_fused,
                            gsm_update_replicas_reference)
@@ -53,11 +69,16 @@ class GSM:
            delegated ``FactorGSM``'s K1/K2/K6) and a dtype or shape they do
            not take raises, unless ``use_fused=False``.
     fused_score — passed to the delegated ``FactorGSM``.
+    mesh, data_axis — a data-parallel ``fit`` over that mesh axis.
+    cov_sharding, chol_block — a column-sharded covariance and the blocked
+           Cholesky (the module docstring).
     """
 
     def __init__(self, D, lp, lp_g, device=None, dtype=None,
                  use_fused: "bool | str" = "auto",
-                 use_factor: "bool | str" = "auto", fused_score=None):
+                 use_factor: "bool | str" = "auto", fused_score=None,
+                 mesh=None, data_axis: str = "data", cov_sharding=None,
+                 chol_block=None):
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
@@ -66,6 +87,15 @@ class GSM:
         self.use_fused = use_fused
         self.use_factor = use_factor
         self.fused_score = fused_score
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.cov_sharding = cov_sharding
+        self.chol_block = chol_block
+        if chol_block is not None or cov_sharding is not None:
+            self.chol_fn = make_blocked_cholesky(
+                D if chol_block is None else chol_block, cov_sharding)
+        else:
+            self.chol_fn = None
         self._factor_fitter = None
         self._eps = EpsStream(self.device)
         self._runners = {}
@@ -85,8 +115,11 @@ class GSM:
         """Whether the dense step runs K5: on a CUDA device unless
         ``use_fused=False``.  There K5 takes float32 with B in
         ``GSM_STEP_BATCH_RANGE`` and D in ``GSM_STEP_DIM_RANGE``; anything
-        else raises rather than running the plain update on the card."""
-        if self.use_fused is False or not on_gpu(self.device):
+        else raises rather than running the plain update on the card.  A
+        column-sharded covariance runs the plain update on its panels (the
+        kernel keeps S whole), by design."""
+        if (self.use_fused is False or self.cov_sharding is not None
+                or not on_gpu(self.device)):
             return False
         if self.dtype != torch.float32:
             raise NotImplementedError(
@@ -113,12 +146,22 @@ class GSM:
         regime (B >= 128 with 2B > D), where the rank-2B small space is no
         smaller than the dense problem and the dense route runs.  A host
         ``lp_g`` always runs the dense route (``gsmvi_tpu/gsm.py:118-124``,
-        with its warning under ``use_factor=True``)."""
+        with its warning under ``use_factor=True``), and so do
+        ``cov_sharding`` and ``chol_block``, which describe a dense
+        covariance."""
         if host or self.use_factor is False:
             if host and self.use_factor is True:
                 warnings.warn(
                     "use_factor=True requested but lp_g does not take "
                     "tensors; using the dense eager host loop", stacklevel=3)
+            return False
+        if self.chol_fn is not None:
+            if self.use_factor is True:
+                warnings.warn(
+                    "use_factor=True requested but cov_sharding/chol_block "
+                    "describe a partitioned dense covariance the factor "
+                    "route cannot honor; using the dense sharded path",
+                    stacklevel=3)
             return False
         if batch_size >= 128 and 2 * batch_size > self.D:
             if self.use_factor is True:
@@ -138,7 +181,8 @@ class GSM:
             self._factor_fitter = FactorGSM(
                 self.D, self.lp, self.lp_g, device=self.device,
                 dtype=self.dtype, use_fused=self.use_fused,
-                fused_score=self.fused_score)
+                fused_score=self.fused_score, mesh=self.mesh,
+                data_axis=self.data_axis)
         return self._factor_fitter
 
     def _fit_factor(self, seed, mean, cov, batch_size, niter, nprint,
@@ -166,6 +210,10 @@ class GSM:
         return VIState(fst.mean, cov, safe_cholesky(cov), fst.seed, fst.step,
                        fst.n_accepted, fst.n_rejected)
 
+    def _place(self, x):
+        """``x`` in the ``cov_sharding`` layout (a DTensor stays)."""
+        return x if is_dtensor(x) else self.cov_sharding.place(x)
+
     def _warn_fused_score(self):
         if self.fused_score is not None:
             warnings.warn(
@@ -183,18 +231,35 @@ class GSM:
         d = self.D
         dtype = self.dtype
         update = gsm_update_fused if fused else gsm_update_replicas_reference
+        rows = DataRows(self.mesh, self.data_axis)
+        if self.cov_sharding is not None:
+            p = ColumnPanels(self.cov_sharding, d)
 
+            def step(s: VIState) -> VIState:
+                eps = self._eps(s.seed, s.step, batch_size, d, dtype)
+                ef, vs = rows.score(lp_g, eps, s.mean, p.local(s.chol), dtype,
+                                    panels=p)
+                mean_new, cov_new = panel_gsm_update(s.mean + ef, vs, s.mean,
+                                                     p.local(s.cov), p)
+                return accept_or_revert(s, mean_new, p.wrap(cov_new),
+                                        self.chol_fn)
+
+            return step
         def step(s: VIState) -> VIState:
-            if isinstance(s.seed, tuple):
+            if isinstance(s.seed, tuple):       # stacked replicas, one device
                 eps = draw_replicas(self._eps, s.seed, s.step, batch_size, d,
                                     dtype)
+                samples = s.mean[..., None, :] + eps @ s.chol.mT
+                vs = lp_g(samples.reshape(-1, d)).to(dtype).reshape(
+                    samples.shape)
             else:
-                eps = self._eps(s.seed, s.step, batch_size, d, dtype)
-            samples = s.mean[..., None, :] + eps @ s.chol.mT
-            vs = lp_g(samples.reshape(-1, d)).to(dtype).reshape(samples.shape)
+                ef, vs = rows.score(lp_g, self._eps(s.seed, s.step,
+                                                    batch_size, d, dtype),
+                                    s.mean, s.chol, dtype)
+                samples = s.mean + ef
             mean_new, cov_new = update(samples, vs.contiguous(), s.mean,
                                        s.cov)
-            return accept_or_revert(s, mean_new, cov_new)
+            return accept_or_revert(s, mean_new, cov_new, self.chol_fn)
 
         return step
 
@@ -218,9 +283,14 @@ class GSM:
                                self.device)
         if host and verbose:
             print("lp_g does not take tensors; using the eager host loop")
-        # K5 takes contiguous operands (a caller's covariance may not be).
-        state = state._replace(mean=state.mean.contiguous(),
-                               cov=state.cov.contiguous())
+        if self.cov_sharding is not None:
+            state = state._replace(cov=self._place(state.cov),
+                                   chol=self._place(state.chol))
+        else:
+            # K5 takes contiguous operands (a caller's covariance may not
+            # be).
+            state = state._replace(mean=state.mean.contiguous(),
+                                   cov=state.cov.contiguous())
         state = run_fit_loop(state, niter,
                              self._get_runner(batch_size, host=host),
                              monitor=monitor, lp=self.lp, nprint=nprint,
@@ -247,6 +317,7 @@ class GSM:
         Monitors are not supported (``fit`` takes them).
         """
         pin_fp32()
+        no_mesh(self, "GSM.fit_batch")
         seeds = tuple(int(s) for s in seeds)
         host = self._host(batch_size)
         if self._factor_route(batch_size, host):

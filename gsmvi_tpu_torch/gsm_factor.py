@@ -46,6 +46,20 @@ the exact plain eps step, and an accepted step that deviates beyond
 ``audit_tol`` warns; records land in ``audit_log``.  The audit leaves the
 fit's trajectory unchanged.
 
+``mesh=`` (a ``DeviceMesh``, ``parallel.make_mesh``) makes ``fit``
+data-parallel over its ``data_axis``, one rank per device: every rank
+draws the whole batch and scores its own rows, the rows are gathered, and
+the update runs replicated on the whole batch (``parallel.sharded
+.make_gathered_update``: K1 on the card, the plain eps step elsewhere),
+as JAX runs its mesh step (``gsmvi_tpu/gsm_factor.py:362-390``); the
+whole-step kernels (K2, K4) do not run under a mesh.  On the card the
+batch must split evenly over the axis (else it raises, naming
+``use_fused=False``).  ``cov_sharding`` (``parallel.cov_sharding``)
+keeps F as a DTensor split by columns over a model axis and runs the plain
+eps step on the ranks' column panels (``parallel.large_d``), for D too
+large for one card; the kernels keep F whole, so ``_fused_mode`` is None
+there, as JAX's (``gsm_factor.py:168-173``).
+
 On a CUDA device a dtype or shape the kernels do not take raises;
 ``use_fused=False`` (and ``small_solver="chol"``) is the one plain route
 there.  Off the card, and with ``use_fused=False``, the step is the exact
@@ -75,6 +89,10 @@ from .ops.fused_step import (KERNEL_BATCH_RANGE, KERNEL_DIM_RANGE,
 from .ops.gsm_eps import apply_eps_step
 from .ops.gsm_factor import (factor_gsm_step_stats, factor_gsm_step_stats_v2,
                              factor_refresh, factor_to_cov)
+from .parallel.large_d import (ColumnPanels, is_dtensor, panel_eps_update,
+                               sharded_cov)
+from .parallel.mesh import axis_size
+from .parallel.sharded import DataRows, make_gathered_update, no_mesh
 from .state import FactorVIState, per_replica
 from .utils.audit import make_audit_hook, make_gsm_audit
 
@@ -91,7 +109,8 @@ class FactorGSM:
                  refresh_every: int = 1000, method: str = "eps",
                  use_fused: "bool | str" = "auto", fused_score=None,
                  steps_per_call=None, pallas_precision: str = "highest",
-                 ns_iters=None, cuda_graph: bool = True):
+                 ns_iters=None, cuda_graph: bool = True, mesh=None,
+                 data_axis: str = "data", cov_sharding=None):
         """``device`` defaults to the CUDA card (raises without one; pass
         ``device="cpu"`` for the CPU).  ``use_fused`` ("auto"/True/False):
         on a CUDA device the step runs on the CUDA kernels unless it is
@@ -112,6 +131,10 @@ class FactorGSM:
         ``cuda_graph=False`` enqueues every K2/K6 block's launches from the
         host instead of replaying its CUDA graph: the same numbers, the
         comparison route for the graph's cost.
+
+        ``mesh``/``data_axis``: a data-parallel ``fit`` over that mesh axis;
+        ``cov_sharding``: F split by columns over a model axis (the module
+        docstring).
         """
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got "
@@ -122,6 +145,9 @@ class FactorGSM:
                 f"method={method!r} has no kernel (the JAX package runs it in "
                 "XLA, the port in torch's own ops): use_fused=True takes "
                 "method='eps'")
+        if cov_sharding is not None and method != "eps":
+            raise ValueError(f"cov_sharding runs the eps step on F's column "
+                             f"panels; method={method!r} is not ported there")
         self.D = D
         self.lp = lp
         self.lp_g = lp_g
@@ -137,6 +163,9 @@ class FactorGSM:
         self.pallas_precision = pallas_precision
         self.ns_iters = tuple(ns_iters) if ns_iters is not None else None
         self.cuda_graph = bool(cuda_graph)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.cov_sharding = cov_sharding
         self._eps = EpsStream(self.device)
         self._runners = RunnerCache()
         self.audit_log = []
@@ -144,11 +173,14 @@ class FactorGSM:
     def _fused_mode(self, batch_size: int):
         """None | "update" | "step": which kernel path this config runs.
 
-        None off the card, with ``use_fused=False`` and for the twophase
-        and qr methods.  On a CUDA device the kernels take float32 with B in
-        ``KERNEL_BATCH_RANGE`` and D in ``KERNEL_DIM_RANGE``; anything else
-        raises rather than running the plain step on the card."""
+        None off the card, with ``use_fused=False``, for the twophase
+        and qr methods and with ``cov_sharding``.  On a CUDA device the
+        kernels take float32 with B in ``KERNEL_BATCH_RANGE`` and D in
+        ``KERNEL_DIM_RANGE``; anything else raises rather than running the
+        plain step on the card.  Under a mesh the mode is "update" (K1 on
+        the gathered rows), and B must split evenly over the data axis."""
         if (self.use_fused is False or self.method != "eps"
+                or self.cov_sharding is not None
                 or not on_gpu(self.device)):
             return None
         if self.dtype != torch.float32:
@@ -160,6 +192,15 @@ class FactorGSM:
                 f"B={batch_size}, D={self.D}: the CUDA kernels take B in "
                 f"{list(KERNEL_BATCH_RANGE)} and D in {list(KERNEL_DIM_RANGE)}"
                 "; pass use_fused=False for the plain-torch step on the card")
+        if self.mesh is not None:
+            n = axis_size(self.mesh, self.data_axis)
+            if batch_size % n:
+                raise ValueError(
+                    f"B={batch_size} does not split evenly over the {n} ranks "
+                    f"of mesh axis {self.data_axis!r}: the update kernel runs "
+                    "on the gathered rows of equal shards; pass "
+                    "use_fused=False for the plain-torch step on the card")
+            return "update"
         return "step" if self.fused_score is not None else "update"
 
     def _batch_mode(self, batch_size: int, small_solver: str):
@@ -246,18 +287,31 @@ class FactorGSM:
                                  s.n_rejected + (1 - n_acc), s.ns_stats,
                                  finv)
 
+        rows = DataRows(self.mesh, self.data_axis)
         if mode is None and self.method != "eps":
-            return self._make_method_step(batch_size, advance)
+            return self._make_method_step(batch_size, advance, rows)
 
         if mode == "update":
+            def update(eps, vs, mean, f, ef):
+                return gsm_eps_update_fused(eps, vs, mean, f, iters=iters,
+                                            ef=ef, precision=prec)
+
+            # With no mesh this rank holds every row and nothing is gathered.
+            gathered = make_gathered_update(self.mesh, self.data_axis, lp_g,
+                                            update, pass_ef=True)
+
             def step(s: FactorVIState) -> FactorVIState:
-                eps = self._draw(s, batch_size)
-                ef = eps @ s.factor.mT
-                x = (s.mean[..., None, :] + ef).reshape(-1, d)
-                vs = lp_g(x).to(torch.float32).reshape(ef.shape).contiguous()
-                mean, f, good = gsm_eps_update_fused(eps, vs, s.mean,
-                                                     s.factor, iters=iters,
-                                                     ef=ef, precision=prec)
+                if isinstance(s.seed, tuple):   # stacked replicas, one device
+                    eps = self._draw(s, batch_size)
+                    ef = eps @ s.factor.mT
+                    x = (s.mean[..., None, :] + ef).reshape(-1, d)
+                    vs = lp_g(x).to(torch.float32).reshape(ef.shape)
+                    mean, f, good = update(eps, vs.contiguous(), s.mean,
+                                           s.factor, ef)
+                else:
+                    mean, f, good = gathered(
+                        rows.local(self._draw(s, batch_size)), s.mean,
+                        s.factor)
                 return advance(s, mean, f, good)
 
             return step
@@ -275,15 +329,28 @@ class FactorGSM:
 
             return step
 
+        if self.cov_sharding is not None:
+            p = ColumnPanels(self.cov_sharding, d)
+
+            def step(s: FactorVIState) -> FactorVIState:
+                eps = self._draw(s, batch_size)
+                fc = p.local(s.factor)
+                ef, vs = rows.score(lp_g, eps, s.mean, fc, dtype, panels=p)
+                mean, f, good = panel_eps_update(eps, vs, ef, s.mean, fc, p)
+                return advance(s, torch.where(good, mean, s.mean),
+                               p.wrap(torch.where(good, f, fc)), good)
+
+            return step
+
         def step(s: FactorVIState) -> FactorVIState:
             eps = self._draw(s, batch_size)
-            vs = lp_g(s.mean + eps @ s.factor.T).to(dtype)
+            _, vs = rows.score(lp_g, eps, s.mean, s.factor, dtype)
             mean, f, good = apply_eps_step(s.mean, s.factor, eps, vs)
             return advance(s, mean, f, good)
 
         return step
 
-    def _make_method_step(self, batch_size: int, advance):
+    def _make_method_step(self, batch_size: int, advance, rows):
         """One step of the twophase or qr method (``gsmvi_tpu/gsm_factor.py
         :445-464``): sample, score, the (F, Finv) update, the select, and
         Finv's Newton refresh after every ``refresh_every``-th step."""
@@ -292,8 +359,9 @@ class FactorGSM:
         refresh_every = self.refresh_every
 
         def step(s: FactorVIState) -> FactorVIState:
-            samples = s.mean + self._draw(s, batch_size) @ s.factor.T
-            vs = self.lp_g(samples).to(self.dtype)
+            ef, vs = rows.score(self.lp_g, self._draw(s, batch_size), s.mean,
+                                s.factor, self.dtype)
+            samples = s.mean + ef
             dmu, f_new, finv_new, good = stats(samples, vs, s.mean, s.factor,
                                                s.finv)
             mean = torch.where(good, s.mean + dmu, s.mean)
@@ -413,9 +481,15 @@ class FactorGSM:
         elif self.method != "eps" and state.finv is None:
             # A state of the eps method (or a dense one) carries no Finv.
             state = state._replace(finv=torch.linalg.inv(state.factor))
-        # The kernels take contiguous operands (a LAPACK factor may not be).
-        state = state._replace(mean=state.mean.contiguous(),
-                               factor=state.factor.contiguous())
+        if self.cov_sharding is not None:
+            if not is_dtensor(state.factor):
+                state = state._replace(
+                    factor=self.cov_sharding.place(state.factor))
+        else:
+            # The kernels take contiguous operands (a LAPACK factor may not
+            # be).
+            state = state._replace(mean=state.mean.contiguous(),
+                                   factor=state.factor.contiguous())
         state_hook = (self._make_audit_hook(batch_size, audit_tol)
                       if audit_every else None)
         state = run_fit_loop(
@@ -428,6 +502,8 @@ class FactorGSM:
             state_hook_every=audit_every)
         if return_state:
             return state
+        if self.cov_sharding is not None:
+            return state.mean, sharded_cov(state.factor)
         return state.mean, factor_to_cov(state.factor)
 
     def fit_batch(self, seeds, mean=None, cov=None, batch_size=2, niter=5000,
@@ -450,6 +526,7 @@ class FactorGSM:
         supported.
         """
         pin_fp32()
+        no_mesh(self, "FactorGSM.fit_batch")
         mode = self._batch_mode(batch_size, small_solver)
         seeds = tuple(int(s) for s in seeds)
         k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype

@@ -44,6 +44,7 @@ SIGNATURES = {
     + [_F, _I, _L, _I, _I, _P],
     "gsmvi_eps_chol": [_P] * 12 + [_I] * 4 + [_F, _P],
     "gsmvi_philox": [_P, _P, _L, _L, _U, _U, _P],
+    "gsmvi_philox_oracle": [_P, _P, _L, _L, _U, _U, _P],
     "gsmvi_gsm_update": [_P] * 8 + [_I] * 7 + [_P],
     "gsmvi_bam_apply": [_P] * 6 + [_I] * 5 + [_P],
     "gsmvi_bam_apply_oracle": [_P] * 6 + [_I] * 3 + [_P],

@@ -17,19 +17,25 @@ from __future__ import annotations
 import torch
 
 
-def gsm_update_stats(samples: torch.Tensor, vs: torch.Tensor,
-                     mu0: torch.Tensor, S0: torch.Tensor):
-    """Per-batch GSM deltas (dmu, dS): mu = mu0 + dmu, S = S0 + dS."""
-    b = samples.shape[0]
+def gsm_row_deltas(samples: torch.Tensor, vs: torch.Tensor,
+                   mu0: torch.Tensor, t: torch.Tensor):
+    """(a, dmu_b): the rows a_b = mu0 - x_b and the per-sample mean deltas,
+    from the rows t_b = S0 v_b."""
     a = mu0 - samples                                   # (B, D)
-    t = vs @ S0                                         # rows S0 v_b
     vsv = torch.sum(vs * t, dim=-1)
     mv = torch.sum(a * vs, dim=-1)
     rho = 0.5 * (torch.sqrt(1.0 + 4.0 * (vsv + mv * mv)) - 1.0)
     eps0 = t - a
     w = torch.sum(vs * eps0, dim=-1)
     den = 1.0 + rho + mv
-    dmu_b = (eps0 - a * (w / den)[:, None]) / (1.0 + rho)[:, None]
+    return a, (eps0 - a * (w / den)[:, None]) / (1.0 + rho)[:, None]
+
+
+def gsm_update_stats(samples: torch.Tensor, vs: torch.Tensor,
+                     mu0: torch.Tensor, S0: torch.Tensor):
+    """Per-batch GSM deltas (dmu, dS): mu = mu0 + dmu, S = S0 + dS."""
+    b = samples.shape[0]
+    a, dmu_b = gsm_row_deltas(samples, vs, mu0, vs @ S0)  # t: rows S0 v_b
     bm = a + dmu_b                                      # rows mu_b - x_b
     dmu = torch.mean(dmu_b, dim=0)
     ds = (a.T @ a - bm.T @ bm) / b

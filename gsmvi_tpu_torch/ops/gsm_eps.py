@@ -22,9 +22,13 @@ from ..distributions import safe_cholesky
 def gsm_eps_rowwork(eps, vs, vf, f):
     """Row-space math of the eps step: (dmu (D,), zt (2B, D), fz_t (2B, D)),
     with zt = Z^T = [-eps; C]/sqrt(B) and fz_t = (F Z)^T = [A; Bm]/sqrt(B)."""
+    return eps_rows(eps, vs, vf, -(eps @ f.T), vf @ f.T)
+
+
+def eps_rows(eps, vs, vf, a, t):
+    """``gsm_eps_rowwork`` from the rows a = mu - x = -(eps F^T) and
+    t = vf F^T (S v_b)."""
     b = eps.shape[0]
-    a = -(eps @ f.T)                                    # rows mu - x
-    t = vf @ f.T                                        # rows S v_b
     vsv = torch.sum(vs * t, dim=-1)
     mv = torch.sum(a * vs, dim=-1)
     rho = 0.5 * (torch.sqrt(1.0 + 4.0 * (vsv + mv * mv)) - 1.0)

@@ -27,6 +27,7 @@ import torch
 
 from .config import default_dtype, resolve_device
 from .distributions import safe_cholesky
+from .parallel.large_d import is_dtensor
 
 
 class VIState(NamedTuple):
@@ -90,17 +91,30 @@ def init_state(seed: int, d: int, mean=None, cov=None, dtype=None,
 
 
 def accept_or_revert(state: VIState, mean_new: torch.Tensor,
-                     cov_new: torch.Tensor) -> VIState:
+                     cov_new: torch.Tensor, chol_fn=None) -> VIState:
     """Accept the proposal iff its Cholesky factor is finite, else keep the
     old (mean, cov, chol); the select stays on the device.  Stacked
-    replicas are decided one by one (one batched ``cholesky_ex``)."""
-    chol_new = safe_cholesky(cov_new)
-    good = torch.isfinite(chol_new).flatten(-2).all(-1)
-    gm, gc = good[..., None], good[..., None, None]
+    replicas are decided one by one (one batched ``cholesky_ex``).
+
+    ``chol_fn`` (default ``safe_cholesky``) factors ``cov_new``; it must
+    give NaN where the matrix is not positive definite, as
+    ``parallel.blocked_cholesky`` does (``GSM(chol_block=...)``).  With a
+    column-sharded covariance (a DTensor, ``GSM(cov_sharding=...)``) the
+    finiteness is decided over every rank's panel and the select runs on
+    the panels."""
+    chol_new = (safe_cholesky if chol_fn is None else chol_fn)(cov_new)
+    if is_dtensor(chol_new):
+        from .parallel.large_d import all_finite, select
+
+        good = all_finite(chol_new)
+        sel = lambda new, old: select(good, new, old)
+    else:
+        good = torch.isfinite(chol_new).flatten(-2).all(-1)
+        gc = good[..., None, None]
+        sel = lambda new, old: torch.where(gc, new, old)
     return VIState(
-        torch.where(gm, mean_new, state.mean),
-        torch.where(gc, cov_new, state.cov),
-        torch.where(gc, chol_new, state.chol),
+        torch.where(good[..., None], mean_new, state.mean),
+        sel(cov_new, state.cov), sel(chol_new, state.chol),
         state.seed, state.step + 1,
         state.n_accepted + good.to(torch.int32),
         state.n_rejected + (~good).to(torch.int32))

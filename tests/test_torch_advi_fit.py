@@ -352,8 +352,13 @@ def test_fit_fused_routing_and_errors(monkeypatch):
         ADVI(d, t.lp, fused_score=t.fused_score,
              dtype=torch.float64, device=DEV).fit_fused(
                  0, niter=2, batch_size=8, verbose=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ADVI(d, t.lp, mesh=object(), device=DEV)
+    # A mesh fit runs on fit: fit_fused and fit_batch raise under one.
+    meshed = ADVI(d, t.lp, fused_score=t.fused_score, mesh=object(),
+                  device=DEV)
+    with pytest.raises(ValueError, match="fit_fused runs the whole step"):
+        meshed.fit_fused(0, niter=2, batch_size=8, verbose=False)
+    with pytest.raises(ValueError, match="are for fit"):
+        meshed.fit_batch((0, 1), Adam(1e-2), niter=2, batch_size=4)
     means, covs, losses = ADVI(d, t.lp, device=DEV).fit_batch(
         (0, 1), Adam(1e-2), niter=2, batch_size=4)
     assert means.shape == (2, d) and covs.shape == (2, d, d)

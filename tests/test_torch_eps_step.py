@@ -242,6 +242,56 @@ def test_philox_normal_distribution():
                        .reshape(-1)[:15])
 
 
+def _prng_constants():
+    """The launch constants of ``prng.cu``, read from the source."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tfs.__file__).parent / "cuda" / "csrc"
+           / "prng.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)
+                      .group(1))
+            for name in ("PRNG_THREADS", "SMALL_THREADS",
+                         "SMALL_NORMALS_PER_SM", "LARGE_CTAS_PER_SM")}
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3, 4095, 4096, 16_896, 16_897,
+                                      270_337, 1_081_344, 1_081_345,
+                                      4_194_304])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_philox_launch_covers_every_output_once(n_blocks, sms):
+    """``gsmvi_philox``'s two plans, emulated from the SM count: a small
+    draw one normal a thread (thread t: block t // 2, normal t), a larger
+    one NP pairs of counter blocks a thread (1 below two waves of one-pair
+    threads, 2 above) at p = base + j T + t with a grid-stride loop.  Every
+    normal (pair) is written exactly once, and the stores of a warp's j-th
+    pair are contiguous."""
+    c = _prng_constants()
+    n_pairs = (n_blocks + 1) // 2
+    if 2 * n_blocks <= c["SMALL_NORMALS_PER_SM"] * sms:
+        grid = -(-2 * n_blocks // c["SMALL_THREADS"])
+        t = np.arange(grid * c["SMALL_THREADS"])
+        normals = t[(t >> 1) < n_blocks]
+        assert np.array_equal(normals, np.arange(2 * n_blocks))
+        return
+    threads = c["PRNG_THREADS"]
+    wave = c["LARGE_CTAS_PER_SM"] * sms
+    if n_pairs < 2 * wave * threads:
+        n_p, grid = 1, min(-(-n_pairs // threads), wave)
+    else:
+        n_p, grid = 2, wave
+    stride = grid * threads
+    t = np.arange(stride)
+    seen = np.zeros(n_pairs, np.int64)
+    for base in range(0, n_pairs, n_p * stride):
+        for j in range(n_p):
+            p = base + j * stride + t
+            p = p[p < n_pairs]
+            np.add.at(seen, p, 1)
+            assert np.all(np.diff(p[:32]) == 1)
+    assert np.all(seen == 1)
+
+
 def test_onchip_draw_step_runs_the_philox_draw():
     """``external_eps=False``: the first argument is a seed and the step
     equals the external-draw step on ``philox_normal(seed)``."""

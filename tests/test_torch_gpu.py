@@ -898,20 +898,28 @@ def test_chol_kernel_rejects_like_plain(cuda, b, case):
         assert not bool(g_n) and torch.equal(f_n, f)
 
 
-def test_philox_kernel_matches_plain(cuda):
-    """Words bit for bit (the known answer at counter 0, key 0 included),
-    normals within 4 ulp, and the on-card-draw step on the same draw."""
+@pytest.mark.parametrize("n_blocks,shape", [
+    (3 * 4096 + 5, (37, 201)),          # one normal a thread, odd count
+    (600_001, (512, 1024)),             # one pair a thread, grid stride
+    (2_500_001, (4096, 1024)),          # two pairs a thread
+    (1, (1, 1))])
+def test_philox_kernel_matches_plain(cuda, n_blocks, shape):
+    """Words and normals bit for bit against the plain version on both
+    launch plans of ``prng.cu`` (the known answer at counter 0, key 0
+    included), and the replaced design's words and normals equal too."""
     assert fs.philox4x32(1, 0, 0, device=cuda)[0].tolist() == [
         0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
-    n_blocks = 3 * 4096 + 5
     words = fs.philox4x32(n_blocks, 99, fs.PHILOX_KEY1, device=cuda)
     assert torch.equal(words, fs.philox4x32_reference(
         fs._philox_counters(n_blocks, cuda), 99, fs.PHILOX_KEY1))
-    z = fs.philox_normal(99, 37, 201, device=cuda)
-    z_p = fs.philox_normal_reference(99, 37, 201, device=cuda)
-    bits = lambda x: x.view(torch.int32).to(torch.int64)
-    assert torch.equal(torch.sign(z), torch.sign(z_p))
-    assert int((bits(z) - bits(z_p)).abs().max()) <= 4
+    z = fs.philox_normal(99, *shape, device=cuda)
+    z_p = fs.philox_normal_reference(99, *shape, device=cuda)
+    assert torch.equal(z.view(torch.int32), z_p.view(torch.int32))
+    n = shape[0] * shape[1]
+    old = torch.empty_like(z)
+    fs._library().call("gsmvi_philox_oracle", fs._ptr(None), fs._ptr(old),
+                       (n + 1) // 2, n, 99, fs.PHILOX_KEY1, fs._stream(cuda))
+    assert torch.equal(old.view(torch.int32), z.view(torch.int32))
 
 
 def test_spc1_route_runs_k4_once_per_step(cuda):

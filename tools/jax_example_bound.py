@@ -29,6 +29,10 @@ same numpy recipe as the port's (``gsmvi_tpu_torch.models``):
   against the Laplace approximation (Newton MAP and inverse Hessian in
   float64), both as ``chip_smoke.py`` computes them
   (``nearest_component_errs``, ``laplace_moments``).
+- large_d: ``dense_gaussian`` of numpy seed 4, D=512, the configuration of
+  ``examples/example_large_d_torch.py`` (B=32, niter=4000): ``GSM`` on its
+  dense route with ``chol_block=128`` (the blocked Cholesky; JAX's result
+  does not depend on the mesh, so none is made).
 
 It prints one JSON line per fit (errors as ``bench.py:207-211`` defines
 them) and one per configuration with the worst of each.  This script runs
@@ -94,6 +98,7 @@ CONFIGS = {
     "student_t": ("student_t:0:256:6", ("FactorGSM",), 32, 3000, range(4)),
     "gmm": ("gmm:0:256", ("FactorGSM",), 32, 3000, range(4)),
     "logreg": ("logreg:0:256", ("FactorGSM",), 32, 3000, range(8)),
+    "large_d": ("dense:4:512", ("GSM_chol128",), 32, 4000, range(4)),
 }
 
 
@@ -173,6 +178,10 @@ def fit_once(fitter: str, lp, lp_g, d: int, key, batch: int, niter: int):
 
     import gsmvi_tpu as g
 
+    if fitter == "GSM_chol128":
+        return g.GSM(D=d, lp=lp, lp_g=lp_g, dtype=jnp.float32,
+                     chol_block=128).fit(key, batch_size=batch, niter=niter,
+                                         verbose=False)
     if fitter in ("GSM", "FactorGSM"):
         cls = g.GSM if fitter == "GSM" else g.FactorGSM
         return cls(D=d, lp=lp, lp_g=lp_g, dtype=jnp.float32).fit(
