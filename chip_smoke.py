@@ -29,7 +29,7 @@ non-zero):
    and its it/s is printed beside the plain version's on the same card.
    Then the same fit on eager blocks (``cuda_graph=False``) must give the
    same state bit for bit, and ``graph_report`` prints both it/s, the
-   captures' seconds and pool bytes, host and wall us per block, and the
+   captures, host and wall us per block, and the
    runtime calls per block under ``torch.profiler``: one
    ``cudaGraphLaunch``, and besides it at most the block's draws and
    BLOCK_HOST_CALLS more (phases 13 and 20 the same for K6 and the zoo).
@@ -603,7 +603,7 @@ def graph_block(step, nmax, block, mean, f, params, torch):
     check(all(torch.equal(x, y) for out in outs for x, y in zip(out, eager)),
           f"a {type(step).__name__} graph block differs from the eager block "
           f"(B={step.batch}, D={step.d}, K={step.k})")
-    check(len(step.captures) >= 1, "no CUDA graph was captured")
+    check(step.captures >= 1, "no CUDA graph was captured")
     return outs[1]
 
 
@@ -655,13 +655,13 @@ BLOCK_HOST_CALLS = 10
 
 
 def graph_report(fitter, runner, state, spc, torch, blocks=16) -> dict:
-    """Phases 3, 13 and 20: a fit runner's captures (seconds, pool bytes),
+    """Phases 3, 13 and 20: a fit runner's captures (a count),
     host and wall us per full block on the graph and on eager blocks
     (``cuda_graph`` off), and the runtime calls per graph block.  Fails
     unless a full block is one graph launch and the host's other calls
     per block are at most its draws (spc per replica) and
     BLOCK_HOST_CALLS more."""
-    rec = {"captures": list(runner.blocks.captures)}
+    rec = {"captures": runner.blocks.captures}
     for graph in (True, False):
         fitter.cuda_graph = graph
         runner(state, spc)
@@ -879,7 +879,7 @@ def phase_kernels(fs, dense_gaussian, torch, np):
                    "spc": spc, "nmax": nmax, "n_acc": [int(n_k), int(n_p)],
                    "mean_err": em, "f_err": ef_,
                    "f_tol": MULTI_TOL * fscale, "mean_tol": MULTI_TOL,
-                   "graphs_captured": len(step.captures),
+                   "graphs_captured": step.captures,
                    "graph_equals_eager": True}
             emit({"phase": "kernels", **rec})
             check(int(n_k) == int(n_p) == nmax, f"K2 accepted counts {rec}")
@@ -1525,7 +1525,7 @@ def advi_graph_block(step, args, torch):
     check(all(torch.equal(x, y) for out in outs for x, y in zip(out, eager)),
           f"a K{10 if step.stl else 9} graph block differs from the eager "
           f"block (B={step.batch}, D={step.d})")
-    check(len(step.captures) >= 1, "no CUDA graph was captured")
+    check(step.captures >= 1, "no CUDA graph was captured")
     return outs[1]
 
 
@@ -1565,7 +1565,7 @@ def advi_graph_report(gf, est, lr, state, torch) -> dict:
 
     runner = gf._fused_runner(B, lr, 0.9, 0.999, 1e-8, est)
     spc, nb = gf.steps_per_call, ADVI_CHUNK_BLOCKS
-    rec = {"captures": list(runner.blocks.captures), "chunk_blocks": nb}
+    rec = {"captures": runner.blocks.captures, "chunk_blocks": nb}
     for graph in (True, False):
         gf.cuda_graph = graph
         runner(state, 2 * spc)
@@ -2006,7 +2006,7 @@ def phase_batch_kernels(bfm, fs, t, torch):
                "n_acc": [n_k.tolist(), n_p.tolist()], "mean_err": em,
                "f_err": ef_, "f_tol": MULTI_TOL * fscale,
                "mean_tol": MULTI_TOL, "replicas_equal_single_k2": same,
-               "graphs_captured": len(step.captures)}
+               "graphs_captured": step.captures}
         emit({"phase": "batch_kernels", **rec})
         check(n_k.tolist() == n_p.tolist() == want, f"K6 counts {rec}")
         check(em <= MULTI_TOL and ef_ <= MULTI_TOL * fscale,
@@ -3199,7 +3199,7 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
                                      "analytic").blocks
         check(all(torch.equal(x, y) for x, y in zip(sa[:-2], sa_e[:-2])),
               f"{name}: ADVI.fit_fused on graph blocks differs from eager")
-        check(len(k9_blocks.captures) >= 1,
+        check(k9_blocks.captures >= 1,
               f"{name}: the K9 block with {key} was not captured")
         emit({"phase": "zoo_path", "target": t.name, "side_fits": {
             "FactorBaM(fused_score)": {
@@ -3211,7 +3211,7 @@ def phase_zoo_paths(FactorGSM, FactorBaM, ADVI, Regularizers, fs, models,
                 "niter": N_ZOO_SIDE, "k9_launches":
                     ca["make_fused_advi_multistep"], "score_launches": ca[key],
                 "graph_equals_eager": True,
-                "captures": len(k9_blocks.captures),
+                "captures": k9_blocks.captures,
                 "iters_per_s": (N_ZOO_SIDE + 1) / wall_a}}})
         check(cb["make_fused_bam_multistep"] > 0 and cb[key] > 0,
               f"{name}: FactorBaM must run K8 with {key}")

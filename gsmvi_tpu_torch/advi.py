@@ -61,6 +61,7 @@ from .ops.advi_fused import (ADVI_KERNEL_BATCH_RANGE, ADVI_KERNEL_DIM_RANGE,
                              make_fused_advi_multistep,
                              make_fused_advi_stl_multistep)
 from .parallel.sharded import DataRows, no_mesh
+from .utils.profiling import fit_call, reset_counts, span
 
 __all__ = ["ADVI", "ADVIState", "Adam", "AdamState", "FusedADVIState",
            "FusedADVISTLState", "advi_state_from_numpy"]
@@ -232,15 +233,17 @@ class ADVI:
         self.cuda_graph = bool(cuda_graph)
         self.mesh = mesh
         self.data_axis = data_axis
-        # What the last fit_fused did: kernel calls, report reads, replays.
-        # Runners hold this dict, so fit_fused resets it in place.
+        # What the last public fit call did: ``utils.profiling.FIT_COUNTS``
+        # (``kernel_calls`` the K9/K10 blocks), K10's report reads and its
+        # stiff replays.  Runners hold this dict, so each call resets it in
+        # place.
         self.fit_counts = {}
         self._reset_counts()
-        self._eps = EpsStream(self.device)
-        self._runners = RunnerCache()
+        self._eps = EpsStream(self.device, self.fit_counts)
+        self._runners = RunnerCache(counts=self.fit_counts)
 
     def _reset_counts(self) -> None:
-        self.fit_counts.update(kernel_calls=0, report_reads=0, replays=0)
+        reset_counts(self.fit_counts, report_reads=0, replays=0)
 
     # -- parameterization ---------------------------------------------------
     def scales_to_tril(self, scales):
@@ -374,35 +377,42 @@ class ADVI:
         (``ADVIState``, losses)."""
         if estimator not in _ESTIMATORS:
             raise ValueError(f"unknown estimator: {estimator!r}")
-        pin_fp32()
-        dtype = self.dtype
-        mean0, scales0 = self._start(mean, cov, dtype)
-        state = ADVIState(mean0, scales0, opt.init((mean0, scales0)),
-                          int(seed), 0, torch.zeros((), dtype=dtype,
-                                                    device=self.device))
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            dtype = self.dtype
+            mean0, scales0 = self._start(mean, cov, dtype)
+            state = ADVIState(mean0, scales0, opt.init((mean0, scales0)),
+                              int(seed), 0, torch.zeros((), dtype=dtype,
+                                                        device=self.device))
 
-        def build():
-            step = self._make_step(batch_size, opt, estimator)
+            def build():
+                step = self._make_step(batch_size, opt, estimator)
+                if return_losses:
+                    return make_chunk_runner(step, collect_aux=True,
+                                             counts=self.fit_counts)
+                return make_chunk_runner(lambda s: step(s)[0],
+                                         counts=self.fit_counts)
+
+            run_chunk = self._runners.get(
+                ("fit", batch_size, return_losses, estimator, dtype), (opt,),
+                build)
+            call.phase("loop")
+            out = run_fit_loop(
+                state, niter, run_chunk, monitor=monitor,
+                monitor_params=lambda s: [s.loc,
+                                          self.scales_to_cov(s.scales)],
+                lp=self.lp, nprint=nprint, verbose=verbose,
+                batch_size=batch_size, collect_aux=return_losses)
+            call.phase("finish")
             if return_losses:
-                return make_chunk_runner(step, collect_aux=True)
-            return make_chunk_runner(lambda s: step(s)[0])
-
-        run_chunk = self._runners.get(
-            ("fit", batch_size, return_losses, estimator, dtype), (opt,),
-            build)
-        out = run_fit_loop(
-            state, niter, run_chunk, monitor=monitor,
-            monitor_params=lambda s: [s.loc, self.scales_to_cov(s.scales)],
-            lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size, collect_aux=return_losses)
-        if return_losses:
-            state, losses = out
-            losses = losses.cpu().numpy()
-        else:
-            state, losses = out, None
-        if return_state:
-            return state, losses
-        return state.loc, self.scales_to_cov(state.scales), losses
+                state, losses = out
+                losses = losses.cpu().numpy()
+            else:
+                state, losses = out, None
+            if return_state:
+                return state, losses
+            return state.loc, self.scales_to_cov(state.scales), losses
 
     # -- fused path -----------------------------------------------------------
     def _check_fused(self, batch_size: int) -> None:
@@ -454,12 +464,18 @@ class ADVI:
             step, end = state.step, state.step + k
             while step < end:
                 nmax = min(spc, end - step)
-                draw_block(self._eps, eps_block, state.seed, step, nmax,
-                           batch_size)
-                multi.run(*self._block_scalars(step, learning_rate, b1, b2),
-                          nmax,
-                          *params, graph=self.cuda_graph)
+                with span("gsmvi.block.draw"):
+                    draw_block(self._eps, eps_block, state.seed, step, nmax,
+                               batch_size)
+                captures, replays = multi.captures, multi.replays
+                with span("gsmvi.block.launch"):
+                    multi.run(*self._block_scalars(step, learning_rate, b1,
+                                                   b2),
+                              nmax, *params, graph=self.cuda_graph)
+                counts["steps"] += nmax
                 counts["kernel_calls"] += 1
+                counts["graph_captures"] += multi.captures - captures
+                counts["graph_replays"] += multi.replays - replays
                 step += nmax
             return FusedADVIState(*multi.state(), state.seed, step)
 
@@ -483,6 +499,7 @@ class ADVI:
 
         def replay(s: FusedADVISTLState, e, lr, bc1, bc2):
             counts["replays"] += 1
+            counts["steps"] += 1
             l_safe = self._safe_tril(s.l)
             sc = score_fn(s.loc + e @ s.l.T, *params)
             w = torch.linalg.solve_triangular(l_safe.T, e.T, upper=True)
@@ -508,25 +525,33 @@ class ADVI:
             step, end = state.step, state.step + k
             while step < end:
                 nmax = min(spc, end - step)
-                draw_block(self._eps, eps_block, state.seed, step, nmax,
-                           batch_size)
+                with span("gsmvi.block.draw"):
+                    draw_block(self._eps, eps_block, state.seed, step, nmax,
+                               batch_size)
                 lrs, bc1s, bc2s = self._block_scalars(step, learning_rate,
                                                       b1, b2)
-                multi.run(lrs, bc1s, bc2s, nmax, *params,
-                          graph=self.cuda_graph)
-                r = multi.report().tolist()     # the one read of the block
+                captures, replays = multi.captures, multi.replays
+                with span("gsmvi.block.launch"):
+                    multi.run(lrs, bc1s, bc2s, nmax, *params,
+                              graph=self.cuda_graph)
+                with span("gsmvi.block.report"):
+                    r = multi.report().tolist()  # the one read of the block
                 n_done, stiff = int(r[REP_NDONE]), int(r[REP_STIFF])
+                counts["steps"] += n_done
                 counts["kernel_calls"] += 1
                 counts["report_reads"] += 1
+                counts["graph_captures"] += multi.captures - captures
+                counts["graph_replays"] += multi.replays - replays
                 step += n_done
                 if stiff:
                     rows = eps_block[n_done * batch_size:
                                      (n_done + 1) * batch_size]
-                    s = replay(FusedADVISTLState(*multi.state(), state.seed,
-                                                 step), rows,
-                               float(lrs[n_done]), float(bc1s[n_done]),
-                               float(bc2s[n_done]))
-                    multi.load(*s[:7])
+                    with span("gsmvi.block.replay"):
+                        s = replay(FusedADVISTLState(*multi.state(),
+                                                     state.seed, step), rows,
+                                   float(lrs[n_done]), float(bc1s[n_done]),
+                                   float(bc2s[n_done]))
+                        multi.load(*s[:7])
                     step = s.step
             return FusedADVISTLState(*multi.state(), state.seed, step)
 
@@ -588,23 +613,26 @@ class ADVI:
                 "fit_fused runs the whole step in one kernel on one card; a "
                 "data-parallel fit over mesh= runs on fit")
         self._check_fused(batch_size)
-        pin_fp32()
-        stl = estimator == "stl"
-        if state is None:
-            state = _fused_state(*self._start(mean, cov, torch.float32),
-                                 int(seed), 0)
-        state = self._lift(state, stl)
-        self._reset_counts()
-        run_chunk = self._fused_runner(batch_size, learning_rate, b1, b2, eps,
-                                       estimator)
-        state = run_fit_loop(
-            state, niter, run_chunk, monitor=monitor,
-            monitor_params=lambda s: [s.loc, self.scales_to_cov(s.l)],
-            lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size)
-        if return_state:
-            return state, None
-        return state.loc, self.scales_to_cov(state.l), None
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            stl = estimator == "stl"
+            if state is None:
+                state = _fused_state(*self._start(mean, cov, torch.float32),
+                                     int(seed), 0)
+            state = self._lift(state, stl)
+            run_chunk = self._fused_runner(batch_size, learning_rate, b1, b2,
+                                           eps, estimator)
+            call.phase("loop")
+            state = run_fit_loop(
+                state, niter, run_chunk, monitor=monitor,
+                monitor_params=lambda s: [s.loc, self.scales_to_cov(s.l)],
+                lp=self.lp, nprint=nprint, verbose=verbose,
+                batch_size=batch_size)
+            call.phase("finish")
+            if return_state:
+                return state, None
+            return state.loc, self.scales_to_cov(state.l), None
 
     def fit_batch(self, seeds, opt, mean=None, cov=None, batch_size=8,
                   niter=1000):
@@ -619,26 +647,33 @@ class ADVI:
         replica in turn, each with its own Adam state, so replica i is
         ``fit(seeds[i], opt, ...)`` exactly; the losses stay on the device
         until the end (one copy)."""
-        pin_fp32()
-        no_mesh(self, "ADVI.fit_batch")
-        seeds = tuple(int(s) for s in seeds)
-        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
-        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
-        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
-        states = []
-        for seed, m, c in zip(seeds, means0, covs0):
-            loc, scales = self._start(m, c, dtype)
-            states.append(ADVIState(loc, scales, opt.init((loc, scales)),
-                                    seed, 0, torch.zeros((), dtype=dtype,
-                                                         device=dev)))
-        step = self._runners.get(("batch", batch_size, dtype), (opt,),
-                                 lambda: self._make_step(batch_size, opt))
-        losses = [[] for _ in range(k)]
-        for _ in range(niter + 1):
-            for i in range(k):
-                states[i], loss = step(states[i])
-                losses[i].append(loss)
-        means = torch.stack([s.loc for s in states])
-        covs = torch.stack([self.scales_to_cov(s.scales) for s in states])
-        return means, covs, torch.stack(
-            [torch.stack(l) for l in losses]).cpu().numpy()
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            no_mesh(self, "ADVI.fit_batch")
+            seeds = tuple(int(s) for s in seeds)
+            k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+            means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype,
+                                        dev)
+            covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype,
+                                       dev)
+            states = []
+            for seed, m, c in zip(seeds, means0, covs0):
+                loc, scales = self._start(m, c, dtype)
+                states.append(ADVIState(loc, scales, opt.init((loc, scales)),
+                                        seed, 0, torch.zeros((), dtype=dtype,
+                                                             device=dev)))
+            step = self._runners.get(("batch", batch_size, dtype), (opt,),
+                                     lambda: self._make_step(batch_size, opt))
+            call.phase("loop")
+            losses = [[] for _ in range(k)]
+            for _ in range(niter + 1):
+                for i in range(k):
+                    states[i], loss = step(states[i])
+                    losses[i].append(loss)
+                self.fit_counts["steps"] += k
+            call.phase("finish")
+            means = torch.stack([s.loc for s in states])
+            covs = torch.stack([self.scales_to_cov(s.scales) for s in states])
+            return means, covs, torch.stack(
+                [torch.stack(l) for l in losses]).cpu().numpy()

@@ -41,6 +41,7 @@ from .ops.gsm_factor import factor_to_cov
 from .parallel.sharded import DataRows, no_mesh
 from .state import (FactorVIState, VIState, accept_or_revert, init_state,
                     per_replica, stack_like)
+from .utils.profiling import fit_call, reset_counts, span
 
 
 class BaM:
@@ -89,8 +90,16 @@ class BaM:
         self.mesh = mesh
         self.data_axis = data_axis
         self._factor_fitter = None
-        self._eps = EpsStream(self.device)
-        self._runners = RunnerCache()
+        # What the last public fit call did: ``utils.profiling.FIT_COUNTS``
+        # and resample attempts (on the factor route ``FactorBaM``'s counts,
+        # copied).  Runners hold this dict, so each call resets it in place.
+        self.fit_counts = {}
+        self._reset_counts()
+        self._eps = EpsStream(self.device, self.fit_counts)
+        self._runners = RunnerCache(counts=self.fit_counts)
+
+    def _reset_counts(self) -> None:
+        reset_counts(self.fit_counts, retries=0)
 
     def _host(self, batch_size: int) -> bool:
         """Whether ``lp_g`` is a host (numpy) callable (``takes_tensors``
@@ -135,6 +144,7 @@ class BaM:
                      niter=niter, nprint=nprint, verbose=verbose,
                      monitor=monitor, retries=retries, return_state=True,
                      state=fstate)
+        self.fit_counts.update(fb.fit_counts)
         cov_out = factor_to_cov(fst.factor)
         if not return_state:
             return fst.mean, cov_out
@@ -159,6 +169,7 @@ class BaM:
         dtype = self.dtype
         lp_g = host_score(self.lp_g) if host else self.lp_g
         rows = DataRows(self.mesh, self.data_axis)
+        counts = self.fit_counts
 
         def attempt(s: VIState, eps, reg):
             ef, vs = rows.score(lp_g, eps, s.mean, s.chol, dtype)
@@ -175,9 +186,11 @@ class BaM:
             tries = 0
             while tries < retries and not bool(good):
                 tries += 1
-                eps = self._eps(retry_seed(s.seed, s.step), tries,
-                                batch_size, d, dtype)
-                mean_new, cov_new, good = attempt(s, eps, reg)
+                counts["retries"] += 1
+                with span("gsmvi.block.retry"):
+                    eps = self._eps(retry_seed(s.seed, s.step), tries,
+                                    batch_size, d, dtype)
+                    mean_new, cov_new, good = attempt(s, eps, reg)
             return accept_or_revert(s, mean_new, cov_new)
 
         return step
@@ -192,28 +205,33 @@ class BaM:
         proposal is PD by construction).  ``check_goodness`` is accepted
         for parity; checking is always on.  ``jit_compile=False`` or a
         numpy ``lp_g`` runs the dense eager loop (the module docstring)."""
-        pin_fp32()
-        host = self._host(batch_size)
-        if self._factor_route(host):
-            return self._fit_factor(seed, regf, mean, cov, batch_size, niter,
-                                    nprint, verbose, monitor, retries,
-                                    return_state, state)
-        if state is None:
-            state = init_state(seed, self.D, mean, cov, self.dtype,
-                               self.device)
-        if (host or not self.jit_compile) and verbose:
-            print("lp_g does not take tensors or jit_compile=False; using "
-                  "the eager host loop")
-        run_chunk = self._runners.get(
-            (batch_size, retries, jitter, host), (regf,),
-            lambda: make_chunk_runner(
-                self._make_step(batch_size, regf, retries, jitter, host)))
-        state = run_fit_loop(state, niter, run_chunk,
-                             monitor=monitor, lp=self.lp, nprint=nprint,
-                             verbose=verbose, batch_size=batch_size)
-        if return_state:
-            return state
-        return state.mean, state.cov
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            host = self._host(batch_size)
+            if self._factor_route(host):
+                return self._fit_factor(seed, regf, mean, cov, batch_size,
+                                        niter, nprint, verbose, monitor,
+                                        retries, return_state, state)
+            if state is None:
+                state = init_state(seed, self.D, mean, cov, self.dtype,
+                                   self.device)
+            if (host or not self.jit_compile) and verbose:
+                print("lp_g does not take tensors or jit_compile=False; "
+                      "using the eager host loop")
+            run_chunk = self._runners.get(
+                (batch_size, retries, jitter, host), (regf,),
+                lambda: make_chunk_runner(
+                    self._make_step(batch_size, regf, retries, jitter, host),
+                    counts=self.fit_counts))
+            call.phase("loop")
+            state = run_fit_loop(state, niter, run_chunk,
+                                 monitor=monitor, lp=self.lp, nprint=nprint,
+                                 verbose=verbose, batch_size=batch_size)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, state.cov
 
     def fit_batch(self, seeds, regf, mean=None, cov=None, batch_size=2,
                   niter=5000, retries=10, jitter=1e-6, return_state=False):
@@ -230,23 +248,30 @@ class BaM:
         schedule; ``mean``/``cov`` are broadcast or carry a leading K
         axis.  A numpy ``lp_g`` is called on each replica's rows through
         ``host_score`` (JAX's vmapped step cannot call one)."""
-        pin_fp32()
-        no_mesh(self, "BaM.fit_batch")
-        seeds = tuple(int(s) for s in seeds)
-        host = self._host(batch_size)
-        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
-        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
-        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
-        # Factored one replica at a time, as fit's init_state factors, each
-        # in LAPACK's layout.
-        chols0 = stack_like([safe_cholesky(c) for c in covs0])
-        zero = torch.zeros(k, dtype=torch.int32, device=dev)
-        state = VIState(means0, covs0, chols0, seeds, 0, zero, zero)
-        run = self._runners.get(
-            ("batch", batch_size, retries, jitter, host), (regf,),
-            lambda: make_chunk_runner(per_replica(
-                self._make_step(batch_size, regf, retries, jitter, host))))
-        state = run(state, niter + 1)
-        if return_state:
-            return state
-        return state.mean, state.cov
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            no_mesh(self, "BaM.fit_batch")
+            seeds = tuple(int(s) for s in seeds)
+            host = self._host(batch_size)
+            k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+            means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype,
+                                        dev)
+            covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype,
+                                       dev)
+            # Factored one replica at a time, as fit's init_state factors,
+            # each in LAPACK's layout.
+            chols0 = stack_like([safe_cholesky(c) for c in covs0])
+            zero = torch.zeros(k, dtype=torch.int32, device=dev)
+            state = VIState(means0, covs0, chols0, seeds, 0, zero, zero)
+            run = self._runners.get(
+                ("batch", batch_size, retries, jitter, host), (regf,),
+                lambda: make_chunk_runner(per_replica(
+                    self._make_step(batch_size, regf, retries, jitter, host)),
+                    counts=self.fit_counts))
+            call.phase("loop")
+            state = run(state, niter + 1)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, state.cov

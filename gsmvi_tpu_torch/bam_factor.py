@@ -75,6 +75,7 @@ from .parallel.sharded import DataRows, make_gathered_update, no_mesh
 from .state import (NS_STATS_INIT, FactorVIState, per_replica, replica,
                     stack_replicas)
 from .utils.audit import make_audit_hook, make_bam_audit
+from .utils.profiling import fit_call, reset_counts, span
 
 __all__ = ["FactorBaM"]
 
@@ -120,18 +121,19 @@ class FactorBaM:
         self.mesh = mesh
         self.data_axis = data_axis
         self._rows = DataRows(mesh, data_axis)
-        # What the last fit did: kernel calls, report reads, stiff replays,
+        # What the last public fit call did: ``utils.profiling.FIT_COUNTS``
+        # (``kernel_calls`` the K7/K8 calls), report reads, stiff replays,
         # resample attempts, and steps attempted per NS tier.  Runners hold
-        # this dict, so ``fit`` resets it in place.
+        # this dict, so each call resets it in place.
         self.fit_counts = {}
         self._reset_counts()
-        self._eps = EpsStream(self.device)
-        self._runners = RunnerCache()
+        self._eps = EpsStream(self.device, self.fit_counts)
+        self._runners = RunnerCache(counts=self.fit_counts)
         self.audit_log = []
 
     def _reset_counts(self) -> None:
-        self.fit_counts.update(kernel_calls=0, report_reads=0, replays=0,
-                               retries=0, tiers=[0] * len(self._ns_tiers()))
+        reset_counts(self.fit_counts, report_reads=0, replays=0, retries=0,
+                     tiers=[0] * len(self._ns_tiers()))
 
     def _fused_mode(self, batch_size: int):
         """None | "update" | "step": which kernel path this config runs.
@@ -194,9 +196,10 @@ class FactorBaM:
         while tries < retries and not bool(good):
             tries += 1
             self.fit_counts["retries"] += 1
-            eps = self._eps(retry_seed(s.seed, s.step), tries, batch_size,
-                            self.D, self.dtype)
-            mean_new, f_new, good = self._attempt(s, eps, reg)
+            with span("gsmvi.block.retry"):
+                eps = self._eps(retry_seed(s.seed, s.step), tries,
+                                batch_size, self.D, self.dtype)
+                mean_new, f_new, good = self._attempt(s, eps, reg)
         return mean_new, f_new, good
 
     @staticmethod
@@ -235,10 +238,12 @@ class FactorBaM:
             reg = regf(s.step)
             tj = ns_tier_from_stats(*s.ns_stats, tiers)
             it, gg, lm = tiers[tj]
-            mean_new, f_new, rep = _bam_update_packed(
-                eps, vs, mean, f, reg, iters=it, lmax_gate=lm, gu_gate=gg,
-                ef=ef)
-            r = rep.tolist()                    # the one read of the step
+            with span("gsmvi.block.launch"):
+                mean_new, f_new, rep = _bam_update_packed(
+                    eps, vs, mean, f, reg, iters=it, lmax_gate=lm,
+                    gu_gate=gg, ef=ef)
+            with span("gsmvi.block.report"):
+                r = rep.tolist()                # the one read of the step
             counts["kernel_calls"] += 1
             counts["report_reads"] += 1
             counts["tiers"][tj] += 1
@@ -247,8 +252,9 @@ class FactorBaM:
             if stiff:
                 # Replay on the SVD route with the SAME draw.
                 counts["replays"] += 1
-                mean_new, f_new, good = bam_eps_update(
-                    eps, vs, mean, f, reg, solver=self.solver)
+                with span("gsmvi.block.replay"):
+                    mean_new, f_new, good = bam_eps_update(
+                        eps, vs, mean, f, reg, solver=self.solver)
             # Feedback carry: adopt the kernel's stats just before a cadence
             # boundary or on a stiff flag.
             ns = (((r[REP_GU], r[REP_LMAX])
@@ -262,8 +268,13 @@ class FactorBaM:
         # With no mesh this rank holds every row and nothing is gathered.
         gathered = make_gathered_update(self.mesh, self.data_axis, self.lp_g,
                                         update, pass_ef=True)
-        return lambda s: gathered(self._rows.local(self._draw(s, batch_size)),
-                                  s.mean, s.factor, s)
+
+        def step(s: FactorVIState) -> FactorVIState:
+            with span("gsmvi.block.draw"):
+                eps = self._draw(s, batch_size)
+            return gathered(self._rows.local(eps), s.mean, s.factor, s)
+
+        return step
 
     def _replica_rows(self, s: FactorVIState, batch_size: int):
         """(eps, ef, vs) of stacked replicas at ``s.step``, (K, B, D) each,
@@ -274,8 +285,9 @@ class FactorBaM:
         H100, the Gaussian score on 8 x 32 stacked rows differed from the
         per-replica scores by up to 3e-4), which would break replica i =
         ``fit(seeds[i])``."""
-        eps = draw_replicas(self._eps, s.seed, s.step, batch_size, self.D,
-                            self.dtype)
+        with span("gsmvi.block.draw"):
+            eps = draw_replicas(self._eps, s.seed, s.step, batch_size,
+                                self.D, self.dtype)
         ef = torch.stack([e @ f.T for e, f in zip(eps, s.factor)])
         vs = torch.stack([self.lp_g(m + x).to(torch.float32)
                           for m, x in zip(s.mean, ef)])
@@ -298,10 +310,12 @@ class FactorBaM:
             eps, ef, vs = self._replica_rows(s, batch_size)
             reg = regf(s.step)
             tjs = [ns_tier_from_stats(*st, tiers) for st in s.ns_stats]
-            mean_new, f_new, rep = _bam_update_replicas_packed(
-                eps, vs, s.mean, s.factor, reg, [tiers[j] for j in tjs],
-                ef=ef)
-            r = rep.tolist()                    # the one read of the step
+            with span("gsmvi.block.launch"):
+                mean_new, f_new, rep = _bam_update_replicas_packed(
+                    eps, vs, s.mean, s.factor, reg, [tiers[j] for j in tjs],
+                    ef=ef)
+            with span("gsmvi.block.report"):
+                r = rep.tolist()                # the one read of the step
             counts["kernel_calls"] += 1
             counts["report_reads"] += 1
             for tj in tjs:
@@ -325,9 +339,10 @@ class FactorBaM:
                 m, f, good = mean_new[i], f_new[i], keep[i]
                 if stiff[i]:
                     counts["replays"] += 1
-                    m, f, good = bam_eps_update(eps[i], vs[i], si.mean,
-                                                si.factor, reg,
-                                                solver=self.solver)
+                    with span("gsmvi.block.replay"):
+                        m, f, good = bam_eps_update(eps[i], vs[i], si.mean,
+                                                    si.factor, reg,
+                                                    solver=self.solver)
                 if slow[i] and retries > 0:
                     m, f, good = self._retry(si, m, f, good, reg, retries,
                                              batch_size)
@@ -359,8 +374,10 @@ class FactorBaM:
 
         def replay(s: FactorVIState, eps) -> FactorVIState:
             counts["replays"] += 1
+            counts["steps"] += 1
             reg = regf(s.step)
-            mean_new, f_new, good = self._attempt(s, eps, reg)
+            with span("gsmvi.block.replay"):
+                mean_new, f_new, good = self._attempt(s, eps, reg)
             if retries > 0:
                 mean_new, f_new, good = self._retry(
                     s, mean_new, f_new, good, reg, retries, batch_size)
@@ -375,14 +392,18 @@ class FactorBaM:
                                - state.step % FEEDBACK_CADENCE)
                 tj = ns_tier_from_stats(*state.ns_stats, tiers)
                 regs = [regf(state.step + j) for j in range(spc)]
-                eps_block = torch.cat([self._draw(state, batch_size, j)
-                                       for j in range(spc)])
-                mean, f, rep = multis[tj].packed(
-                    regs, nmax, stop_on_reject, eps_block, state.mean,
-                    state.factor, *params)
-                r = rep.tolist()                # the one read of the block
+                with span("gsmvi.block.draw"):
+                    eps_block = torch.cat([self._draw(state, batch_size, j)
+                                           for j in range(spc)])
+                with span("gsmvi.block.launch"):
+                    mean, f, rep = multis[tj].packed(
+                        regs, nmax, stop_on_reject, eps_block, state.mean,
+                        state.factor, *params)
+                with span("gsmvi.block.report"):
+                    r = rep.tolist()            # the one read of the block
                 n_done, n_acc = int(r[REP_NDONE]), int(r[REP_NACC])
                 stopped = int(r[REP_STOPPED])
+                counts["steps"] += n_done
                 counts["kernel_calls"] += 1
                 counts["report_reads"] += 1
                 counts["tiers"][tj] += n_done + (stopped > 0)
@@ -443,7 +464,8 @@ class FactorBaM:
             if mode == "step":
                 return self._make_fused_runner(batch_size, regf, retries)
             return make_chunk_runner(self._make_step(batch_size, regf,
-                                                     retries))
+                                                     retries),
+                                     counts=self.fit_counts)
 
         return self._runners.get(
             (batch_size, retries, mode, self.steps_per_call, self.solver,
@@ -466,38 +488,42 @@ class FactorBaM:
         or with ``use_fused=False``, the plain step per replica.  Monitors
         and audits are not supported (``fit`` takes them); ``fit_counts``
         holds the replica launches, replays and retries of the call."""
-        pin_fp32()
-        no_mesh(self, "FactorBaM.fit_batch")
-        mode = self._fused_mode(batch_size)
-        seeds = tuple(int(s) for s in seeds)
-        k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
-        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
-        if cov is None:
-            f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype, dev)
-        else:
-            # Factored one replica at a time, as fit factors its cov.
-            f0 = torch.stack([safe_cholesky(c) for c in broadcast_replicas(
-                cov, None, k, (d, d), dtype, dev)])
-        zero = torch.zeros(k, dtype=torch.int32, device=dev)
-        state = FactorVIState(means0, f0, seeds, 0, zero, zero,
-                              (NS_STATS_INIT,) * k)
-        self._reset_counts()
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            no_mesh(self, "FactorBaM.fit_batch")
+            mode = self._fused_mode(batch_size)
+            seeds = tuple(int(s) for s in seeds)
+            k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
+            means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype,
+                                        dev)
+            if cov is None:
+                f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype,
+                                        dev)
+            else:
+                # Factored one replica at a time, as fit factors its cov.
+                f0 = torch.stack([safe_cholesky(c) for c in broadcast_replicas(
+                    cov, None, k, (d, d), dtype, dev)])
+            zero = torch.zeros(k, dtype=torch.int32, device=dev)
+            state = FactorVIState(means0, f0, seeds, 0, zero, zero,
+                                  (NS_STATS_INIT,) * k)
 
-        def build():
-            if mode is None:
-                return make_chunk_runner(per_replica(
-                    self._make_step(batch_size, regf, retries)))
-            return make_chunk_runner(
-                self._make_replica_step(batch_size, regf, retries))
+            def build():
+                step = (per_replica(self._make_step(batch_size, regf, retries))
+                        if mode is None else
+                        self._make_replica_step(batch_size, regf, retries))
+                return make_chunk_runner(step, counts=self.fit_counts)
 
-        run = self._runners.get(
-            ("batch", batch_size, retries, mode is None, self.solver,
-             self.lmax_gate, self.gu_gate, self.ns_iters, self.ns_profile,
-             self.dtype), (regf, self.lp_g), build)
-        state = run(state, niter + 1)
-        if return_state:
-            return state
-        return state.mean, factor_to_cov(state.factor)
+            run = self._runners.get(
+                ("batch", batch_size, retries, mode is None, self.solver,
+                 self.lmax_gate, self.gu_gate, self.ns_iters, self.ns_profile,
+                 self.dtype), (regf, self.lp_g), build)
+            call.phase("loop")
+            state = run(state, niter + 1)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, factor_to_cov(state.factor)
 
     def fit(self, seed: int, regf, mean=None, cov=None, batch_size=2,
             niter=5000, nprint=10, verbose=True, check_goodness=True,
@@ -519,35 +545,41 @@ class FactorBaM:
         ``self.audit_log``; the trajectory is unchanged.  ``lp_g`` must take
         tensors: a numpy score raises ``TypeError``, as JAX's does
         (``gsmvi_tpu/bam_factor.py:528-531``); ``BaM`` takes one."""
-        pin_fp32()
-        dev, dtype = self.device, self.dtype
-        self._fused_mode(batch_size)     # the kernels' range gates first
-        if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
-            raise TypeError(
-                "FactorBaM requires an lp_g that takes (B, D) tensors of the "
-                "fit's dtype and device; use BaM for numpy score functions")
-        if state is None:
-            mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
-                     if mean is None
-                     else torch.as_tensor(mean, dtype=dtype, device=dev))
-            f0 = (torch.eye(self.D, dtype=dtype, device=dev) if cov is None
-                  else safe_cholesky(torch.as_tensor(cov, dtype=dtype,
-                                                     device=dev)))
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            state = FactorVIState(mean0, f0, int(seed), 0, zero, zero)
-        # The kernels take contiguous operands (a LAPACK factor may not be).
-        state = state._replace(mean=state.mean.contiguous(),
-                               factor=state.factor.contiguous())
-        self._reset_counts()
-        state_hook = (self._make_audit_hook(batch_size, regf, audit_tol)
-                      if audit_every else None)
-        state = run_fit_loop(
-            state, niter, self._get_runner(batch_size, regf, retries),
-            monitor=monitor,
-            monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
-            lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size, state_hook=state_hook,
-            state_hook_every=audit_every)
-        if return_state:
-            return state
-        return state.mean, factor_to_cov(state.factor)
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            dev, dtype = self.device, self.dtype
+            self._fused_mode(batch_size)     # the kernels' range gates first
+            if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
+                raise TypeError(
+                    "FactorBaM requires an lp_g that takes (B, D) tensors of "
+                    "the fit's dtype and device; use BaM for numpy score "
+                    "functions")
+            if state is None:
+                mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
+                         if mean is None
+                         else torch.as_tensor(mean, dtype=dtype, device=dev))
+                f0 = (torch.eye(self.D, dtype=dtype, device=dev)
+                      if cov is None
+                      else safe_cholesky(torch.as_tensor(cov, dtype=dtype,
+                                                         device=dev)))
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                state = FactorVIState(mean0, f0, int(seed), 0, zero, zero)
+            # The kernels take contiguous operands (a LAPACK factor may not
+            # be).
+            state = state._replace(mean=state.mean.contiguous(),
+                                   factor=state.factor.contiguous())
+            state_hook = (self._make_audit_hook(batch_size, regf, audit_tol)
+                          if audit_every else None)
+            run_chunk = self._get_runner(batch_size, regf, retries)
+            call.phase("loop")
+            state = run_fit_loop(
+                state, niter, run_chunk, monitor=monitor,
+                monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
+                lp=self.lp, nprint=nprint, verbose=verbose,
+                batch_size=batch_size, state_hook=state_hook,
+                state_hook_every=audit_every)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, factor_to_cov(state.factor)

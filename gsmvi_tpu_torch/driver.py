@@ -85,13 +85,18 @@ def retry_seed(seed: int, step: int) -> int:
 
 
 class EpsStream:
-    """Standard-normal (B, D) draws per absolute step on one device."""
+    """Standard-normal (B, D) draws per absolute step on one device.  With
+    ``counts`` (a fitter's ``fit_counts``) each draw, one seeding of the
+    generator, adds one to ``counts["draws"]``."""
 
-    def __init__(self, device):
+    def __init__(self, device, counts=None):
         self.generator = torch.Generator(device=device)
+        self.counts = counts
 
     def __call__(self, seed: int, step: int, batch: int, d: int,
                  dtype=torch.float32) -> torch.Tensor:
+        if self.counts is not None:
+            self.counts["draws"] += 1
         self.generator.manual_seed(step_seed(seed, step))
         return torch.randn((batch, d), generator=self.generator, dtype=dtype,
                            device=self.generator.device)
@@ -101,6 +106,8 @@ class EpsStream:
         (B, D) view on the stream's device): the numbers of ``self(seed,
         step, B, D, out.dtype)``, since ``randn`` is ``empty`` followed by
         ``normal_``."""
+        if self.counts is not None:
+            self.counts["draws"] += 1
         self.generator.manual_seed(step_seed(seed, step))
         return out.normal_(generator=self.generator)
 
@@ -158,11 +165,13 @@ def broadcast_replicas(x, default, k: int, shape, dtype, device):
 class RunnerCache:
     """Bounded LRU cache of chunk runners keyed partly on object identity;
     holds a strong reference to every keyed object so its id cannot be
-    reused while the entry lives."""
+    reused while the entry lives.  With ``counts`` (a fitter's
+    ``fit_counts``) each build adds one to ``counts["runner_builds"]``."""
 
-    def __init__(self, maxsize: int = 16):
+    def __init__(self, maxsize: int = 16, counts=None):
         self._entries = {}
         self._maxsize = maxsize
+        self.counts = counts
 
     def get(self, static_key, key_objs: tuple, build: Callable) -> Callable:
         key = (static_key, tuple(id(o) for o in key_objs))
@@ -172,33 +181,50 @@ class RunnerCache:
             self._entries[key] = hit
             return hit[1]
         runner = build()
+        if self.counts is not None:
+            self.counts["runner_builds"] += 1
         if len(self._entries) >= self._maxsize:
             self._entries.pop(next(iter(self._entries)))
         self._entries[key] = (key_objs, runner)
         return runner
 
 
-def make_chunk_runner(step: Callable, collect_aux: bool = False) -> Callable:
+def replicas(state) -> int:
+    """Replicas a (stacked) fit state holds: its seeds' count, 1 for one
+    fit."""
+    seed = getattr(state, "seed", None)
+    return len(seed) if isinstance(seed, tuple) else 1
+
+
+def make_chunk_runner(step: Callable, collect_aux: bool = False,
+                      counts=None) -> Callable:
     """``(state, k) -> state`` running ``k`` steps.
 
     With ``collect_aux`` the step returns ``(state, aux)``, ``aux`` a 0-d
     tensor on the fit's device (ADVI's per-step loss), and the runner
     returns ``(state, (k,) tensor of the aux values)``, stacked on the
-    device: nothing is read back inside a chunk."""
+    device: nothing is read back inside a chunk.  With ``counts`` (a
+    fitter's ``fit_counts``) each step adds the state's replicas to
+    ``counts["steps"]``."""
+    if counts is None:
+        counts = {"steps": 0}
 
     if collect_aux:
         def run_chunk(state, k: int):
-            aux = []
+            aux, n = [], replicas(state)
             for _ in range(k):
                 state, a = step(state)
+                counts["steps"] += n
                 aux.append(a)
             return state, torch.stack(aux)
 
         return run_chunk
 
     def run_chunk(state, k: int):
+        n = replicas(state)
         for _ in range(k):
             state = step(state)
+            counts["steps"] += n
         return state
 
     return run_chunk

@@ -53,6 +53,7 @@ from .ops.gsm_step import (GSM_STEP_BATCH_RANGE, GSM_STEP_DIM_RANGE,
                            gsm_update_replicas_reference)
 from .state import (FactorVIState, VIState, accept_or_revert, init_state,
                     per_replica)
+from .utils.profiling import NO_SPAN, fit_call, reset_counts, span
 
 
 class GSM:
@@ -97,8 +98,16 @@ class GSM:
         else:
             self.chol_fn = None
         self._factor_fitter = None
-        self._eps = EpsStream(self.device)
+        # What the last public fit call did (``utils.profiling.FIT_COUNTS``;
+        # on the factor route ``FactorGSM``'s counts, copied); runners hold
+        # this dict, so each call resets it in place.
+        self.fit_counts = {}
+        self._reset_counts()
+        self._eps = EpsStream(self.device, self.fit_counts)
         self._runners = {}
+
+    def _reset_counts(self) -> None:
+        reset_counts(self.fit_counts)
 
     def _get_runner(self, batch_size: int, replicas: bool = False,
                     host: bool = False):
@@ -108,7 +117,9 @@ class GSM:
             step = self._make_step(batch_size, fused, host)
             if replicas and not fused:
                 step = per_replica(step)
-            self._runners[key] = make_chunk_runner(step)
+            self._runners[key] = make_chunk_runner(step,
+                                                   counts=self.fit_counts)
+            self.fit_counts["runner_builds"] += 1
         return self._runners[key]
 
     def _dense_fused(self, batch_size: int) -> bool:
@@ -199,6 +210,7 @@ class GSM:
         fst = fg.fit(seed, mean=mean, cov=cov, batch_size=batch_size,
                      niter=niter, nprint=nprint, verbose=verbose,
                      monitor=monitor, return_state=True, state=fstate)
+        self.fit_counts.update(fg.fit_counts)
         if not return_state:
             return fst.mean, factor_to_cov(fst.factor)
         return self._dense_state(fst)
@@ -230,6 +242,7 @@ class GSM:
         lp_g = host_score(self.lp_g) if host else self.lp_g
         d = self.D
         dtype = self.dtype
+        counts = self.fit_counts
         update = gsm_update_fused if fused else gsm_update_replicas_reference
         rows = DataRows(self.mesh, self.data_axis)
         if self.cov_sharding is not None:
@@ -257,8 +270,10 @@ class GSM:
                                                     batch_size, d, dtype),
                                     s.mean, s.chol, dtype)
                 samples = s.mean + ef
-            mean_new, cov_new = update(samples, vs.contiguous(), s.mean,
-                                       s.cov)
+            counts["kernel_calls"] += int(fused)
+            with span("gsmvi.block.launch") if fused else NO_SPAN:
+                mean_new, cov_new = update(samples, vs.contiguous(), s.mean,
+                                           s.cov)
             return accept_or_revert(s, mean_new, cov_new, self.chol_fn)
 
         return step
@@ -271,33 +286,37 @@ class GSM:
         (exactly on the dense route).  ``check_goodness`` is accepted for
         parity; checking is always on.  A numpy ``lp_g`` runs the dense
         eager host loop (the module docstring)."""
-        pin_fp32()
-        host = self._host(batch_size)
-        if self._factor_route(batch_size, host):
-            return self._fit_factor(seed, mean, cov, batch_size, niter,
-                                    nprint, verbose, monitor, return_state,
-                                    state)
-        self._warn_fused_score()
-        if state is None:
-            state = init_state(seed, self.D, mean, cov, self.dtype,
-                               self.device)
-        if host and verbose:
-            print("lp_g does not take tensors; using the eager host loop")
-        if self.cov_sharding is not None:
-            state = state._replace(cov=self._place(state.cov),
-                                   chol=self._place(state.chol))
-        else:
-            # K5 takes contiguous operands (a caller's covariance may not
-            # be).
-            state = state._replace(mean=state.mean.contiguous(),
-                                   cov=state.cov.contiguous())
-        state = run_fit_loop(state, niter,
-                             self._get_runner(batch_size, host=host),
-                             monitor=monitor, lp=self.lp, nprint=nprint,
-                             verbose=verbose, batch_size=batch_size)
-        if return_state:
-            return state
-        return state.mean, state.cov
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            host = self._host(batch_size)
+            if self._factor_route(batch_size, host):
+                return self._fit_factor(seed, mean, cov, batch_size, niter,
+                                        nprint, verbose, monitor,
+                                        return_state, state)
+            self._warn_fused_score()
+            if state is None:
+                state = init_state(seed, self.D, mean, cov, self.dtype,
+                                   self.device)
+            if host and verbose:
+                print("lp_g does not take tensors; using the eager host loop")
+            if self.cov_sharding is not None:
+                state = state._replace(cov=self._place(state.cov),
+                                       chol=self._place(state.chol))
+            else:
+                # K5 takes contiguous operands (a caller's covariance may not
+                # be).
+                state = state._replace(mean=state.mean.contiguous(),
+                                       cov=state.cov.contiguous())
+            run_chunk = self._get_runner(batch_size, host=host)
+            call.phase("loop")
+            state = run_fit_loop(state, niter, run_chunk, monitor=monitor,
+                                 lp=self.lp, nprint=nprint, verbose=verbose,
+                                 batch_size=batch_size)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, state.cov
 
     def fit_batch(self, seeds, mean=None, cov=None, batch_size=2, niter=5000,
                   return_state=False):
@@ -316,26 +335,34 @@ class GSM:
         the K·B stacked rows (one replica's rows at a time off the card).
         Monitors are not supported (``fit`` takes them).
         """
-        pin_fp32()
-        no_mesh(self, "GSM.fit_batch")
-        seeds = tuple(int(s) for s in seeds)
-        host = self._host(batch_size)
-        if self._factor_route(batch_size, host):
-            fst = self._get_factor_fitter().fit_batch(
-                seeds, mean=mean, cov=cov, batch_size=batch_size,
-                niter=niter, return_state=True)
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            no_mesh(self, "GSM.fit_batch")
+            seeds = tuple(int(s) for s in seeds)
+            host = self._host(batch_size)
+            if self._factor_route(batch_size, host):
+                fg = self._get_factor_fitter()
+                fst = fg.fit_batch(seeds, mean=mean, cov=cov,
+                                   batch_size=batch_size, niter=niter,
+                                   return_state=True)
+                self.fit_counts.update(fg.fit_counts)
+                if return_state:
+                    return self._dense_state(fst)
+                return fst.mean, factor_to_cov(fst.factor)
+            self._warn_fused_score()
+            k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
+            means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype,
+                                        dev)
+            covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype,
+                                       dev)
+            zero = torch.zeros(k, dtype=torch.int32, device=dev)
+            state = VIState(means0, covs0, safe_cholesky(covs0), seeds, 0,
+                            zero, zero)
+            run = self._get_runner(batch_size, replicas=True, host=host)
+            call.phase("loop")
+            state = run(state, niter + 1)
+            call.phase("finish")
             if return_state:
-                return self._dense_state(fst)
-            return fst.mean, factor_to_cov(fst.factor)
-        self._warn_fused_score()
-        k, d, dtype, dev = len(seeds), self.D, self.dtype, self.device
-        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
-        covs0 = broadcast_replicas(cov, torch.eye(d), k, (d, d), dtype, dev)
-        zero = torch.zeros(k, dtype=torch.int32, device=dev)
-        state = VIState(means0, covs0, safe_cholesky(covs0), seeds, 0, zero,
-                        zero)
-        state = self._get_runner(batch_size, replicas=True, host=host)(
-            state, niter + 1)
-        if return_state:
-            return state
-        return state.mean, state.cov
+                return state
+            return state.mean, state.cov

@@ -95,6 +95,7 @@ from .parallel.mesh import axis_size
 from .parallel.sharded import DataRows, make_gathered_update, no_mesh
 from .state import FactorVIState, per_replica
 from .utils.audit import make_audit_hook, make_gsm_audit
+from .utils.profiling import fit_call, reset_counts, span
 
 SMALL_SOLVERS = ("auto", "ns", "fused", "chol")
 METHODS = ("eps", "twophase", "qr")
@@ -166,9 +167,16 @@ class FactorGSM:
         self.mesh = mesh
         self.data_axis = data_axis
         self.cov_sharding = cov_sharding
-        self._eps = EpsStream(self.device)
-        self._runners = RunnerCache()
+        # What the last public fit call did (``utils.profiling.FIT_COUNTS``);
+        # runners hold this dict, so each call resets it in place.
+        self.fit_counts = {}
+        self._reset_counts()
+        self._eps = EpsStream(self.device, self.fit_counts)
+        self._runners = RunnerCache(counts=self.fit_counts)
         self.audit_log = []
+
+    def _reset_counts(self) -> None:
+        reset_counts(self.fit_counts)
 
     def _fused_mode(self, batch_size: int):
         """None | "update" | "step": which kernel path this config runs.
@@ -242,7 +250,7 @@ class FactorGSM:
             step = self._make_step(batch_size, mode)
             if k is not None and mode is None:
                 step = per_replica(step)
-            return make_chunk_runner(step)
+            return make_chunk_runner(step, counts=self.fit_counts)
 
         return self._runners.get(
             (batch_size, mode, k, self.steps_per_call,
@@ -279,6 +287,7 @@ class FactorGSM:
         d = self.D
         iters = self._iters(batch_size)
         prec = self.pallas_precision
+        counts = self.fit_counts
 
         def advance(s, mean, f, good, finv=None):
             n_acc = good.to(torch.int32)
@@ -301,17 +310,19 @@ class FactorGSM:
                                             update, pass_ef=True)
 
             def step(s: FactorVIState) -> FactorVIState:
-                if isinstance(s.seed, tuple):   # stacked replicas, one device
+                with span("gsmvi.block.draw"):
                     eps = self._draw(s, batch_size)
-                    ef = eps @ s.factor.mT
-                    x = (s.mean[..., None, :] + ef).reshape(-1, d)
-                    vs = lp_g(x).to(torch.float32).reshape(ef.shape)
-                    mean, f, good = update(eps, vs.contiguous(), s.mean,
-                                           s.factor, ef)
-                else:
-                    mean, f, good = gathered(
-                        rows.local(self._draw(s, batch_size)), s.mean,
-                        s.factor)
+                counts["kernel_calls"] += 1
+                with span("gsmvi.block.launch"):
+                    if isinstance(s.seed, tuple):   # stacked replicas
+                        ef = eps @ s.factor.mT
+                        x = (s.mean[..., None, :] + ef).reshape(-1, d)
+                        vs = lp_g(x).to(torch.float32).reshape(ef.shape)
+                        mean, f, good = update(eps, vs.contiguous(), s.mean,
+                                               s.factor, ef)
+                    else:
+                        mean, f, good = gathered(rows.local(eps), s.mean,
+                                                 s.factor)
                 return advance(s, mean, f, good)
 
             return step
@@ -323,8 +334,11 @@ class FactorGSM:
                                         precision=prec)
 
             def step(s: FactorVIState) -> FactorVIState:
-                mean, f, good = fused(self._draw(s, batch_size), s.mean,
-                                      s.factor, *params)
+                with span("gsmvi.block.draw"):
+                    eps = self._draw(s, batch_size)
+                counts["kernel_calls"] += 1
+                with span("gsmvi.block.launch"):
+                    mean, f, good = fused(eps, s.mean, s.factor, *params)
                 return advance(s, mean, f, good)
 
             return step
@@ -381,7 +395,8 @@ class FactorGSM:
         persistent eps block (``draw_block``), so the trajectory does not
         depend on spc; on the card a full block is one CUDA graph replay
         (``FusedBlocks``) unless ``cuda_graph`` is False.  The runner's
-        ``blocks`` attribute is its ``FusedBlocks`` (capture records)."""
+        ``blocks`` attribute is its ``FusedBlocks`` (its capture and replay
+        counts)."""
         score_fn, params = self.fused_score
         spc = self.steps_per_call
         iters = self._iters(batch_size)
@@ -394,13 +409,22 @@ class FactorGSM:
             multi = make_fused_eps_batch_multistep(
                 score_fn, len(params), batch_size, self.D, k, spc,
                 iters=iters, precision=self.pallas_precision)
+        counts = self.fit_counts
+        reps = 1 if k is None else k
 
         def block(s: FactorVIState, nmax: int) -> FactorVIState:
             eps_block = multi.eps_block(s.mean.device)
-            draw_block(self._eps, eps_block, s.seed, s.step, nmax,
-                       batch_size)
-            mean, f, n_acc = multi(nmax, eps_block, s.mean, s.factor,
-                                   *params, graph=self.cuda_graph)
+            with span("gsmvi.block.draw"):
+                draw_block(self._eps, eps_block, s.seed, s.step, nmax,
+                           batch_size)
+            captures, replays = multi.captures, multi.replays
+            with span("gsmvi.block.launch"):
+                mean, f, n_acc = multi(nmax, eps_block, s.mean, s.factor,
+                                       *params, graph=self.cuda_graph)
+            counts["steps"] += nmax * reps
+            counts["kernel_calls"] += 1
+            counts["graph_captures"] += multi.captures - captures
+            counts["graph_replays"] += multi.replays - replays
             return FactorVIState(mean, f, s.seed, s.step + nmax,
                                  s.n_accepted + n_acc,
                                  s.n_rejected + (nmax - n_acc))
@@ -461,50 +485,55 @@ class FactorGSM:
         ``lp_g`` must take tensors: a numpy score raises ``TypeError``, as
         JAX's does (``gsmvi_tpu/gsm_factor.py:502-506``); ``GSM`` takes
         one."""
-        pin_fp32()
-        dev, dtype = self.device, self.dtype
-        self._fused_mode(batch_size)     # the kernels' range gates first
-        if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
-            raise TypeError(
-                "FactorGSM requires an lp_g that takes (B, D) tensors of the "
-                "fit's dtype and device; use GSM for numpy score functions")
-        if state is None:
-            mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
-                     if mean is None
-                     else torch.as_tensor(mean, dtype=dtype, device=dev))
-            f0 = (torch.eye(self.D, dtype=dtype, device=dev) if cov is None
-                  else safe_cholesky(torch.as_tensor(cov, dtype=dtype,
-                                                     device=dev)))
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            state = FactorVIState(mean0, f0, int(seed), 0, zero, zero,
-                                  finv=self._init_finv(f0))
-        elif self.method != "eps" and state.finv is None:
-            # A state of the eps method (or a dense one) carries no Finv.
-            state = state._replace(finv=torch.linalg.inv(state.factor))
-        if self.cov_sharding is not None:
-            if not is_dtensor(state.factor):
-                state = state._replace(
-                    factor=self.cov_sharding.place(state.factor))
-        else:
-            # The kernels take contiguous operands (a LAPACK factor may not
-            # be).
-            state = state._replace(mean=state.mean.contiguous(),
-                                   factor=state.factor.contiguous())
-        state_hook = (self._make_audit_hook(batch_size, audit_tol)
-                      if audit_every else None)
-        state = run_fit_loop(
-            state, niter, self._get_runner(batch_size,
-                                           self._fused_mode(batch_size)),
-            monitor=monitor,
-            monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
-            lp=self.lp, nprint=nprint, verbose=verbose,
-            batch_size=batch_size, state_hook=state_hook,
-            state_hook_every=audit_every)
-        if return_state:
-            return state
-        if self.cov_sharding is not None:
-            return state.mean, sharded_cov(state.factor)
-        return state.mean, factor_to_cov(state.factor)
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            dev, dtype = self.device, self.dtype
+            mode = self._fused_mode(batch_size)  # the range gates first
+            if not takes_tensors(self.lp_g, batch_size, self.D, dtype, dev):
+                raise TypeError(
+                    "FactorGSM requires an lp_g that takes (B, D) tensors of "
+                    "the fit's dtype and device; use GSM for numpy score "
+                    "functions")
+            if state is None:
+                mean0 = (torch.zeros(self.D, dtype=dtype, device=dev)
+                         if mean is None
+                         else torch.as_tensor(mean, dtype=dtype, device=dev))
+                f0 = (torch.eye(self.D, dtype=dtype, device=dev)
+                      if cov is None
+                      else safe_cholesky(torch.as_tensor(cov, dtype=dtype,
+                                                         device=dev)))
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                state = FactorVIState(mean0, f0, int(seed), 0, zero, zero,
+                                      finv=self._init_finv(f0))
+            elif self.method != "eps" and state.finv is None:
+                # A state of the eps method (or a dense one) carries no Finv.
+                state = state._replace(finv=torch.linalg.inv(state.factor))
+            if self.cov_sharding is not None:
+                if not is_dtensor(state.factor):
+                    state = state._replace(
+                        factor=self.cov_sharding.place(state.factor))
+            else:
+                # The kernels take contiguous operands (a LAPACK factor may
+                # not be).
+                state = state._replace(mean=state.mean.contiguous(),
+                                       factor=state.factor.contiguous())
+            state_hook = (self._make_audit_hook(batch_size, audit_tol)
+                          if audit_every else None)
+            run_chunk = self._get_runner(batch_size, mode)
+            call.phase("loop")
+            state = run_fit_loop(
+                state, niter, run_chunk, monitor=monitor,
+                monitor_params=lambda s: [s.mean, factor_to_cov(s.factor)],
+                lp=self.lp, nprint=nprint, verbose=verbose,
+                batch_size=batch_size, state_hook=state_hook,
+                state_hook_every=audit_every)
+            call.phase("finish")
+            if return_state:
+                return state
+            if self.cov_sharding is not None:
+                return state.mean, sharded_cov(state.factor)
+            return state.mean, factor_to_cov(state.factor)
 
     def fit_batch(self, seeds, mean=None, cov=None, batch_size=2, niter=5000,
                   return_state=False, small_solver="auto"):
@@ -525,21 +554,28 @@ class FactorGSM:
         method step whatever ``small_solver`` says.  Monitors are not
         supported.
         """
-        pin_fp32()
-        no_mesh(self, "FactorGSM.fit_batch")
-        mode = self._batch_mode(batch_size, small_solver)
-        seeds = tuple(int(s) for s in seeds)
-        k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
-        means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype, dev)
-        if cov is None:
-            f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype, dev)
-        else:
-            f0 = safe_cholesky(broadcast_replicas(cov, None, k, (d, d), dtype,
-                                                  dev)).contiguous()
-        zero = torch.zeros(k, dtype=torch.int32, device=dev)
-        state = FactorVIState(means0, f0, seeds, 0, zero, zero,
-                              finv=self._init_finv(f0))
-        state = self._get_runner(batch_size, mode, k)(state, niter + 1)
-        if return_state:
-            return state
-        return state.mean, factor_to_cov(state.factor)
+        with fit_call(self) as call:
+            call.phase("setup")
+            pin_fp32()
+            no_mesh(self, "FactorGSM.fit_batch")
+            mode = self._batch_mode(batch_size, small_solver)
+            seeds = tuple(int(s) for s in seeds)
+            k, d, dev, dtype = len(seeds), self.D, self.device, self.dtype
+            means0 = broadcast_replicas(mean, torch.zeros(d), k, (d,), dtype,
+                                        dev)
+            if cov is None:
+                f0 = broadcast_replicas(None, torch.eye(d), k, (d, d), dtype,
+                                        dev)
+            else:
+                f0 = safe_cholesky(broadcast_replicas(
+                    cov, None, k, (d, d), dtype, dev)).contiguous()
+            zero = torch.zeros(k, dtype=torch.int32, device=dev)
+            state = FactorVIState(means0, f0, seeds, 0, zero, zero,
+                                  finv=self._init_finv(f0))
+            run = self._get_runner(batch_size, mode, k)
+            call.phase("loop")
+            state = run(state, niter + 1)
+            call.phase("finish")
+            if return_state:
+                return state
+            return state.mean, factor_to_cov(state.factor)

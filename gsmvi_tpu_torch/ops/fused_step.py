@@ -94,7 +94,6 @@ import ctypes
 import functools
 import gc
 import math
-import time
 
 import torch
 
@@ -1280,8 +1279,8 @@ class _BlockBuffers:
 
 
 def _capture_graph(body):
-    """(graph, seconds, pool bytes) of ``body()`` captured on a side stream
-    into a new CUDA graph with its own memory pool; nothing runs.  A body
+    """The CUDA graph of ``body()`` captured on a side stream with its own
+    memory pool; nothing runs.  A body
     that synchronises with the host, or any launch the toolkit will not
     capture, raises.  Python's cycle collector is held off during the
     capture: collecting an unreachable object that owns a CUDA graph or
@@ -1290,19 +1289,16 @@ def _capture_graph(body):
     with "operation failed due to a previous error during capture"."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
     graph = torch.cuda.CUDAGraph()
     enabled = gc.isenabled()
     gc.disable()
     try:
-        t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             body()
     finally:
         if enabled:
             gc.enable()
-    return (graph, time.perf_counter() - t0,
-            torch.cuda.memory_reserved() - reserved)
+    return graph
 
 
 class FusedBlocks:
@@ -1326,7 +1322,9 @@ class FusedBlocks:
     K, iters and score are the object's own): the first full block of a
     key runs eagerly, which warms up the library and the kernels' one-time
     attributes and is that block's result, and then the graph is captured;
-    later blocks of the key replay it.  The launch counters run no Python
+    later blocks of the key replay it (``gsmvi.graph.capture`` spans the
+    eager block and the capture; ``captures`` and ``replays`` count them).
+    The launch counters run no Python
     in a replay, so each capture records every counter's increase and each
     replay adds it: the counts equal the eager path's.  A block with nmax
     < spc (a chunk's end), and any block with ``graph=False``, runs the same
@@ -1350,8 +1348,8 @@ class FusedBlocks:
         self._eps = {}
         self._bufs = {}
         self._graphs = {}
-        # One record per capture: {"seconds", "pool_bytes"}.
-        self.captures = []
+        self.captures = 0
+        self.replays = 0
 
     def eps_block(self, device) -> torch.Tensor:
         """The persistent float32 eps block on ``device``, for the caller
@@ -1418,8 +1416,11 @@ class FusedBlocks:
         key = (bufs.eps.device, tuple(_param_key(p) for p in params))
         hit = self._graphs.pop(key, None)
         if hit is None:
-            self._body(bufs, self.spc, params)
-            hit = self._capture(bufs, params)
+            from ..utils.profiling import span
+
+            with span("gsmvi.graph.capture"):
+                self._body(bufs, self.spc, params)
+                hit = self._capture(bufs, params)
             if len(self._graphs) >= GRAPH_CACHE_SIZE:
                 self._graphs.pop(next(iter(self._graphs)))
             self._graphs[key] = hit
@@ -1427,6 +1428,7 @@ class FusedBlocks:
         self._graphs[key] = hit          # most recently used last
         graph, deltas = hit
         graph.replay()
+        self.replays += 1
         for fn, n in deltas:
             fn.launches += n
 
@@ -1434,8 +1436,8 @@ class FusedBlocks:
         """(graph, each counter's increase per block) of a full block."""
         before = {fn: fn.launches for fn in KERNEL_WRAPPERS.values()}
         try:
-            graph, seconds, pool = _capture_graph(
-                lambda: self._body(bufs, self.spc, params))
+            graph = _capture_graph(lambda: self._body(bufs, self.spc,
+                                                      params))
         except Exception as err:
             raise RuntimeError(
                 f"{self._counter.__name__}: the block with score "
@@ -1448,7 +1450,7 @@ class FusedBlocks:
                            if fn.launches != n)
             for fn, n in before.items():
                 fn.launches = n
-        self.captures.append({"seconds": seconds, "pool_bytes": pool})
+        self.captures += 1
         return graph, deltas
 
 

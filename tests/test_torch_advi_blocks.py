@@ -334,7 +334,7 @@ class _Card:
             def replay(self):
                 card.replays += 1
 
-        return Graph(), 0.0, 0
+        return Graph()
 
 
 @pytest.fixture

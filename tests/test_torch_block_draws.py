@@ -199,7 +199,7 @@ class _Card:
             def replay(self):
                 card.replays += 1
 
-        return Graph(), 0.0, 0
+        return Graph()
 
 
 @pytest.fixture
@@ -294,7 +294,7 @@ def test_a_failed_capture_raises_naming_the_score(card):
     # The eager warm-up counts; the failed capture adds nothing.
     assert counts["gaussian_score"] == spc
     assert counts["make_fused_eps_multistep"] == 1
-    assert step.captures == [] and step._graphs == {}
+    assert step.captures == 0 and step._graphs == {}
 
 
 def test_the_returned_tensors_are_copies(card):

@@ -436,7 +436,7 @@ def test_advi_graph_blocks_equal_eager_blocks(cuda, stl):
         for _ in range(2):
             got = step.packed(*args)
             assert all(torch.equal(x, y) for x, y in zip(got, eager))
-    assert len(step.captures) == 1
+    assert step.captures == 1
     if stl:
         rep = step.packed(trip, bc1s, bc2s, spc, block, *state, mean_t,
                           prec)[-1]
@@ -511,7 +511,7 @@ def test_advi_zoo_scores_are_captured_in_the_k9_graph(cuda, name):
                                   return_state=True)[0])
         if graph:
             runner = g._fused_runner(16, 1e-2, 0.9, 0.999, 1e-8, "analytic")
-            assert len(runner.blocks.captures) == 1
+            assert runner.blocks.captures == 1
     for x, y in zip(states[0][:-2], states[1][:-2]):
         assert bool(torch.isfinite(x).all()) and torch.equal(x, y)
 
@@ -1296,8 +1296,7 @@ def test_product_scores_replay_in_a_graph(cuda, name, m):
                     .manual_seed(m), device=cuda)
     eager = fn(x, *params) if m == 64 else None
     out = {}
-    graph, _, _ = fs._capture_graph(lambda: out.setdefault("v",
-                                                           fn(x, *params)))
+    graph = fs._capture_graph(lambda: out.setdefault("v", fn(x, *params)))
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
@@ -1420,7 +1419,7 @@ def test_split_score_k2_graph_block_equals_eager_block(cuda, name):
         got = step(spc, block, m0, f0, *params)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, eager))
-    assert len(step.captures) == 1
+    assert step.captures == 1
     assert bool(torch.isfinite(eager[0]).all())
 
 
@@ -1791,9 +1790,9 @@ def test_graph_block_equals_eager_block(cuda, b, d, k, reject_at):
     step = _make_blocks(score_fn, params, b, d, spc, k)
     eager = step(spc, block, mean0, f0, *params, graph=False)
     first = step(spc, block, mean0, f0, *params)
-    assert len(step.captures) == 1
+    assert step.captures == 1
     replayed = step(spc, block, mean0, f0, *params)
-    assert len(step.captures) == 1
+    assert step.captures == 1
     torch.cuda.synchronize()
     assert _same(eager, first) and _same(eager, replayed)
     want = spc if reject_at is None else spc - 1
@@ -1813,7 +1812,7 @@ def test_remainder_blocks_run_eagerly_and_equal_the_graph(cuda, k):
         got = step(nmax, block, mean0, f0, *params)
         want = step(nmax, block, mean0, f0, *params, graph=False)
         assert _same(got, want)
-    assert step.captures == []
+    assert step.captures == 0
     t = dense_gaussian(3, 64, scale=0.5, device=cuda)
     fits = []
     for spc_, graph in ((8, True), (8, False), (1, True)):
@@ -1839,12 +1838,12 @@ def test_new_params_recapture_and_new_contents_do_not(cuda):
     other = tuple(p.clone() for p in params)
     other[0].add_(0.25)
     got = step(spc, block, mean0, f0, *other)
-    assert len(step.captures) == 2
+    assert step.captures == 2
     got = step(spc, block, mean0, f0, *other)
     assert _same(got, step(spc, block, mean0, f0, *other, graph=False))
     params[0].add_(0.5)
     got = step(spc, block, mean0, f0, *params)
-    assert len(step.captures) == 2
+    assert step.captures == 2
     assert _same(got, step(spc, block, mean0, f0, *params, graph=False))
 
 
@@ -1918,11 +1917,11 @@ def test_a_score_that_synchronises_raises(cuda):
     with pytest.raises(RuntimeError, match="syncing_score.*could not be "
                                            "captured"):
         step(spc, block, mean0, f0, *params)
-    assert step.captures == []
+    assert step.captures == 0
     # The card is usable afterwards, and a capturable score still captures.
     step = _make_blocks(fs.gaussian_score, params, b, d, spc)
     step(spc, block, mean0, f0, *params)
-    assert len(step.captures) == 1
+    assert step.captures == 1
 
 
 def _one_launch_capture(fn):
@@ -1931,7 +1930,7 @@ def _one_launch_capture(fn):
     eager = fn()
     out = []
     # fs._capture_graph holds Python's cycle collector off during capture.
-    graph = fs._capture_graph(lambda: out.append(fn()))[0]
+    graph = fs._capture_graph(lambda: out.append(fn()))
     captured = out[0]
     for x in captured:
         x.zero_()
@@ -2184,7 +2183,7 @@ def test_grid_k2_graph_block_equals_eager_block_at_b256(cuda):
     for _ in range(3):
         got = step(spc, block, m0, f0, *params)
         assert all(torch.equal(x, y) for x, y in zip(got, eager))
-    assert len(step.captures) == 1 and int(eager[2]) == spc
+    assert step.captures == 1 and int(eager[2]) == spc
     (bufs,) = step._bufs.values()
     assert int(bufs.buf.sync.abs().sum()) == 0
 
